@@ -1,0 +1,163 @@
+"""Single-GPU trainer at P=1 (counterpart of bnsgcn_tpu/trainer.py).
+
+One train step: dropout -> layers (aggregation through the ELL or hybrid
+SpMM, i.e. kernels K1 and K2 on the card) -> sum cross-entropy over the
+train rows / global n_train -> backward (the SpMMs' backward runs the same
+kernels on the transposed layouts) -> Adam with L2 added to the gradient
+before the moments. At P=1 the halo exchange is the identity plus the
+zero-filled halo slots of the artifact layout; the P-rank exchange, the
+gradient reduce and boundary-node sampling wait for later slices.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bnsgcn_tpu_torch.config import Config
+from bnsgcn_tpu_torch.data.artifacts import PartitionArtifacts
+from bnsgcn_tpu_torch.models.gnn import GNN, GraphEnv, ModelSpec, apply_model
+from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
+                                             cluster_order, dense_edge_count,
+                                             effective_occupancy)
+from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
+
+
+def ce_sum(logits, labels, mask):
+    """Cross-entropy summed over the masked rows (reference train.py:358)."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(1, labels[:, None].long())[:, 0]
+    return -torch.where(mask, ll, torch.zeros((), device=ll.device)).sum()
+
+
+def build_block_arrays(art: PartitionArtifacts, model: str,
+                       dtype=np.float32) -> dict[str, np.ndarray]:
+    """Stacked [P, ...] numpy arrays a train step reads (the JAX package's
+    build_block_arrays, array for array)."""
+    if model == "gcn":
+        in_norm = np.sqrt(art.in_deg).astype(dtype)
+        out_norm = np.sqrt(art.out_deg_ext).astype(dtype)
+    else:
+        in_norm = art.in_deg.astype(dtype)
+        out_norm = np.ones_like(art.out_deg_ext, dtype=dtype)
+    return {
+        "feat": art.feat.astype(dtype),
+        "label": art.label,
+        "train_mask": art.train_mask,
+        "inner_mask": art.inner_mask,
+        "src": art.src, "dst": art.dst, "bnd": art.bnd,
+        "in_norm": in_norm, "out_norm": out_norm,
+    }
+
+
+def to_device(arrays: dict, device) -> dict:
+    """Part 0's rows of stacked [P, ...] numpy arrays as device tensors."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(device)
+            for k, v in arrays.items()}
+
+
+def make_tx(cfg: Config, params) -> torch.optim.Adam:
+    """torch.optim.Adam(lr, weight_decay): L2 added to the gradient before
+    the moments, the semantics the JAX package's optax chain reproduces."""
+    return torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+
+def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
+    """The JAX parameter tree (numpy leaves) -> the port's state_dict:
+    {'w' [fin, fout], 'b'} -> nn.Linear weight [fout, fin] (transposed) and
+    bias; {'scale', 'bias'} of norm_i -> LayerNorm weight and bias."""
+    sd = OrderedDict()
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32))
+
+    for i in range(spec.n_layers):
+        p = params_np[f"layer_{i}"]
+        for prefix, lin in ([(f"layer_{i}", p)] if "w" in p else
+                            [(f"layer_{i}.linear1", p["linear1"]),
+                             (f"layer_{i}.linear2", p["linear2"])]):
+            sd[f"{prefix}.weight"] = t(lin["w"]).T.contiguous()
+            sd[f"{prefix}.bias"] = t(lin["b"])
+        if f"norm_{i}" in params_np:
+            sd[f"norm_{i}.weight"] = t(params_np[f"norm_{i}"]["scale"])
+            sd[f"norm_{i}.bias"] = t(params_np[f"norm_{i}"]["bias"])
+    return sd
+
+
+@dataclass
+class StepFns:
+    spmm: Union[EllSpmm, BlockSpmm]    # the training aggregation operator
+    layout: dict                       # its numpy layout arrays [P, ...]
+    train_step: Callable               # (model, opt, blk, generator) -> loss
+    forward: Callable                  # (model, blk, generator) -> logits
+    precompute: Callable               # (blk) -> layer-0 input features
+    dense_edges: int = 0               # edges on dense tiles (hybrid)
+
+
+def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print):
+    """(operator, numpy layout) for cfg.spmm over part 0 of `art`."""
+    if cfg.spmm == "hybrid":
+        tile = cfg.block_tile
+        pi, pe = cluster_order(art.src[0], art.dst[0], art.pad_inner,
+                               art.n_ext, target=tile, log=log)
+        fwd, bwd, ell_pair, arrays = build_block_layouts(
+            art.src, art.dst, art.pad_inner, art.n_ext, pi[None], pe[None],
+            occupancy_min=effective_occupancy(cfg.block_occupancy, tile, tile),
+            tile_budget_bytes=cfg.block_tile_budget_mb << 20,
+            tile_r=tile, tile_c=tile)
+        return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device)), arrays
+    if cfg.spmm == "ell":
+        fwd, bwd, arrays = build_layouts(art.src, art.dst, art.pad_inner,
+                                         art.n_ext, geometry=art.ell_geometry)
+        return EllSpmm(fwd, bwd, to_device(arrays, device)), arrays
+    raise ValueError(f"--spmm {cfg.spmm} is not ported yet")
+
+
+def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
+                   device, log=print) -> StepFns:
+    if art.n_parts != 1:
+        raise ValueError(f"P={art.n_parts}: only P=1 is ported yet")
+    spmm, layout = build_spmm(cfg, art, device, log)
+    n_train = max(art.n_train, 1)
+    n_halo = art.n_ext - art.pad_inner
+
+    def exchange(i, h):
+        # P=1: no peer sends anything; the halo slots stay zero
+        return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
+
+    def forward(model: GNN, blk, generator=None):
+        """Training-mode forward: logits [pad_inner, n_class]."""
+        env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
+                       out_norm=blk["out_norm"], exchange=exchange,
+                       aggregate=spmm, training=True, generator=generator)
+        return apply_model(model, blk["feat"], env)
+
+    def train_step(model: GNN, opt, blk, generator=None):
+        opt.zero_grad(set_to_none=True)
+        logits = forward(model, blk, generator)
+        loss = ce_sum(logits, blk["label"], blk["train_mask"]) / n_train
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def precompute(blk):
+        """use_pp layer-0 input, once before training (JAX trainer
+        local_precompute): GCN (sum feat/out_norm)/in_norm; GraphSAGE
+        cat(feat, sum(feat)/in_deg). The aggregation is the same SpMM at the
+        raw feature width."""
+        feat_ext = exchange(0, blk["feat"])
+        if spec.model == "gcn":
+            return spmm.apply_dir("fwd", feat_ext / blk["out_norm"][:, None],
+                                  "pre") / blk["in_norm"][:, None]
+        ah = spmm.apply_dir("fwd", feat_ext, "pre") / blk["in_norm"][:, None]
+        return torch.cat([blk["feat"], ah], 1)
+
+    dense = dense_edge_count(layout) if cfg.spmm == "hybrid" else 0
+    return StepFns(spmm=spmm, layout=layout, train_step=train_step,
+                   forward=forward, precompute=precompute, dense_edges=dense)

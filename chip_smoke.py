@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (bnsgcn_tpu_torch).
+
+    python3 chip_smoke.py                 # the full check, on one GPU
+    python3 chip_smoke.py --scale 0.02 --epochs 3   # a quick rehearsal
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  2. hold each kernel to its plain PyTorch version on the card, at the main
+     path's own shapes: every bucket of the ELL residual (K1) and the dense
+     tile stack (K2), forward and backward layouts, at H=256 and at the raw
+     feature width, and time kernel, plain version and a one-call PyTorch
+     yardstick with CUDA events;
+  3. a small-input agreement check: the same short training run on the card
+     and on the CPU (plain versions) must give the same losses;
+  4. drive the main path through the entry point a user calls
+     (run.run_training): GraphSAGE 4x256, use_pp, LayerNorm, dropout 0.5,
+     lr 0.01, --spmm hybrid on synth-reddit, with every kernel's launch
+     count reset just before and read just after; the loss must stay finite
+     and fall, every kernel must have launched forward and backward; the run
+     ends with the full-graph eval's accuracy line, which must beat twice
+     chance;
+  5. print the card's name and power limit, one {"kernels": [...]} line and,
+     last, {"ok": true, "device": {...}}.
+
+Exits non-zero without a CUDA device and when the port is not beside it.
+--out FILE also writes the details (per-bucket errors, times, losses) as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+# H100 SXM (NVIDIA data sheet): device memory rate, f32 peak outside the
+# tensor cores. The least time a kernel could take is the larger of its
+# bytes over the first and its f32 operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+U32 = 2.0 ** -24               # f32 unit roundoff
+
+REPLACES = {
+    "ell_bucket_sum": "tools/pallas_spmm.py:35",
+    "tile_matmul": "bnsgcn_tpu/ops/pallas_block.py:30",
+}
+SOURCES = {
+    "ell_bucket_sum": "bnsgcn_tpu_torch/csrc/bucket_sum.cu",
+    "tile_matmul": "bnsgcn_tpu_torch/csrc/tile_matmul.cu",
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps):
+    """Mean ms of fn() over `reps` launches between CUDA events, after two
+    warm-up calls."""
+    import torch
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check(name, got, ref, bound):
+    """(max |got - ref|, that over max |ref|) after checking that every
+    element is finite and within its bound."""
+    import torch
+    err = (got - ref).abs()
+    ok = bool(torch.isfinite(got).all()) and bool((err <= bound).all())
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max err {float(err.max()):.3e}, "
+                             f"max bound {float(bound.max()):.3e})")
+    if not err.numel():
+        return 0.0, 0.0
+    e = float(err.max())
+    return e, e / max(float(ref.abs().max()), 1e-30)
+
+
+def compare_k1(fns, widths, gen, reps, detail):
+    """K1 against its plain version on every bucket of the residual ELL
+    layout, both directions, at each width. Tolerance per element: two f32
+    sums of the same W terms in different orders differ by at most
+    2 (W - 1) u sum|x|, u = 2^-24, with sum|x| from the plain version on |h|.
+    Times one forward residual pass (all buckets) at widths[0]."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum, bucket_sum_plain
+    res = fns.spmm.residual
+    a = res.arrays
+    max_err = max_rel = 0.0
+    timing = None
+    for direction, spec in (("fwd", res.fwd_spec), ("bwd", res.bwd_spec)):
+        idx_list = [a[f"{direction}_idx_{k}"] for k in range(len(spec.widths))]
+        for hdim in widths:
+            h = torch.randn((spec.n_src, hdim), generator=gen,
+                            device="cuda")
+            for k, idx in enumerate(idx_list):
+                if idx.shape[0] == 0:
+                    continue
+                got = bucket_sum(h, idx, phase="check")
+                ref = bucket_sum_plain(h, idx)
+                bound = 2 * spec.widths[k] * U32 * bucket_sum_plain(h.abs(), idx)
+                e, rel = check(f"K1 {direction} bucket {k} H={hdim}", got,
+                               ref, bound)
+                max_err, max_rel = max(max_err, e), max(max_rel, rel)
+                detail.append({"kernel": "ell_bucket_sum", "dir": direction,
+                               "bucket": k, "rows": int(idx.shape[0]),
+                               "width": spec.widths[k], "H": hdim,
+                               "max_abs_err": e, "max_rel_err": rel})
+            if direction == "fwd" and hdim == widths[0]:
+                # least bytes: each index once, each h row the layout
+                # references once (repeats may come from L2), each output once
+                live = [i for i in idx_list if i.shape[0]]
+                nnz = sum(int((i < spec.n_src).sum()) for i in live)
+                flat = torch.cat([i.reshape(-1) for i in live])
+                n_used = int(torch.unique(flat[flat < spec.n_src]).numel())
+                rw = sum(int(i.numel()) for i in live)
+                rows = sum(int(i.shape[0]) for i in live)
+                nbytes = rw * 4 + n_used * hdim * 4 + rows * hdim * 4
+                hp = torch.cat([h, h.new_zeros((1, hdim))])
+                longs = [i.long() for i in live]
+                timing = {
+                    "H": hdim, "buckets": len(live), "rows": rows,
+                    "nnz": nnz, "h_rows_used": n_used, "bytes": nbytes,
+                    "ms": cuda_ms(lambda: [bucket_sum(h, i, phase="check")
+                                           for i in live], reps),
+                    "plain_ms": cuda_ms(lambda: [bucket_sum_plain(h, i)
+                                                 for i in live], reps),
+                    "library_ms": cuda_ms(lambda: [hp[i].sum(1)
+                                                   for i in longs], reps),
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    nnz * hdim / F32_FLOPS_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= nnz * hdim / F32_FLOPS_PER_S
+                                 else "operations"),
+                }
+    return (max_err, max_rel), timing
+
+
+def tf32_round(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest): what a kernel that
+    ran K2 on the tensor cores in TF32 would read."""
+    bits = x.contiguous().view(torch_int32())
+    return ((bits + 0x1000) & ~0x1FFF).view(x.dtype)
+
+
+def torch_int32():
+    import torch
+    return torch.int32
+
+
+def compare_k2(fns, widths, gen, reps, detail):
+    """K2 against its plain version on the forward and backward tile stacks
+    at each width. Tolerance per element: a product with a zero tile entry
+    adds exactly, so both sum only the row's n nonzero int8 x f32 products
+    in f32 (fused or rounded once each) and differ by at most 2 n u sum|a x|
+    (n from the tiles, sum|a x| the plain version on |x|; tiles are >= 0).
+    Control: the same check must reject the plain version run on x rounded
+    to TF32. Times one forward dense pass at widths[0]; its bound counts the
+    operations the output needs, 2 nnz H (the dense tiles' edges), not the
+    2 B TR TC H a dense product of the whole tiles would do."""
+    import torch
+    from bnsgcn_tpu_torch.ops.block_spmm import build_x_slabs
+    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+                                                  tile_matmul_plain)
+    op = fns.spmm
+    a = op.arrays
+    max_err = max_rel = 0.0
+    timing = None
+    for direction, spec in (("fwd", op.fwd), ("bwd", op.bwd)):
+        nrb = spec.n_row_blocks
+        tiles = a[f"blk_tiles_{direction}"]
+        rowb, colb = a[f"blk_rowb_{direction}"], a[f"blk_colb_{direction}"]
+        off = a[f"blk_off_{direction}"]
+        perm_src = a["blk_perm_ext" if direction == "fwd" else "blk_perm_inner"]
+        # nonzero terms of each output row: [n_row_blocks, TR, 1]
+        n_row = torch.zeros((nrb + 1, spec.row_tile), dtype=torch.int64,
+                            device=tiles.device).index_add_(
+            0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
+        for hdim in widths:
+            h = torch.randn((spec.n_src, hdim), generator=gen, device="cuda")
+            x = build_x_slabs(spec, perm_src, h)
+            got = tile_matmul(tiles, rowb, colb, off, x, nrb, phase="check")
+            ref = tile_matmul_plain(tiles, rowb, colb, x, nrb)
+            bound = 2 * n_row.clamp(min=1) * U32 * tile_matmul_plain(
+                tiles, rowb, colb, x.abs(), nrb)
+            e, rel = check(f"K2 {direction} H={hdim}", got, ref, bound)
+            max_err, max_rel = max(max_err, e), max(max_rel, rel)
+            detail.append({"kernel": "tile_matmul", "dir": direction,
+                           "tiles": int(tiles.shape[0]), "H": hdim,
+                           "max_row_terms": int(n_row.max()),
+                           "max_abs_err": e, "max_rel_err": rel})
+            if hdim == widths[0]:
+                try:
+                    check("control", tile_matmul_plain(
+                        tiles, rowb, colb, tf32_round(x), nrb), ref, bound)
+                except AssertionError:
+                    pass
+                else:
+                    raise AssertionError(
+                        f"K2 {direction}: the tolerance admits x rounded to "
+                        f"TF32; it cannot tell f32 from TF32")
+            if direction == "fwd" and hdim == widths[0]:
+                live = rowb < nrb
+                b_real = int(live.sum())
+                nnz = int(tiles[live].sum(dtype=torch.int64))
+                tr, tc = spec.row_tile, spec.col_tile
+                nbytes = (b_real * tr * tc + b_real * 8 + x.numel() * 4
+                          + nrb * tr * hdim * 4)
+                flops = 2 * nnz * hdim
+                lib_ms = None
+                if b_real and b_real * (tr * tc + tc * hdim + tr * hdim) * 4 \
+                        < 24 << 30:
+                    tf = tiles[live].float()
+                    xg = x[colb[live].long()]
+                    lib_ms = cuda_ms(lambda: torch.bmm(tf, xg), reps)
+                    del tf, xg
+                timing = {
+                    "H": hdim, "tiles": b_real, "nnz": nnz, "bytes": nbytes,
+                    "flops": flops,
+                    "dense_flops": 2 * b_real * tr * tc * hdim,
+                    "ms": cuda_ms(lambda: tile_matmul(
+                        tiles, rowb, colb, off, x, nrb, phase="check"), reps),
+                    "plain_ms": cuda_ms(lambda: tile_matmul_plain(
+                        tiles, rowb, colb, x, nrb), reps),
+                    "library_ms": lib_ms,
+                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                    flops / F32_FLOPS_PER_S) * 1e3,
+                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                                 >= flops / F32_FLOPS_PER_S
+                                 else "operations"),
+                }
+    return (max_err, max_rel), timing
+
+
+def small_agreement(base_cfg):
+    """The same short dropout-free hybrid run on the card (kernels) and on
+    the CPU (plain versions): the losses must agree to 1e-4 (f32 sums in
+    another order, over 4 epochs of Adam)."""
+    from bnsgcn_tpu_torch.run import run_training
+    cfg = base_cfg.replace(dataset="sbm", n_layers=3, n_hidden=64,
+                           dropout=0.0, block_tile=64, block_occupancy=8,
+                           n_epochs=4, log_every=1000, eval=False)
+    quiet = lambda m: None
+    gpu = run_training(cfg.replace(device="cuda"), log=quiet).losses
+    cpu = run_training(cfg.replace(device="cpu"), log=quiet).losses
+    diff = max(abs(a - b) for a, b in zip(gpu, cpu))
+    if not diff <= 1e-4:
+        raise AssertionError(f"card and CPU losses differ by {diff:.3e}: "
+                             f"{gpu} vs {cpu}")
+    log(f"[agree] sbm 3x64 hybrid, 4 epochs: card {gpu[-1]:.6f} vs CPU "
+        f"{cpu[-1]:.6f}, max |diff| {diff:.2e} <= 1e-4")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scale", type=float, default=1.0,
+                    help="synth-reddit scale (1.0: the Reddit-shaped graph, "
+                         "232,965 nodes, ~115M edges)")
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", default="",
+                    help="also write the run's details to this JSON file")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from bnsgcn_tpu_torch import buildlib
+        from bnsgcn_tpu_torch.config import Config
+        from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+        from bnsgcn_tpu_torch.run import prepare_run, run_training
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    t_all = time.perf_counter()
+
+    # 1. build
+    t0 = time.perf_counter()
+    buildlib.build_many([(m.LIB_NAME, "cuda", [m.SOURCE])
+                         for m in (bucket_sum, tile_matmul)])
+    bucket_sum.lib()
+    tile_matmul.lib()
+    log(f"[build] K1 + K2 built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, sm_90a)")
+
+    cfg = Config(dataset=f"synth-reddit:{args.scale}", model="graphsage",
+                 n_layers=4, n_hidden=256, use_pp=True, norm="layer",
+                 dropout=0.5, lr=0.01, spmm="hybrid", use_pallas=True,
+                 n_epochs=args.epochs, log_every=1, eval=True, seed=0,
+                 device="cuda")
+    t0 = time.perf_counter()
+    pr = prepare_run(cfg, log=log)
+    log(f"[setup] graph + artifacts + layout {time.perf_counter() - t0:.1f} s")
+
+    # 2. kernels against their plain versions at the main path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    widths = (cfg.n_hidden, pr.cfg.n_feat)
+    detail = []
+    e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail)
+    e2, t2 = compare_k2(pr.fns, widths, gen, args.reps, detail)
+    log(f"[check] K1 max abs err {e1[0]:.3e} (relative to max |ref| "
+        f"{e1[1]:.3e}), K2 {e2[0]:.3e} ({e2[1]:.3e}); every element within "
+        f"2 n u sum|x| (n: the row's terms, u = 2^-24) at H={widths}; "
+        f"K2's check rejects TF32-rounded inputs")
+    log(f"[time] K1 fwd residual pass H={t1['H']}: kernel {t1['ms']:.3f} ms, "
+        f"plain {t1['plain_ms']:.3f}, hp[idx].sum(1) {t1['library_ms']:.3f}, "
+        f"bound {t1['bound_ms']:.3f} ({t1['bound_by']})")
+    log(f"[time] K2 fwd dense pass H={t2['H']}: kernel {t2['ms']:.3f} ms, "
+        f"plain {t2['plain_ms']:.3f}, bmm {t2['library_ms']}, "
+        f"bound {t2['bound_ms']:.3f} ({t2['bound_by']}; {t2['nnz']} edges in "
+        f"{t2['tiles']} tiles, {t2['flops']:.4e} needed FLOPs; a dense "
+        f"product of the whole tiles does {t2['dense_flops']:.4e})")
+
+    # 3. small-input agreement, card vs CPU
+    small_agreement(cfg)
+
+    # 4. the main path, through the user's entry point
+    bucket_sum.launches.reset()
+    tile_matmul.launches.reset()
+    res = run_training(cfg, log=log, prepared=pr)
+    k1 = dict(bucket_sum.launches.by_phase)
+    k2 = dict(tile_matmul.launches.by_phase)
+    log(f"[launches] K1 {k1} | K2 {k2}")
+    log(f"[hybrid] dense tiles carry {res.dense_edges} of {res.n_edges} "
+        f"edges ({res.dense_edges / max(res.n_edges, 1):.1%})")
+    for name, c in (("K1", k1), ("K2", k2)):
+        if not (c.get("fwd", 0) > 0 and c.get("bwd", 0) > 0):
+            raise AssertionError(f"{name} did not launch forward and backward "
+                                 f"on the main path: {c}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"loss did not fall: {res.losses}")
+    val, test = res.val_acc, res.test_acc
+    chance = 1.0 / pr.cfg.n_class
+    if not (2 * chance < val <= 1.0 and 2 * chance < test <= 1.0):
+        raise AssertionError(f"accuracy {val:.3f} / {test:.3f} is not above "
+                             f"twice chance ({2 * chance:.3f})")
+
+    # 5. report
+    out = {"card": smi, "scale": args.scale, "epochs": args.epochs,
+           "losses": res.losses, "epoch_times_s": res.epoch_times,
+           "epoch_time_s": res.epoch_time, "launches": {"K1": k1, "K2": k2},
+           "dense_edges": res.dense_edges, "n_edges": res.n_edges,
+           "val_acc": val, "test_acc": test, "k1_time": t1, "k2_time": t2,
+           "checks": detail, "seconds": time.perf_counter() - t_all}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    kernels = []
+    for name, err, t, c in (("ell_bucket_sum", e1, t1, k1),
+                            ("tile_matmul", e2, t2, k2)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": sum(c.values()),
+            "max_abs_err": err[0], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
