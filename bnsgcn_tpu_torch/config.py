@@ -26,6 +26,9 @@ class Config:
     dataset: str = "reddit"
     inductive: bool = False
     n_partitions: int = 1
+    part_path: str = "./partition/"     # where P > 1 writes its artifacts
+    partition_method: str = "metis"     # 'metis' | 'random'
+    partition_obj: str = "vol"          # 'vol' | 'cut' (metis objective)
 
     # --- model ---
     model: str = "graphsage"            # 'gcn' | 'graphsage'
@@ -60,6 +63,9 @@ class Config:
 
     # --- where it runs ---
     device: str = "cuda"                # 'cuda' | 'cpu'
+    dist_backend: str = "nccl"          # P > 1: 'nccl' (one card per rank)
+                                        # | 'gloo' (ranks may share a card
+                                        # or run on the CPU)
 
     # filled from the partition artifacts
     n_feat: int = 0
@@ -68,6 +74,12 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def derive_graph_name(self) -> str:
+        """The artifact directory's name (bnsgcn_tpu/config.py:424)."""
+        mode = "induc" if self.inductive else "trans"
+        return (f"{self.dataset}-{self.n_partitions}-{self.partition_method}-"
+                f"{self.partition_obj}-{mode}")
 
     def layer_sizes(self) -> list[int]:
         """[n_feat, hidden, ..., hidden, n_class] (bnsgcn_tpu/config.py:419)."""
@@ -80,8 +92,9 @@ class Config:
 # flags of the JAX CLI whose non-default values select features that later
 # slices port: (flag, default, why it is refused)
 _NOT_PORTED = (
-    ("n_partitions", 1, "--n-partitions > 1 (halo exchange, gradient reduce)"),
     ("sampling_rate", 1.0, "--sampling-rate < 1 (boundary-node sampling)"),
+    ("halo_exchange", "padded", "--halo-exchange other than padded"),
+    ("halo_wire", "native", "--halo-wire other than native"),
     ("dtype", "float32", "--dtype bfloat16"),
     ("spmm_dense", "native", "--spmm-dense int8"),
     ("spmm_gather", "native", "--spmm-gather fp8/int8"),
@@ -99,12 +112,13 @@ _NOT_PORTED = (
 def create_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="bnsgcn_tpu_torch: the PyTorch/CUDA port of bnsgcn_tpu "
-                    "(single-GPU GraphSAGE/GCN training)")
+                    "(GraphSAGE/GCN training on P ranks at sampling rate 1.0)")
 
     def both(name, **kw):
         p.add_argument(f"--{name}", f"--{name.replace('-', '_')}", **kw)
 
     p.add_argument("--dataset", type=str, default="reddit")
+    both("part-path", type=str, default="./partition/")
     p.add_argument("--model", type=str, default="graphsage",
                    choices=["gcn", "graphsage", "gat"])
     p.add_argument("--dropout", type=float, default=0.5)
@@ -119,6 +133,8 @@ def create_parser() -> argparse.ArgumentParser:
     both("weight-decay", type=float, default=0.0)
     p.add_argument("--norm", choices=["layer", "batch", "none"],
                    default="layer")
+    both("partition-obj", choices=["vol", "cut"], default="vol")
+    both("partition-method", choices=["metis", "random"], default="metis")
     both("n-linear", type=int, default=0)
     both("use-pp", action="store_true", default=False)
     p.add_argument("--inductive", action="store_true")
@@ -133,6 +149,10 @@ def create_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--spmm", type=str, default="ell",
                    choices=["ell", "hybrid", "auto", "segment"])
+    both("halo-exchange", type=str, default="padded",
+         choices=["padded", "shift", "ragged", "auto"])
+    both("halo-wire", type=str, default="native",
+         choices=["native", "bf16", "fp8", "int8"])
     both("halo-refresh", type=int, default=1)
     p.add_argument("--overlap", type=str, default="off",
                    choices=["off", "split"])
@@ -149,6 +169,10 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="run on the GPU (default) or, when asked, the CPU")
+    both("dist-backend", type=str, default="nccl", choices=["nccl", "gloo"],
+         help="P > 1: nccl runs one rank per card; gloo lets ranks share a "
+              "card (collectives staged through host memory) or run on the "
+              "CPU")
     return p
 
 
@@ -166,6 +190,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
         raise ConfigError(f"--spmm {d['spmm']} is not ported yet")
     if d.get("norm") == "none":
         d["norm"] = None
+    if (d.get("n_partitions", 1) > 1 and d.get("device") == "cpu"
+            and d.get("dist_backend") != "gloo"):
+        raise ConfigError("--device cpu with --n-partitions > 1 needs "
+                          "--dist-backend gloo: NCCL runs on CUDA devices "
+                          "only")
     valid = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in d.items() if k in valid})
 

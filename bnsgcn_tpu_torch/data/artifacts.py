@@ -9,17 +9,22 @@ array for array (tests/test_torch_data.py pins it at P=1):
   * padded edges: src = 0, dst = pad_inner (the trash row);
   * degrees are global full-graph degrees including self-loops.
 
-Saving and loading artifact directories waits for a later slice.
+On disk it is the JAX package's format v2 (meta.json + shared.npz +
+part{p}.npz), so a directory written by either package loads in the other.
+The streaming builder for papers100M-scale graphs is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
 from bnsgcn_tpu_torch.data.graph import Graph
-from bnsgcn_tpu_torch.data.partitioner import degree_norm_row
+from bnsgcn_tpu_torch.data.partitioner import (degree_norm_row,
+                                               validate_artifact_dir)
 
 
 def _pad_to(x: int, mult: int) -> int:
@@ -181,4 +186,61 @@ def build_artifacts(g: Graph, part_id: np.ndarray,
         src=src_a, dst=dst_a, bnd=bnd, global_nid=gnid,
         n_feat=F, n_class=g.n_class, n_train=g.n_train,
         multilabel=g.multilabel, ell_geometry=geometry,
+    )
+
+
+_PER_PART = ["feat", "label", "train_mask", "val_mask", "test_mask",
+             "inner_mask", "in_deg", "out_deg_ext", "src", "dst", "bnd",
+             "global_nid"]
+
+
+def save_artifacts(art: PartitionArtifacts, path: str):
+    """Write meta.json + shared.npz + part{p}.npz (format v2). The part files
+    are uncompressed npz, as the JAX package's streaming builder writes them:
+    np.load reads both, and compressing hundreds of MB of features costs
+    more than it saves."""
+    os.makedirs(path, exist_ok=True)
+    meta = {
+        "format_version": 2,
+        "n_parts": art.n_parts, "pad_inner": art.pad_inner,
+        "pad_boundary": art.pad_boundary, "pad_edges": art.pad_edges,
+        "n_feat": art.n_feat, "n_class": art.n_class, "n_train": art.n_train,
+        "multilabel": art.multilabel,
+        "n_inner": art.n_inner.tolist(),
+        "ell_geometry": art.ell_geometry,
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    np.savez_compressed(os.path.join(path, "shared.npz"), n_b=art.n_b)
+    for p in range(art.n_parts):
+        np.savez(os.path.join(path, f"part{p}.npz"),
+                 **{k: getattr(art, k)[p] for k in _PER_PART})
+
+
+def load_artifacts(path: str, parts: "list[int] | None" = None
+                   ) -> PartitionArtifacts:
+    """Load a format-v2 artifact directory. `parts` restricts the per-part
+    arrays to the listed part ids (a rank loads only its own): the stacked
+    axis then has len(parts) rows in that order; n_parts and the pads stay
+    global."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    validate_artifact_dir(path, meta["n_parts"], parts)
+    if meta.get("feat_dtype", "float32") != "float32":
+        from bnsgcn_tpu_torch.config import ConfigError
+        raise ConfigError(f"artifact dir {path}: {meta['feat_dtype']} "
+                          f"feature storage is not ported yet")
+    shared = np.load(os.path.join(path, "shared.npz"))
+    part_ids = list(range(meta["n_parts"])) if parts is None else list(parts)
+    loaded = [np.load(os.path.join(path, f"part{p}.npz")) for p in part_ids]
+    stacked = {k: np.stack([pt[k] for pt in loaded]) for k in _PER_PART}
+    return PartitionArtifacts(
+        n_parts=meta["n_parts"], pad_inner=meta["pad_inner"],
+        pad_boundary=meta["pad_boundary"], pad_edges=meta["pad_edges"],
+        n_inner=np.asarray(meta["n_inner"], dtype=np.int64),
+        n_b=shared["n_b"],
+        n_feat=meta["n_feat"], n_class=meta["n_class"],
+        n_train=meta["n_train"], multilabel=meta["multilabel"],
+        ell_geometry=meta.get("ell_geometry"),
+        **stacked,
     )

@@ -15,8 +15,9 @@ import numpy as np
 
 from bnsgcn_tpu_torch import buildlib
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "partitioner.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "partitioner.cpp")
+LIB_NAME = "bnspartition"
 
 
 def _declare(lib):
@@ -39,7 +40,7 @@ def native_partition(src: np.ndarray, dst: np.ndarray, n_nodes: int,
     `n_seeds` runs by the objective (directed comm volume for 'vol', edge cut
     for 'cut'). Raises RuntimeError when the library cannot be built or the
     partitioner reports an error."""
-    lib = buildlib.load("bnspartition", "cxx", [_SRC], _declare)
+    lib = buildlib.load(LIB_NAME, "cxx", [SOURCE], _declare)
     src = np.ascontiguousarray(src, dtype=np.int64)
     dst = np.ascontiguousarray(dst, dtype=np.int64)
     out = np.empty(n_nodes, dtype=np.int32)

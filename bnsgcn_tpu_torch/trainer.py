@@ -1,19 +1,21 @@
-"""Single-GPU trainer at P=1 (counterpart of bnsgcn_tpu/trainer.py).
+"""One rank's train step (counterpart of bnsgcn_tpu/trainer.py).
 
-One train step: dropout -> layers (aggregation through the ELL or hybrid
-SpMM, i.e. kernels K1 and K2 on the card) -> sum cross-entropy over the
-train rows / global n_train -> backward (the SpMMs' backward runs the same
-kernels on the transposed layouts) -> Adam with L2 added to the gradient
-before the moments. At P=1 the halo exchange is the identity plus the
-zero-filled halo slots of the artifact layout; the P-rank exchange, the
-gradient reduce and boundary-node sampling wait for later slices.
+One train step: dropout -> layers (halo exchange, then aggregation through
+the ELL or hybrid SpMM, i.e. kernels K1 and K2 on the card) -> sum
+cross-entropy over this part's train rows / global n_train -> backward (the
+SpMMs' backward runs the same kernels on the transposed layouts, the
+exchange's backward the transposed all-to-all) -> one all-reduce of the
+gradients over the ranks -> Adam with L2 added to the gradient before the
+moments. At P=1 (no Comm) the exchange is the identity plus the zero-filled
+halo slots of the artifact layout and there is nothing to reduce.
+Boundary-node sampling (rate < 1) waits for a later slice.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +28,10 @@ from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              cluster_order, dense_edge_count,
                                              effective_occupancy)
 from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
+from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, halo_apply,
+                                            make_halo_plan, make_halo_spec)
+from bnsgcn_tpu_torch.parallel.mesh import Comm
+from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
 
 
 def ce_sum(logits, labels, mask):
@@ -55,10 +61,22 @@ def build_block_arrays(art: PartitionArtifacts, model: str,
     }
 
 
-def to_device(arrays: dict, device) -> dict:
-    """Part 0's rows of stacked [P, ...] numpy arrays as device tensors."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(device)
+def to_device(arrays: dict, device, row: int = 0) -> dict:
+    """One row of stacked [P, ...] numpy arrays as device tensors."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[row])).to(device)
             for k, v in arrays.items()}
+
+
+def local_row(art: PartitionArtifacts, rank: int) -> int:
+    """The row of part `rank` in art's stacked axis: `art` holds every part,
+    or only the rank's own (load_artifacts(path, parts=[rank]))."""
+    held = art.feat.shape[0]
+    if held == art.n_parts:
+        return rank
+    if held == 1:
+        return 0
+    raise ValueError(f"artifacts hold {held} of {art.n_parts} parts; expected "
+                     f"all or one")
 
 
 def make_tx(cfg: Config, params) -> torch.optim.Adam:
@@ -92,43 +110,60 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
 @dataclass
 class StepFns:
     spmm: Union[EllSpmm, BlockSpmm]    # the training aggregation operator
-    layout: dict                       # its numpy layout arrays [P, ...]
+    layout: dict                       # its numpy layout arrays [1, ...]
     train_step: Callable               # (model, opt, blk, generator) -> loss
     forward: Callable                  # (model, blk, generator) -> logits
     precompute: Callable               # (blk) -> layer-0 input features
     dense_edges: int = 0               # edges on dense tiles (hybrid)
+    halo: Optional[HaloSpec] = None    # the exchange's geometry (P > 1)
 
 
-def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print):
-    """(operator, numpy layout) for cfg.spmm over part 0 of `art`."""
+def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
+               row: int = 0):
+    """(operator, numpy layout) for cfg.spmm over the part in row `row` of
+    `art`. Each part builds its own layout: the ELL pads come from the
+    artifacts' global geometry, the hybrid tiles and residual from the part
+    alone."""
+    src, dst = art.src[row:row + 1], art.dst[row:row + 1]
     if cfg.spmm == "hybrid":
         tile = cfg.block_tile
-        pi, pe = cluster_order(art.src[0], art.dst[0], art.pad_inner,
-                               art.n_ext, target=tile, log=log)
+        pi, pe = cluster_order(src[0], dst[0], art.pad_inner, art.n_ext,
+                               target=tile, log=log)
         fwd, bwd, ell_pair, arrays = build_block_layouts(
-            art.src, art.dst, art.pad_inner, art.n_ext, pi[None], pe[None],
+            src, dst, art.pad_inner, art.n_ext, pi[None], pe[None],
             occupancy_min=effective_occupancy(cfg.block_occupancy, tile, tile),
             tile_budget_bytes=cfg.block_tile_budget_mb << 20,
             tile_r=tile, tile_c=tile)
         return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device)), arrays
     if cfg.spmm == "ell":
-        fwd, bwd, arrays = build_layouts(art.src, art.dst, art.pad_inner,
-                                         art.n_ext, geometry=art.ell_geometry)
+        fwd, bwd, arrays = build_layouts(src, dst, art.pad_inner, art.n_ext,
+                                         geometry=art.ell_geometry)
         return EllSpmm(fwd, bwd, to_device(arrays, device)), arrays
     raise ValueError(f"--spmm {cfg.spmm} is not ported yet")
 
 
 def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
-                   device, log=print) -> StepFns:
-    if art.n_parts != 1:
-        raise ValueError(f"P={art.n_parts}: only P=1 is ported yet")
-    spmm, layout = build_spmm(cfg, art, device, log)
+                   device, log=print, rank: int = 0,
+                   comm: Optional[Comm] = None) -> StepFns:
+    """Rank `rank`'s step functions. Without `comm` the run is P=1."""
+    if (art.n_parts > 1) != (comm is not None):
+        raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
+    row = local_row(art, rank)
+    spmm, layout = build_spmm(cfg, art, device, log, row)
     n_train = max(art.n_train, 1)
     n_halo = art.n_ext - art.pad_inner
+    hspec = None
+    if comm is not None:
+        bnd = torch.from_numpy(np.ascontiguousarray(art.bnd[row])).to(device)
+        hspec, tables = make_halo_spec(art.n_b, art.pad_inner,
+                                       art.pad_boundary, cfg.sampling_rate)
+        plan = make_halo_plan(hspec, tables, bnd, rank)
 
     def exchange(i, h):
-        # P=1: no peer sends anything; the halo slots stay zero
-        return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
+        if comm is None:
+            # P=1: no peer sends anything; the halo slots stay zero
+            return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
+        return halo_apply(hspec, plan, h, comm)
 
     def forward(model: GNN, blk, generator=None):
         """Training-mode forward: logits [pad_inner, n_class]."""
@@ -138,10 +173,13 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         return apply_model(model, blk["feat"], env)
 
     def train_step(model: GNN, opt, blk, generator=None):
+        """One step; returns the loss summed over the ranks."""
         opt.zero_grad(set_to_none=True)
         logits = forward(model, blk, generator)
         loss = ce_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
+        if comm is not None:
+            loss = reduce_gradients(model.parameters(), comm, loss)
         opt.step()
         return loss.detach()
 
@@ -149,8 +187,9 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     def precompute(blk):
         """use_pp layer-0 input, once before training (JAX trainer
         local_precompute): GCN (sum feat/out_norm)/in_norm; GraphSAGE
-        cat(feat, sum(feat)/in_deg). The aggregation is the same SpMM at the
-        raw feature width."""
+        cat(feat, sum(feat)/in_deg). The exchange (at rate 1.0 the training
+        one, the JAX package's full-rate precompute exchange) and the
+        aggregation (the same SpMM) run at the raw feature width."""
         feat_ext = exchange(0, blk["feat"])
         if spec.model == "gcn":
             return spmm.apply_dir("fwd", feat_ext / blk["out_norm"][:, None],
@@ -160,4 +199,5 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
 
     dense = dense_edge_count(layout) if cfg.spmm == "hybrid" else 0
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
-                   forward=forward, precompute=precompute, dense_edges=dense)
+                   forward=forward, precompute=precompute, dense_edges=dense,
+                   halo=hspec)

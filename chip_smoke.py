@@ -2,15 +2,20 @@
 """On-card smoke test of the PyTorch/CUDA port (bnsgcn_tpu_torch).
 
     python3 chip_smoke.py                 # the full check, on one GPU
-    python3 chip_smoke.py --scale 0.02 --epochs 3   # a quick rehearsal
+    python3 chip_smoke.py --scale 0.02 --epochs 3 --parts-scale 0.01 \
+        --parts-epochs 4                  # a quick rehearsal
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+  1. build the CUDA kernels K1-K4 from csrc/ (one nvcc per source, in
+     parallel);
   2. hold each kernel to its plain PyTorch version on the card, at the main
      path's own shapes: every bucket of the ELL residual (K1) and the dense
      tile stack (K2), forward and backward layouts, at H=256 and at the raw
-     feature width, and time kernel, plain version and a one-call PyTorch
+     feature width; K3 (the width-axis bucket reduce, on no path) at the
+     shapes it ran on the TPU, f32 [3592, 32, 602] and [64, 16, 602], and in
+     bf16; K4 (the manual-copy probe, on no path) bitwise at the probe's
+     [4, 8, 128]; and time kernel, plain version and a one-call PyTorch
      yardstick with CUDA events;
   3. a small-input agreement check: the same short training run on the card
      and on the CPU (plain versions) must give the same losses;
@@ -21,7 +26,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and fall, every kernel must have launched forward and backward; the run
      ends with the full-graph eval's accuracy line, which must beat twice
      chance;
-  5. print the card's name and power limit, one {"kernels": [...]} line and,
+  5. the P-rank path (partition parallelism at sampling rate 1.0) on
+     synth-reddit at --parts-scale, the same model: 4 ranks sharing this
+     one card over gloo (NCCL refuses two ranks on one card) and P=1, 3
+     epochs without dropout from the same parameters, must give the same
+     losses to 1e-4 (relative); then the main path at P=4 with dropout 0.5
+     through run.run_training, in which each rank first holds K1 and K2 to
+     their plain versions on its own part's layout (its own hybrid tiles and
+     ELL residual; every bucket, forward and backward, at H=256 and the raw
+     feature width, with phase 2's bounds) and then hands back its launch
+     counts: K1 and K2 must have launched forward and backward on every
+     rank, the loss must stay finite and fall, rank 0's accuracy must beat
+     twice chance, and every rank must end with rank 0's parameters;
+  6. print the card's name and power limit, one {"kernels": [...]} line and,
      last, {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device and when the port is not beside it.
@@ -48,11 +65,22 @@ U32 = 2.0 ** -24               # f32 unit roundoff
 REPLACES = {
     "ell_bucket_sum": "tools/pallas_spmm.py:35",
     "tile_matmul": "bnsgcn_tpu/ops/pallas_block.py:30",
+    "bucket_reduce": "tools/pallas_spmm.py:104",
+    "copy_probe": "tools/hw_session.py:102",
 }
 SOURCES = {
     "ell_bucket_sum": "bnsgcn_tpu_torch/csrc/bucket_sum.cu",
     "tile_matmul": "bnsgcn_tpu_torch/csrc/tile_matmul.cu",
+    "bucket_reduce": "bnsgcn_tpu_torch/csrc/bucket_reduce.cu",
+    "copy_probe": "bnsgcn_tpu_torch/csrc/copy_probe.cu",
 }
+# K3 at the shapes it ran on the TPU (hw_logs/bench_tb3g.log:93,136), f32,
+# and once in bf16
+K3_CASES = (((3592, 32, 602), "float32"), ((64, 16, 602), "float32"),
+            ((3592, 32, 602), "bfloat16"))
+PARTS = 4
+LAW_EPOCHS = 3
+LAW_RTOL = 1e-4
 
 
 def log(msg):
@@ -96,7 +124,8 @@ def compare_k1(fns, widths, gen, reps, detail):
     layout, both directions, at each width. Tolerance per element: two f32
     sums of the same W terms in different orders differ by at most
     2 (W - 1) u sum|x|, u = 2^-24, with sum|x| from the plain version on |h|.
-    Times one forward residual pass (all buckets) at widths[0]."""
+    With reps > 0, times one forward residual pass (all buckets) at
+    widths[0]."""
     import torch
     from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum, bucket_sum_plain
     res = fns.spmm.residual
@@ -121,7 +150,7 @@ def compare_k1(fns, widths, gen, reps, detail):
                                "bucket": k, "rows": int(idx.shape[0]),
                                "width": spec.widths[k], "H": hdim,
                                "max_abs_err": e, "max_rel_err": rel})
-            if direction == "fwd" and hdim == widths[0]:
+            if direction == "fwd" and hdim == widths[0] and reps:
                 # least bytes: each index once, each h row the layout
                 # references once (repeats may come from L2), each output once
                 live = [i for i in idx_list if i.shape[0]]
@@ -170,7 +199,8 @@ def compare_k2(fns, widths, gen, reps, detail):
     in f32 (fused or rounded once each) and differ by at most 2 n u sum|a x|
     (n from the tiles, sum|a x| the plain version on |x|; tiles are >= 0).
     Control: the same check must reject the plain version run on x rounded
-    to TF32. Times one forward dense pass at widths[0]; its bound counts the
+    to TF32. With reps > 0, times one forward dense pass at widths[0]; its
+    bound counts the
     operations the output needs, 2 nnz H (the dense tiles' edges), not the
     2 B TR TC H a dense product of the whole tiles would do."""
     import torch
@@ -214,7 +244,7 @@ def compare_k2(fns, widths, gen, reps, detail):
                     raise AssertionError(
                         f"K2 {direction}: the tolerance admits x rounded to "
                         f"TF32; it cannot tell f32 from TF32")
-            if direction == "fwd" and hdim == widths[0]:
+            if direction == "fwd" and hdim == widths[0] and reps:
                 live = rowb < nrb
                 b_real = int(live.sum())
                 nnz = int(tiles[live].sum(dtype=torch.int64))
@@ -247,6 +277,169 @@ def compare_k2(fns, widths, gen, reps, detail):
     return (max_err, max_rel), timing
 
 
+def compare_k3(gen, reps, detail):
+    """K3 against its plain version at each of K3_CASES. Tolerance per
+    element: two f32 sums of the same W terms differ by at most
+    2 W u sum|x| (u = 2^-24, sum|x| the plain version on |g|); a bf16 result
+    may also round to the neighbouring bf16 value, one ulp <= 2^-7 |ref|.
+    Times every case; the first is the one the kernels line reports. Bound:
+    each input element read once, each output written once, over 3.35 TB/s
+    (the R W H adds over 67 TFLOP/s take far less)."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
+                                                    bucket_reduce_plain)
+    max_err, timings = 0.0, []
+    for shape, dtype in K3_CASES:
+        dt = getattr(torch, dtype)
+        r, w, h = shape
+        g = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        got = bucket_reduce(g, phase="check")
+        ref = bucket_reduce_plain(g)
+        bound = 2 * w * U32 * bucket_reduce_plain(g.abs().float())
+        if dt == torch.bfloat16:
+            bound = bound * (1 + 2.0 ** -7) + 2.0 ** -7 * ref.float().abs()
+        e, rel = check(f"K3 {dtype} {shape}", got.float(), ref.float(),
+                       bound)
+        max_err = max(max_err, e)
+        nbytes = (r * w * h + r * h) * g.element_size()
+        adds = r * w * h
+        t = {"shape": list(shape), "dtype": dtype, "max_abs_err": e,
+             "max_rel_err": rel, "bytes": nbytes,
+             "ms": cuda_ms(lambda: bucket_reduce(g, phase="check"), reps),
+             "plain_ms": cuda_ms(lambda: bucket_reduce_plain(g), reps),
+             "library_ms": cuda_ms(lambda: g.sum(1), reps),
+             "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                             adds / F32_FLOPS_PER_S) * 1e3,
+             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                          >= adds / F32_FLOPS_PER_S else "operations")}
+        timings.append(t)
+        detail.append(dict(t, kernel="bucket_reduce"))
+    return max_err, timings
+
+
+def compare_k4(gen, reps, detail):
+    """K4 bitwise against x[0:1] at the probe's shape; its time is launch
+    latency (its bytes over 3.35 TB/s take nanoseconds)."""
+    import torch
+    from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
+                                                 copy_probe_plain)
+    x = torch.randn(PROBE_SHAPE, generator=gen, device="cuda")
+    got = copy_probe(x, phase="check")
+    torch.cuda.synchronize()
+    if not torch.equal(got, x[0:1]):
+        raise AssertionError("K4: the copy differs from x[0:1]")
+    out = torch.empty_like(got)
+    nbytes = 2 * got.numel() * got.element_size()
+    t = {"shape": list(PROBE_SHAPE), "bytes": nbytes, "max_abs_err": 0.0,
+         "ms": cuda_ms(lambda: copy_probe(x, phase="check"), reps),
+         "plain_ms": cuda_ms(lambda: copy_probe_plain(x), reps),
+         "library_ms": cuda_ms(lambda: out.copy_(x[0:1]), reps),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    detail.append(dict(t, kernel="copy_probe"))
+    return t
+
+
+def rank_kernel_check(pr):
+    """Run in every rank of the P-rank main path on its prepared part,
+    before its launch counters are reset: K1 and K2 against their plain
+    versions on the part's own layout, at H=n_hidden and the raw feature
+    width. A disagreement raises, which fails the rank and the run."""
+    import torch
+    gen = torch.Generator(device=pr.device).manual_seed(1234 + pr.rank)
+    widths = (pr.cfg.n_hidden, pr.cfg.n_feat)
+    detail = []
+    e1, _ = compare_k1(pr.fns, widths, gen, 0, detail)
+    e2, _ = compare_k2(pr.fns, widths, gen, 0, detail)
+    torch.cuda.empty_cache()
+    return {"K1": e1, "K2": e2, "widths": widths, "detail": detail}
+
+
+def parts_runs(cfg, args, part_path):
+    """The P-rank path at --parts-scale: the P=4 == P=1 law, then the main
+    path at P=4. Returns the details for the report."""
+    import torch
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.run import run_training
+    base = cfg.replace(dataset=f"synth-reddit:{args.parts_scale}",
+                       part_path=part_path, dist_backend="gloo",
+                       n_partitions=1)
+    t0 = time.perf_counter()
+    g, _, _ = load_data(base)
+    log(f"[parts] synth-reddit:{args.parts_scale}: {g.n_nodes} nodes, "
+        f"{g.n_edges} edges ({time.perf_counter() - t0:.1f} s)")
+
+    # the law: P=4 (4 ranks sharing this card over gloo) == P=1
+    law = base.replace(dropout=0.0, n_epochs=LAW_EPOCHS, log_every=1,
+                       eval=False)
+    t0 = time.perf_counter()
+    r4 = run_training(law.replace(n_partitions=PARTS), g=g, log=log)
+    r1 = run_training(law, g=g, log=log)
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r4.losses, r1.losses))
+    if not (len(r4.losses) == len(r1.losses) == LAW_EPOCHS
+            and rel <= LAW_RTOL):
+        raise AssertionError(f"P={PARTS} losses {r4.losses} differ from "
+                             f"P=1's {r1.losses} by {rel:.3e} (relative)")
+    log(f"[parts] law P={PARTS} == P=1, {LAW_EPOCHS} epochs, dropout 0: "
+        f"max relative loss difference {rel:.3e} <= {LAW_RTOL} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # the main path at P=4, through the user's entry point; each rank checks
+    # K1 and K2 on its own layout, resets its launch counts just before its
+    # epoch loop and hands them back
+    main4 = base.replace(n_partitions=PARTS, n_epochs=args.parts_epochs,
+                         log_every=max(args.parts_epochs // 2, 1))
+    res = run_training(main4, g=g, log=log, rank_hook=rank_kernel_check)
+    for rep in res.ranks:
+        hk = rep["hook"]
+        log(f"[check] rank {rep['rank']}'s own layout: K1 max abs err "
+            f"{hk['K1'][0]:.3e} (relative {hk['K1'][1]:.3e}), K2 "
+            f"{hk['K2'][0]:.3e} ({hk['K2'][1]:.3e}) over "
+            f"{len(hk['detail'])} checks at H={tuple(hk['widths'])}; every "
+            f"element within its bound")
+    for rep in res.ranks:
+        for name, c in rep["launches"].items():
+            if not (c.get("fwd", 0) > 0 and c.get("bwd", 0) > 0):
+                raise AssertionError(f"rank {rep['rank']}: {name} did not "
+                                     f"launch forward and backward: {c}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"P={PARTS}: non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"P={PARTS}: loss did not fall: {res.losses}")
+    chance = 1.0 / g.n_class
+    if not (2 * chance < res.val_acc <= 1.0
+            and 2 * chance < res.test_acc <= 1.0):
+        raise AssertionError(f"P={PARTS}: accuracy {res.val_acc:.3f} / "
+                             f"{res.test_acc:.3f} is not above twice chance "
+                             f"({2 * chance:.3f})")
+    ranks = []
+    for rep in res.ranks:
+        ep = rep["epoch_times"][1:] or rep["epoch_times"]
+        ex = rep["comm_times"][1:] or rep["comm_times"]
+        rd = rep["reduce_times"][1:] or rep["reduce_times"]
+        share = sum(ex) / max(sum(ep), 1e-12)
+        ranks.append({"rank": rep["rank"], "device": rep["device"],
+                      "epoch_s": rep["epoch_time"],
+                      "exchange_s": sum(ex) / len(ex),
+                      "reduce_s": sum(rd) / len(rd),
+                      "exchange_share": share,
+                      "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
+                      "launches": rep["launches"]})
+        log(f"[parts] rank {rep['rank']} ({rep['device']}; 4 ranks sharing "
+            f"one card over gloo, not a 4-card number): epoch "
+            f"{rep['epoch_time'] * 1e3:.1f} ms, exchange "
+            f"{ranks[-1]['exchange_s'] * 1e3:.1f} ms ({share:.1%} of the "
+            f"epoch), gradient all-reduce {ranks[-1]['reduce_s'] * 1e3:.1f} "
+            f"ms, peak memory {ranks[-1]['max_memory_gib']:.2f} GiB, "
+            f"launches K1 {rep['launches']['K1']} K2 {rep['launches']['K2']}")
+    return {"scale": args.parts_scale, "law_losses_p4": r4.losses,
+            "law_losses_p1": r1.losses, "law_max_rel": rel,
+            "law_p1_epoch_s": r1.epoch_time,
+            "losses": res.losses, "val_acc": res.val_acc,
+            "test_acc": res.test_acc, "ranks": ranks,
+            "rank_checks": [rep["hook"] for rep in res.ranks]}, res
+
+
 def small_agreement(base_cfg):
     """The same short dropout-free hybrid run on the card (kernels) and on
     the CPU (plain versions): the losses must agree to 1e-4 (f32 sums in
@@ -273,6 +466,10 @@ def main(argv=None) -> int:
                          "232,965 nodes, ~115M edges)")
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parts-scale", type=float, default=0.5,
+                    help="synth-reddit scale of the P-rank phases")
+    ap.add_argument("--parts-epochs", type=int, default=8,
+                    help="epochs of the P=4 main-path run")
     ap.add_argument("--out", default="",
                     help="also write the run's details to this JSON file")
     args = ap.parse_args(argv)
@@ -284,7 +481,8 @@ def main(argv=None) -> int:
     try:
         from bnsgcn_tpu_torch import buildlib
         from bnsgcn_tpu_torch.config import Config
-        from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+        from bnsgcn_tpu_torch.ops import (bucket_reduce, bucket_sum,
+                                          copy_probe, tile_matmul)
         from bnsgcn_tpu_torch.run import prepare_run, run_training
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -299,11 +497,11 @@ def main(argv=None) -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    buildlib.build_many([(m.LIB_NAME, "cuda", [m.SOURCE])
-                         for m in (bucket_sum, tile_matmul)])
-    bucket_sum.lib()
-    tile_matmul.lib()
-    log(f"[build] K1 + K2 built in {time.perf_counter() - t0:.1f} s "
+    kmods = (bucket_sum, tile_matmul, bucket_reduce, copy_probe)
+    buildlib.build_many([(m.LIB_NAME, "cuda", [m.SOURCE]) for m in kmods])
+    for m in kmods:
+        m.lib()
+    log(f"[build] K1-K4 built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a)")
 
     cfg = Config(dataset=f"synth-reddit:{args.scale}", model="graphsage",
@@ -333,6 +531,20 @@ def main(argv=None) -> int:
         f"bound {t2['bound_ms']:.3f} ({t2['bound_by']}; {t2['nnz']} edges in "
         f"{t2['tiles']} tiles, {t2['flops']:.4e} needed FLOPs; a dense "
         f"product of the whole tiles does {t2['dense_flops']:.4e})")
+    e3, t3s = compare_k3(gen, args.reps, detail)
+    t4 = compare_k4(gen, args.reps, detail)
+    t3 = t3s[0]
+    for t in t3s:
+        log(f"[check] K3 {t['dtype']} {t['shape']}: max abs err "
+            f"{t['max_abs_err']:.3e} (every element within 2 W u sum|x|"
+            f"{' + 1 bf16 ulp' if t['dtype'] == 'bfloat16' else ''}); "
+            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, "
+            f"g.sum(1) {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} "
+            f"({t['bound_by']})")
+    log(f"[check] K4 {t4['shape']}: bitwise equal to x[0:1]; kernel "
+        f"{t4['ms'] * 1e3:.2f} us (launch-bound), plain "
+        f"{t4['plain_ms'] * 1e3:.2f} us, copy_ {t4['library_ms'] * 1e3:.2f} "
+        f"us, bound {t4['bound_ms'] * 1e3:.4f} us (bytes)")
 
     # 3. small-input agreement, card vs CPU
     small_agreement(cfg)
@@ -360,24 +572,44 @@ def main(argv=None) -> int:
         raise AssertionError(f"accuracy {val:.3f} / {test:.3f} is not above "
                              f"twice chance ({2 * chance:.3f})")
 
-    # 5. report
-    out = {"card": smi, "scale": args.scale, "epochs": args.epochs,
-           "losses": res.losses, "epoch_times_s": res.epoch_times,
-           "epoch_time_s": res.epoch_time, "launches": {"K1": k1, "K2": k2},
-           "dense_edges": res.dense_edges, "n_edges": res.n_edges,
-           "val_acc": val, "test_acc": test, "k1_time": t1, "k2_time": t2,
+    log(f"[main] P=1 epoch {res.epoch_time * 1e3:.1f} ms (mean after "
+        f"warm-up), val {val:.3f}, test {test:.3f}")
+    p1 = {"scale": args.scale, "epochs": args.epochs, "losses": res.losses,
+          "epoch_times_s": res.epoch_times, "epoch_time_s": res.epoch_time,
+          "launches": {"K1": k1, "K2": k2}, "dense_edges": res.dense_edges,
+          "n_edges": res.n_edges, "val_acc": val, "test_acc": test}
+    del pr, res
+    torch.cuda.empty_cache()
+
+    # 5. the P-rank path
+    t0 = time.perf_counter()
+    parts, res4 = parts_runs(cfg, args, os.path.join(os.getcwd(),
+                                                     "partition"))
+    log(f"[parts] done in {time.perf_counter() - t0:.1f} s")
+    launches = {name: sum(c.values()) + sum(
+        sum(rep["launches"][name].values()) for rep in res4.ranks)
+        for name, c in (("K1", k1), ("K2", k2))}
+    # the largest error of each kernel's checks, P=1's and every rank's
+    err1 = max([e1[0]] + [rep["hook"]["K1"][0] for rep in res4.ranks])
+    err2 = max([e2[0]] + [rep["hook"]["K2"][0] for rep in res4.ranks])
+
+    # 6. report
+    out = {"card": smi, "p1": p1, "parts": parts, "k1_time": t1,
+           "k2_time": t2, "k3_times": t3s, "k4_time": t4,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
     kernels = []
-    for name, err, t, c in (("ell_bucket_sum", e1, t1, k1),
-                            ("tile_matmul", e2, t2, k2)):
+    for name, err, t, n in (("ell_bucket_sum", err1, t1, launches["K1"]),
+                            ("tile_matmul", err2, t2, launches["K2"]),
+                            ("bucket_reduce", e3, t3, 0),
+                            ("copy_probe", 0.0, t4, 0)):
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": sum(c.values()),
-            "max_abs_err": err[0], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "replaces": REPLACES[name], "launches": n,
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     print(smi)

@@ -13,15 +13,24 @@ import numpy as np
 import pytest
 import torch
 
-from bnsgcn_tpu_torch.data.artifacts import build_artifacts
-from bnsgcn_tpu_torch.data.graph import sbm_graph
+from bnsgcn_tpu_torch.data.artifacts import (build_artifacts, load_artifacts,
+                                             save_artifacts)
+from bnsgcn_tpu_torch.data.graph import sbm_graph, synthetic_graph
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.ops import block_spmm
+from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
+                                                bucket_reduce_plain,
+                                                launches as k3_launches)
 from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum, bucket_sum_plain,
                                              launches as k1_launches)
+from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
+                                             launches as k4_launches)
 from bnsgcn_tpu_torch.ops.tile_matmul import (launches as k2_launches,
                                               row_offsets, tile_matmul,
                                               tile_matmul_plain)
+from bnsgcn_tpu_torch.parallel.halo import (halo_apply, make_halo_plan,
+                                            make_halo_spec)
+from bnsgcn_tpu_torch.parallel.mesh import launch
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -98,3 +107,69 @@ def test_tile_matmul_rejects_what_the_kernel_does_not_take(cuda):
         tile_matmul(tiles[:, :, :32].contiguous(), ids, ids, off, x, 1)
     with pytest.raises(ValueError):
         bucket_sum(x[0].double(), ids[None])        # f64 rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 16, 602), (40, 8, 256), (30, 3, 7)])
+def test_bucket_reduce_kernel_matches_plain(cuda, shape, dtype):
+    """All vector widths (16/8/4-byte and scalar rows). The kernel sums in
+    f32 in the plain version's order and rounds once, so the results are
+    bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[2])
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    before = k3_launches.total
+    out = bucket_reduce(x)
+    torch.cuda.synchronize()
+    assert k3_launches.total == before + 1
+    assert out.dtype == dtype
+    assert torch.equal(out, bucket_reduce_plain(x))
+
+
+@pytest.mark.cuda
+def test_copy_probe_kernel_is_bitwise(cuda):
+    x = torch.randn(PROBE_SHAPE, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    before = k4_launches.total
+    out = copy_probe(x)
+    torch.cuda.synchronize()
+    assert k4_launches.total == before + 1
+    assert torch.equal(out, x[0:1])
+    with pytest.raises(ValueError):
+        copy_probe(torch.zeros(2, 3, device=cuda))        # x[0] is 12 bytes
+    with pytest.raises(ValueError):
+        copy_probe(torch.zeros(2, 8192, device=cuda))     # over the buffer
+
+
+def _halo_job(ctx, path, h, cot):
+    art = load_artifacts(path, parts=[ctx.rank])
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  1.0)
+    plan = make_halo_plan(spec, tables,
+                          torch.from_numpy(art.bnd[0]).to(ctx.device),
+                          ctx.rank)
+    x = torch.from_numpy(h[ctx.rank]).to(ctx.device).requires_grad_(True)
+    y = halo_apply(spec, plan, x, ctx.comm)
+    (y * torch.from_numpy(cot[ctx.rank]).to(ctx.device)).sum().backward()
+    return y.detach().cpu().numpy(), x.grad.cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_halo_exchange_over_gloo_on_one_card(cuda, tmp_path):
+    """Two ranks sharing the card over gloo, which takes the CUDA tensors
+    itself, exchange what two CPU ranks exchange: the forward is copies
+    (bitwise), the backward sums a few terms (1e-6)."""
+    g = synthetic_graph(n_nodes=90, avg_degree=6, n_feat=6, n_class=4,
+                        seed=31)
+    art = build_artifacts(g, partition_graph(g, 2, method="random", seed=3))
+    save_artifacts(art, str(tmp_path))
+    rng = np.random.default_rng(0)
+    h = rng.normal(size=(2, art.pad_inner, 5)).astype(np.float32)
+    cot = rng.normal(size=(2, art.n_ext, 5)).astype(np.float32)
+    args = [(str(tmp_path), h, cot)] * 2
+    on_card = launch(_halo_job, 2, args, "gloo", "cuda")
+    on_cpu = launch(_halo_job, 2, args, "gloo", "cpu")
+    for (y, dx), (y_ref, dx_ref) in zip(on_card, on_cpu):
+        np.testing.assert_array_equal(y, y_ref)
+        np.testing.assert_allclose(dx, dx_ref, rtol=1e-6, atol=1e-6)
+    assert np.abs(on_cpu[0][0][art.pad_inner:]).sum() > 0

@@ -71,10 +71,13 @@ def _graphs():
     return t_graph.sbm_graph(**kw), j_graph.sbm_graph(**kw)
 
 
-def test_artifacts_p1_array_equal():
+@pytest.mark.parametrize("n_parts", [1, 4])
+def test_artifacts_p1_array_equal(n_parts):
+    """P=1 artifacts, and the P=4 ones of a random partition."""
     tg, jg = _graphs()
-    tpid = t_part.partition_graph(tg, 1)
-    np.testing.assert_array_equal(tpid, j_part.partition_graph(jg, 1))
+    tpid = t_part.partition_graph(tg, n_parts, method="random", seed=5)
+    np.testing.assert_array_equal(
+        tpid, j_part.partition_graph(jg, n_parts, method="random", seed=5))
     ta, ja = t_art.build_artifacts(tg, tpid), j_art.build_artifacts(jg, tpid)
     for f in dataclasses.fields(ta):
         x, y = getattr(ta, f.name), getattr(ja, f.name)

@@ -48,6 +48,9 @@ def test_no_jax_import_in_port_sources():
                     for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     assert len(_port_modules()) > 10
+    assert {"bnsgcn_tpu_torch.parallel.halo", "bnsgcn_tpu_torch.parallel.mesh",
+            "bnsgcn_tpu_torch.parallel.reducer",
+            "bnsgcn_tpu_torch.parallel.sampling"} <= set(_port_modules())
 
 
 def test_importing_the_port_loads_no_jax():

@@ -21,12 +21,18 @@ from bnsgcn_tpu_torch.data.graph import sbm_graph, synthetic_graph
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.ops import block_spmm as t_blk
 from bnsgcn_tpu_torch.ops import ell as t_ell
+from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
+                                                bucket_reduce_plain,
+                                                launches as k3_launches)
 from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum, bucket_sum_plain,
                                              launches as k1_launches)
+from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
+                                             copy_probe_plain,
+                                             launches as k4_launches)
 from bnsgcn_tpu_torch.ops.tile_matmul import (launches as k2_launches,
                                               row_offsets, tile_matmul,
                                               tile_matmul_plain)
-from tools.pallas_spmm import pallas_bucket_sum
+from tools.pallas_spmm import pallas_bucket_reduce, pallas_bucket_sum
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # f32, summation order differs
 
@@ -220,3 +226,65 @@ def test_hybrid_spmm_matches_jax(tile, occ):
         h, cot)
     np.testing.assert_allclose(got, ref, **TOL)
     np.testing.assert_allclose(d_got, d_ref, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# (e) K3: the width-axis bucket reduce; K4: the manual-copy probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(24, 8, 602), (16, 5, 7)])
+def test_bucket_reduce_plain_matches_pallas(shape, dtype):
+    """Plain K3 == pallas_bucket_reduce in interpret mode (as
+    tests/test_pallas_spmm.py runs it), f32 and bf16 inputs made from the
+    same f32 numbers. f32: TOL. bf16: both sum in f32 and round once, but
+    XLA may sum in another order, so a sum on a rounding boundary may land
+    one bf16 ulp away: rtol 2^-7, atol 1e-5."""
+    rng = np.random.default_rng(shape[1])
+    x = rng.normal(size=shape).astype(np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    pal = pallas_bucket_reduce(jnp.asarray(x, jdt), interpret=True)
+    ours = bucket_reduce_plain(_t(x).to(tdt))
+    assert ours.dtype == tdt and ours.shape == (shape[0], shape[2])
+    tol = TOL if dtype == "float32" else dict(rtol=2.0 ** -7, atol=1e-5)
+    np.testing.assert_allclose(ours.float().numpy(),
+                               np.asarray(pal, np.float32), **tol)
+
+
+def test_bucket_reduce_wrapper_takes_plain_on_cpu():
+    x = torch.randn(8, 3, 10, generator=torch.Generator().manual_seed(1))
+    before = k3_launches.total
+    assert torch.equal(bucket_reduce(x), bucket_reduce_plain(x))
+    torch.testing.assert_close(bucket_reduce(x), x.sum(1), **TOL)
+    assert k3_launches.total == before
+
+
+def test_copy_probe_plain_matches_pallas_probe():
+    """Plain K4 == the probe's manual-DMA kernel (tools/hw_session.py
+    `dma_kernel`, whose body is copied here because it lives in a script
+    string) run in Pallas interpret mode. The probe names its memory spaces
+    pltpu.TPUMemorySpace.ANY / .VMEM, which the installed jax calls pl.ANY
+    and pltpu.VMEM. Bitwise: both are copies."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    def dma_kernel(x_ref, o_ref, scratch, sem):
+        c = pltpu.make_async_copy(x_ref.at[0], scratch.at[0], sem)
+        c.start(); c.wait()
+        o_ref[...] = scratch[...]
+
+    x = np.random.default_rng(4).normal(size=PROBE_SHAPE).astype(np.float32)
+    y = pl.pallas_call(
+        dma_kernel,
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((1,) + PROBE_SHAPE[1:], jnp.float32),
+        scratch_shapes=[pltpu.VMEM((1,) + PROBE_SHAPE[1:], jnp.float32),
+                        pltpu.SemaphoreType.DMA],
+        interpret=True)(jnp.asarray(x))
+    before = k4_launches.total
+    ours = copy_probe(_t(x))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(y))
+    np.testing.assert_array_equal(copy_probe_plain(_t(x)).numpy(), x[0:1])
+    assert k4_launches.total == before

@@ -174,10 +174,13 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--n-partitions", "4"], ["--sampling-rate", "0.1"], ["--model", "gat"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
+     "shift"], ["--sampling-rate", "0.1"], ["--model", "gat"],
     ["--dtype", "bfloat16"], ["--spmm-dense", "int8"],
     ["--spmm-gather", "fp8"], ["--spmm-gather", "int8"], ["--norm", "batch"],
-    ["--spmm", "auto"],
+    ["--spmm", "auto"], ["--halo-exchange", "ragged"], ["--halo-wire", "bf16"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--sampling-rate",
+     "0.5"],
 ])
 def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
