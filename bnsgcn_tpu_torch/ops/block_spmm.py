@@ -16,7 +16,8 @@ cheaper per edge than row gathers:
   on the device, per pass:
     * x_slabs = h in cluster order as [n_cb, TC, H] slabs (plain indexing);
     * kernel K2 (ops/tile_matmul.py) sums tiles @ slabs into each output
-      row-block; one permutation gather back to row order;
+      row-block, from the tiles' nonzero entries (packed once per layout,
+      `pack_tiles`); one permutation gather back to row order;
     * plus the ELL residual through kernel K1 (ops/ell.py).
 
 The backward runs the same two kernels on the transposed layouts, through a
@@ -26,6 +27,7 @@ torch.autograd.Function that saves only the layout.
 from __future__ import annotations
 
 import sys
+import time
 from dataclasses import dataclass
 from functools import partial
 
@@ -34,7 +36,8 @@ import torch
 
 from bnsgcn_tpu_torch.ops.ell import (ELL_SPLIT_CAP, EllSpmm, GeoAccum,
                                      build_layouts, run_parallel)
-from bnsgcn_tpu_torch.ops.tile_matmul import row_offsets, tile_matmul
+from bnsgcn_tpu_torch.ops.tile_matmul import (pack_tiles, row_offsets,
+                                              tile_matmul)
 
 TR = 512          # default dst rows per dense tile (square: transposes keep
 TC = 512          # shape); --block-tile selects another edge
@@ -342,14 +345,14 @@ def build_x_slabs(spec: BlockSpec, perm_src, h):
     return x.view(n_cb, spec.col_tile, h.shape[1])
 
 
-def dense_apply(spec: BlockSpec, tiles, rowb, colb, off, perm_src, perm_out,
-                h, phase: str = "fwd"):
+def dense_apply(spec: BlockSpec, tiles, rowb, colb, off, ent, ent_off,
+                perm_src, perm_out, h, phase: str = "fwd"):
     """Dense-tile aggregation through K2; [n_rows, H] in original row order
     (bnsgcn_tpu/ops/pallas_block.py `dense_apply_pallas`). `off` is
-    row_offsets(rowb)."""
+    row_offsets(rowb), (ent, ent_off) pack_tiles(tiles)."""
     x_slabs = build_x_slabs(spec, perm_src, h.contiguous())
-    out = tile_matmul(tiles, rowb, colb, off, x_slabs, spec.n_row_blocks,
-                      phase=phase)
+    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x_slabs,
+                      spec.n_row_blocks, phase=phase)
     flat = out.view(spec.n_row_blocks * spec.row_tile, h.shape[1])
     return flat[perm_out.long()]
 
@@ -359,16 +362,23 @@ class BlockSpmm:
     the ELL residual through K1; the backward runs K2 on the transposed
     tiles and the residual with the fwd/bwd roles swapped. `arrays` holds one
     part's layout as device tensors (build_block_layouts' keys, without the
-    part axis); `self.arrays` adds K2's CSR offsets over each direction's
-    rowb (`blk_off_fwd`, `blk_off_bwd`). Counterpart of
+    part axis); `self.arrays` adds what K2 walks, for each direction d: the
+    CSR offsets over rowb (`blk_off_d`) and the tiles' packed nonzero
+    entries (`blk_ent_d`, `blk_entoff_d`), built here as layout set-up in
+    `pack_seconds`. Counterpart of
     bnsgcn_tpu/ops/block_spmm.py `make_block_spmm` with use_pallas."""
 
     def __init__(self, fwd: BlockSpec, bwd: BlockSpec, ell_pair, arrays: dict):
         self.fwd, self.bwd = fwd, bwd
-        self.arrays = dict(
-            arrays,
-            blk_off_fwd=row_offsets(arrays["blk_rowb_fwd"], fwd.n_row_blocks),
-            blk_off_bwd=row_offsets(arrays["blk_rowb_bwd"], bwd.n_row_blocks))
+        self.arrays = dict(arrays)
+        t0 = time.perf_counter()
+        for d, spec in (("fwd", fwd), ("bwd", bwd)):
+            self.arrays[f"blk_off_{d}"] = row_offsets(arrays[f"blk_rowb_{d}"],
+                                                      spec.n_row_blocks)
+            (self.arrays[f"blk_ent_{d}"],
+             self.arrays[f"blk_entoff_{d}"]) = pack_tiles(
+                arrays[f"blk_tiles_{d}"])
+        self.pack_seconds = time.perf_counter() - t0   # ends in a host read
         self.residual = EllSpmm(
             ell_pair[0], ell_pair[1],
             {k[len("res_"):]: v for k, v in arrays.items()
@@ -377,15 +387,15 @@ class BlockSpmm:
     def apply_dir(self, direction: str, h, phase: str):
         a = self.arrays
         if direction == "fwd":
-            dense = dense_apply(self.fwd, a["blk_tiles_fwd"],
-                                a["blk_rowb_fwd"], a["blk_colb_fwd"],
-                                a["blk_off_fwd"], a["blk_perm_ext"],
-                                a["blk_perm_inner"], h, phase=phase)
+            src, out = a["blk_perm_ext"], a["blk_perm_inner"]
         else:
-            dense = dense_apply(self.bwd, a["blk_tiles_bwd"],
-                                a["blk_rowb_bwd"], a["blk_colb_bwd"],
-                                a["blk_off_bwd"], a["blk_perm_inner"],
-                                a["blk_perm_ext"], h, phase=phase)
+            src, out = a["blk_perm_inner"], a["blk_perm_ext"]
+        dense = dense_apply(
+            self.fwd if direction == "fwd" else self.bwd,
+            a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
+            a[f"blk_colb_{direction}"], a[f"blk_off_{direction}"],
+            a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"], src, out,
+            h, phase=phase)
         return dense + self.residual.apply_dir(direction, h, phase)
 
     def __call__(self, h, phase: str = "fwd"):

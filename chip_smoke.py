@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      shapes it ran on the TPU, f32 [3592, 32, 602] and [64, 16, 602], and in
      bf16; K4 (the manual-copy probe, on no path) bitwise at the probe's
      [4, 8, 128]; and time kernel, plain version and a one-call PyTorch
-     yardstick with CUDA events;
+     yardstick with CUDA events (K2 against torch.sparse.mm of its entries
+     and torch.bmm of its tiles; K1 also against a gather-aware bound from
+     a probe of the L2's rate); print K2's tiles per row-block and the time
+     its entries took to pack;
   3. a small-input agreement check: the same short training run on the card
      and on the CPU (plain versions) must give the same losses;
   4. drive the main path through the entry point a user calls
@@ -78,6 +81,10 @@ SOURCES = {
 # and once in bf16
 K3_CASES = (((3592, 32, 602), "float32"), ((64, 16, 602), "float32"),
             ((3592, 32, 602), "bfloat16"))
+# the L2 probe: a table of this many rows (16 MiB at H=256, in the 50 MB
+# L2) and a gather of [rows, width] random indices into it
+L2_PROBE_ROWS = 16384
+L2_PROBE_GATHER = (65536, 32)
 PARTS = 4
 LAW_EPOCHS = 3
 LAW_RTOL = 1e-4
@@ -165,6 +172,7 @@ def compare_k1(fns, widths, gen, reps, detail):
                 timing = {
                     "H": hdim, "buckets": len(live), "rows": rows,
                     "nnz": nnz, "h_rows_used": n_used, "bytes": nbytes,
+                    "gathered_bytes": nnz * hdim * 4,
                     "ms": cuda_ms(lambda: [bucket_sum(h, i, phase="check")
                                            for i in live], reps),
                     "plain_ms": cuda_ms(lambda: [bucket_sum_plain(h, i)
@@ -199,10 +207,15 @@ def compare_k2(fns, widths, gen, reps, detail):
     in f32 (fused or rounded once each) and differ by at most 2 n u sum|a x|
     (n from the tiles, sum|a x| the plain version on |x|; tiles are >= 0).
     Control: the same check must reject the plain version run on x rounded
-    to TF32. With reps > 0, times one forward dense pass at widths[0]; its
-    bound counts the
-    operations the output needs, 2 nnz H (the dense tiles' edges), not the
-    2 B TR TC H a dense product of the whole tiles would do."""
+    to TF32. With reps > 0, times one forward dense pass at widths[0] beside
+    two one-call yardsticks: torch.sparse.mm (cuSPARSE) of the tiles'
+    entries as one CSR matrix in cluster order, which computes the same
+    function (held to the same bound), and torch.bmm of the dense tiles,
+    which skips the segment sum. Its bound counts what the output needs
+    whatever computes it: the packed entries, offsets, slabs and output over
+    3.35 TB/s against 2 entries H FLOPs over 67 TFLOP/s; the dense-stack
+    bound of the earlier kernels (the int8 tiles in place of the entries,
+    2 nnz H FLOPs) stands beside it."""
     import torch
     from bnsgcn_tpu_torch.ops.block_spmm import build_x_slabs
     from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
@@ -216,15 +229,18 @@ def compare_k2(fns, widths, gen, reps, detail):
         tiles = a[f"blk_tiles_{direction}"]
         rowb, colb = a[f"blk_rowb_{direction}"], a[f"blk_colb_{direction}"]
         off = a[f"blk_off_{direction}"]
+        ent, ent_off = a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"]
         perm_src = a["blk_perm_ext" if direction == "fwd" else "blk_perm_inner"]
         # nonzero terms of each output row: [n_row_blocks, TR, 1]
         n_row = torch.zeros((nrb + 1, spec.row_tile), dtype=torch.int64,
                             device=tiles.device).index_add_(
             0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
+        per_rb = (off[1:] - off[:-1]).long()
         for hdim in widths:
             h = torch.randn((spec.n_src, hdim), generator=gen, device="cuda")
             x = build_x_slabs(spec, perm_src, h)
-            got = tile_matmul(tiles, rowb, colb, off, x, nrb, phase="check")
+            got = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x, nrb,
+                              phase="check")
             ref = tile_matmul_plain(tiles, rowb, colb, x, nrb)
             bound = 2 * n_row.clamp(min=1) * U32 * tile_matmul_plain(
                 tiles, rowb, colb, x.abs(), nrb)
@@ -232,7 +248,11 @@ def compare_k2(fns, widths, gen, reps, detail):
             max_err, max_rel = max(max_err, e), max(max_rel, rel)
             detail.append({"kernel": "tile_matmul", "dir": direction,
                            "tiles": int(tiles.shape[0]), "H": hdim,
+                           "entries": int(ent.numel()),
                            "max_row_terms": int(n_row.max()),
+                           "tiles_per_row_block_max": int(per_rb.max()),
+                           "tiles_per_row_block_mean":
+                               float(per_rb.float().mean()),
                            "max_abs_err": e, "max_rel_err": rel})
             if hdim == widths[0]:
                 try:
@@ -245,36 +265,116 @@ def compare_k2(fns, widths, gen, reps, detail):
                         f"K2 {direction}: the tolerance admits x rounded to "
                         f"TF32; it cannot tell f32 from TF32")
             if direction == "fwd" and hdim == widths[0] and reps:
-                live = rowb < nrb
-                b_real = int(live.sum())
-                nnz = int(tiles[live].sum(dtype=torch.int64))
-                tr, tc = spec.row_tile, spec.col_tile
-                nbytes = (b_real * tr * tc + b_real * 8 + x.numel() * 4
-                          + nrb * tr * hdim * 4)
-                flops = 2 * nnz * hdim
-                lib_ms = None
-                if b_real and b_real * (tr * tc + tc * hdim + tr * hdim) * 4 \
-                        < 24 << 30:
-                    tf = tiles[live].float()
-                    xg = x[colb[live].long()]
-                    lib_ms = cuda_ms(lambda: torch.bmm(tf, xg), reps)
-                    del tf, xg
-                timing = {
-                    "H": hdim, "tiles": b_real, "nnz": nnz, "bytes": nbytes,
-                    "flops": flops,
-                    "dense_flops": 2 * b_real * tr * tc * hdim,
-                    "ms": cuda_ms(lambda: tile_matmul(
-                        tiles, rowb, colb, off, x, nrb, phase="check"), reps),
-                    "plain_ms": cuda_ms(lambda: tile_matmul_plain(
-                        tiles, rowb, colb, x, nrb), reps),
-                    "library_ms": lib_ms,
-                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                    flops / F32_FLOPS_PER_S) * 1e3,
-                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= flops / F32_FLOPS_PER_S
-                                 else "operations"),
-                }
+                timing = time_k2(spec, tiles, rowb, colb, off, ent, ent_off,
+                                 x, ref, bound, per_rb, reps)
     return (max_err, max_rel), timing
+
+
+def entries_csr(spec, rowb, colb, ent, ent_off):
+    """The tiles' entries as one f32 CSR matrix [n_row_blocks TR, n_cb TC]
+    in cluster order: what torch.sparse.mm needs to compute K2's function."""
+    import torch
+    b, tr1 = ent_off.shape
+    tr, tc = tr1 - 1, spec.col_tile
+    counts = (ent_off[:, 1:] - ent_off[:, :-1]).reshape(-1).long()
+    tile_row = torch.repeat_interleave(
+        torch.arange(b * tr, device=ent.device), counts)
+    tile = tile_row // tr
+    rows = rowb.long()[tile] * tr + tile_row % tr
+    cols = colb.long()[tile] * tc + (ent >> 8).long()
+    vals = (ent & 0xFF).to(torch.uint8).view(torch.int8).float()
+    n_cb = (spec.n_src + tc - 1) // tc
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                  (spec.n_row_blocks * tr, n_cb * tc),
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_k2(spec, tiles, rowb, colb, off, ent, ent_off, x, ref, bound,
+            per_rb, reps):
+    """One forward dense pass: K2, its plain version, torch.sparse.mm and
+    torch.bmm, with the entries bound and the dense-stack bound."""
+    import torch
+    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+                                                  tile_matmul_plain)
+    nrb = spec.n_row_blocks
+    tr, tc = spec.row_tile, spec.col_tile
+    hdim = x.shape[-1]
+    live = rowb < nrb
+    b_real = int(live.sum())
+    nnz = int(tiles[live].sum(dtype=torch.int64))
+    entries = int(ent.numel())
+    out_bytes = nrb * tr * hdim * 4
+    nbytes = (entries * 4 + b_real * (tr + 1) * 4 + (nrb + 1) * 4
+              + b_real * 4 + x.numel() * 4 + out_bytes)
+    flops = 2 * entries * hdim
+    dense_bytes = (b_real * tr * tc + b_real * 8 + x.numel() * 4
+                   + out_bytes)
+    dense_flops = 2 * nnz * hdim
+    csr = entries_csr(spec, rowb, colb, ent, ent_off)
+    xf = x.view(-1, hdim)
+    check("K2 yardstick torch.sparse.mm",
+          torch.sparse.mm(csr, xf).view(nrb, tr, hdim), ref, bound)
+    sparse_ms = cuda_ms(lambda: torch.sparse.mm(csr, xf), reps)
+    del csr
+    bmm_ms = None
+    if b_real and b_real * (tr * tc + tc * hdim + tr * hdim) * 4 < 24 << 30:
+        tf = tiles[live].float()
+        xg = x[colb[live].long()]
+        bmm_ms = cuda_ms(lambda: torch.bmm(tf, xg), reps)
+        del tf, xg
+    torch.cuda.empty_cache()
+    return {
+        "H": hdim, "tiles": b_real, "nnz": nnz, "entries": entries,
+        "bytes": nbytes, "flops": flops,
+        "tiles_per_row_block_max": int(per_rb.max()),
+        "tiles_per_row_block_mean": float(per_rb.float().mean()),
+        "ms": cuda_ms(lambda: tile_matmul(
+            tiles, rowb, colb, off, ent, ent_off, x, nrb, phase="check"),
+            reps),
+        "plain_ms": cuda_ms(lambda: tile_matmul_plain(
+            tiles, rowb, colb, x, nrb), reps),
+        "library_ms": sparse_ms, "bmm_ms": bmm_ms,
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / F32_FLOPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / F32_FLOPS_PER_S else "operations"),
+        "dense_bound_ms": max(dense_bytes / HBM_BYTES_PER_S,
+                              dense_flops / F32_FLOPS_PER_S) * 1e3,
+        "dense_flops": 2 * b_real * tr * tc * hdim,
+    }
+
+
+def l2_probe(gen, hdim, reps):
+    """How fast the card serves rows that sit in its 50 MB L2, which the
+    data sheet does not state: a probe, not a published rate. A table of
+    L2_PROBE_ROWS x hdim f32 (16 MiB at 256) stays in L2 after a warm-up
+    and is read three ways, each rate bytes read over time: a plain sum over
+    32 stacked views of it (512 MiB read per call, so no launch-bound
+    time), embedding_bag(mode="sum") gathering L2_PROBE_GATHER random rows
+    and summing each row of indices (its output, 1/32 of the bytes read, is
+    written besides), and K1 on the same gather. The L2 rate is the fastest
+    of the three: the least the L2 is known to deliver."""
+    import torch
+    import torch.nn.functional as F
+    from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum
+    table = torch.randn((L2_PROBE_ROWS, hdim), generator=gen, device="cuda")
+    idx = torch.randint(0, L2_PROBE_ROWS, L2_PROBE_GATHER, generator=gen,
+                        device="cuda")
+    idx32 = idx.to(torch.int32)
+    gathered = idx.numel() * hdim * 4
+    stacked = table.expand(32, *table.shape)
+    stream_ms = cuda_ms(lambda: stacked.sum(), reps)
+    bag_ms = cuda_ms(lambda: F.embedding_bag(idx, table, mode="sum"), reps)
+    k1_ms = cuda_ms(lambda: bucket_sum(table, idx32, phase="check"), reps)
+    out = {"table_bytes": table.numel() * 4, "gathered_bytes": gathered,
+           "stream_bytes_per_s": stacked.numel() * 4 / (stream_ms * 1e-3),
+           "gather_bytes_per_s": gathered / (bag_ms * 1e-3),
+           "k1_bytes_per_s": gathered / (k1_ms * 1e-3)}
+    out["l2_bytes_per_s"] = max(out["stream_bytes_per_s"],
+                                out["gather_bytes_per_s"],
+                                out["k1_bytes_per_s"])
+    return out
 
 
 def compare_k3(gen, reps, detail):
@@ -523,14 +623,32 @@ def main(argv=None) -> int:
         f"{e1[1]:.3e}), K2 {e2[0]:.3e} ({e2[1]:.3e}); every element within "
         f"2 n u sum|x| (n: the row's terms, u = 2^-24) at H={widths}; "
         f"K2's check rejects TF32-rounded inputs")
+    l2 = l2_probe(gen, widths[0], args.reps)
+    t1["l2_probe"] = l2
+    t1["gather_bound_ms"] = max(
+        t1["bound_ms"], t1["gathered_bytes"] / l2["l2_bytes_per_s"] * 1e3)
+    log(f"[probe] L2-resident rows ({l2['table_bytes'] / 2 ** 20:.0f} MiB "
+        f"table): stacked sum {l2['stream_bytes_per_s'] / 1e12:.3f} TB/s, "
+        f"embedding_bag gather {l2['gather_bytes_per_s'] / 1e12:.3f} TB/s, "
+        f"K1 on the same gather {l2['k1_bytes_per_s'] / 1e12:.3f} TB/s; "
+        f"L2 rate (probe) {l2['l2_bytes_per_s'] / 1e12:.3f} TB/s")
     log(f"[time] K1 fwd residual pass H={t1['H']}: kernel {t1['ms']:.3f} ms, "
         f"plain {t1['plain_ms']:.3f}, hp[idx].sum(1) {t1['library_ms']:.3f}, "
-        f"bound {t1['bound_ms']:.3f} ({t1['bound_by']})")
+        f"bound {t1['bound_ms']:.3f} ({t1['bound_by']}); gather-aware bound "
+        f"{t1['gather_bound_ms']:.3f} ({t1['nnz']} rows gathered, "
+        f"{t1['gathered_bytes'] / 1e9:.2f} GB over the probed L2 rate)")
     log(f"[time] K2 fwd dense pass H={t2['H']}: kernel {t2['ms']:.3f} ms, "
-        f"plain {t2['plain_ms']:.3f}, bmm {t2['library_ms']}, "
-        f"bound {t2['bound_ms']:.3f} ({t2['bound_by']}; {t2['nnz']} edges in "
-        f"{t2['tiles']} tiles, {t2['flops']:.4e} needed FLOPs; a dense "
-        f"product of the whole tiles does {t2['dense_flops']:.4e})")
+        f"plain {t2['plain_ms']:.3f}, torch.sparse.mm "
+        f"{t2['library_ms']:.3f}, bmm {t2['bmm_ms']}, bound "
+        f"{t2['bound_ms']:.3f} ({t2['bound_by']}; {t2['entries']} entries "
+        f"carrying {t2['nnz']} edges in {t2['tiles']} tiles, "
+        f"{t2['flops']:.4e} needed FLOPs); dense-stack bound "
+        f"{t2['dense_bound_ms']:.3f} (a dense product of the whole tiles "
+        f"does {t2['dense_flops']:.4e})")
+    log(f"[layout] K2 tiles per row-block: max "
+        f"{t2['tiles_per_row_block_max']}, mean "
+        f"{t2['tiles_per_row_block_mean']:.2f}; packing the entries of both "
+        f"stacks took {pr.fns.spmm.pack_seconds:.2f} s")
     e3, t3s = compare_k3(gen, args.reps, detail)
     t4 = compare_k4(gen, args.reps, detail)
     t3 = t3s[0]

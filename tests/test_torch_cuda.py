@@ -6,7 +6,9 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerance: rtol 1e-5, atol 1e-4 -- f32 sums of up to a few hundred terms
-of unit scale, taken in another order by the kernel and by PyTorch.
+of unit scale, taken in another order by the kernel and by PyTorch; K2 on
+the skewed layout, whose rows sum hundreds of terms up to 127 |x|, is held
+to the per-element bound of chip_smoke.py instead.
 """
 
 import numpy as np
@@ -25,9 +27,10 @@ from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum, bucket_sum_plain,
                                              launches as k1_launches)
 from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
                                              launches as k4_launches)
-from bnsgcn_tpu_torch.ops.tile_matmul import (launches as k2_launches,
-                                              row_offsets, tile_matmul,
-                                              tile_matmul_plain)
+from bnsgcn_tpu_torch.ops.tile_matmul import (MAX_TC,
+                                              launches as k2_launches,
+                                              pack_tiles, row_offsets,
+                                              tile_matmul, tile_matmul_plain)
 from bnsgcn_tpu_torch.parallel.halo import (halo_apply, make_halo_plan,
                                             make_halo_spec)
 from bnsgcn_tpu_torch.parallel.mesh import launch
@@ -72,10 +75,41 @@ def test_bucket_sum_kernel_matches_plain(cuda, h_dim):
     assert bool((out[0] == 0).all())
 
 
+def _k2_matches_plain(tiles, rowb, colb, x, n_row_blocks,
+                      per_element=False):
+    """K2 on the packed entries against the plain version on the dense
+    tiles; row-blocks that no tile visits must come out zero. per_element:
+    hold each element to 2 n u sum|a x| (n the row's nonzero terms, u =
+    2^-24: two f32 sums of the same n products in different orders) instead
+    of TOL, for rows of hundreds of terms up to 127 x |x|."""
+    off = row_offsets(rowb, n_row_blocks)
+    ent, ent_off = pack_tiles(tiles)
+    before = k2_launches.total
+    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x, n_row_blocks)
+    torch.cuda.synchronize()
+    assert k2_launches.total == before + 1
+    ref = tile_matmul_plain(tiles, rowb, colb, x, n_row_blocks)
+    if per_element:
+        n_row = torch.zeros((n_row_blocks + 1, tiles.shape[1]),
+                            dtype=torch.int64, device=x.device).index_add_(
+            0, rowb.long(), (tiles != 0).sum(-1))[:n_row_blocks, :, None]
+        bound = 2 * n_row.clamp(min=1) * 2.0 ** -24 * tile_matmul_plain(
+            tiles.abs(), rowb, colb, x.abs(), n_row_blocks)
+        assert bool(torch.isfinite(out).all())
+        assert bool(((out - ref).abs() <= bound).all())
+    else:
+        torch.testing.assert_close(out, ref, **TOL)
+    unvisited = off[1:] == off[:-1]
+    assert bool((out[unvisited] == 0).all())
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h_dim", [256, 602])
+@pytest.mark.parametrize("h_dim", [256, 602, 1, 33])
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_tile_matmul_kernel_matches_plain(cuda, h_dim, direction):
+    """float4, float2 (602) and scalar (1, 33) slab copies; 33 leaves a
+    ragged last column chunk."""
     art, (fwd, bwd, _, arrays) = _layout(64)
     spec = fwd if direction == "fwd" else bwd
     a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
@@ -84,27 +118,57 @@ def test_tile_matmul_kernel_matches_plain(cuda, h_dim, direction):
     gen = torch.Generator(device=cuda).manual_seed(h_dim)
     h = torch.randn(spec.n_src, h_dim, generator=gen, device=cuda)
     x = block_spmm.build_x_slabs(spec, perm, h)
-    rowb = a[f"blk_rowb_{direction}"]
-    tiles, colb = a[f"blk_tiles_{direction}"], a[f"blk_colb_{direction}"]
-    before = k2_launches.total
-    out = tile_matmul(tiles, rowb, colb, row_offsets(rowb, spec.n_row_blocks),
-                      x, spec.n_row_blocks)
-    torch.cuda.synchronize()
-    assert k2_launches.total == before + 1
-    torch.testing.assert_close(
-        out, tile_matmul_plain(tiles, rowb, colb, x, spec.n_row_blocks), **TOL)
+    _k2_matches_plain(a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
+                      a[f"blk_colb_{direction}"], x, spec.n_row_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tr,tc,h_dim", [(512, 512, 256), (600, 96, 33),
+                                         (48, MAX_TC, 602)])
+def test_tile_matmul_kernel_on_a_skewed_layout(cuda, tr, tc, h_dim):
+    """Row-block 0 owns many tiles, row-block 1 none, row-block 2 one tile
+    with a dense row (every column, multiplicities up to 127) beside sparse
+    ones; a pad tile follows. TR = 600 spans two 512-row slices, TC = 908
+    fills both shared-memory stages."""
+    gen = torch.Generator(device=cuda).manual_seed(tr + tc)
+    n_many, n_cb = 40, 41
+    b = n_many + 2
+    tiles = (torch.rand(b, tr, tc, generator=gen, device=cuda) < 0.03).to(
+        torch.int8)
+    tiles *= torch.randint(1, 128, (b, tr, tc), generator=gen, device=cuda,
+                           dtype=torch.int8)
+    tiles[n_many, tr // 3, :] = torch.randint(
+        1, 128, (tc,), generator=gen, device=cuda, dtype=torch.int8)
+    tiles[-1] = 0                                       # the pad
+    rowb = torch.tensor([0] * n_many + [2, 3], dtype=torch.int32,
+                        device=cuda)
+    colb = torch.cat([torch.randperm(n_cb, generator=gen, device=cuda)[
+        :n_many], torch.tensor([5, 0], device=cuda)]).to(torch.int32)
+    x = torch.randn(n_cb, tc, h_dim, generator=gen, device=cuda)
+    out = _k2_matches_plain(tiles, rowb, colb, x, 3, per_element=True)
+    assert bool((out[1] == 0).all())
 
 
 @pytest.mark.cuda
 def test_tile_matmul_rejects_what_the_kernel_does_not_take(cuda):
-    tiles = torch.zeros(1, 48, 64, dtype=torch.int8, device=cuda)
+    tiles = torch.zeros(1, 48, MAX_TC + 1, dtype=torch.int8, device=cuda)
     ids = torch.zeros(1, dtype=torch.int32, device=cuda)
     off = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
-    x = torch.zeros(1, 64, 8, device=cuda)
-    with pytest.raises(ValueError):
-        tile_matmul(tiles, ids, ids, off, x, 1)     # TR % 64 != 0
-    with pytest.raises(ValueError):
-        tile_matmul(tiles[:, :, :32].contiguous(), ids, ids, off, x, 1)
+    ent, ent_off = pack_tiles(tiles)
+    x = torch.zeros(1, MAX_TC + 1, 8, device=cuda)
+    with pytest.raises(ValueError):                 # TC > MAX_TC
+        tile_matmul(tiles, ids, ids, off, ent, ent_off, x, 1)
+    t64, x64 = tiles[:, :, :64].contiguous(), x[:, :64].contiguous()
+    e64, o64 = pack_tiles(t64)
+    tile_matmul(t64, ids, ids, off, e64, o64, x64, 1)   # takes any TR
+    with pytest.raises(ValueError):                 # ent_off for TR + 2
+        tile_matmul(t64, ids, ids, off, e64,
+                    torch.zeros(1, 50, dtype=torch.int32, device=cuda), x64,
+                    1)
+    with pytest.raises(ValueError):                 # int64 entries
+        tile_matmul(t64, ids, ids, off, e64.long(), o64, x64, 1)
+    with pytest.raises(ValueError):                 # slabs of another TC
+        tile_matmul(t64, ids, ids, off, e64, o64, x[:, :32].contiguous(), 1)
     with pytest.raises(ValueError):
         bucket_sum(x[0].double(), ids[None])        # f64 rows
 

@@ -30,8 +30,8 @@ from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
                                              copy_probe_plain,
                                              launches as k4_launches)
 from bnsgcn_tpu_torch.ops.tile_matmul import (launches as k2_launches,
-                                              row_offsets, tile_matmul,
-                                              tile_matmul_plain)
+                                              pack_tiles, row_offsets,
+                                              tile_matmul, tile_matmul_plain)
 from tools.pallas_spmm import pallas_bucket_reduce, pallas_bucket_sum
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # f32, summation order differs
@@ -130,7 +130,8 @@ def test_tile_matmul_plain_matches_pallas_and_xla():
 
         port = t_blk.dense_apply(spec, _t(tiles), _t(rowb), _t(colb),
                                  row_offsets(_t(rowb), spec.n_row_blocks),
-                                 _t(a[psrc]), _t(a[pout]), _t(h)).numpy()
+                                 *pack_tiles(_t(tiles)), _t(a[psrc]),
+                                 _t(a[pout]), _t(h)).numpy()
         jargs = [jnp.asarray(a[k]) for k in (f"blk_tiles_{d}",
                                              f"blk_rowb_{d}",
                                              f"blk_colb_{d}", psrc, pout)]
@@ -155,8 +156,8 @@ def test_tile_matmul_wrapper_takes_plain_on_cpu():
     before = k2_launches.total
     out = tile_matmul(a["blk_tiles_fwd"], a["blk_rowb_fwd"],
                       a["blk_colb_fwd"],
-                      row_offsets(a["blk_rowb_fwd"], fwd.n_row_blocks), x,
-                      fwd.n_row_blocks)
+                      row_offsets(a["blk_rowb_fwd"], fwd.n_row_blocks),
+                      *pack_tiles(a["blk_tiles_fwd"]), x, fwd.n_row_blocks)
     assert out.shape == (fwd.n_row_blocks, fwd.row_tile, 3)
     assert k2_launches.total == before
 
