@@ -9,7 +9,9 @@ each compiles to a private temporary name and renames it into place.
 
 CUDA sources build with nvcc straight into a shared library with a plain C
 interface, loaded with ctypes: seconds per file, where a build that includes
-PyTorch's headers takes minutes.
+PyTorch's headers takes minutes. A kernel's wrapper calls its C entry point
+through a `Kernel`, which resolves the ctypes function once per process, so
+a launch takes no lock.
 """
 
 from __future__ import annotations
@@ -114,14 +116,67 @@ class LaunchCount:
         self.by_phase = {}
 
 
-def load(name: str, kind: str, sources, declare) -> ctypes.CDLL:
-    """Build (if needed) and load one library once per process; `declare`
-    sets argtypes/restype on the fresh CDLL."""
+def load(name: str, kind: str, sources, declare=None) -> ctypes.CDLL:
+    """Build (if needed) and load one library once per process; `declare`,
+    if given, sets argtypes/restype on the fresh CDLL."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             path = build_many([(name, kind, sources)])[name]
             lib = ctypes.CDLL(path)
-            declare(lib)
+            if declare is not None:
+                declare(lib)
             _loaded[name] = lib
         return lib
+
+
+class Kernel:
+    """One C entry point of a CUDA library (`int fn(...)`, 0 on success, -1
+    for arguments it refuses, else a CUDA error code; `error_fn` names a
+    code). The first call builds and loads the library under the lock;
+    later calls go straight to the resolved ctypes function. -1 raises
+    ValueError, any other non-zero code RuntimeError."""
+
+    def __init__(self, lib_name: str, source: str, fn: str, argtypes,
+                 error_fn: str):
+        self.lib_name, self.source, self.fn = lib_name, source, fn
+        self.argtypes, self.error_fn = list(argtypes), error_fn
+        self._call = None
+        self._error = None
+
+    def load(self) -> ctypes.CDLL:
+        """Build and load the library (once per process) and declare this
+        entry point's types on it, whoever loaded the library first."""
+        lib = load(self.lib_name, "cuda", [self.source])
+        error = getattr(lib, self.error_fn)
+        error.restype = ctypes.c_char_p
+        error.argtypes = [ctypes.c_int]
+        call = getattr(lib, self.fn)
+        call.restype = ctypes.c_int
+        call.argtypes = self.argtypes
+        self._error, self._call = error, call
+        return lib
+
+    def __call__(self, *args):
+        call = self._call
+        if call is None:
+            self.load()
+            call = self._call
+        rc = call(*args)
+        if rc != 0:
+            raise (ValueError if rc == -1 else RuntimeError)(
+                f"{self.fn} launch failed: {self._error(rc).decode()}")
+
+
+_raw_stream = None
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device `index` as a raw pointer (an int),
+    read without building a torch.cuda.Stream (AttributeError from a torch
+    built without CUDA)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(index)

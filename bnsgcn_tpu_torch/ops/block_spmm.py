@@ -17,8 +17,10 @@ cheaper per edge than row gathers:
     * x_slabs = h in cluster order as [n_cb, TC, H] slabs (plain indexing);
     * kernel K2 (ops/tile_matmul.py) sums tiles @ slabs into each output
       row-block, from the tiles' nonzero entries (packed once per layout,
-      `pack_tiles`); one permutation gather back to row order;
-    * plus the ELL residual through kernel K1 (ops/ell.py).
+      `pack_tiles`), in cluster order;
+    * kernel K1 (ops/bucket_sum.py) sums the ELL residual's rows and adds
+      K2's output, gathered back to row order by the permutation, in the
+      same launch (ops/ell.py).
 
 The backward runs the same two kernels on the transposed layouts, through a
 torch.autograd.Function that saves only the layout.
@@ -345,27 +347,30 @@ def build_x_slabs(spec: BlockSpec, perm_src, h):
     return x.view(n_cb, spec.col_tile, h.shape[1])
 
 
-def dense_apply(spec: BlockSpec, tiles, rowb, colb, off, ent, ent_off,
-                perm_src, perm_out, h, phase: str = "fwd"):
-    """Dense-tile aggregation through K2; [n_rows, H] in original row order
-    (bnsgcn_tpu/ops/pallas_block.py `dense_apply_pallas`). `off` is
-    row_offsets(rowb), (ent, ent_off) pack_tiles(tiles)."""
+def dense_tiles(spec: BlockSpec, tiles, rowb, colb, off, ent, ent_off,
+                perm_src, h, phase: str = "fwd"):
+    """Dense-tile aggregation through K2, [n_row_blocks * row_tile, H] in
+    cluster order (a row-block no tile visits is zero): what
+    bnsgcn_tpu/ops/pallas_block.py `dense_apply_pallas` computes before its
+    permutation gather, which K1 applies here. `off` is row_offsets(rowb),
+    (ent, ent_off) pack_tiles(tiles)."""
     x_slabs = build_x_slabs(spec, perm_src, h.contiguous())
     out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x_slabs,
                       spec.n_row_blocks, phase=phase)
-    flat = out.view(spec.n_row_blocks * spec.row_tile, h.shape[1])
-    return flat[perm_out.long()]
+    return out.view(spec.n_row_blocks * spec.row_tile, h.shape[1])
 
 
 class BlockSpmm:
-    """spmm(h_ext [n_src_ext, H]) -> [n_dst, H]: dense tiles through K2 plus
-    the ELL residual through K1; the backward runs K2 on the transposed
-    tiles and the residual with the fwd/bwd roles swapped. `arrays` holds one
-    part's layout as device tensors (build_block_layouts' keys, without the
-    part axis); `self.arrays` adds what K2 walks, for each direction d: the
-    CSR offsets over rowb (`blk_off_d`) and the tiles' packed nonzero
-    entries (`blk_ent_d`, `blk_entoff_d`), built here as layout set-up in
-    `pack_seconds`. Counterpart of
+    """spmm(h_ext [n_src_ext, H]) -> [n_dst, H]: dense tiles through K2, then
+    the ELL residual through K1, which adds K2's output (in cluster order,
+    gathered back to row order by the permutation) to its own row sums in
+    the same launch. The backward runs K2 on the transposed tiles and the
+    residual with the fwd/bwd roles swapped. `arrays` holds one part's
+    layout as device tensors (build_block_layouts' keys, without the part
+    axis); `self.arrays` adds what K2 walks, for each direction d: the CSR
+    offsets over rowb (`blk_off_d`) and the tiles' packed nonzero entries
+    (`blk_ent_d`, `blk_entoff_d`). These and the residual's row schedules
+    are layout set-up, timed together as `pack_seconds`. Counterpart of
     bnsgcn_tpu/ops/block_spmm.py `make_block_spmm` with use_pallas."""
 
     def __init__(self, fwd: BlockSpec, bwd: BlockSpec, ell_pair, arrays: dict):
@@ -378,11 +383,11 @@ class BlockSpmm:
             (self.arrays[f"blk_ent_{d}"],
              self.arrays[f"blk_entoff_{d}"]) = pack_tiles(
                 arrays[f"blk_tiles_{d}"])
-        self.pack_seconds = time.perf_counter() - t0   # ends in a host read
         self.residual = EllSpmm(
             ell_pair[0], ell_pair[1],
             {k[len("res_"):]: v for k, v in arrays.items()
              if k.startswith("res_")})
+        self.pack_seconds = time.perf_counter() - t0   # ends in a host read
 
     def apply_dir(self, direction: str, h, phase: str):
         a = self.arrays
@@ -390,13 +395,14 @@ class BlockSpmm:
             src, out = a["blk_perm_ext"], a["blk_perm_inner"]
         else:
             src, out = a["blk_perm_inner"], a["blk_perm_ext"]
-        dense = dense_apply(
+        dense = dense_tiles(
             self.fwd if direction == "fwd" else self.bwd,
             a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
             a[f"blk_colb_{direction}"], a[f"blk_off_{direction}"],
-            a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"], src, out,
-            h, phase=phase)
-        return dense + self.residual.apply_dir(direction, h, phase)
+            a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"], src, h,
+            phase=phase)
+        return self.residual.apply_dir(direction, h, phase, base=dense,
+                                       base_row=out)
 
     def __call__(self, h, phase: str = "fwd"):
         return _BlockFn.apply(h, self, phase)

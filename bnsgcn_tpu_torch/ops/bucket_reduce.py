@@ -24,19 +24,15 @@ LIB_NAME = "bnsgcn_bucket_reduce"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = buildlib.LaunchCount()
-
-
-def _declare(lib):
-    lib.bnsgcn_bucket_reduce.restype = ctypes.c_int
-    lib.bnsgcn_bucket_reduce.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    lib.bnsgcn_bucket_reduce_error.restype = ctypes.c_char_p
-    lib.bnsgcn_bucket_reduce_error.argtypes = [ctypes.c_int]
+_kernel = buildlib.Kernel(
+    LIB_NAME, SOURCE, "bnsgcn_bucket_reduce",
+    [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [ctypes.c_int,
+                                                     ctypes.c_void_p],
+    "bnsgcn_bucket_reduce_error")
 
 
 def lib() -> ctypes.CDLL:
-    return buildlib.load(LIB_NAME, "cuda", [SOURCE], _declare)
+    return _kernel.load()
 
 
 def bucket_reduce_plain(g: torch.Tensor) -> torch.Tensor:
@@ -61,15 +57,10 @@ def bucket_reduce(g: torch.Tensor, phase: str = "check") -> torch.Tensor:
         raise ValueError(f"bucket_reduce: g must be contiguous 3-D float32 "
                          f"or bfloat16, got {g.dtype} {tuple(g.shape)}")
     r, w, h = g.shape
-    out = torch.empty((r, h), dtype=g.dtype, device=g.device)
+    out = g.new_empty((r, h))
     if r == 0 or h == 0:
         return out
-    k = lib()
-    rc = k.bnsgcn_bucket_reduce(g.data_ptr(), out.data_ptr(), r, w, h,
-                                DTYPES[g.dtype],
-                                torch.cuda.current_stream(g.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bucket_reduce kernel launch failed: "
-                           f"{k.bnsgcn_bucket_reduce_error(rc).decode()}")
+    _kernel(g.data_ptr(), out.data_ptr(), r, w, h, DTYPES[g.dtype],
+            buildlib.raw_stream(g.get_device()))
     launches.add(phase)
     return out

@@ -20,22 +20,17 @@ from bnsgcn_tpu_torch import buildlib
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "copy_probe.cu")
 LIB_NAME = "bnsgcn_copy_probe"
-MAX_BYTES = 16384       # the kernel's shared buffer
 PROBE_SHAPE = (4, 8, 128)
 
 launches = buildlib.LaunchCount()
-
-
-def _declare(lib):
-    lib.bnsgcn_copy_probe.restype = ctypes.c_int
-    lib.bnsgcn_copy_probe.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_uint32, ctypes.c_void_p]
-    lib.bnsgcn_copy_probe_error.restype = ctypes.c_char_p
-    lib.bnsgcn_copy_probe_error.argtypes = [ctypes.c_int]
+_kernel = buildlib.Kernel(
+    LIB_NAME, SOURCE, "bnsgcn_copy_probe",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p],
+    "bnsgcn_copy_probe_error")
 
 
 def lib() -> ctypes.CDLL:
-    return buildlib.load(LIB_NAME, "cuda", [SOURCE], _declare)
+    return _kernel.load()
 
 
 def copy_probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -45,25 +40,18 @@ def copy_probe_plain(x: torch.Tensor) -> torch.Tensor:
 def copy_probe(x: torch.Tensor, phase: str = "check") -> torch.Tensor:
     """x[0:1] as a new tensor. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel on the current stream or raises. The kernel
-    takes f32 with x[0] a multiple of 16 bytes and at most MAX_BYTES."""
-    if x.device.type == "cpu":
-        return copy_probe_plain(x)
-    if x.device.type != "cuda":
+    takes contiguous f32 with x[0] a multiple of 16 bytes, at most 16 KiB
+    (its shared buffer), 16-byte aligned; the C entry point checks size and
+    alignment and refuses the rest (ValueError)."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return copy_probe_plain(x)
         raise ValueError(f"copy_probe: unsupported device {x.device}")
-    nbytes = x[0].numel() * x.element_size() if x.dim() else 0
-    if (x.dtype != torch.float32 or x.dim() < 1 or not x.is_contiguous()
-            or nbytes == 0 or nbytes % 16 or nbytes > MAX_BYTES
-            or x.data_ptr() % 16):
-        raise ValueError(f"copy_probe: x must be contiguous float32, 16-byte "
-                         f"aligned, with x[0] a multiple of 16 bytes up to "
-                         f"{MAX_BYTES}, got {x.dtype} {tuple(x.shape)}")
-    out = torch.empty((1,) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    k = lib()
-    rc = k.bnsgcn_copy_probe(x.data_ptr(), out.data_ptr(), nbytes,
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"copy_probe kernel launch failed: "
-                           f"{k.bnsgcn_copy_probe_error(rc).decode()}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or not x.dim():
+        raise ValueError(f"copy_probe: x must be contiguous float32 with a "
+                         f"leading axis, got {x.dtype} {tuple(x.shape)}")
+    out = x.new_empty((1,) + x.shape[1:])
+    _kernel(x.data_ptr(), out.data_ptr(), x.nbytes // max(len(x), 1),
+            buildlib.raw_stream(x.get_device()))
     launches.add(phase)
     return out

@@ -8,10 +8,13 @@ scatter-free work:
     in-degree into power-of-two buckets, each stored as a dense [rows, width]
     index table padded with the index n_src; rows of degree > 128 split into
     128-wide chunks;
-  * on the device, per bucket: kernel K1 (ops/bucket_sum.py, CUDA on the
-    card) sums the gathered rows; the split-row chunk combine (a small
-    index_add_) and the final permutation gather stay plain PyTorch, as they
-    were XLA in the JAX package;
+  * once per layout (`EllSpmm`), plain torch on the device: the row
+    schedule kernel K1 reads (ops/bucket_sum.py `pack_rows`), the tables'
+    terms as a CSR in final row order plus a work order;
+  * on the device, per pass: one launch of K1 (CUDA on the card) computes
+    every row's sum, the split rows' chunks joined, in row order; on the CPU
+    the plain version runs the tables (bucket sums, the split-row combine,
+    the permutation gather);
   * the backward runs the transposed layout (rows = source nodes, grouped by
     out-degree) through a torch.autograd.Function, so d_h is the same
     scatter-free shape.
@@ -20,6 +23,7 @@ scatter-free work:
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import partial
@@ -28,7 +32,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum
+from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, pack_rows
 
 
 def run_parallel(fns):
@@ -406,47 +410,30 @@ class GeoAccum:
 # on the device
 # ----------------------------------------------------------------------------
 
-def ell_combine(spec: EllSpec, outs, perm, chunk_pos=None, chunk_seg=None):
-    """Per-bucket outputs [R_k, H] -> [n_rows, H]: the split-row chunk
-    combine (an index_add_ over the cap bucket's chunk rows) and one
-    permutation gather. Plain PyTorch."""
-    h = outs[0].shape[1]
-    zero = outs[0].new_zeros((1, h))
-    if spec.n_split:
-        cap_z = torch.cat([outs[-1], zero])
-        comb = outs[0].new_zeros((spec.n_split + 1, h))
-        comb.index_add_(0, chunk_seg.long(), cap_z[chunk_pos.long()])
-        full = torch.cat(list(outs) + [comb[:spec.n_split], zero])
-    else:
-        full = torch.cat(list(outs) + [zero])
-    return full[perm.long()]
-
-
-def _ell_apply(spec: EllSpec, idx_list, perm, h, chunk_pos=None,
-               chunk_seg=None, phase: str = "fwd"):
-    """Bucketed gather-sum through K1, then the combine + permutation."""
-    h = h.contiguous()
-    outs = [bucket_sum(h, idx, phase=phase) for idx in idx_list]
-    return ell_combine(spec, outs, perm, chunk_pos, chunk_seg)
-
-
 class EllSpmm:
     """spmm(h_ext [n_src, H]) -> [n_rows, H] over one part's layout arrays
     (device tensors keyed as build_layouts names them, without the part
-    axis); the backward runs the bwd_* layout. Counterpart of
-    bnsgcn_tpu/ops/ell.py `make_ell_spmm`."""
+    axis); the backward runs the bwd_* layout. `rows[d]` is direction d's
+    K1 layout (ops/bucket_sum.py `EllRows`): the tables and the row schedule
+    packed from them here, layout set-up timed as `pack_seconds`.
+    Counterpart of bnsgcn_tpu/ops/ell.py `make_ell_spmm`."""
 
     def __init__(self, fwd_spec: EllSpec, bwd_spec: EllSpec, arrays: dict):
-        self.fwd_spec, self.bwd_spec = fwd_spec, bwd_spec
-        self.arrays = arrays
+        t0 = time.perf_counter()
+        self.rows = {}
+        for d, spec in (("fwd", fwd_spec), ("bwd", bwd_spec)):
+            self.rows[d] = pack_rows(
+                spec, [arrays[f"{d}_idx_{k}"] for k in range(len(spec.widths))],
+                arrays[f"{d}_perm"], arrays.get(f"{d}_chunk_pos"),
+                arrays.get(f"{d}_chunk_seg"))
+        self.pack_seconds = time.perf_counter() - t0   # ends in a host read
 
-    def apply_dir(self, direction: str, h, phase: str):
-        spec = self.fwd_spec if direction == "fwd" else self.bwd_spec
-        a = self.arrays
-        idx = [a[f"{direction}_idx_{k}"] for k in range(len(spec.widths))]
-        return _ell_apply(spec, idx, a[f"{direction}_perm"], h,
-                          a.get(f"{direction}_chunk_pos"),
-                          a.get(f"{direction}_chunk_seg"), phase=phase)
+    def apply_dir(self, direction: str, h, phase: str, base=None,
+                  base_row=None):
+        """The direction's aggregation of h, plus base[base_row] if given,
+        through K1 on a CUDA tensor and its plain version on the CPU."""
+        return ell_apply(self.rows[direction], h.contiguous(), base, base_row,
+                         phase=phase)
 
     def __call__(self, h, phase: str = "fwd"):
         return _EllFn.apply(h, self, phase)

@@ -37,20 +37,14 @@ MAX_TC = 232448 // (2 * 32 * 4)
 _COL_BITS = 24          # a packed entry: column << 8 | (int8 multiplicity)
 
 launches = buildlib.LaunchCount()
-
-
-def _declare(lib):
-    lib.bnsgcn_tile_spmm_f32.restype = ctypes.c_int
-    lib.bnsgcn_tile_spmm_f32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.bnsgcn_tile_spmm_error.restype = ctypes.c_char_p
-    lib.bnsgcn_tile_spmm_error.argtypes = [ctypes.c_int]
+_kernel = buildlib.Kernel(
+    LIB_NAME, SOURCE, "bnsgcn_tile_spmm_f32",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "bnsgcn_tile_spmm_error")
 
 
 def lib() -> ctypes.CDLL:
-    return buildlib.load(LIB_NAME, "cuda", [SOURCE], _declare)
+    return _kernel.load()
 
 
 def _chunk_for(row_tile: int, width: int,
@@ -174,13 +168,8 @@ def tile_matmul(tiles: torch.Tensor, rowb: torch.Tensor, colb: torch.Tensor,
     out = torch.empty((n_row_blocks, tr, h), dtype=torch.float32, device=dev)
     if n_row_blocks == 0 or h == 0:
         return out
-    k = lib()
-    rc = k.bnsgcn_tile_spmm_f32(
-        ent.data_ptr(), ent_off.data_ptr(), colb.data_ptr(), off.data_ptr(),
-        x_slabs.data_ptr(), out.data_ptr(), n_row_blocks, tr, tc, h,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tile_matmul kernel launch failed: "
-                           f"{k.bnsgcn_tile_spmm_error(rc).decode()}")
+    _kernel(ent.data_ptr(), ent_off.data_ptr(), colb.data_ptr(),
+            off.data_ptr(), x_slabs.data_ptr(), out.data_ptr(), n_row_blocks,
+            tr, tc, h, buildlib.raw_stream(dev.index))
     launches.add(phase)
     return out

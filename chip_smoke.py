@@ -10,23 +10,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. build the CUDA kernels K1-K4 from csrc/ (one nvcc per source, in
      parallel);
   2. hold each kernel to its plain PyTorch version on the card, at the main
-     path's own shapes: every bucket of the ELL residual (K1) and the dense
-     tile stack (K2), forward and backward layouts, at H=256 and at the raw
-     feature width; K3 (the width-axis bucket reduce, on no path) at the
-     shapes it ran on the TPU, f32 [3592, 32, 602] and [64, 16, 602], and in
-     bf16; K4 (the manual-copy probe, on no path) bitwise at the probe's
-     [4, 8, 128]; and time kernel, plain version and a one-call PyTorch
-     yardstick with CUDA events (K2 against torch.sparse.mm of its entries
-     and torch.bmm of its tiles; K1 also against a gather-aware bound from
-     a probe of the L2's rate); print K2's tiles per row-block and the time
-     its entries took to pack;
+     path's own shapes: the ELL residual's one-launch SpMM (K1) with K2's
+     output shape as its base, and the dense tile stack (K2), forward and
+     backward layouts, at H=256 and at the raw feature width, K1 also
+     bitwise against a second call; K3 (the width-axis bucket reduce, on no
+     path) at the shapes it ran on the TPU, f32 [3592, 32, 602] and
+     [64, 16, 602], and in bf16; K4 (the manual-copy probe, on no path)
+     bitwise at the probe's [4, 8, 128]; and time kernel, plain version
+     and a one-call PyTorch yardstick with CUDA events (K1 and K2 against
+     torch.sparse.mm, K2 also against torch.bmm of its tiles; K3 and K4
+     also by host microseconds per call); sweep K1's column chunk and work
+     order; probe the L2's rate; print K2's tiles per row-block and the
+     time the layout's packing took;
   3. a small-input agreement check: the same short training run on the card
      and on the CPU (plain versions) must give the same losses;
   4. drive the main path through the entry point a user calls
      (run.run_training): GraphSAGE 4x256, use_pp, LayerNorm, dropout 0.5,
      lr 0.01, --spmm hybrid on synth-reddit, with every kernel's launch
      count reset just before and read just after; the loss must stay finite
-     and fall, every kernel must have launched forward and backward; the run
+     and fall, K1 and K2 must each have launched once per aggregation (the
+     3 layers after the precompute, forward and backward, every epoch,
+     plus the precompute's one); the run
      ends with the full-graph eval's accuracy line, which must beat twice
      chance;
   5. the P-rank path (partition parallelism at sampling rate 1.0) on
@@ -36,16 +40,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      losses to 1e-4 (relative); then the main path at P=4 with dropout 0.5
      through run.run_training, in which each rank first holds K1 and K2 to
      their plain versions on its own part's layout (its own hybrid tiles and
-     ELL residual; every bucket, forward and backward, at H=256 and the raw
-     feature width, with phase 2's bounds) and then hands back its launch
-     counts: K1 and K2 must have launched forward and backward on every
-     rank, the loss must stay finite and fall, rank 0's accuracy must beat
+     ELL residual and its own row schedule, forward and backward, at
+     H=256 and the raw feature width, with phase 2's bounds) and then hands
+     back its launch counts: K1 and K2 must have launched as at P=1 on
+     every rank, the loss must stay finite and fall, rank 0's accuracy must beat
      twice chance, and every rank must end with rank 0's parameters;
   6. print the card's name and power limit, one {"kernels": [...]} line and,
      last, {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device and when the port is not beside it.
---out FILE also writes the details (per-bucket errors, times, losses) as JSON.
+--out FILE also writes the details (per-check errors, times, losses) as JSON.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ K3_CASES = (((3592, 32, 602), "float32"), ((64, 16, 602), "float32"),
 L2_PROBE_ROWS = 16384
 L2_PROBE_GATHER = (65536, 32)
 PARTS = 4
+HOST_CALLS = 200        # calls per host-time measurement of a small kernel
 LAW_EPOCHS = 3
 LAW_RTOL = 1e-4
 
@@ -126,66 +131,143 @@ def check(name, got, ref, bound):
     return e, e / max(float(ref.abs().max()), 1e-30)
 
 
-def compare_k1(fns, widths, gen, reps, detail):
-    """K1 against its plain version on every bucket of the residual ELL
-    layout, both directions, at each width. Tolerance per element: two f32
-    sums of the same W terms in different orders differ by at most
-    2 (W - 1) u sum|x|, u = 2^-24, with sum|x| from the plain version on |h|.
-    With reps > 0, times one forward residual pass (all buckets) at
-    widths[0]."""
+def k1_inputs(op, direction, hdim, gen):
+    """Random h, and a base with its rows, at the shapes the hybrid's pass
+    gives K1 in `direction`: K2's output [n_row_blocks TR, H] in cluster
+    order, gathered by the permutation back to row order."""
     import torch
-    from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum, bucket_sum_plain
-    res = fns.spmm.residual
-    a = res.arrays
+    rows = op.residual.rows[direction]
+    spec = op.fwd if direction == "fwd" else op.bwd
+    a = op.arrays
+    h = torch.randn((rows.n_src, hdim), generator=gen, device="cuda")
+    base = torch.randn((spec.n_row_blocks * spec.row_tile, hdim),
+                       generator=gen, device="cuda")
+    base_row = a["blk_perm_inner" if direction == "fwd" else "blk_perm_ext"]
+    return rows, h, base, base_row
+
+
+def k1_bound(rows, h, base=None, base_row=None):
+    """Per element: two f32 sums of the same n terms in different orders
+    differ by at most 2 n u sum|x| (n the row's terms, +1 with a base;
+    sum|x| from the plain version on |h| and |base|)."""
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply_plain
+    n = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()[:, None]
+    if base is not None:
+        n = n + 1
+    return 2 * n.clamp(min=1) * U32 * ell_apply_plain(
+        rows, h.abs(), None if base is None else base.abs(), base_row)
+
+
+def compare_k1(fns, widths, gen, reps, detail, sweep=False):
+    """K1 against its plain version on the hybrid's residual layout, both
+    directions, at each width, with K2's output shape as the base (the main
+    path's call), within k1_bound per element and bitwise equal to itself
+    on a second call. With reps > 0, times one forward pass at widths[0]
+    (time_k1); with `sweep`, also every column chunk and work order."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
+    op = fns.spmm
     max_err = max_rel = 0.0
     timing = None
-    for direction, spec in (("fwd", res.fwd_spec), ("bwd", res.bwd_spec)):
-        idx_list = [a[f"{direction}_idx_{k}"] for k in range(len(spec.widths))]
+    for direction in ("fwd", "bwd"):
         for hdim in widths:
-            h = torch.randn((spec.n_src, hdim), generator=gen,
-                            device="cuda")
-            for k, idx in enumerate(idx_list):
-                if idx.shape[0] == 0:
-                    continue
-                got = bucket_sum(h, idx, phase="check")
-                ref = bucket_sum_plain(h, idx)
-                bound = 2 * spec.widths[k] * U32 * bucket_sum_plain(h.abs(), idx)
-                e, rel = check(f"K1 {direction} bucket {k} H={hdim}", got,
-                               ref, bound)
-                max_err, max_rel = max(max_err, e), max(max_rel, rel)
-                detail.append({"kernel": "ell_bucket_sum", "dir": direction,
-                               "bucket": k, "rows": int(idx.shape[0]),
-                               "width": spec.widths[k], "H": hdim,
-                               "max_abs_err": e, "max_rel_err": rel})
+            rows, h, base, base_row = k1_inputs(op, direction, hdim, gen)
+            got = ell_apply(rows, h, base, base_row, phase="check")
+            again = ell_apply(rows, h, base, base_row, phase="check")
+            ref = ell_apply_plain(rows, h, base, base_row)
+            e, rel = check(f"K1 {direction} H={hdim}", got, ref,
+                           k1_bound(rows, h, base, base_row))
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 {direction} H={hdim}: two calls "
+                                     f"differ")
+            max_err, max_rel = max(max_err, e), max(max_rel, rel)
+            detail.append({"kernel": "ell_bucket_sum", "dir": direction,
+                           "rows": rows.n_rows, "terms": int(rows.src.numel()),
+                           "long_rows": rows.n_long, "order": rows.order,
+                           "H": hdim, "max_abs_err": e, "max_rel_err": rel,
+                           "bitwise_repeat": True})
+            del ref
             if direction == "fwd" and hdim == widths[0] and reps:
-                # least bytes: each index once, each h row the layout
-                # references once (repeats may come from L2), each output once
-                live = [i for i in idx_list if i.shape[0]]
-                nnz = sum(int((i < spec.n_src).sum()) for i in live)
-                flat = torch.cat([i.reshape(-1) for i in live])
-                n_used = int(torch.unique(flat[flat < spec.n_src]).numel())
-                rw = sum(int(i.numel()) for i in live)
-                rows = sum(int(i.shape[0]) for i in live)
-                nbytes = rw * 4 + n_used * hdim * 4 + rows * hdim * 4
-                hp = torch.cat([h, h.new_zeros((1, hdim))])
-                longs = [i.long() for i in live]
-                timing = {
-                    "H": hdim, "buckets": len(live), "rows": rows,
-                    "nnz": nnz, "h_rows_used": n_used, "bytes": nbytes,
-                    "gathered_bytes": nnz * hdim * 4,
-                    "ms": cuda_ms(lambda: [bucket_sum(h, i, phase="check")
-                                           for i in live], reps),
-                    "plain_ms": cuda_ms(lambda: [bucket_sum_plain(h, i)
-                                                 for i in live], reps),
-                    "library_ms": cuda_ms(lambda: [hp[i].sum(1)
-                                                   for i in longs], reps),
-                    "bound_ms": max(nbytes / HBM_BYTES_PER_S,
-                                    nnz * hdim / F32_FLOPS_PER_S) * 1e3,
-                    "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                                 >= nnz * hdim / F32_FLOPS_PER_S
-                                 else "operations"),
-                }
+                timing = time_k1(op, rows, h, base, base_row, got, reps,
+                                 sweep)
+            del got, again
     return (max_err, max_rel), timing
+
+
+def schedule_csr(rows):
+    """The schedule's CSR as one f32 sparse matrix [n_rows, n_src] (repeated
+    terms coalesced into their multiplicity): what torch.sparse.mm needs to
+    compute K1's function without the base."""
+    import torch
+    deg = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()
+    r = torch.repeat_interleave(torch.arange(rows.n_rows, device=deg.device),
+                                deg)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([r, rows.src.long()]),
+        torch.ones(rows.src.numel(), device=deg.device),
+        (rows.n_rows, rows.n_src), check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
+
+
+def time_k1(op, rows, h, base, base_row, out, reps, sweep):
+    """One forward residual pass of the hybrid (base included): K1, its
+    plain version, and torch.sparse.mm (cuSPARSE) on the schedule's CSR,
+    which computes the row sums without the base (held to k1_bound). Bytes
+    bound: the CSR once, each h row the layout uses once, the base rows and
+    their indices once, the output once. With `sweep`: every column chunk
+    C in (H, 64, 32) that the kernel is built for, in every work order
+    (the shipped schedule's order, the others from the same CSR), each
+    bitwise equal to the shipped output."""
+    import torch
+    from bnsgcn_tpu_torch.ops import bucket_sum as k1
+    hdim = h.shape[1]
+    n_rows, nnz = rows.n_rows, int(rows.src.numel())
+    n_used = int(torch.unique(rows.src).numel())
+    nbytes = ((n_rows + 1) * 4 + nnz * 4 + n_used * hdim * 4
+              + n_rows * 4 + 2 * n_rows * hdim * 4)
+    flops = (nnz + n_rows) * hdim
+    csr = schedule_csr(rows)
+    lib_out = torch.sparse.mm(csr, h)
+    check("K1 yardstick torch.sparse.mm", lib_out,
+          k1.ell_apply(rows, h, phase="check"), k1_bound(rows, h))
+    del lib_out
+    t = {
+        "H": hdim, "rows": n_rows, "nnz": nnz, "long_rows": rows.n_long,
+        "h_rows_used": n_used, "bytes": nbytes, "flops": flops,
+        "gathered_bytes": nnz * hdim * 4, "order": rows.order,
+        "chunk": k1.CHUNK,
+        "ms": cuda_ms(lambda: k1.ell_apply(rows, h, base, base_row,
+                                           phase="check"), reps),
+        "ms_no_base": cuda_ms(lambda: k1.ell_apply(rows, h, phase="check"),
+                              reps),
+        "plain_ms": cuda_ms(lambda: k1.ell_apply_plain(rows, h, base,
+                                                       base_row), reps),
+        "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, h), reps),
+        "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                        flops / F32_FLOPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                     >= flops / F32_FLOPS_PER_S else "operations"),
+    }
+    del csr
+    torch.cuda.empty_cache()
+    if sweep:
+        cpos = op.arrays["blk_perm_inner"]
+        t["sweep"] = []
+        for order in k1.ORDERS:
+            r = rows if order == rows.order else rows.with_order(order, cpos)
+            for c in dict.fromkeys((hdim, 64, 32)):
+                if c not in k1.CHUNKS:
+                    continue
+                got = k1.ell_apply(r, h, base, base_row, phase="check",
+                                   chunk=c)
+                if not torch.equal(got, out):
+                    raise AssertionError(f"K1 order {order} C={c}: differs "
+                                         f"from the shipped schedule's bits")
+                del got
+                t["sweep"].append({"order": order, "chunk": c, "ms": cuda_ms(
+                    lambda: k1.ell_apply(r, h, base, base_row,
+                                         phase="check", chunk=c), reps)})
+    return t
 
 
 def tf32_round(x):
@@ -353,20 +435,25 @@ def l2_probe(gen, hdim, reps):
     32 stacked views of it (512 MiB read per call, so no launch-bound
     time), embedding_bag(mode="sum") gathering L2_PROBE_GATHER random rows
     and summing each row of indices (its output, 1/32 of the bytes read, is
-    written besides), and K1 on the same gather. The L2 rate is the fastest
-    of the three: the least the L2 is known to deliver."""
+    written besides), and K1 on the same gather as a CSR (one row of 32
+    terms per output row). The L2 rate is the fastest of the three: the
+    least the L2 is known to deliver."""
     import torch
     import torch.nn.functional as F
-    from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, pack_rows
+    from bnsgcn_tpu_torch.ops.ell import EllSpec
     table = torch.randn((L2_PROBE_ROWS, hdim), generator=gen, device="cuda")
     idx = torch.randint(0, L2_PROBE_ROWS, L2_PROBE_GATHER, generator=gen,
                         device="cuda")
-    idx32 = idx.to(torch.int32)
+    n_out, width = L2_PROBE_GATHER
+    rows = pack_rows(EllSpec(widths=(width,), rows=(n_out,), n_rows=n_out,
+                             n_src=L2_PROBE_ROWS), [idx.to(torch.int32)],
+                     torch.arange(n_out, dtype=torch.int32, device="cuda"))
     gathered = idx.numel() * hdim * 4
     stacked = table.expand(32, *table.shape)
     stream_ms = cuda_ms(lambda: stacked.sum(), reps)
     bag_ms = cuda_ms(lambda: F.embedding_bag(idx, table, mode="sum"), reps)
-    k1_ms = cuda_ms(lambda: bucket_sum(table, idx32, phase="check"), reps)
+    k1_ms = cuda_ms(lambda: ell_apply(rows, table, phase="check"), reps)
     out = {"table_bytes": table.numel() * 4, "gathered_bytes": gathered,
            "stream_bytes_per_s": stacked.numel() * 4 / (stream_ms * 1e-3),
            "gather_bytes_per_s": gathered / (bag_ms * 1e-3),
@@ -375,6 +462,21 @@ def l2_probe(gen, hdim, reps):
                                 out["gather_bytes_per_s"],
                                 out["k1_bytes_per_s"])
     return out
+
+
+def host_us(fn, n=HOST_CALLS):
+    """Host microseconds per call of fn() (perf_counter over n calls, after
+    a warm-up, without waiting for the device): the Python and launch cost
+    that a short kernel's event time also records."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def compare_k3(gen, reps, detail):
@@ -408,6 +510,8 @@ def compare_k3(gen, reps, detail):
              "ms": cuda_ms(lambda: bucket_reduce(g, phase="check"), reps),
              "plain_ms": cuda_ms(lambda: bucket_reduce_plain(g), reps),
              "library_ms": cuda_ms(lambda: g.sum(1), reps),
+             "host_us": host_us(lambda: bucket_reduce(g, phase="check")),
+             "library_host_us": host_us(lambda: g.sum(1)),
              "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                              adds / F32_FLOPS_PER_S) * 1e3,
              "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
@@ -419,8 +523,14 @@ def compare_k3(gen, reps, detail):
 
 def compare_k4(gen, reps, detail):
     """K4 bitwise against x[0:1] at the probe's shape; its time is launch
-    latency (its bytes over 3.35 TB/s take nanoseconds)."""
+    latency (its bytes over 3.35 TB/s take nanoseconds), so besides the
+    event times it reports the host microseconds per call of K4,
+    x[0:1].clone() (its plain version, allocation included) and copy_, and
+    where K4's go: the output's allocation alone and the C entry point's
+    call alone (ctypes and the launch, no checks, no allocation)."""
     import torch
+    from bnsgcn_tpu_torch import buildlib
+    from bnsgcn_tpu_torch.ops import copy_probe as k4
     from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
                                                  copy_probe_plain)
     x = torch.randn(PROBE_SHAPE, generator=gen, device="cuda")
@@ -434,6 +544,13 @@ def compare_k4(gen, reps, detail):
          "ms": cuda_ms(lambda: copy_probe(x, phase="check"), reps),
          "plain_ms": cuda_ms(lambda: copy_probe_plain(x), reps),
          "library_ms": cuda_ms(lambda: out.copy_(x[0:1]), reps),
+         "host_us": host_us(lambda: copy_probe(x, phase="check")),
+         "plain_host_us": host_us(lambda: copy_probe_plain(x)),
+         "library_host_us": host_us(lambda: out.copy_(x[0:1])),
+         "alloc_host_us": host_us(lambda: x.new_empty((1,) + x.shape[1:])),
+         "launch_host_us": host_us(lambda: k4._kernel(
+             x.data_ptr(), out.data_ptr(), nbytes // 2,
+             buildlib.raw_stream(x.get_device()))),
          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     detail.append(dict(t, kernel="copy_probe"))
     return t
@@ -497,11 +614,13 @@ def parts_runs(cfg, args, part_path):
             f"{hk['K2'][0]:.3e} ({hk['K2'][1]:.3e}) over "
             f"{len(hk['detail'])} checks at H={tuple(hk['widths'])}; every "
             f"element within its bound")
+    passes = (main4.n_layers - 1) * main4.n_epochs
+    want = {"fwd": passes, "bwd": passes, "pre": 1}
     for rep in res.ranks:
         for name, c in rep["launches"].items():
-            if not (c.get("fwd", 0) > 0 and c.get("bwd", 0) > 0):
-                raise AssertionError(f"rank {rep['rank']}: {name} did not "
-                                     f"launch forward and backward: {c}")
+            if c != want:
+                raise AssertionError(f"rank {rep['rank']}: {name} launched "
+                                     f"{c}, not {want}")
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"P={PARTS}: non-finite loss: {res.losses}")
     if not res.losses[-1] < res.losses[0]:
@@ -617,26 +736,33 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     widths = (cfg.n_hidden, pr.cfg.n_feat)
     detail = []
-    e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail)
+    e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail, sweep=True)
     e2, t2 = compare_k2(pr.fns, widths, gen, args.reps, detail)
     log(f"[check] K1 max abs err {e1[0]:.3e} (relative to max |ref| "
         f"{e1[1]:.3e}), K2 {e2[0]:.3e} ({e2[1]:.3e}); every element within "
-        f"2 n u sum|x| (n: the row's terms, u = 2^-24) at H={widths}; "
-        f"K2's check rejects TF32-rounded inputs")
+        f"2 n u sum|x| (n: the row's terms, +1 with K1's base, u = 2^-24) at "
+        f"H={widths}; K1 bitwise equal on a second call; K2's check rejects "
+        f"TF32-rounded inputs")
     l2 = l2_probe(gen, widths[0], args.reps)
     t1["l2_probe"] = l2
-    t1["gather_bound_ms"] = max(
-        t1["bound_ms"], t1["gathered_bytes"] / l2["l2_bytes_per_s"] * 1e3)
+    t1["gathered_over_l2_ms"] = (t1["gathered_bytes"]
+                                 / l2["l2_bytes_per_s"] * 1e3)
     log(f"[probe] L2-resident rows ({l2['table_bytes'] / 2 ** 20:.0f} MiB "
         f"table): stacked sum {l2['stream_bytes_per_s'] / 1e12:.3f} TB/s, "
         f"embedding_bag gather {l2['gather_bytes_per_s'] / 1e12:.3f} TB/s, "
         f"K1 on the same gather {l2['k1_bytes_per_s'] / 1e12:.3f} TB/s; "
         f"L2 rate (probe) {l2['l2_bytes_per_s'] / 1e12:.3f} TB/s")
-    log(f"[time] K1 fwd residual pass H={t1['H']}: kernel {t1['ms']:.3f} ms, "
-        f"plain {t1['plain_ms']:.3f}, hp[idx].sum(1) {t1['library_ms']:.3f}, "
-        f"bound {t1['bound_ms']:.3f} ({t1['bound_by']}); gather-aware bound "
-        f"{t1['gather_bound_ms']:.3f} ({t1['nnz']} rows gathered, "
-        f"{t1['gathered_bytes'] / 1e9:.2f} GB over the probed L2 rate)")
+    log(f"[time] K1 fwd residual pass H={t1['H']} (order {t1['order']}, "
+        f"C={t1['chunk']}, {t1['rows']} rows, {t1['nnz']} terms, "
+        f"{t1['long_rows']} long rows): kernel {t1['ms']:.3f} ms with K2's "
+        f"output as base ({t1['ms_no_base']:.3f} without), plain "
+        f"{t1['plain_ms']:.3f}, torch.sparse.mm {t1['library_ms']:.3f} "
+        f"(no base), bound {t1['bound_ms']:.3f} ({t1['bound_by']}); "
+        f"diagnostic, not a bound: the {t1['gathered_bytes'] / 1e9:.2f} GB "
+        f"gathered over the probed L2 rate take "
+        f"{t1['gathered_over_l2_ms']:.3f}")
+    log("[sweep] K1 fwd pass, ms by work order and column chunk: " + ", ".join(
+        f"{x['order']} C={x['chunk']} {x['ms']:.3f}" for x in t1["sweep"]))
     log(f"[time] K2 fwd dense pass H={t2['H']}: kernel {t2['ms']:.3f} ms, "
         f"plain {t2['plain_ms']:.3f}, torch.sparse.mm "
         f"{t2['library_ms']:.3f}, bmm {t2['bmm_ms']}, bound "
@@ -647,8 +773,9 @@ def main(argv=None) -> int:
         f"does {t2['dense_flops']:.4e})")
     log(f"[layout] K2 tiles per row-block: max "
         f"{t2['tiles_per_row_block_max']}, mean "
-        f"{t2['tiles_per_row_block_mean']:.2f}; packing the entries of both "
-        f"stacks took {pr.fns.spmm.pack_seconds:.2f} s")
+        f"{t2['tiles_per_row_block_mean']:.2f}; packing K2's entries and K1's "
+        f"row schedules took {pr.fns.spmm.pack_seconds:.2f} s (K1's "
+        f"{pr.fns.spmm.residual.pack_seconds:.2f} s)")
     e3, t3s = compare_k3(gen, args.reps, detail)
     t4 = compare_k4(gen, args.reps, detail)
     t3 = t3s[0]
@@ -656,13 +783,18 @@ def main(argv=None) -> int:
         log(f"[check] K3 {t['dtype']} {t['shape']}: max abs err "
             f"{t['max_abs_err']:.3e} (every element within 2 W u sum|x|"
             f"{' + 1 bf16 ulp' if t['dtype'] == 'bfloat16' else ''}); "
-            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f}, "
-            f"g.sum(1) {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} "
-            f"({t['bound_by']})")
+            f"kernel {t['ms']:.3f} ms ({t['host_us']:.2f} us host per "
+            f"call), plain {t['plain_ms']:.3f}, g.sum(1) "
+            f"{t['library_ms']:.3f} ({t['library_host_us']:.2f} us host), "
+            f"bound {t['bound_ms']:.3f} ({t['bound_by']})")
     log(f"[check] K4 {t4['shape']}: bitwise equal to x[0:1]; kernel "
-        f"{t4['ms'] * 1e3:.2f} us (launch-bound), plain "
-        f"{t4['plain_ms'] * 1e3:.2f} us, copy_ {t4['library_ms'] * 1e3:.2f} "
-        f"us, bound {t4['bound_ms'] * 1e3:.4f} us (bytes)")
+        f"{t4['ms'] * 1e3:.2f} us by events ({t4['host_us']:.2f} us host per "
+        f"call), x[0:1].clone() {t4['plain_ms'] * 1e3:.2f} us "
+        f"({t4['plain_host_us']:.2f} us host), copy_ "
+        f"{t4['library_ms'] * 1e3:.2f} us ({t4['library_host_us']:.2f} us "
+        f"host), bound {t4['bound_ms'] * 1e3:.4f} us (bytes); of K4's host "
+        f"time, the output's allocation {t4['alloc_host_us']:.2f} us and the "
+        f"C call with its launch {t4['launch_host_us']:.2f} us")
 
     # 3. small-input agreement, card vs CPU
     small_agreement(cfg)
@@ -676,10 +808,15 @@ def main(argv=None) -> int:
     log(f"[launches] K1 {k1} | K2 {k2}")
     log(f"[hybrid] dense tiles carry {res.dense_edges} of {res.n_edges} "
         f"edges ({res.dense_edges / max(res.n_edges, 1):.1%})")
+    # one launch of each per aggregation: the n_layers - 1 layers after the
+    # use_pp precompute, forward and backward, every epoch, plus the
+    # precompute's one
+    passes = (cfg.n_layers - 1) * args.epochs
+    want = {"fwd": passes, "bwd": passes, "pre": 1}
     for name, c in (("K1", k1), ("K2", k2)):
-        if not (c.get("fwd", 0) > 0 and c.get("bwd", 0) > 0):
-            raise AssertionError(f"{name} did not launch forward and backward "
-                                 f"on the main path: {c}")
+        if c != want:
+            raise AssertionError(f"{name} launched {c} on the main path, not "
+                                 f"{want}")
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"non-finite loss: {res.losses}")
     if not res.losses[-1] < res.losses[0]:

@@ -7,8 +7,10 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
 Tolerance: rtol 1e-5, atol 1e-4 -- f32 sums of up to a few hundred terms
 of unit scale, taken in another order by the kernel and by PyTorch; K2 on
-the skewed layout, whose rows sum hundreds of terms up to 127 |x|, is held
-to the per-element bound of chip_smoke.py instead.
+the skewed layout, whose rows sum hundreds of terms up to 127 |x|, and K1,
+whose long rows sum over a thousand, are held to the per-element bound of
+chip_smoke.py instead: 2 n u sum|x|, n the row's terms (+1 with a base),
+u = 2^-24.
 """
 
 import numpy as np
@@ -19,13 +21,19 @@ from bnsgcn_tpu_torch.data.artifacts import (build_artifacts, load_artifacts,
                                              save_artifacts)
 from bnsgcn_tpu_torch.data.graph import sbm_graph, synthetic_graph
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
-from bnsgcn_tpu_torch.ops import block_spmm
+from bnsgcn_tpu_torch import buildlib
+from bnsgcn_tpu_torch.ops import block_spmm, bucket_reduce as k3_mod
+from bnsgcn_tpu_torch.ops import copy_probe as k4_mod
+from bnsgcn_tpu_torch.ops import ell as t_ell
 from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
                                                 bucket_reduce_plain,
                                                 launches as k3_launches)
-from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum, bucket_sum_plain,
-                                             launches as k1_launches)
+from bnsgcn_tpu_torch.ops.bucket_sum import (CHUNKS, LONG_ROW, ORDERS,
+                                             ell_apply, ell_apply_plain,
+                                             launches as k1_launches,
+                                             pack_rows)
 from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
+                                             copy_probe_plain,
                                              launches as k4_launches)
 from bnsgcn_tpu_torch.ops.tile_matmul import (MAX_TC,
                                               launches as k2_launches,
@@ -57,22 +65,168 @@ def _layout(tile):
         occupancy_min=4, tile_r=tile, tile_c=tile)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h_dim", [256, 602, 7])
-def test_bucket_sum_kernel_matches_plain(cuda, h_dim):
-    """All three vector widths (float4 / float2 / scalar rows); index 500
-    is the pad and contributes nothing."""
-    gen = torch.Generator(device=cuda).manual_seed(h_dim)
-    h = torch.randn(500, h_dim, generator=gen, device=cuda)
-    idx = torch.randint(0, 501, (64, 40), generator=gen, device=cuda,
-                        dtype=torch.int32)
-    idx[0] = 500
+def _ell_rows(device, long_hub=True):
+    """An ELL layout on the card with every kind of row: split rows (degree
+    > 128, a power-law graph), a hub past the long-row threshold, degree-0
+    rows (the padded ones) and multi-edges."""
+    g = synthetic_graph(n_nodes=400, avg_degree=40, n_feat=6, seed=5,
+                        power_law=True)
+    art = build_artifacts(g, partition_graph(g, 1))
+    src, dst = art.src[0], art.dst[0]
+    keep = ~np.isin(src, (3, 50)) & ~np.isin(dst, (3, 50))   # degree 0
+    src, dst = src[keep], dst[keep]
+    if long_hub:
+        hub = np.arange(LONG_ROW + 300) % art.pad_inner
+        hub = hub[~np.isin(hub, (3, 50))]
+        src = np.concatenate([src, hub])
+        dst = np.concatenate([dst, np.full(len(hub), 9)])
+    fs, bs, arrays = t_ell.build_layouts(
+        src.astype(np.int32)[None], dst.astype(np.int32)[None],
+        art.pad_inner, art.n_ext)
+    return t_ell.EllSpmm(fs, bs, {k: torch.from_numpy(
+        np.ascontiguousarray(v[0])).to(device) for k, v in arrays.items()})
+
+
+def _k1_matches_plain(rows, h, base=None, base_row=None, **kw):
+    """K1 against ell_apply_plain within 2 n u sum|x| per element, and
+    bitwise equal to itself on a second call; one launch per call."""
     before = k1_launches.total
-    out = bucket_sum(h, idx)
+    out = ell_apply(rows, h, base, base_row, **kw)
+    again = ell_apply(rows, h, base, base_row, **kw)
     torch.cuda.synchronize()
-    assert k1_launches.total == before + 1
-    torch.testing.assert_close(out, bucket_sum_plain(h, idx), **TOL)
-    assert bool((out[0] == 0).all())
+    assert k1_launches.total == before + (2 if rows.n_rows else 0)
+    ref = ell_apply_plain(rows, h, base, base_row)
+    n = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()[:, None]
+    if base is not None:
+        n = n + 1
+    bound = 2 * n.clamp(min=1) * 2.0 ** -24 * ell_apply_plain(
+        rows, h.abs(), None if base is None else base.abs(), base_row)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - ref).abs() <= bound).all())
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim", [1, 7, 33, 256, 602])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("with_base", [False, True])
+def test_bucket_sum_kernel_matches_plain(cuda, h_dim, direction, with_base):
+    """The one-launch ELL SpMM at every vector width (float4 at 256, float2
+    at 602, scalars at 1, 7, 33; 33 and 602 leave a ragged last column
+    chunk), both directions, with and without a base; split rows, a long
+    row and degree-0 rows in the layout."""
+    op = _ell_rows(cuda)
+    rows = op.rows[direction]
+    assert rows.spec.n_split > 0
+    if direction == "fwd":
+        assert rows.n_long >= 1
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    h = torch.randn(rows.n_src, h_dim, generator=gen, device=cuda)
+    base = base_row = None
+    if with_base:
+        base = torch.randn(rows.n_rows + 7, h_dim, generator=gen, device=cuda)
+        base_row = torch.randperm(rows.n_rows + 7, generator=gen,
+                                  device=cuda)[:rows.n_rows].to(torch.int32)
+    out = _k1_matches_plain(rows, h, base, base_row)
+    empty = rows.row_ptr[1:] == rows.row_ptr[:-1]
+    assert bool(empty.any())
+    expect = 0.0 if base is None else base[base_row.long()][empty]
+    assert bool((out[empty] == expect).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("order", ORDERS)
+def test_bucket_sum_kernel_each_chunk_and_order(cuda, chunk, order):
+    """Every column chunk and work order gives the same bits: a row's terms
+    are summed in the same order whichever CTA takes it. A long-row
+    threshold of 64 sends many rows down the CTA path."""
+    op = _ell_rows(cuda)
+    rows = op.rows["fwd"]
+    pos = torch.randperm(rows.n_rows, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    for h_dim in (256, 33):
+        h = torch.randn(rows.n_src, h_dim, generator=gen, device=cuda)
+        ref = ell_apply(rows, h)
+        for long_row in (LONG_ROW, 64):
+            r = rows.with_order(order, pos, long_row=long_row)
+            out = _k1_matches_plain(r, h, chunk=chunk)
+            if long_row == LONG_ROW:
+                assert torch.equal(out, ref)
+            else:
+                assert r.n_long > 10
+
+
+@pytest.mark.cuda
+def test_bucket_sum_kernel_on_an_empty_layout(cuda):
+    """A layout without edges: K1 still launches, writes zeros, or the base
+    rows alone."""
+    n_rows, n_src = 40, 30
+    fs, bs, arrays = t_ell.build_layouts(
+        np.zeros((1, 8), np.int32), np.full((1, 8), n_rows, np.int32),
+        n_rows, n_src)
+    op = t_ell.EllSpmm(fs, bs, {k: torch.from_numpy(v[0]).to(cuda)
+                                for k, v in arrays.items()})
+    rows = op.rows["fwd"]
+    assert rows.src.numel() == 0
+    h = torch.randn(n_src, 12, device=cuda)
+    out = _k1_matches_plain(rows, h)
+    assert bool((out == 0).all())
+    base = torch.randn(n_rows, 12, device=cuda)
+    br = torch.randperm(n_rows, device=cuda).to(torch.int32)
+    assert torch.equal(_k1_matches_plain(rows, h, base, br), base[br.long()])
+
+
+@pytest.mark.cuda
+def test_bucket_sum_kernel_in_the_hybrid(cuda):
+    """The hybrid SpMM on the card (K2's output as K1's base, gathered back
+    to row order in K1) against the same operator on the CPU."""
+    art, (fwd, bwd, pair, arrays) = _layout(64)
+    a = {k: torch.from_numpy(np.ascontiguousarray(v[0])) for k, v in
+         arrays.items()}
+    on_cpu = block_spmm.BlockSpmm(fwd, bwd, pair, a)
+    on_card = block_spmm.BlockSpmm(fwd, bwd, pair,
+                                   {k: v.to(cuda) for k, v in a.items()})
+    rng = np.random.default_rng(0)
+    for d, spec in (("fwd", fwd), ("bwd", bwd)):
+        h = torch.from_numpy(rng.normal(size=(spec.n_src, 48)).astype(
+            np.float32))
+        before = k1_launches.total
+        got = on_card.apply_dir(d, h.to(cuda), "check")
+        torch.cuda.synchronize()
+        assert k1_launches.total == before + 1
+        torch.testing.assert_close(got.cpu(), on_cpu.apply_dir(d, h, "check"),
+                                   **TOL)
+
+
+@pytest.mark.cuda
+def test_bucket_sum_rejects_what_the_kernel_does_not_take(cuda):
+    rows = _ell_rows(cuda, long_hub=False).rows["fwd"]
+    h = torch.randn(rows.n_src, 8, device=cuda)
+    base = torch.randn(rows.n_rows, 8, device=cuda)
+    br = torch.arange(rows.n_rows, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):                     # f64 rows
+        ell_apply(rows, h.double())
+    with pytest.raises(ValueError):                     # not contiguous
+        ell_apply(rows, torch.randn(8, rows.n_src, device=cuda).t())
+    with pytest.raises(ValueError):                     # too few rows
+        ell_apply(rows, h[:-1].contiguous())
+    with pytest.raises(ValueError):                     # base without rows
+        ell_apply(rows, h, base)
+    with pytest.raises(ValueError):                     # int64 base rows
+        ell_apply(rows, h, base, br.long())
+    with pytest.raises(ValueError):                     # base on the CPU
+        ell_apply(rows, h, base.cpu(), br)
+    with pytest.raises(ValueError):                     # base of another H
+        ell_apply(rows, h, base[:, :4].contiguous(), br)
+    with pytest.raises(ValueError):                     # no such chunk
+        ell_apply(rows, h, chunk=128)
+    cpu_rows = pack_rows(rows.spec, [t.cpu() for t in rows.idx],
+                         rows.perm.cpu(), rows.chunk_pos.cpu(),
+                         rows.chunk_seg.cpu())
+    with pytest.raises(ValueError):                     # schedule on the CPU
+        ell_apply(cpu_rows, h)
 
 
 def _k2_matches_plain(tiles, rowb, colb, x, n_row_blocks,
@@ -169,8 +323,6 @@ def test_tile_matmul_rejects_what_the_kernel_does_not_take(cuda):
         tile_matmul(t64, ids, ids, off, e64.long(), o64, x64, 1)
     with pytest.raises(ValueError):                 # slabs of another TC
         tile_matmul(t64, ids, ids, off, e64, o64, x[:, :32].contiguous(), 1)
-    with pytest.raises(ValueError):
-        bucket_sum(x[0].double(), ids[None])        # f64 rows
 
 
 @pytest.mark.cuda
@@ -203,6 +355,33 @@ def test_copy_probe_kernel_is_bitwise(cuda):
         copy_probe(torch.zeros(2, 3, device=cuda))        # x[0] is 12 bytes
     with pytest.raises(ValueError):
         copy_probe(torch.zeros(2, 8192, device=cuda))     # over the buffer
+    with pytest.raises(ValueError):
+        copy_probe(x.double())
+    with pytest.raises(ValueError):
+        copy_probe(x.transpose(1, 2))                     # not contiguous
+
+
+@pytest.mark.cuda
+def test_small_kernels_through_the_lean_launch_path(cuda):
+    """K3 and K4 resolve their C entry points once; on a side stream they
+    launch there, and stay within bound (K3, bitwise) and bitwise (K4) over
+    many calls."""
+    x = torch.randn(PROBE_SHAPE, device=cuda)
+    g = torch.randn(64, 16, 602, device=cuda)
+    copy_probe(x)
+    bucket_reduce(g)
+    calls = (k3_mod._kernel._call, k4_mod._kernel._call)
+    assert all(c is not None for c in calls)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert buildlib.raw_stream(x.get_device()) == side.cuda_stream
+        outs = [copy_probe(x) for _ in range(50)]
+        sums = [bucket_reduce(g) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert (k3_mod._kernel._call, k4_mod._kernel._call) == calls
+    assert all(torch.equal(o, copy_probe_plain(x)) for o in outs)
+    assert all(torch.equal(s, bucket_reduce_plain(g)) for s in sums)
 
 
 def _halo_job(ctx, path, h, cot):

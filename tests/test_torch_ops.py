@@ -7,6 +7,8 @@ Tolerance rtol = atol = 1e-5 for every float comparison: f32 sums of a few
 dozen terms, taken in a different order by XLA:CPU and by PyTorch.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ from bnsgcn_tpu_torch.ops import ell as t_ell
 from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
                                                 bucket_reduce_plain,
                                                 launches as k3_launches)
-from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum, bucket_sum_plain,
+from bnsgcn_tpu_torch.ops.bucket_sum import (bucket_sum_plain, ell_apply,
                                              launches as k1_launches)
 from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
                                              copy_probe_plain,
@@ -75,16 +77,37 @@ def test_bucket_sum_plain_matches_jax(n, h_dim, r, w):
 
 
 def test_bucket_sum_wrapper_takes_plain_on_cpu():
-    """A CPU tensor takes the plain version (chunked or not, same sums) and
-    counts no kernel launch."""
+    """A CPU tensor takes the plain version and counts no kernel launch: the
+    plain bucket sum gives the same sums row-chunked or not, and K1's
+    wrapper on a CPU layout (with and without a base) gives the layout's
+    row sums, computed here from its CSR."""
     rng = np.random.default_rng(3)
     h = _t(rng.normal(size=(30, 5)).astype(np.float32))
     idx = _t(rng.integers(0, 31, size=(40, 8)).astype(np.int32))
     before = k1_launches.total
-    out = bucket_sum(h, idx)
-    np.testing.assert_allclose(out.numpy(),
+    np.testing.assert_allclose(bucket_sum_plain(h, idx).numpy(),
                                bucket_sum_plain(h, idx, chunk_gathers=16)
                                .numpy(), **TOL)
+
+    g = synthetic_graph(n_nodes=120, avg_degree=9, n_feat=6, seed=2,
+                        power_law=True)
+    art = build_artifacts(g, partition_graph(g, 1))
+    fs, bs, arrays = t_ell.build_layouts(art.src, art.dst, art.pad_inner,
+                                         art.n_ext, geometry=art.ell_geometry)
+    op = t_ell.EllSpmm(fs, bs, {k: _t(v[0]) for k, v in arrays.items()})
+    h = _t(rng.normal(size=(art.n_ext, 5)).astype(np.float32))
+    base = _t(rng.normal(size=(art.pad_inner + 3, 5)).astype(np.float32))
+    base_row = _t(rng.permutation(art.pad_inner + 3)[:art.pad_inner]
+                  .astype(np.int32))
+    rows = op.rows["fwd"]
+    deg = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(rows.n_rows), deg)
+    sums = torch.zeros((rows.n_rows, 5)).index_add_(0, seg,
+                                                    h[rows.src.long()])
+    for b, br, want in ((None, None, sums),
+                        (base, base_row, base[base_row.long()] + sums)):
+        np.testing.assert_allclose(ell_apply(rows, h, b, br).numpy(),
+                                   want.numpy(), **TOL)
     assert k1_launches.total == before
 
 
@@ -107,8 +130,9 @@ def _hybrid(tile=32, occ=4, seed=67):
 
 def test_tile_matmul_plain_matches_pallas_and_xla():
     """Plain K2 == pallas_tile_matmul (interpret) on its visited blocks, and
-    the port's dense_apply == dense_apply_pallas (interpret) == the XLA
-    _dense_apply, forward and on the transposed (backward) stack."""
+    the port's dense_tiles, permuted back to row order, ==
+    dense_apply_pallas (interpret) == the XLA _dense_apply, forward and on
+    the transposed (backward) stack."""
     art, fwd, bwd, _, arrays = _hybrid()
     a = {k: v[0] for k, v in arrays.items()}
     rng = np.random.default_rng(3)
@@ -128,10 +152,10 @@ def test_tile_matmul_plain_matches_pallas_and_xla():
         np.testing.assert_allclose(ours[visited], pal[:-1][visited], **TOL)
         np.testing.assert_array_equal(ours[~visited], 0.0)
 
-        port = t_blk.dense_apply(spec, _t(tiles), _t(rowb), _t(colb),
+        port = t_blk.dense_tiles(spec, _t(tiles), _t(rowb), _t(colb),
                                  row_offsets(_t(rowb), spec.n_row_blocks),
                                  *pack_tiles(_t(tiles)), _t(a[psrc]),
-                                 _t(a[pout]), _t(h)).numpy()
+                                 _t(h))[_t(a[pout]).long()].numpy()
         jargs = [jnp.asarray(a[k]) for k in (f"blk_tiles_{d}",
                                              f"blk_rowb_{d}",
                                              f"blk_colb_{d}", psrc, pout)]
@@ -289,3 +313,37 @@ def test_copy_probe_plain_matches_pallas_probe():
     np.testing.assert_array_equal(ours.numpy(), np.asarray(y))
     np.testing.assert_array_equal(copy_probe_plain(_t(x)).numpy(), x[0:1])
     assert k4_launches.total == before
+
+
+# ---------------------------------------------------------------------------
+# (f) the kernels' launcher
+# ---------------------------------------------------------------------------
+
+def test_kernel_declares_its_entry_point_on_a_library_loaded_elsewhere(
+        monkeypatch):
+    """A Kernel sets its C function's argtypes/restype itself, so it holds
+    when another caller loaded the library first (with no declare); a
+    non-zero return raises with the library's own error text. libc stands
+    in for a kernel library: abs as the entry point, strerror as the
+    error-text function."""
+    from bnsgcn_tpu_torch import buildlib
+
+    libc = ctypes.CDLL(None)
+    loads = []
+
+    def load(name, kind, sources, declare=None):
+        loads.append((name, kind, declare))
+        return libc
+
+    monkeypatch.setattr(buildlib, "load", load)
+    k = buildlib.Kernel("stand_in", "stand_in.cu", "abs", [ctypes.c_int],
+                        "strerror")
+    k(0)
+    assert loads == [("stand_in", "cuda", None)]
+    assert libc.abs.argtypes == [ctypes.c_int]
+    assert libc.abs.restype is ctypes.c_int
+    assert libc.strerror.restype is ctypes.c_char_p
+    k(0)
+    assert len(loads) == 1                  # resolved once per process
+    with pytest.raises(RuntimeError, match="abs launch failed"):
+        k(2)                                # abs(2) == 2: a CUDA-style code
