@@ -92,7 +92,6 @@ class Config:
 # flags of the JAX CLI whose non-default values select features that later
 # slices port: (flag, default, why it is refused)
 _NOT_PORTED = (
-    ("sampling_rate", 1.0, "--sampling-rate < 1 (boundary-node sampling)"),
     ("halo_exchange", "padded", "--halo-exchange other than padded"),
     ("halo_wire", "native", "--halo-wire other than native"),
     ("dtype", "float32", "--dtype bfloat16"),
@@ -112,7 +111,8 @@ _NOT_PORTED = (
 def create_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="bnsgcn_tpu_torch: the PyTorch/CUDA port of bnsgcn_tpu "
-                    "(GraphSAGE/GCN training on P ranks at sampling rate 1.0)")
+                    "(GraphSAGE/GCN training on P ranks with boundary-node "
+                    "sampling)")
 
     def both(name, **kw):
         p.add_argument(f"--{name}", f"--{name.replace('-', '_')}", **kw)
@@ -188,6 +188,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         raise ConfigError("--norm batch (SyncBatchNorm) is not ported yet")
     if d.get("spmm") in ("auto", "segment"):
         raise ConfigError(f"--spmm {d['spmm']} is not ported yet")
+    rate = d.get("sampling_rate", 1.0)
+    if not 0.0 < rate <= 1.0:
+        raise ConfigError(f"--sampling-rate must be in (0, 1], got {rate}")
     if d.get("norm") == "none":
         d["norm"] = None
     if (d.get("n_partitions", 1) > 1 and d.get("device") == "cpu"

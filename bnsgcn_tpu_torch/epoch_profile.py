@@ -44,15 +44,15 @@ def main(argv=None) -> int:
         print("epoch_profile: device time needs the GPU", file=sys.stderr)
         return 2
     blk, model, opt, gen = init_training(pr)
-    for _ in range(args.warmup):
-        pr.fns.train_step(model, opt, blk, gen)
+    for epoch in range(args.warmup):
+        pr.fns.train_step(model, opt, blk, epoch, gen)
     torch.cuda.synchronize()
     n = args.profile_epochs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            pr.fns.train_step(model, opt, blk, gen)
+        for epoch in range(args.warmup, args.warmup + n):
+            pr.fns.train_step(model, opt, blk, epoch, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = {}

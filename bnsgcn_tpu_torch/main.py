@@ -2,19 +2,29 @@
 
 Flag names follow the JAX CLI (python -m bnsgcn_tpu.main). Runs on the GPU
 unless --device cpu is given; a flag whose feature is not ported yet exits 2
-with a `[config] ... not ported yet` line.
+with a `[config] ... not ported yet` line. As in the JAX CLI (and the
+reference), the seed is drawn at random unless --fix-seed is given; it is
+drawn here, before any rank is spawned, so every rank keys its boundary
+sample from the same seed.
 """
 
 from __future__ import annotations
 
+import random
 import sys
 
-from bnsgcn_tpu_torch.config import ConfigError, parse_config
+from bnsgcn_tpu_torch.config import (ConfigError, config_from_args,
+                                     create_parser)
 
 
 def main(argv=None) -> int:
     try:
-        cfg = parse_config(argv)
+        args = create_parser().parse_args(argv)
+        cfg = config_from_args(args)
+        if not args.fix_seed:
+            cfg = cfg.replace(seed=random.randrange(1 << 31))
+            print(f"seed {cfg.seed} (drawn; --fix-seed --seed {cfg.seed} "
+                  f"repeats this run)")
         from bnsgcn_tpu_torch.run import run_training
         res = run_training(cfg)
     except ConfigError as e:

@@ -12,7 +12,10 @@ same loop, exchanging halos and all-reducing gradients with the others; rank
 0 prints the epoch lines, evaluates on the full graph (the others wait at a
 barrier with a timeout of its own) and checks at the end that every rank
 holds rank 0's parameters. Each rank hands back its losses, epoch and
-collective times, kernel launch counts and peak device memory.
+collective times, kernel launch counts and peak device memory. At sampling
+rate < 1 every rank keys each epoch's boundary sample from cfg.seed and the
+epoch (trainer.py), so the ranks agree on it without exchanging indices,
+and a run with the same seed replays the same samples.
 Checkpoints, resume and the resilience/coordination layers wait for later
 slices.
 """
@@ -39,7 +42,8 @@ from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.evaluate import evaluate_trans
 from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
 from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
-from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
+from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
+                                            wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, RankContext,
                                             check_mesh_budget, launch,
                                             rank_device)
@@ -166,8 +170,10 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
 def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                log=print) -> tuple[RunResult, GNN]:
     """The epoch loop of one process (P=1) or one rank. Rank 0 logs and, with
-    cfg.eval, evaluates on the full graph; the epoch time is taken after
-    the step's gradient all-reduce and ends in float(loss)."""
+    cfg.eval, evaluates on the full graph, last the best-validation
+    parameters on a copy; the epoch time is taken after the step's gradient
+    all-reduce and ends in float(loss). Returns the trained model, which
+    every rank holds alike."""
     cfg, g, fns, device, comm = pr.cfg, pr.g, pr.fns, pr.device, pr.comm
     lead = pr.rank == 0
     res = RunResult(dense_edges=fns.dense_edges, n_edges=pr.n_edges)
@@ -184,7 +190,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         if comm is not None:
             comm.reset_seconds()
         t_ep = time.perf_counter()
-        loss = fns.train_step(model, opt, blk, drop_gen)
+        loss = fns.train_step(model, opt, blk, epoch, drop_gen)
         loss_f = float(loss)                    # waits for the device
         dt = time.perf_counter() - t_ep
         secs = comm.seconds() if comm else {"exchange": 0.0, "reduce": 0.0}
@@ -211,10 +217,12 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             comm.barrier()                      # the peers wait for rank 0
     res.epoch_time = mean(res.epoch_times)
     if cfg.eval and lead:
+        best = model
         if best_state is not None:
-            model.load_state_dict(best_state)
+            best = copy.deepcopy(model)
+            best.load_state_dict(best_state)
             log("Max Validation Accuracy {:.2%}".format(res.best_val_acc))
-        res.val_acc, res.test_acc = evaluate_trans("Test Result", model, g,
+        res.val_acc, res.test_acc = evaluate_trans("Test Result", best, g,
                                                    device, log=log)
     return res, model
 
@@ -323,6 +331,7 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
     _prebuild(cfg)
     hspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
                               cfg.sampling_rate)
+    hfull, _ = full_rate_spec(art.n_b, art.pad_inner, art.pad_boundary)
     devs = [str(rank_device(cfg.device, cfg.dist_backend, r))
             for r in range(P)]
     staged = cfg.dist_backend == "gloo" and cfg.device == "cuda"
@@ -330,11 +339,13 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         + (" (collectives staged through host memory)" if staged else "")
         + f" | devices {','.join(devs)} | pad_inner={art.pad_inner} "
         f"pad_boundary={art.pad_boundary} pad_send={hspec.pad_send} "
-        f"edges/part={art.pad_edges} | halo {hspec.strategy}/{hspec.wire}: "
+        f"edges/part={art.pad_edges} | halo {hspec.strategy}/{hspec.wire} "
+        f"at sampling rate {cfg.sampling_rate:g}: "
         f"{wire_bytes(hspec, cfg.n_hidden) / 1e6:.2f} MB/exchange/rank at "
         f"hidden width {cfg.n_hidden} "
-        f"({wire_bytes(hspec, art.n_feat) / 1e6:.2f} MB at feature width "
-        f"{art.n_feat}) | artifacts {path} {time.perf_counter() - t0:.1f}s")
+        f"({wire_bytes(hfull, art.n_feat) / 1e6:.2f} MB at feature width "
+        f"{art.n_feat}, the precompute's full-rate exchange) | artifacts "
+        f"{path} {time.perf_counter() - t0:.1f}s")
     reports = launch(_rank_main, P,
                      [(cfg, path, model_init,
                        g if (r == 0 and cfg.eval) else None, rank_hook)

@@ -8,7 +8,12 @@ exchange's backward the transposed all-to-all) -> one all-reduce of the
 gradients over the ranks -> Adam with L2 added to the gradient before the
 moments. At P=1 (no Comm) the exchange is the identity plus the zero-filled
 halo slots of the artifact layout and there is nothing to reduce.
-Boundary-node sampling (rate < 1) waits for a later slice.
+
+At sampling rate < 1 each step first draws the epoch's boundary sample
+(parallel/halo.py make_halo_plan, from the base key prng.key(cfg.seed) and
+the epoch, as the JAX step does inside its jit), so the draw's time counts
+in the step; every layer's exchange, forward and backward, uses it. The
+use_pp precompute exchanges at the full rate whatever the training rate.
 """
 
 from __future__ import annotations
@@ -28,10 +33,13 @@ from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              cluster_order, dense_edge_count,
                                              effective_occupancy)
 from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
-from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, halo_apply,
-                                            make_halo_plan, make_halo_spec)
+from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
+                                            halo_apply, make_halo_plan,
+                                            make_halo_spec,
+                                            precompute_exchange, tables_to)
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
+from bnsgcn_tpu_torch.utils import prng
 
 
 def ce_sum(logits, labels, mask):
@@ -111,11 +119,12 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
 class StepFns:
     spmm: Union[EllSpmm, BlockSpmm]    # the training aggregation operator
     layout: dict                       # its numpy layout arrays [1, ...]
-    train_step: Callable               # (model, opt, blk, generator) -> loss
-    forward: Callable                  # (model, blk, generator) -> logits
+    train_step: Callable               # (model, opt, blk, epoch, gen) -> loss
+    forward: Callable                  # (model, blk, epoch, gen) -> logits
     precompute: Callable               # (blk) -> layer-0 input features
     dense_edges: int = 0               # edges on dense tiles (hybrid)
-    halo: Optional[HaloSpec] = None    # the exchange's geometry (P > 1)
+    halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
+    halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
 
 
 def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
@@ -152,30 +161,40 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     spmm, layout = build_spmm(cfg, art, device, log, row)
     n_train = max(art.n_train, 1)
     n_halo = art.n_ext - art.pad_inner
-    hspec = None
+    hspec = hfull = None
     if comm is not None:
         bnd = torch.from_numpy(np.ascontiguousarray(art.bnd[row])).to(device)
         hspec, tables = make_halo_spec(art.n_b, art.pad_inner,
                                        art.pad_boundary, cfg.sampling_rate)
-        plan = make_halo_plan(hspec, tables, bnd, rank)
+        hfull, tables_full = full_rate_spec(art.n_b, art.pad_inner,
+                                            art.pad_boundary)
+        tables = tables_to(tables, device)
+        sample_key = prng.key(cfg.seed, device)
+        # rate 1.0: the identity plan, the same every epoch
+        fixed_plan = (make_halo_plan(hspec, tables, bnd, rank)
+                      if hspec.exact else None)
 
-    def exchange(i, h):
+    def exchange_for(epoch: int):
         if comm is None:
             # P=1: no peer sends anything; the halo slots stay zero
-            return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
-        return halo_apply(hspec, plan, h, comm)
+            return lambda i, h: torch.cat([h, h.new_zeros((n_halo,
+                                                           h.shape[1]))])
+        plan = (fixed_plan if fixed_plan is not None else
+                make_halo_plan(hspec, tables, bnd, rank, epoch, sample_key))
+        return lambda i, h: halo_apply(hspec, plan, h, comm)
 
-    def forward(model: GNN, blk, generator=None):
-        """Training-mode forward: logits [pad_inner, n_class]."""
+    def forward(model: GNN, blk, epoch: int, generator=None):
+        """Training-mode forward at `epoch` (which keys the boundary
+        sample): logits [pad_inner, n_class]."""
         env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
-                       out_norm=blk["out_norm"], exchange=exchange,
+                       out_norm=blk["out_norm"], exchange=exchange_for(epoch),
                        aggregate=spmm, training=True, generator=generator)
         return apply_model(model, blk["feat"], env)
 
-    def train_step(model: GNN, opt, blk, generator=None):
-        """One step; returns the loss summed over the ranks."""
+    def train_step(model: GNN, opt, blk, epoch: int, generator=None):
+        """One step at `epoch`; returns the loss summed over the ranks."""
         opt.zero_grad(set_to_none=True)
-        logits = forward(model, blk, generator)
+        logits = forward(model, blk, epoch, generator)
         loss = ce_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
         if comm is not None:
@@ -187,10 +206,12 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     def precompute(blk):
         """use_pp layer-0 input, once before training (JAX trainer
         local_precompute): GCN (sum feat/out_norm)/in_norm; GraphSAGE
-        cat(feat, sum(feat)/in_deg). The exchange (at rate 1.0 the training
-        one, the JAX package's full-rate precompute exchange) and the
+        cat(feat, sum(feat)/in_deg). The exchange (full-rate at any
+        training rate, the JAX package's precompute exchange) and the
         aggregation (the same SpMM) run at the raw feature width."""
-        feat_ext = exchange(0, blk["feat"])
+        feat_ext = (exchange_for(0)(0, blk["feat"]) if comm is None else
+                    precompute_exchange(hfull, tables_full, bnd, blk["feat"],
+                                        rank, comm))
         if spec.model == "gcn":
             return spmm.apply_dir("fwd", feat_ext / blk["out_norm"][:, None],
                                   "pre") / blk["in_norm"][:, None]
@@ -200,4 +221,4 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     dense = dense_edge_count(layout) if cfg.spmm == "hybrid" else 0
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
                    forward=forward, precompute=precompute, dense_edges=dense,
-                   halo=hspec)
+                   halo=hspec, halo_full=hfull)

@@ -33,18 +33,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plus the precompute's one); the run
      ends with the full-graph eval's accuracy line, which must beat twice
      chance;
-  5. the P-rank path (partition parallelism at sampling rate 1.0) on
-     synth-reddit at --parts-scale, the same model: 4 ranks sharing this
-     one card over gloo (NCCL refuses two ranks on one card) and P=1, 3
-     epochs without dropout from the same parameters, must give the same
-     losses to 1e-4 (relative); then the main path at P=4 with dropout 0.5
-     through run.run_training, in which each rank first holds K1 and K2 to
+  5. the P-rank path on synth-reddit at --parts-scale, the same model: at
+     sampling rate 1.0, 4 ranks sharing this one card over gloo (NCCL
+     refuses two ranks on one card) and P=1, 3 epochs without dropout from
+     the same parameters, must give the same losses to 1e-4 (relative);
+     then the main path at P=4 with boundary-node sampling at the
+     flagship's rate 0.1 and dropout 0.5 through run.run_training, in
+     which each rank first holds K1 and K2 to
      their plain versions on its own part's layout (its own hybrid tiles and
      ELL residual and its own row schedule, forward and backward, at
      H=256 and the raw feature width, with phase 2's bounds) and then hands
      back its launch counts: K1 and K2 must have launched as at P=1 on
      every rank, the loss must stay finite and fall, rank 0's accuracy must beat
      twice chance, and every rank must end with rank 0's parameters;
+     then [bns] at those artifacts: every rank's BNS plan for epochs 0 and
+     1 built on the card must be array-equal to the CPU's, and the ranks'
+     plans must agree pair by pair (sender p's rows are the ones receiver
+     j's slots stand for, the rest trashed); it prints each rank's wire MB
+     per exchange, the plan's ms, the exchange's share and the epoch at
+     rate 0.1 beside rate 1.0's;
   6. print the card's name and power limit, one {"kernels": [...]} line and,
      last, {"ok": true, "device": {...}}.
 
@@ -93,6 +100,8 @@ PARTS = 4
 HOST_CALLS = 200        # calls per host-time measurement of a small kernel
 LAW_EPOCHS = 3
 LAW_RTOL = 1e-4
+BNS_RATE = 0.1          # the flagship's sampling rate (scripts/reddit.sh)
+BNS_EPOCHS = (0, 1)     # epochs whose plans the [bns] phase checks
 
 
 def log(msg):
@@ -571,6 +580,44 @@ def rank_kernel_check(pr):
     return {"K1": e1, "K2": e2, "widths": widths, "detail": detail}
 
 
+def plan_agreement(spec, tables, plans, bnd, gnid):
+    """The BNS plans of all ranks agree without exchanging an index: for
+    every pair (p, j) and every row k below send_size[p, j], the global id
+    of sender p's sel[j, k] is the global id that receiver j's slot
+    slots[p, k] stands for (the entry slots[p, k] - p B_pad of p's boundary
+    list toward j), and the sender weighs it by inv_ratio[p, j]; every
+    later row goes to the receiver's trash slot n_halo with weight 0.
+    plans[r] = (sel, weight, slots) of rank r as numpy [P, S_pad]; bnd
+    [P, P, B_pad] and gnid [P, pad_inner] the artifacts'. Returns the
+    number of rows checked; raises on the first disagreement."""
+    import numpy as np
+    P, Bp, Sp = spec.n_parts, spec.pad_boundary, spec.pad_send
+    rows = 0
+    for p in range(P):
+        sel, weight = plans[p][0], plans[p][1]
+        for j in range(P):
+            slots = plans[j][2][p]
+            s = int(tables["send_size"][p, j])
+            k = slots[:s] - p * Bp
+            if not ((0 <= k) & (k < int(tables["n_b"][p, j]))).all():
+                raise AssertionError(f"pair {p}->{j}: receiver slots outside "
+                                     f"the sender's boundary list")
+            sent = gnid[p, sel[j, :s]]
+            meant = gnid[p, bnd[p, j, k]]
+            bad = np.flatnonzero((sent != meant) | (sent < 0))
+            if bad.size:
+                raise AssertionError(
+                    f"pair {p}->{j}: sender and receiver drew different rows "
+                    f"(first at k={bad[0]})")
+            if not ((slots[s:] == spec.n_halo).all()
+                    and (weight[j, s:] == 0).all()
+                    and (weight[j, :s] == tables["inv_ratio"][p, j]).all()):
+                raise AssertionError(f"pair {p}->{j}: rows past send_size {s} "
+                                     f"of {Sp} not trashed, or weights wrong")
+            rows += s
+    return rows
+
+
 def parts_runs(cfg, args, part_path):
     """The P-rank path at --parts-scale: the P=4 == P=1 law, then the main
     path at P=4. Returns the details for the report."""
@@ -601,11 +648,12 @@ def parts_runs(cfg, args, part_path):
         f"max relative loss difference {rel:.3e} <= {LAW_RTOL} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    # the main path at P=4, through the user's entry point; each rank checks
-    # K1 and K2 on its own layout, resets its launch counts just before its
-    # epoch loop and hands them back
+    # the main path at P=4 at the flagship's sampling rate, through the
+    # user's entry point; each rank checks K1 and K2 on its own layout,
+    # resets its launch counts just before its epoch loop and hands them back
     main4 = base.replace(n_partitions=PARTS, n_epochs=args.parts_epochs,
-                         log_every=max(args.parts_epochs // 2, 1))
+                         log_every=max(args.parts_epochs // 2, 1),
+                         sampling_rate=BNS_RATE)
     res = run_training(main4, g=g, log=log, rank_hook=rank_kernel_check)
     for rep in res.ranks:
         hk = rep["hook"]
@@ -645,18 +693,92 @@ def parts_runs(cfg, args, part_path):
                       "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
                       "launches": rep["launches"]})
         log(f"[parts] rank {rep['rank']} ({rep['device']}; 4 ranks sharing "
-            f"one card over gloo, not a 4-card number): epoch "
-            f"{rep['epoch_time'] * 1e3:.1f} ms, exchange "
+            f"one card over gloo, not a 4-card number) at rate {BNS_RATE}: "
+            f"epoch {rep['epoch_time'] * 1e3:.1f} ms, exchange "
             f"{ranks[-1]['exchange_s'] * 1e3:.1f} ms ({share:.1%} of the "
             f"epoch), gradient all-reduce {ranks[-1]['reduce_s'] * 1e3:.1f} "
             f"ms, peak memory {ranks[-1]['max_memory_gib']:.2f} GiB, "
             f"launches K1 {rep['launches']['K1']} K2 {rep['launches']['K2']}")
+    bns = bns_phase(main4, r4, ranks, args.reps)
     return {"scale": args.parts_scale, "law_losses_p4": r4.losses,
             "law_losses_p1": r1.losses, "law_max_rel": rel,
             "law_p1_epoch_s": r1.epoch_time,
-            "losses": res.losses, "val_acc": res.val_acc,
-            "test_acc": res.test_acc, "ranks": ranks,
+            "rate": BNS_RATE, "losses": res.losses, "val_acc": res.val_acc,
+            "test_acc": res.test_acc, "ranks": ranks, "bns": bns,
             "rank_checks": [rep["hook"] for rep in res.ranks]}, res
+
+
+def bns_phase(cfg, law, ranks, reps):
+    """[bns] at the P=4 artifacts: (a) every rank's plan for BNS_EPOCHS
+    built on the card is array-equal to the same plan built on the CPU;
+    (b) the card's plans agree across ranks (plan_agreement); (c) per rank,
+    the wire MB of one exchange at H=n_hidden at cfg's rate beside rate
+    1.0's, the plan's ms per epoch on the card (CUDA events over `reps`
+    builds), and the exchange's share and the epoch at cfg's rate beside
+    rate 1.0's (the law run: the same P and graph, dropout 0)."""
+    import torch
+    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
+    from bnsgcn_tpu_torch.parallel.halo import (make_halo_plan,
+                                                make_halo_spec, tables_to,
+                                                wire_bytes)
+    from bnsgcn_tpu_torch.run import artifacts_dir
+    from bnsgcn_tpu_torch.utils import prng
+    t0 = time.perf_counter()
+    art = load_artifacts(artifacts_dir(cfg))
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  cfg.sampling_rate)
+    full, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary, 1.0)
+    on_card = tables_to(tables, "cuda")
+    key_cpu, key_card = prng.key(cfg.seed), prng.key(cfg.seed, "cuda")
+    plans = {e: [] for e in BNS_EPOCHS}
+    out = []
+    for r in range(PARTS):
+        bnd = torch.from_numpy(art.bnd[r])
+        bnd_card = bnd.cuda()
+        for e in BNS_EPOCHS:
+            want = make_halo_plan(spec, tables, bnd, r, e, key_cpu)
+            got = make_halo_plan(spec, on_card, bnd_card, r, e, key_card)
+            for name in ("sel", "weight", "slots"):
+                if not torch.equal(getattr(got, name).cpu(),
+                                   getattr(want, name)):
+                    raise AssertionError(f"[bns] rank {r} epoch {e}: the "
+                                         f"card's {name} differs from the "
+                                         f"CPU's")
+            plans[e].append(tuple(getattr(got, n).cpu().numpy()
+                                  for n in ("sel", "weight", "slots")))
+        plan_ms = cuda_ms(lambda: make_halo_plan(spec, on_card, bnd_card, r,
+                                                 0, key_card), reps)
+        rep1 = law.ranks[r]
+        ep1 = rep1["epoch_times"][1:] or rep1["epoch_times"]
+        ex1 = rep1["comm_times"][1:] or rep1["comm_times"]
+        out.append({
+            "rank": r, "plan_ms": plan_ms,
+            "wire_mb": wire_bytes(spec, cfg.n_hidden) / 1e6,
+            "wire_mb_rate1": wire_bytes(full, cfg.n_hidden) / 1e6,
+            "sampled_rows": int(tables["send_size"][r].sum()),
+            "boundary_rows": int(tables["n_b"][r].sum()),
+            "epoch_s": ranks[r]["epoch_s"],
+            "exchange_share": ranks[r]["exchange_share"],
+            "epoch_s_rate1": rep1["epoch_time"],
+            "exchange_share_rate1": sum(ex1) / max(sum(ep1), 1e-12)})
+    rows = [plan_agreement(spec, tables, plans[e], art.bnd, art.global_nid)
+            for e in BNS_EPOCHS]
+    log(f"[bns] rate {cfg.sampling_rate}: S_pad {spec.pad_send} (rate 1.0: "
+        f"{full.pad_send}); every rank's plan for epochs {BNS_EPOCHS} built "
+        f"on the card is array-equal to the CPU's; the ranks' plans agree "
+        f"pair by pair ({rows} sampled rows, the rest trashed) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for x in out:
+        log(f"[bns] rank {x['rank']} (4 ranks sharing one card over gloo): "
+            f"{x['sampled_rows']} of {x['boundary_rows']} boundary rows sent; "
+            f"wire {x['wire_mb']:.2f} MB per exchange at H={cfg.n_hidden} "
+            f"(rate 1.0: {x['wire_mb_rate1']:.2f}); plan {x['plan_ms']:.3f} "
+            f"ms per epoch (events); exchange {x['exchange_share']:.1%} of a "
+            f"{x['epoch_s'] * 1e3:.1f} ms epoch (rate 1.0, dropout 0: "
+            f"{x['exchange_share_rate1']:.1%} of {x['epoch_s_rate1'] * 1e3:.1f}"
+            f" ms)")
+    return {"pad_send": spec.pad_send, "pad_send_rate1": full.pad_send,
+            "agreed_rows": rows, "ranks": out}
 
 
 def small_agreement(base_cfg):

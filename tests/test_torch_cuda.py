@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(and the BNS draw on the card against the CPU's).
 
 Marked `cuda`; each test skips without a GPU. This file imports neither jax
 nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -42,6 +43,8 @@ from bnsgcn_tpu_torch.ops.tile_matmul import (MAX_TC,
 from bnsgcn_tpu_torch.parallel.halo import (halo_apply, make_halo_plan,
                                             make_halo_spec)
 from bnsgcn_tpu_torch.parallel.mesh import launch
+from bnsgcn_tpu_torch.parallel.sampling import pair_key, pair_sample
+from bnsgcn_tpu_torch.utils import prng
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -416,3 +419,33 @@ def test_halo_exchange_over_gloo_on_one_card(cuda, tmp_path):
         np.testing.assert_array_equal(y, y_ref)
         np.testing.assert_allclose(dx, dx_ref, rtol=1e-6, atol=1e-6)
     assert np.abs(on_cpu[0][0][art.pad_inner:]).sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_bns_plan_on_the_card_is_the_cpu_plan(cuda, rate):
+    """The BNS draw is integer ops, a stable sort and indexing: every
+    rank's plan built on the card is the CPU's, array for array, for three
+    epochs; so is a draw over a 29,711-node boundary list, which holds tied
+    scores."""
+    g = synthetic_graph(n_nodes=400, avg_degree=8, n_feat=6, n_class=4,
+                        seed=31)
+    art = build_artifacts(g, partition_graph(g, 4, method="random", seed=3))
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  rate)
+    for r in range(4):
+        bnd = torch.from_numpy(art.bnd[r])
+        for e in range(3):
+            on_cpu = make_halo_plan(spec, tables, bnd, r, e, prng.key(7))
+            on_card = make_halo_plan(spec, tables, bnd.to(cuda), r, e,
+                                     prng.key(7, cuda))
+            for name in ("sel", "weight", "slots"):
+                got = getattr(on_card, name)
+                assert got.device.type == "cuda"
+                assert torch.equal(got.cpu(), getattr(on_cpu, name)), name
+    keys = pair_key(prng.key(5), 2, torch.arange(4), 1)
+    n = torch.tensor([29711, 29000, 100, 0])
+    s = (n.double() * rate).long()
+    want = pair_sample(keys, n, s, 29711, 29711)
+    got = pair_sample(keys.to(cuda), n.to(cuda), s.to(cuda), 29711, 29711)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -15,7 +15,17 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     within the process-group timeout, with the other ranks torn down, while
     a barrier waits past it for work one rank does alone;
   * run_training's rank hook sees each rank's own layout, and the ranks
-    hand back their collective seconds.
+    hand back their collective seconds;
+  * boundary-node sampling at rate 0.5 (sample key jax.random.key(0), the
+    port's prng.key(0) from seed 0): every rank's plan (sel, weight, slots)
+    for epochs 0-2 array-equal to the JAX package's make_halo_plan under
+    shard_map; halo_apply forward array-equal, VJP to 1e-6; GraphSAGE with
+    use_pp on ELL and hybrid, dropout 0, against the JAX 4-device run at the
+    tolerances above; the precompute exchange is full-rate at any rate; the
+    ranks' plans agree pair by pair (chip_smoke.plan_agreement); the sampled,
+    1/ratio-scaled aggregation is unbiased (the twin of
+    tests/test_distributed.py's test_bns_unbiasedness); the CLI trains at
+    --sampling-rate 0.5 over gloo.
 
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
@@ -36,11 +46,12 @@ from bnsgcn_tpu_torch.data.artifacts import (build_artifacts, load_artifacts,
 from bnsgcn_tpu_torch.data.graph import synthetic_graph
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.parallel.halo import (halo_apply, make_halo_plan,
-                                            make_halo_spec)
+                                            make_halo_spec, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import RankFailed, launch
 from bnsgcn_tpu_torch.run import (init_training, prepare_part, prepare_run,
                                   run_training)
 from bnsgcn_tpu_torch.trainer import build_spmm
+from bnsgcn_tpu_torch.utils import prng
 
 GRAPH = dict(n_nodes=90, avg_degree=6, n_feat=6, n_class=4, seed=31)
 P = 4
@@ -51,14 +62,18 @@ LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 MODELS = [("graphsage", False), ("graphsage", True), ("gcn", True)]
 SPMMS = ["ell", "hybrid"]
+RATE = 0.5                      # the BNS cases' sampling rate
+BNS_MODEL = ("graphsage", True)
+UNBIASED_EPOCHS = 300
 
 
-def _cfg(model, use_pp, spmm, n_parts):
+def _cfg(model, use_pp, spmm, n_parts, rate=1.0):
     return Config(model=model, n_layers=3, n_hidden=8, dropout=0.0,
                   use_pp=use_pp, norm="layer", lr=0.01, weight_decay=5e-4,
                   spmm=spmm, block_tile=16, block_occupancy=2,
                   n_partitions=n_parts, n_epochs=EPOCHS, eval=False,
-                  device="cpu", dist_backend="gloo", seed=0)
+                  device="cpu", dist_backend="gloo", seed=0,
+                  sampling_rate=rate)
 
 
 def _quiet(*a, **k):
@@ -68,31 +83,87 @@ def _quiet(*a, **k):
 def _steps(pr, model_init):
     """Forward logits at the initial parameters, then EPOCHS train steps."""
     blk, model, opt, gen = init_training(pr, model_init)
-    logits = pr.fns.forward(model, blk).detach().numpy()
-    losses = [float(pr.fns.train_step(model, opt, blk, gen))
-              for _ in range(EPOCHS)]
+    logits = pr.fns.forward(model, blk, 0).detach().numpy()
+    losses = [float(pr.fns.train_step(model, opt, blk, e, gen))
+              for e in range(EPOCHS)]
     return logits, losses, {k: v.detach().numpy().copy()
                             for k, v in model.state_dict().items()}
 
 
+def _halo_vjp(spec, plan, h, cot, comm):
+    x = torch.from_numpy(h).requires_grad_(True)
+    y = halo_apply(spec, plan, x, comm)
+    (y * torch.from_numpy(cot)).sum().backward()
+    return y.detach().numpy(), x.grad.numpy()
+
+
+def _aggregate(spec, plan, feat, src, dst, comm):
+    """The sum over the part's edges of the exchanged features
+    (bnsgcn_tpu/ops/spmm.py agg_sum; dst == pad_inner is padding)."""
+    hx = halo_apply(spec, plan, feat, comm)
+    out = hx.new_zeros((spec.pad_inner + 1, hx.shape[1]))
+    return out.index_add_(0, dst, hx[src])[:-1]
+
+
+def _unbiased(art, comm, rank):
+    """The mean over UNBIASED_EPOCHS epochs of the rate-RATE aggregation
+    of the raw features, and the full-rate aggregation."""
+    bnd = torch.from_numpy(art.bnd[0])
+    feat = torch.from_numpy(art.feat[0])
+    src, dst = (torch.from_numpy(art.src[0]).long(),
+                torch.from_numpy(art.dst[0]).long())
+    full_spec, full_tables = make_halo_spec(art.n_b, art.pad_inner,
+                                            art.pad_boundary, 1.0)
+    full = _aggregate(full_spec, make_halo_plan(full_spec, full_tables, bnd,
+                                                rank), feat, src, dst, comm)
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  RATE)
+    key = prng.key(42)
+    acc = torch.zeros_like(full, dtype=torch.float64)
+    for e in range(UNBIASED_EPOCHS):
+        plan = make_halo_plan(spec, tables, bnd, rank, e, key)
+        acc += _aggregate(spec, plan, feat, src, dst, comm)
+    return (acc / UNBIASED_EPOCHS).numpy(), full.numpy()
+
+
 def _rank_job(ctx, path, h, cot, inits):
-    """One rank: the halo exchange and its VJP, then every (model, spmm)."""
+    """One rank: the halo exchange and its VJP, then every (model, spmm);
+    then the BNS cases at rate RATE."""
     torch.set_num_threads(1)
     art = load_artifacts(path, parts=[ctx.rank])
+    bnd = torch.from_numpy(art.bnd[0])
     spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
                                   1.0)
-    plan = make_halo_plan(spec, tables, torch.from_numpy(art.bnd[0]),
-                          ctx.rank)
-    x = torch.from_numpy(h[ctx.rank]).requires_grad_(True)
-    y = halo_apply(spec, plan, x, ctx.comm)
-    (y * torch.from_numpy(cot[ctx.rank])).sum().backward()
-    out = {"halo": (y.detach().numpy(), x.grad.numpy())}
+    plan = make_halo_plan(spec, tables, bnd, ctx.rank)
+    out = {"halo": _halo_vjp(spec, plan, h[ctx.rank], cot[ctx.rank],
+                             ctx.comm)}
     for (model, use_pp), init in zip(MODELS, inits):
         init = {k: torch.from_numpy(v) for k, v in init.items()}
         for spmm in SPMMS:
             pr = prepare_part(_cfg(model, use_pp, spmm, P), art, None,
                               ctx.device, _quiet, ctx.rank, ctx.comm)
             out[model, use_pp, spmm] = _steps(pr, init)
+
+    # boundary-node sampling at rate RATE
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  RATE)
+    plans = [make_halo_plan(spec, tables, bnd, ctx.rank, e, prng.key(0))
+             for e in range(EPOCHS)]
+    out["plans"] = [(p.sel.numpy(), p.weight.numpy(), p.slots.numpy())
+                    for p in plans]
+    out["halo_bns"] = _halo_vjp(spec, plans[1], h[ctx.rank], cot[ctx.rank],
+                                ctx.comm)
+    init = {k: torch.from_numpy(v)
+            for k, v in inits[MODELS.index(BNS_MODEL)].items()}
+    for spmm in SPMMS:
+        pre = {}
+        for rate in (1.0, RATE):
+            pr = prepare_part(_cfg(*BNS_MODEL, spmm, P, rate), art, None,
+                              ctx.device, _quiet, ctx.rank, ctx.comm)
+            pre[rate] = pr.fns.precompute(pr.blk).numpy()
+        out["bns", spmm] = _steps(pr, init)
+        out["pre", spmm] = pre
+    out["unbiased"] = _unbiased(art, ctx.comm, ctx.rank)
     return out
 
 
@@ -127,14 +198,42 @@ def _jax_reference(art_j, h, cot):
                              out_specs=(PS("parts"), PS("parts"))))
     y, dx = halo(jnp.asarray(art_j.bnd), jnp.asarray(h), jnp.asarray(cot))
     ref = {"halo": (np.asarray(y), np.asarray(dx))}
+
+    # BNS at rate RATE: each epoch's plan, and halo_apply at epoch 1
+    bspec, btables = j_spec(art_j.n_b, art_j.pad_inner, art_j.pad_boundary,
+                            RATE)
+
+    def local_plan(bnd, epoch):
+        plan = j_plan(bspec, btables, bnd[0], epoch, jax.random.key(0))
+        return plan.sel[None], plan.weight[None], plan.slots[None]
+
+    def local_bns(bnd, x, c):
+        plan = j_plan(bspec, btables, bnd[0], jnp.uint32(1),
+                      jax.random.key(0))
+        y, vjp = jax.vjp(lambda v: j_halo_apply(bspec, plan, v), x[0])
+        return y[None], vjp(c[0])[0][None]
+
+    plan_fn = jax.jit(shard_map(local_plan, mesh=mesh,
+                                in_specs=(PS("parts"), PS()),
+                                out_specs=(PS("parts"),) * 3))
+    ref["plans"] = [tuple(np.asarray(a) for a in
+                          plan_fn(jnp.asarray(art_j.bnd), jnp.uint32(e)))
+                    for e in range(EPOCHS)]
+    bns = jax.jit(shard_map(local_bns, mesh=mesh, in_specs=(PS("parts"),) * 3,
+                            out_specs=(PS("parts"), PS("parts"))))
+    y, dx = bns(jnp.asarray(art_j.bnd), jnp.asarray(h), jnp.asarray(cot))
+    ref["halo_bns"] = (np.asarray(y), np.asarray(dx))
+    ref["bns_spec"] = (bspec.pad_send, jax.tree.map(np.asarray, btables))
+
     inits = []
-    for model, use_pp in MODELS:
+    for model, use_pp, rate in ([m + (1.0,) for m in MODELS]
+                                + [BNS_MODEL + (RATE,)]):
         spec = ModelSpec(model, (GRAPH["n_feat"], 8, 8, GRAPH["n_class"]),
                          norm="layer", dropout=0.0, use_pp=use_pp,
                          train_size=art_j.n_train)
         cfg = JConfig(model=model, dropout=0.0, use_pp=use_pp, norm="layer",
                       n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
-                      sampling_rate=1.0, spmm="ell", n_partitions=P)
+                      sampling_rate=rate, spmm="ell", n_partitions=P)
         params, state = init_params(jax.random.key(9), spec)
         params_np = jax.tree.map(np.asarray, params)
         fns, _, tb, tbf = build_step_fns(cfg, spec, art_j, mesh)
@@ -157,9 +256,10 @@ def _jax_reference(art_j, h, cot):
             pp, ss, opt, loss = fns.train_step(pp, ss, opt, jnp.uint32(e),
                                                blk, tb, *keys)
             losses.append(float(loss))
-        ref[model, use_pp] = (logits, losses,
-                              jax.tree.map(np.asarray, jax.device_get(pp)))
-        inits.append((params_np, spec))
+        ref[model, use_pp, rate] = (logits, losses, jax.tree.map(
+            np.asarray, jax.device_get(pp)))
+        if rate == 1.0:
+            inits.append((params_np, spec))
     return ref, inits
 
 
@@ -216,15 +316,15 @@ def _close_params(got: dict, want: dict):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **PARAM_TOL)
 
 
-@pytest.mark.parametrize("spmm", SPMMS)
-@pytest.mark.parametrize("model,use_pp", MODELS)
-def test_p4_matches_jax_p4(runs, model, use_pp, spmm):
+def _match_jax(runs, case, model, use_pp, spmm, rate):
+    """Every rank's forward logits, 3-step losses and parameters against
+    the JAX 4-device run of the same case."""
     from bnsgcn_tpu_torch.models.gnn import spec_from_config
     from bnsgcn_tpu_torch.trainer import params_from_jax
     art = runs["art"]
-    logits_ref, losses_ref, params_ref = runs["ref"][model, use_pp]
+    logits_ref, losses_ref, params_ref = runs["ref"][model, use_pp, rate]
     for r, out in enumerate(runs["ranks"]):
-        logits, losses, params = out[model, use_pp, spmm]
+        logits, losses, params = out[case]
         inner = art.inner_mask[r]
         np.testing.assert_allclose(logits[inner], logits_ref[r][inner],
                                    **LOGIT_TOL)
@@ -234,6 +334,12 @@ def test_p4_matches_jax_p4(runs, model, use_pp, spmm):
         _close_params(params, {k: v.numpy() for k, v in
                                params_from_jax(params_ref, spec).items()})
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+@pytest.mark.parametrize("model,use_pp", MODELS)
+def test_p4_matches_jax_p4(runs, model, use_pp, spmm):
+    _match_jax(runs, (model, use_pp, spmm), model, use_pp, spmm, 1.0)
 
 
 @pytest.mark.parametrize("spmm", SPMMS)
@@ -250,12 +356,111 @@ def test_p4_equals_p1(runs, model, use_pp, spmm):
 def test_ranks_end_replicated(runs):
     """Every rank applied the same updates: bitwise the same parameters."""
     first = runs["ranks"][0]
+    cases = [m + (s,) for m in MODELS for s in SPMMS] + [("bns", s)
+                                                         for s in SPMMS]
     for out in runs["ranks"][1:]:
-        for key in first:
-            if key == "halo":
-                continue
+        for key in cases:
             for k, v in first[key][2].items():
                 np.testing.assert_array_equal(out[key][2][k], v)
+
+
+def test_bns_plans_match_jax(runs):
+    """Rate RATE: every rank's sel, weight and slots for epochs 0-2 are the
+    JAX package's, and the epochs draw different samples."""
+    for e, ref in enumerate(runs["ref"]["plans"]):
+        for r, out in enumerate(runs["ranks"]):
+            for got, want, name in zip(out["plans"][e], ref,
+                                       ("sel", "weight", "slots")):
+                np.testing.assert_array_equal(got, want[r],
+                                              err_msg=f"{name} e={e} r={r}")
+    sels = [runs["ranks"][0]["plans"][e][0] for e in range(EPOCHS)]
+    assert not np.array_equal(sels[0], sels[1])
+
+
+def test_bns_spec_matches_jax(runs):
+    art = runs["art"]
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  RATE)
+    pad_send, ref = runs["ref"]["bns_spec"]
+    assert spec.pad_send == pad_send and not spec.exact
+    for k in ("n_b", "send_size", "inv_ratio"):
+        assert tables[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(tables[k], ref[k], err_msg=k)
+
+
+def test_bns_halo_apply_matches_jax(runs):
+    """Forward: copies times 1/ratio in f32, as in JAX: array-equal. VJP:
+    sums of a few terms in another order, to 1e-6."""
+    y_ref, dx_ref = runs["ref"]["halo_bns"]
+    for r, out in enumerate(runs["ranks"]):
+        y, dx = out["halo_bns"]
+        np.testing.assert_array_equal(y, y_ref[r])
+        np.testing.assert_allclose(dx, dx_ref[r], rtol=1e-6, atol=1e-6)
+    assert np.abs(y_ref[:, runs["art"].pad_inner:]).sum() > 0
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+def test_bns_p4_matches_jax_p4(runs, spmm):
+    """GraphSAGE with use_pp at rate RATE, dropout 0: logits, losses and
+    parameters against the JAX 4-device run with the same sample key."""
+    _match_jax(runs, ("bns", spmm), *BNS_MODEL, spmm, RATE)
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+def test_precompute_exchange_is_full_rate_at_any_rate(runs, spmm):
+    """The use_pp features are exchanged at the full rate, whatever the
+    training rate: sampled once and frozen they would be biased."""
+    for out in runs["ranks"]:
+        pre = out["pre", spmm]
+        np.testing.assert_array_equal(pre[RATE], pre[1.0])
+
+
+def test_bns_plans_agree_across_ranks(runs):
+    """chip_smoke's [bns] check (b) on the CPU: sender and receiver of every
+    pair drew the same rows, and the rows past send_size are trashed."""
+    import chip_smoke
+    art = runs["art"]
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  RATE)
+    for e in range(EPOCHS):
+        plans = [out["plans"][e] for out in runs["ranks"]]
+        n = chip_smoke.plan_agreement(spec, tables, plans, art.bnd,
+                                      art.global_nid)
+        assert n == int(tables["send_size"].sum()) > 0
+    # a receiver that drew another epoch's rows is caught
+    bad = [runs["ranks"][0]["plans"][0]] + [
+        out["plans"][1] for out in runs["ranks"][1:]]
+    with pytest.raises(AssertionError, match="drew different rows"):
+        chip_smoke.plan_agreement(spec, tables, bad, art.bnd, art.global_nid)
+
+
+def test_bns_unbiasedness(runs):
+    """The twin of tests/test_distributed.py::test_bns_unbiasedness: the
+    mean over 300 epochs of the sampled, 1/ratio-scaled aggregation is the
+    full-rate aggregation (Monte Carlo tolerance 5%)."""
+    for out in runs["ranks"]:
+        mean, full = out["unbiased"]
+        err = np.abs(mean - full)
+        scale = np.abs(full).mean() + 1e-6
+        assert err.mean() / scale < 0.05, f"biased? {err.mean() / scale}"
+
+
+def test_sampling_rate_reduces_payload_not_shapes():
+    """The twin of tests/test_distributed.py's test: rate 0.1 sends
+    int(0.1 n_b) rows per pair (float64, as the JAX package) in a send
+    width no wider than rate 1.0's; the halo slots keep their shape."""
+    g = synthetic_graph(n_nodes=60, avg_degree=6, n_feat=4, seed=34)
+    art = build_artifacts(g, partition_graph(g, 4, method="random", seed=5))
+    h_low, t_low = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  0.1)
+    h_hi, t_hi = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                1.0)
+    assert h_low.pad_send <= h_hi.pad_send
+    assert h_low.n_halo == h_hi.n_halo
+    assert wire_bytes(h_low, 8) <= wire_bytes(h_hi, 8)
+    np.testing.assert_array_equal(t_low["send_size"],
+                                  (0.1 * art.n_b).astype(np.int64))
+    np.testing.assert_array_equal(t_hi["send_size"], art.n_b)
 
 
 def test_cli_trains_p4_on_cpu_over_gloo(tmp_path, capsys):
@@ -272,6 +477,28 @@ def test_cli_trains_p4_on_cpu_over_gloo(tmp_path, capsys):
     assert "Process 000 | Epoch 00002 | Time(s)" in out
     assert "Test Result | Validation Accuracy" in out
     assert (tmp_path / "synthetic-4-random-vol-trans" / "part3.npz").exists()
+
+
+def test_cli_trains_p4_with_bns_on_cpu_over_gloo(tmp_path, capsys):
+    """--sampling-rate 0.5 at P=4 over gloo, the seed drawn (no
+    --fix-seed): the ranks train on one shared sample stream, the loss
+    falls, and every rank ends with rank 0's parameters."""
+    rc = t_main.main(["--dataset", "sbm", "--model", "graphsage",
+                      "--n-layers", "2", "--n-hidden", "16", "--use-pp",
+                      "--n-partitions", "4", "--partition-method", "random",
+                      "--sampling-rate", "0.5", "--device", "cpu",
+                      "--dist-backend", "gloo", "--part-path", str(tmp_path),
+                      "--n-epochs", "6", "--log-every", "3", "--dropout",
+                      "0"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "at sampling rate 0.5:" in out
+    assert "the precompute's full-rate exchange" in out
+    assert "seed " in out and "(drawn;" in out
+    losses = [float(line.rsplit("Loss ", 1)[1]) for line in out.splitlines()
+              if "| Loss " in line]
+    assert len(losses) == 2 and losses[1] < losses[0]
+    assert "Test Result | Validation Accuracy" in out
 
 
 def test_nccl_with_more_parts_than_cards_exits_2(tmp_path, monkeypatch,

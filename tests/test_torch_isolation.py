@@ -50,7 +50,8 @@ def test_no_jax_import_in_port_sources():
     assert len(_port_modules()) > 10
     assert {"bnsgcn_tpu_torch.parallel.halo", "bnsgcn_tpu_torch.parallel.mesh",
             "bnsgcn_tpu_torch.parallel.reducer",
-            "bnsgcn_tpu_torch.parallel.sampling"} <= set(_port_modules())
+            "bnsgcn_tpu_torch.parallel.sampling",
+            "bnsgcn_tpu_torch.utils.prng"} <= set(_port_modules())
 
 
 def test_importing_the_port_loads_no_jax():

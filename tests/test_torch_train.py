@@ -126,7 +126,7 @@ def _close_state(got: dict, want: dict, **tol):
 def test_precompute_and_train_logits_match(pair):
     _, pr, model, blk = _port(pair)
     np.testing.assert_allclose(blk["feat"].numpy(), pair["feat_pre"], **OP_TOL)
-    np.testing.assert_allclose(pr.fns.forward(model, blk).detach().numpy(),
+    np.testing.assert_allclose(pr.fns.forward(model, blk, 0).detach().numpy(),
                                pair["logits"], **OP_TOL)
 
 
@@ -139,7 +139,7 @@ def test_eval_logits_match(pair):
 
 def test_loss_grads_and_adam_step_match(pair):
     _, pr, model, blk = _port(pair)
-    logits = pr.fns.forward(model, blk)
+    logits = pr.fns.forward(model, blk, 0)
     loss = ce_sum(logits, blk["label"], blk["train_mask"]) / pr.cfg.n_train
     assert abs(float(loss.detach()) - pair["loss"]) <= 1e-5
     loss.backward()
@@ -175,17 +175,25 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
-     "shift"], ["--sampling-rate", "0.1"], ["--model", "gat"],
+     "shift"], ["--replicas", "2"], ["--model", "gat"],
     ["--dtype", "bfloat16"], ["--spmm-dense", "int8"],
     ["--spmm-gather", "fp8"], ["--spmm-gather", "int8"], ["--norm", "batch"],
     ["--spmm", "auto"], ["--halo-exchange", "ragged"], ["--halo-wire", "bf16"],
-    ["--n-partitions", "4", "--dist-backend", "gloo", "--sampling-rate",
-     "0.5"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-refresh",
+     "2"],
 ])
 def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
     assert rc == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("rate", ["0", "1.5", "-0.1", "nan"])
+def test_sampling_rate_outside_0_1_exits_2(rate, capsys):
+    rc = t_main.main(["--dataset", "sbm", "--device", "cpu", "--n-partitions",
+                      "4", "--dist-backend", "gloo", "--sampling-rate", rate])
+    assert rc == 2
+    assert "--sampling-rate must be in (0, 1]" in capsys.readouterr().err
 
 
 def test_entry_point_trains_on_cpu_when_asked(capsys):
@@ -198,3 +206,57 @@ def test_entry_point_trains_on_cpu_when_asked(capsys):
     assert rc == 0
     assert "Process 000 | Epoch 00001 | Time(s)" in out
     assert "Test Result | Validation Accuracy" in out
+
+
+@pytest.mark.parametrize("flags,want", [([], 424242),
+                                        (["--fix-seed"], 7)])
+def test_seed_is_drawn_unless_fix_seed(flags, want, monkeypatch, capsys):
+    """As the JAX CLI does, main draws the seed unless --fix-seed: once, in
+    the launching process, so the one Config every rank is spawned with
+    carries it (every rank then keys the same boundary sample)."""
+    import bnsgcn_tpu_torch.run as t_run
+    seen, draws = [], []
+
+    def draw(n):
+        draws.append(n)
+        return 424242
+
+    monkeypatch.setattr(t_main.random, "randrange", draw)
+    monkeypatch.setattr(t_run, "run_training",
+                        lambda cfg: seen.append(cfg) or t_run.RunResult())
+    rc = t_main.main(["--dataset", "sbm", "--device", "cpu", "--seed", "7",
+                      "--n-partitions", "4", "--dist-backend", "gloo",
+                      "--sampling-rate", "0.1"] + flags)
+    assert rc == 0
+    assert [c.seed for c in seen] == [want]
+    assert draws == ([] if flags else [1 << 31])
+    assert ("seed 424242 (drawn" in capsys.readouterr().out) == (not flags)
+
+
+def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch):
+    """The last evaluation scores the best-validation parameters on a copy:
+    the trained model keeps its final parameters, which at P > 1 every rank
+    must hold alike for the replication check (rank 0 used to load the best
+    ones into it, which failed any run whose best epoch was not its last)."""
+    import bnsgcn_tpu_torch.run as t_run
+    accs = iter([0.9, 0.5, 0.7])        # the best validation comes first
+    seen = []
+
+    def fake_eval(tag, model, g, device, log=print):
+        seen.append((tag, {k: v.clone() for k, v in
+                           model.state_dict().items()}))
+        acc = next(accs)
+        return acc, acc
+
+    monkeypatch.setattr(t_run, "evaluate_trans", fake_eval)
+    cfg = TConfig(dataset="sbm", n_layers=2, n_hidden=8, dropout=0.0,
+                  n_epochs=4, log_every=2, device="cpu", seed=0)
+    pr = prepare_run(cfg, g=t_sbm_graph(**GRAPH), log=_quiet)
+    res, model = t_run.train_loop(pr, log=_quiet)
+    assert [t for t, _ in seen] == ["Epoch 00001", "Epoch 00003",
+                                    "Test Result"]
+    best, last, final = (sd for _, sd in seen)
+    for k, v in model.state_dict().items():
+        assert torch.equal(final[k], best[k]) and torch.equal(v, last[k])
+    assert any(not torch.equal(best[k], last[k]) for k in best)
+    assert (res.best_val_acc, res.val_acc) == (0.9, 0.7)
