@@ -1,17 +1,20 @@
 """Typed run configuration for the PyTorch port (counterpart of
 bnsgcn_tpu/config.py).
 
-Only the fields this slice reads are here, under the JAX CLI's flag names.
-Flags of the JAX CLI that select a feature the port does not have yet are
-parsed too, so that a command line written for the JAX package fails with a
-named `[config] ... not ported yet` error (exit 2) instead of an argparse
-usage error or, worse, a silently different run.
+The parser takes every long option of the JAX CLI (python -m
+bnsgcn_tpu.main), with the same default, type and choices, plus the port's
+own --device and --dist-backend. Config carries the fields the port reads.
+A flag that selects a feature the port does not have yet is refused by
+name: `config_from_args` raises `[config] --<flag> ... is not ported yet`
+(exit 2) for any value outside the ones `_NOT_PORTED` accepts, instead of
+training a silently different run.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,13 +25,17 @@ class ConfigError(ValueError):
 
 @dataclass(frozen=True)
 class Config:
-    # --- data ---
+    # --- data / partitioning ---
     dataset: str = "reddit"
-    inductive: bool = False
-    n_partitions: int = 1
-    part_path: str = "./partition/"     # where P > 1 writes its artifacts
+    data_path: str = "./dataset/"       # parsed and carried; the on-disk
+                                        # readers are refused by dataset name
+    part_path: str = "./partition/"     # where the artifacts are written
+    graph_name: str = ""                # artifact directory ('' = derived)
+    n_partitions: int = 2
     partition_method: str = "metis"     # 'metis' | 'random'
     partition_obj: str = "vol"          # 'vol' | 'cut' (metis objective)
+    inductive: bool = False             # train on the train subgraph
+    skip_partition: bool = False        # load the artifacts, never build
 
     # --- model ---
     model: str = "graphsage"            # 'gcn' | 'graphsage'
@@ -49,6 +56,11 @@ class Config:
     log_every: int = 10
     eval: bool = True
     seed: int = 0
+    fix_seed: bool = False
+    ckpt_path: str = "./checkpoint/"
+    results_path: str = "./results/"
+    resume: bool = False
+    keep_ckpt: int = 5
 
     # --- aggregation ---
     dtype: str = "float32"
@@ -89,26 +101,69 @@ class Config:
                 + [self.n_class])
 
 
-# flags of the JAX CLI whose non-default values select features that later
-# slices port: (flag, default, why it is refused)
+# Flags of the JAX CLI whose feature the port lacks, for some or all of
+# their values: (dests, the values the port accepts (None: the flag's
+# default only), what a refused value would select). An accepted value other
+# than the default is one the port honours as it stands: it runs without
+# resilience, rank coordination, telemetry or traced comm columns, and
+# builds artifacts in memory, which is what those values select.
 _NOT_PORTED = (
-    ("halo_exchange", "padded", "--halo-exchange other than padded"),
-    ("halo_wire", "native", "--halo-wire other than native"),
-    ("dtype", "float32", "--dtype bfloat16"),
-    ("spmm_dense", "native", "--spmm-dense int8"),
-    ("spmm_gather", "native", "--spmm-gather fp8/int8"),
-    ("inductive", False, "--inductive"),
-    ("replicas", 1, "--replicas > 1"),
-    ("feat", 1, "--feat > 1"),
-    ("halo_refresh", 1, "--halo-refresh > 1"),
-    ("overlap", "off", "--overlap split"),
-    ("reorder", "off", "--reorder"),
-    ("resume", False, "--resume (checkpoints)"),
-    ("heads", 1, "--heads (GAT)"),
+    (("model",), ("gcn", "graphsage"), "GAT"),
+    (("heads",), None, "GAT"),
+    (("norm",), ("layer", "none"), "SyncBatchNorm"),
+    (("dtype",), None, "bfloat16 training"),
+    (("spmm",), ("ell", "hybrid"), "the coverage pick and the segment SpMM"),
+    (("spmm_gather",), None, "low-precision residual gathers"),
+    (("spmm_dense",), None, "int8 dense tiles"),
+    (("halo_exchange",), None, "the shift and ragged exchanges"),
+    (("halo_wire",), None, "quantized halo wires"),
+    (("halo_refresh",), None, "the halo cache"),
+    (("halo_mode",), None, "local-only aggregation"),
+    (("overlap",), None, "the split exchange overlap"),
+    (("reorder",), None, "graph reordering"),
+    (("replicas",), None, "the replica axis"),
+    (("feat",), None, "the feat axis"),
+    (("remat",), None, "rematerialization"),
+    (("eval_device",), None, "evaluation on the ranks"),
+    (("edge_chunk",), None, "chunked evaluation edges"),
+    (("streaming_artifacts",), ("auto", "never"),
+     "the streaming artifact builder"),
+    (("feat_storage",), None, "bfloat16 feature storage"),
+    (("profile_dir",), None, "profiler traces"),
+    (("comm_trace",), (True, False), "traced comm columns"),
+    (("strict_exec",), None, "the strict-execution guard"),
+    (("cache_dir",), ("",), "the layout cache"),
+    (("tune", "tune_schedule", "tune_prior"), None, "the comm auto-tuner"),
+    (("resilience",), ("on", "off"), "resilience"),
+    (("inject",), ("",), "fault injection"),
+    (("resil_retries",), None, "divergence rollback"),
+    (("elastic", "elastic_min_world"), None, "elastic world size"),
+    (("coord",), ("auto", "off"), "rank coordination"),
+    (("coord_addr", "coord_port", "coord_dir", "coord_rank", "coord_world"),
+     None, "rank coordination"),
+    (("obs",), ("on", "off"), "telemetry"),
+    (("obs_log",), ("",), "telemetry"),
+    (("obs_dir",), None, "telemetry"),
+    (("backend", "port", "master_addr", "node_rank", "parts_per_node",
+      "n_nodes"), None, "multi-host launch"),
+    (("serve_port", "serve_addr", "serve_dir", "serve_max_batch",
+      "serve_refresh_s", "embeddings", "dump_embeddings",
+      "serve_compact_deltas", "parts", "part_replicas", "serve_part",
+      "serve_replica", "serve_backend_port", "serve_router",
+      "serve_degraded", "serve_probe_s", "serve_hedge", "serve_wal_cap"),
+     None, "serving"),
+    (("cycle_epochs", "cycles", "continual_source", "continual_cut_growth",
+      "continual_imbalance", "continual_acc_drop", "warm_start",
+      "cycle_nonce"), None, "continual training"),
 )
+
+# the JAX CLI's subcommands (bnsgcn_tpu/main.py:31-54)
+SUBCOMMANDS = ("serve", "serve-router", "serve-backend", "continual")
 
 
 def create_parser() -> argparse.ArgumentParser:
+    """Every long option of bnsgcn_tpu/config.py create_parser, same
+    defaults, types and choices, plus --device and --dist-backend."""
     p = argparse.ArgumentParser(
         description="bnsgcn_tpu_torch: the PyTorch/CUDA port of bnsgcn_tpu "
                     "(GraphSAGE/GCN training on P ranks with boundary-node "
@@ -118,7 +173,9 @@ def create_parser() -> argparse.ArgumentParser:
         p.add_argument(f"--{name}", f"--{name.replace('-', '_')}", **kw)
 
     p.add_argument("--dataset", type=str, default="reddit")
+    both("data-path", type=str, default="./dataset/")
     both("part-path", type=str, default="./partition/")
+    both("graph-name", type=str, default="")
     p.add_argument("--model", type=str, default="graphsage",
                    choices=["gcn", "graphsage", "gat"])
     p.add_argument("--dropout", type=float, default=0.5)
@@ -126,7 +183,7 @@ def create_parser() -> argparse.ArgumentParser:
     both("sampling-rate", type=float, default=1.0)
     p.add_argument("--heads", type=int, default=1)
     both("n-epochs", type=int, default=200)
-    both("n-partitions", type=int, default=1)
+    both("n-partitions", type=int, default=2)
     both("n-hidden", type=int, default=16)
     both("n-layers", type=int, default=2)
     both("log-every", type=int, default=10)
@@ -140,6 +197,12 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--inductive", action="store_true")
     both("fix-seed", action="store_true", default=False)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--backend", type=str, default="xla")
+    p.add_argument("--port", type=int, default=18118)
+    both("master-addr", type=str, default="127.0.0.1")
+    both("node-rank", type=int, default=0)
+    both("parts-per-node", type=int, default=10)
+    p.add_argument("--skip-partition", action="store_true")
     p.add_argument("--eval", action="store_true", dest="eval")
     p.add_argument("--no-eval", action="store_false", dest="eval")
     p.set_defaults(eval=True)
@@ -149,16 +212,76 @@ def create_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--spmm", type=str, default="ell",
                    choices=["ell", "hybrid", "auto", "segment"])
+    both("profile-dir", type=str, default="")
+    p.add_argument("--no-comm-trace", action="store_false", dest="comm_trace")
+    p.set_defaults(comm_trace=True)
+    p.add_argument("--remat", action="store_true")
+    both("eval-device", type=str, default="host", choices=["host", "mesh"])
     both("halo-exchange", type=str, default="padded",
          choices=["padded", "shift", "ragged", "auto"])
     both("halo-wire", type=str, default="native",
          choices=["native", "bf16", "fp8", "int8"])
     both("halo-refresh", type=int, default=1)
+    both("halo-mode", type=str, default="exchange",
+         choices=["exchange", "grad-only"])
+    p.add_argument("--tune", type=str, default="off",
+                   choices=["off", "schedule", "auto"])
+    both("tune-schedule", type=str, default="")
+    both("tune-prior", type=str, default="ladder", choices=["ladder", "model"])
     p.add_argument("--overlap", type=str, default="off",
                    choices=["off", "split"])
-    p.add_argument("--reorder", type=str, default="off",
-                   choices=["auto", "cluster", "off"])
-    p.add_argument("--resume", action="store_true")
+    both("streaming-artifacts", type=str, default="auto",
+         choices=["auto", "always", "never"])
+    both("feat-storage", type=str, default="float32",
+         choices=["float32", "bfloat16"])
+    p.add_argument("--resilience", type=str, default="on",
+                   choices=["on", "off"])
+    p.add_argument("--inject", type=str,
+                   default=os.environ.get("BNSGCN_FAULT", ""))
+    both("resil-retries", type=int, default=3)
+    p.add_argument("--elastic", type=str, default="off", choices=["off", "on"])
+    both("elastic-min-world", type=int, default=1)
+    p.add_argument("--coord", type=str, default="auto",
+                   choices=["auto", "tcp", "file", "off"])
+    both("coord-addr", type=str, default="")
+    both("coord-port", type=int, default=18119)
+    both("coord-dir", type=str, default="")
+    both("coord-rank", type=int, default=-1)
+    both("coord-world", type=int, default=0)
+    both("serve-port", type=int, default=18120)
+    both("serve-addr", type=str, default="")
+    both("serve-dir", type=str, default="")
+    both("serve-max-batch", type=int, default=64)
+    both("serve-refresh-s", type=float, default=0.2)
+    p.add_argument("--embeddings", type=str, default="")
+    both("dump-embeddings", type=str, default="")
+    both("serve-compact-deltas", type=int, default=0)
+    p.add_argument("--parts", type=int, default=0)
+    both("part-replicas", type=int, default=1)
+    both("serve-part", type=int, default=-1)
+    both("serve-replica", type=int, default=0)
+    both("serve-backend-port", type=int, default=0)
+    both("serve-router", type=str, default="")
+    both("serve-degraded", type=str, default="off",
+         choices=["off", "partial", "stale-ok"])
+    both("serve-probe-s", type=float, default=0.0)
+    both("serve-hedge", type=str, default="off", choices=["off", "on"])
+    both("serve-wal-cap", type=int, default=256)
+    both("cycle-epochs", type=int, default=5)
+    p.add_argument("--cycles", type=int, default=1)
+    both("continual-source", type=str, default="auto",
+         choices=["auto", "server", "log"])
+    both("continual-cut-growth", type=float, default=1.5)
+    both("continual-imbalance", type=float, default=2.0)
+    both("continual-acc-drop", type=float, default=0.02)
+    both("warm-start", type=str, default="")
+    both("cycle-nonce", type=int, default=0)
+    p.add_argument("--obs", type=str, default="on", choices=["on", "off"])
+    both("obs-log", type=str, default=os.environ.get("BNSGCN_OBS_LOG", ""))
+    both("obs-dir", type=str, default="")
+    both("strict-exec", action="store_true", default=False)
+    both("cache-dir", type=str, default=os.environ.get("BNSGCN_CACHE_DIR", ""))
+    both("edge-chunk", type=int, default=0)
     both("use-pallas", action="store_true", default=False)
     both("spmm-gather", type=str, default="native",
          choices=["native", "fp8", "int8"])
@@ -166,6 +289,14 @@ def create_parser() -> argparse.ArgumentParser:
     both("block-occupancy", type=int, default=0)
     both("block-tile-budget-mb", type=int, default=2048)
     both("block-tile", type=int, default=512)
+    p.add_argument("--reorder", type=str, default="off",
+                   choices=["auto", "cluster", "off"])
+    both("ckpt-path", type=str, default="./checkpoint/")
+    both("results-path", type=str, default="./results/")
+    p.add_argument("--resume", action="store_true")
+    both("keep-ckpt", type=int, default=5)
+    both("n-nodes", type=int, default=1)
+    # the port's own
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
                    help="run on the GPU (default) or, when asked, the CPU")
@@ -176,18 +307,29 @@ def create_parser() -> argparse.ArgumentParser:
     return p
 
 
+def accepted_values(dest: str, parser: argparse.ArgumentParser):
+    """The values of `dest` the port accepts: its _NOT_PORTED entry's (None:
+    the parser's default only), or None when the port takes every value."""
+    for dests, ok, _ in _NOT_PORTED:
+        if dest in dests:
+            return ok if ok is not None else (parser.get_default(dest),)
+    return None
+
+
 def config_from_args(args: argparse.Namespace) -> Config:
     """Namespace -> Config, refusing every selected feature the port lacks."""
+    parser = create_parser()
+    flags = {a.dest: a.option_strings[0] for a in parser._actions
+             if a.option_strings and a.dest != "help"}
     d = vars(args).copy()
-    for name, default, what in _NOT_PORTED:
-        if name in d and d[name] != default:
-            raise ConfigError(f"{what} is not ported yet")
-    if d.get("model") == "gat":
-        raise ConfigError("--model gat is not ported yet")
-    if d.get("norm") == "batch":
-        raise ConfigError("--norm batch (SyncBatchNorm) is not ported yet")
-    if d.get("spmm") in ("auto", "segment"):
-        raise ConfigError(f"--spmm {d['spmm']} is not ported yet")
+    for dests, _, what in _NOT_PORTED:
+        for dest in dests:
+            ok = accepted_values(dest, parser)
+            if dest in d and d[dest] not in ok:
+                v = d[dest]
+                shown = "" if isinstance(v, bool) else f" {v}"
+                raise ConfigError(f"{flags[dest]}{shown} is not ported yet "
+                                  f"({what})")
     rate = d.get("sampling_rate", 1.0)
     if not 0.0 < rate <= 1.0:
         raise ConfigError(f"--sampling-rate must be in (0, 1], got {rate}")

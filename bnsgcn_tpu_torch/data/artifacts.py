@@ -173,10 +173,15 @@ def build_artifacts(g: Graph, part_id: np.ndarray,
         ind[p] = degree_norm_row(in_deg_g, inner[p], pad_inner)
         gnid[p, :k] = inner[p]
 
-    # the GAT attention geometry ('gat_fwd') waits for the GAT slice
+    # 'gat_fwd': the GAT attention's uncapped forward geometry
+    # (bnsgcn_tpu/ops/ell_attention.py gat_geometry), written so meta.json
+    # is the JAX package's; the port's GAT waits for a later slice
     from bnsgcn_tpu_torch.ops.ell import compute_geometry
-    geometry = compute_geometry(src_a, dst_a, pad_inner,
-                                pad_inner + P * pad_boundary)
+    n_ext_rows = pad_inner + P * pad_boundary
+    geometry = compute_geometry(src_a, dst_a, pad_inner, n_ext_rows)
+    geometry["gat_fwd"] = compute_geometry(src_a, dst_a, pad_inner,
+                                           n_ext_rows, cap=None,
+                                           directions=("fwd",))["fwd"]
 
     return PartitionArtifacts(
         n_parts=P, pad_inner=pad_inner, pad_boundary=pad_boundary,

@@ -80,6 +80,31 @@ class Graph:
         return Graph(self.n_nodes, src, dst, self.feat, self.label,
                      self.train_mask, self.val_mask, self.test_mask, self.multilabel)
 
+    def subgraph(self, node_mask: np.ndarray) -> "Graph":
+        """Node-induced subgraph, ids relabelled in increasing order of the
+        kept nodes (bnsgcn_tpu/data/graph.py:84, the reference's
+        dgl.node_subgraph). A canonical graph's subgraph keeps every kept
+        node's self-loop, so it is canonical too."""
+        node_mask = np.asarray(node_mask, dtype=bool)
+        new_id = np.full(self.n_nodes, -1, dtype=np.int64)
+        kept = np.nonzero(node_mask)[0]
+        new_id[kept] = np.arange(kept.shape[0])
+        ekeep = node_mask[self.src] & node_mask[self.dst]
+        return Graph(
+            n_nodes=int(kept.shape[0]),
+            src=new_id[self.src[ekeep]], dst=new_id[self.dst[ekeep]],
+            feat=self.feat[kept], label=self.label[kept],
+            train_mask=self.train_mask[kept], val_mask=self.val_mask[kept],
+            test_mask=self.test_mask[kept], multilabel=self.multilabel)
+
+
+def inductive_split(g: Graph) -> tuple[Graph, Graph, Graph]:
+    """(train, train+val, full) nested subgraphs (bnsgcn_tpu/data/graph.py
+    :111, the reference's helper/utils.py:226-230): training sees only the
+    train nodes, validation the train and val nodes, the test the graph."""
+    return (g.subgraph(g.train_mask), g.subgraph(g.train_mask | g.val_mask),
+            g)
+
 
 def _random_masks(rng: np.random.Generator, n: int,
                   train_frac=0.6, val_frac=0.2) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -1,11 +1,12 @@
 """Where one training epoch's device time goes, on the card.
 
     python -m bnsgcn_tpu_torch.epoch_profile --dataset synth-reddit:1.0 \\
-        --model graphsage --n-layers 4 --n-hidden 256 --use-pp \\
-        --spmm hybrid --dropout 0.5 [--profile-epochs 3] [--warmup 2]
+        --n-partitions 1 --model graphsage --n-layers 4 --n-hidden 256 \\
+        --use-pp --spmm hybrid --dropout 0.5 [--profile-epochs 3] \\
+        [--warmup 2]
 
 Runs the slice's train step (run.prepare_run, run.init_training,
-trainer.StepFns.train_step)
+trainer.StepFns.train_step) at P=1
 for `warmup` epochs, then `profile-epochs` more under torch.profiler, and
 prints per epoch: wall time, device busy time and idle share, and the
 device time of each kernel by name, largest first; the same as one JSON
@@ -26,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from bnsgcn_tpu_torch.config import ConfigError, parse_config
 from bnsgcn_tpu_torch.run import init_training, prepare_run
+from bnsgcn_tpu_torch.trainer import dropout_generator
 
 
 def main(argv=None) -> int:
@@ -36,6 +38,9 @@ def main(argv=None) -> int:
     args, rest = ap.parse_known_args(argv)
     try:
         cfg = parse_config(rest)
+        if cfg.n_partitions != 1:
+            raise ConfigError("epoch_profile profiles P=1: pass "
+                              "--n-partitions 1")
         pr = prepare_run(cfg)
     except ConfigError as e:
         print(f"[config] {e}", file=sys.stderr)
@@ -43,16 +48,22 @@ def main(argv=None) -> int:
     if pr.device.type != "cuda":
         print("epoch_profile: device time needs the GPU", file=sys.stderr)
         return 2
-    blk, model, opt, gen = init_training(pr)
-    for epoch in range(args.warmup):
+    blk, model, opt = init_training(pr)
+
+    def step(epoch):
+        gen = (dropout_generator(cfg.seed, epoch, 0, pr.device)
+               if cfg.dropout > 0 else None)
         pr.fns.train_step(model, opt, blk, epoch, gen)
+
+    for epoch in range(args.warmup):
+        step(epoch)
     torch.cuda.synchronize()
     n = args.profile_epochs
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for epoch in range(args.warmup, args.warmup + n):
-            pr.fns.train_step(model, opt, blk, epoch, gen)
+            step(epoch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = {}

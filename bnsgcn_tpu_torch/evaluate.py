@@ -2,10 +2,15 @@
 
 The eval forward is apply_model in eval mode over the whole undistributed
 graph: COO sum-aggregation (ops/spmm.agg_sum), norms from the eval graph's
-own degrees, identity exchange, no dropout.
+own degrees, identity exchange, no dropout. Transductive runs score the
+val and test masks of the full graph in one pass; inductive runs score a
+subgraph's val or test mask (run.py hands in the train+val subgraph or the
+full graph). Each line may also be appended to a results file.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,18 +43,42 @@ def full_graph_logits(model: GNN, g: Graph, device) -> np.ndarray:
     return apply_model(model, feat, env).cpu().numpy()
 
 
-def evaluate_trans(name: str, model: GNN, g: Graph, device,
-                   log=print) -> tuple[float, float]:
-    """Transductive: val + test accuracy in one pass."""
+def _logits(model: GNN, g: Graph, device) -> np.ndarray:
     was_training = model.training
     model.eval()
     try:
-        logits = full_graph_logits(model, g, device)
+        return full_graph_logits(model, g, device)
     finally:
         model.train(was_training)
+
+
+def _emit(buf: str, log, result_file: Optional[str]):
+    """Log the line and, with a results file, append it there."""
+    log(buf)
+    if result_file is not None:
+        with open(result_file, "a+") as f:
+            f.write(buf + "\n")
+
+
+def evaluate_trans(name: str, model: GNN, g: Graph, device, log=print,
+                   result_file: Optional[str] = None) -> tuple[float, float]:
+    """Transductive: val + test accuracy in one pass."""
+    logits = _logits(model, g, device)
     label = np.asarray(g.label)
     val_acc = calc_acc(logits[g.val_mask], label[g.val_mask])
     test_acc = calc_acc(logits[g.test_mask], label[g.test_mask])
-    log("{:s} | Validation Accuracy {:.2%} | Test Accuracy {:.2%}".format(
-        name, val_acc, test_acc))
+    _emit("{:s} | Validation Accuracy {:.2%} | Test Accuracy {:.2%}".format(
+        name, val_acc, test_acc), log, result_file)
     return val_acc, test_acc
+
+
+def evaluate_induc(name: str, model: GNN, g: Graph, device, mode: str,
+                   log=print, result_file: Optional[str] = None) -> float:
+    """Inductive (bnsgcn_tpu/evaluate.py:86): the accuracy on subgraph g's
+    `mode` ('val' | 'test') mask, from logits computed on g alone with
+    norms from g's own degrees."""
+    logits = _logits(model, g, device)
+    mask = g.val_mask if mode == "val" else g.test_mask
+    acc = calc_acc(logits[mask], np.asarray(g.label)[mask])
+    _emit("{:s} | Accuracy {:.2%}".format(name, acc), log, result_file)
+    return acc

@@ -13,7 +13,8 @@ part j holds the k-th entry of q's boundary list toward j. One exchange:
 
 The backward is the transpose: gather the halo gradient at `slots`, the same
 all-to-all (the tiled all-to-all is its own transpose: block j goes back to
-rank j), index_add_ into the inner gradient at `sel` with `weight`. The pack
+rank j), index_add_ into the inner gradient at `sel` with `weight`, one
+peer's block at a time so that the card adds in a fixed order. The pack
 and the scatter are plain torch indexing, as the JAX package leaves them to
 XLA; a kernel for them (X1 in ROADMAP) is later work. Sampled slots stay
 zero, so the sum over the full static halo edge list is the reference's sum
@@ -176,8 +177,13 @@ class _HaloFn(torch.autograd.Function):
         g_halo = torch.cat([g[spec.pad_inner:], g.new_zeros((1, d))])
         back = ctx.comm.all_to_all(g_halo[plan.slots.reshape(-1)])  # [P*S, d]
         grad = g[:spec.pad_inner].clone()
-        grad.index_add_(0, plan.sel.reshape(-1),
-                        (back * plan.weight.reshape(P * Sp, 1)).to(g.dtype))
+        part = (back * plan.weight.reshape(P * Sp, 1)).to(g.dtype)
+        # one peer's block at a time: within a block the weighted rows are
+        # distinct nodes (a sample without replacement; padding adds exact
+        # zeros), so on the card no two adds meet at an address and the
+        # sum takes the same bits every run, in the order the CPU takes it
+        for q, rows in enumerate(part.view(P, Sp, d)):
+            grad.index_add_(0, plan.sel[q], rows)
         return grad, None, None, None
 
 

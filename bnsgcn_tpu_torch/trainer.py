@@ -115,6 +115,73 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
     return sd
 
 
+def params_to_jax(state, spec: ModelSpec) -> dict:
+    """The inverse of params_from_jax: a state_dict-shaped mapping (the
+    model's parameters, or Adam's moments keyed by parameter name) -> the
+    JAX parameter tree with numpy float32 leaves, the layout of the JAX
+    package's `init_params` and of its checkpoints."""
+    def a(t, transpose=False):
+        t = t.detach().cpu().float()
+        return np.ascontiguousarray((t.T if transpose else t).numpy())
+
+    def lin(name):
+        return {"w": a(state[f"{name}.weight"], True),
+                "b": a(state[f"{name}.bias"])}
+
+    tree = {}
+    for i in range(spec.n_layers):
+        tree[f"layer_{i}"] = (
+            lin(f"layer_{i}") if f"layer_{i}.weight" in state else
+            {"linear1": lin(f"layer_{i}.linear1"),
+             "linear2": lin(f"layer_{i}.linear2")})
+        if f"norm_{i}.weight" in state:
+            tree[f"norm_{i}"] = {"scale": a(state[f"norm_{i}.weight"]),
+                                 "bias": a(state[f"norm_{i}.bias"])}
+    return tree
+
+
+def opt_state_to_jax(opt: torch.optim.Adam, model: GNN) -> dict:
+    """torch Adam's state -> the JAX package's optax chain state
+    (bnsgcn_tpu/trainer.py make_tx: add_decayed_weights or identity, then
+    scale_by_adam and scale_by_learning_rate), as its checkpoints hold it:
+    {'0': {}, '1': {'0': {'count', 'mu', 'nu'}, '1': {}}}; count is Adam's
+    step (int32), mu and nu its exp_avg and exp_avg_sq."""
+    st = {n: opt.state[p] for n, p in model.named_parameters()}
+
+    def moments(key):
+        return params_to_jax({n: s[key] for n, s in st.items()}, model.spec)
+
+    count = int(next(iter(st.values()))["step"])
+    return {"0": {}, "1": {"0": {"count": np.asarray(count, np.int32),
+                                 "mu": moments("exp_avg"),
+                                 "nu": moments("exp_avg_sq")}, "1": {}}}
+
+
+def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN):
+    """Load an optax chain state (opt_state_to_jax's layout, as the JAX
+    package's checkpoints hold it) into torch Adam."""
+    adam = tree["1"]["0"]
+    mu = params_from_jax(adam["mu"], model.spec)
+    nu = params_from_jax(adam["nu"], model.spec)
+    step = torch.tensor(float(int(adam["count"])))
+    sd = opt.state_dict()
+    sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
+                       "exp_avg_sq": nu[n]}
+                   for i, (n, _) in enumerate(model.named_parameters())}
+    opt.load_state_dict(sd)
+
+
+def dropout_generator(seed: int, epoch: int, rank: int,
+                      device) -> torch.Generator:
+    """Epoch `epoch`'s dropout stream on rank `rank`, keyed as the JAX step
+    folds its dropout key: fold_in(fold_in(key(seed + 1), epoch), rank), the
+    two words seeding a torch generator. A resumed run replays every
+    epoch's masks; the draws themselves are torch's, not jax's."""
+    k = prng.fold_in(prng.fold_in(prng.key(seed + 1), epoch), rank)
+    k0, k1 = (int(w) for w in k.tolist())
+    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)
+
+
 @dataclass
 class StepFns:
     spmm: Union[EllSpmm, BlockSpmm]    # the training aggregation operator

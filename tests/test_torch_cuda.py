@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(and the BNS draw on the card against the CPU's).
+(and the BNS draw on the card against the CPU's; checkpoints of card
+tensors, and a P=1 resume on the card against the uninterrupted run).
 
 Marked `cuda`; each test skips without a GPU. This file imports neither jax
 nor the JAX package, so it runs on a machine that has only PyTorch:
@@ -449,3 +450,66 @@ def test_bns_plan_on_the_card_is_the_cpu_plan(cuda, rate):
     want = pair_sample(keys, n, s, 29711, 29711)
     got = pair_sample(keys.to(cuda), n.to(cuda), s.to(cuda), 29711, 29711)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_tensors_reloads_bitwise(cuda, tmp_path):
+    """Parameters and Adam state on the card go through the JAX-format file
+    (trainer.params_to_jax / opt_state_to_jax, checkpoint.py) and come back
+    onto the card bitwise."""
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    from bnsgcn_tpu_torch.config import Config
+    from bnsgcn_tpu_torch.models.gnn import GNN, spec_from_config
+    from bnsgcn_tpu_torch.trainer import (make_tx, opt_state_from_jax,
+                                          opt_state_to_jax, params_from_jax,
+                                          params_to_jax)
+    cfg = Config(model="graphsage", n_layers=3, n_hidden=32, use_pp=True,
+                 n_feat=7, n_class=5, weight_decay=5e-4)
+    spec = spec_from_config(cfg)
+    net = GNN(spec, torch.Generator().manual_seed(1)).to(cuda)
+    opt = make_tx(cfg, net.parameters())
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(3):
+        for p in net.parameters():
+            p.grad = torch.randn(p.shape, generator=gen, device=cuda)
+        opt.step()
+    path = str(tmp_path / "card.ckpt")
+    ckpt.save_checkpoint(path, params=params_to_jax(net.state_dict(), spec),
+                         opt_state=opt_state_to_jax(opt, net), epoch=2,
+                         best_acc=0.5, seed=3)
+    payload = ckpt.read_blob(path)
+    back = GNN(spec).to(cuda)
+    back.load_state_dict(params_from_jax(payload["params"], spec))
+    opt2 = make_tx(cfg, back.parameters())
+    opt_state_from_jax(payload["opt_state"], opt2, back)
+    for (name, p), q in zip(net.named_parameters(), back.parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q), name
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opt.state[p][k], opt2.state[q][k]), (name, k)
+        assert float(opt.state[p]["step"]) == float(opt2.state[q]["step"])
+
+
+@pytest.mark.cuda
+def test_p1_resume_on_the_card_matches_the_uninterrupted_run(cuda, tmp_path):
+    """A P=1 run on the card (K1 through the ELL SpMM, dropout 0.5 keyed by
+    epoch) stopped after 4 epochs and resumed to 6 gives the uninterrupted
+    run's losses for epochs 4 and 5 to 1e-5 (relative): chip_smoke's [cli]
+    tolerance, for plain-torch ops around the kernels that are not bitwise
+    on CUDA."""
+    from bnsgcn_tpu_torch.config import Config
+    from bnsgcn_tpu_torch.run import run_training
+
+    def run(name, n_epochs, resume=False):
+        cfg = Config(dataset="sbm", n_partitions=1, model="graphsage",
+                     n_layers=3, n_hidden=64, use_pp=True, dropout=0.5,
+                     n_epochs=n_epochs, log_every=2, device="cuda", seed=4,
+                     resume=resume, ckpt_path=str(tmp_path / name),
+                     results_path=str(tmp_path / "res"))
+        return run_training(cfg, log=lambda m: None)
+
+    whole = run("whole", 6)
+    run("cut", 4)
+    resumed = run("cut", 6, resume=True)
+    assert resumed.start_epoch == 4 and len(resumed.losses) == 2
+    np.testing.assert_allclose(resumed.losses, whole.losses[4:], rtol=1e-5,
+                               atol=0)

@@ -82,8 +82,8 @@ def test_artifacts_p1_array_equal(n_parts):
     for f in dataclasses.fields(ta):
         x, y = getattr(ta, f.name), getattr(ja, f.name)
         if f.name == "ell_geometry":
-            # the GAT geometry waits for the GAT slice
-            assert x == {k: v for k, v in y.items() if k in ("fwd", "bwd")}
+            # every entry, the GAT attention's 'gat_fwd' included
+            assert x == y and set(x) == {"fwd", "bwd", "gat_fwd"}
         elif isinstance(x, np.ndarray):
             assert x.dtype == y.dtype, f.name
             np.testing.assert_array_equal(x, y, err_msg=f.name)

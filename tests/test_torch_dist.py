@@ -25,7 +25,11 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     ranks' plans agree pair by pair (chip_smoke.plan_agreement); the sampled,
     1/ratio-scaled aggregation is unbiased (the twin of
     tests/test_distributed.py's test_bns_unbiasedness); the CLI trains at
-    --sampling-rate 0.5 over gloo.
+    --sampling-rate 0.5 over gloo; GCN with use_pp and GraphSAGE without it
+    at rate 0.5 against the JAX 4-device run as well;
+  * --inductive at rate 0.5: the artifacts of the train subgraph, GraphSAGE
+    with use_pp on ELL and hybrid, 3 steps against the JAX 4-device run on
+    the JAX package's artifacts of the same subgraph.
 
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
@@ -63,7 +67,7 @@ PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 MODELS = [("graphsage", False), ("graphsage", True), ("gcn", True)]
 SPMMS = ["ell", "hybrid"]
 RATE = 0.5                      # the BNS cases' sampling rate
-BNS_MODEL = ("graphsage", True)
+BNS_MODEL = ("graphsage", True)   # the model of the precompute check
 UNBIASED_EPOCHS = 300
 
 
@@ -82,9 +86,9 @@ def _quiet(*a, **k):
 
 def _steps(pr, model_init):
     """Forward logits at the initial parameters, then EPOCHS train steps."""
-    blk, model, opt, gen = init_training(pr, model_init)
+    blk, model, opt = init_training(pr, model_init)
     logits = pr.fns.forward(model, blk, 0).detach().numpy()
-    losses = [float(pr.fns.train_step(model, opt, blk, e, gen))
+    losses = [float(pr.fns.train_step(model, opt, blk, e))
               for e in range(EPOCHS)]
     return logits, losses, {k: v.detach().numpy().copy()
                             for k, v in model.state_dict().items()}
@@ -126,9 +130,10 @@ def _unbiased(art, comm, rank):
     return (acc / UNBIASED_EPOCHS).numpy(), full.numpy()
 
 
-def _rank_job(ctx, path, h, cot, inits):
+def _rank_job(ctx, path, h, cot, inits, induc_path):
     """One rank: the halo exchange and its VJP, then every (model, spmm);
-    then the BNS cases at rate RATE."""
+    then the BNS cases at rate RATE, every model; then the inductive case
+    on the train subgraph's artifacts at `induc_path`."""
     torch.set_num_threads(1)
     art = load_artifacts(path, parts=[ctx.rank])
     bnd = torch.from_numpy(art.bnd[0])
@@ -153,24 +158,83 @@ def _rank_job(ctx, path, h, cot, inits):
                     for p in plans]
     out["halo_bns"] = _halo_vjp(spec, plans[1], h[ctx.rank], cot[ctx.rank],
                                 ctx.comm)
+    for (model, use_pp), init in zip(MODELS, inits):
+        init = {k: torch.from_numpy(v) for k, v in init.items()}
+        for spmm in SPMMS:
+            pre = {}
+            for rate in (1.0, RATE):
+                pr = prepare_part(_cfg(model, use_pp, spmm, P, rate), art,
+                                  None, ctx.device, _quiet, ctx.rank,
+                                  ctx.comm)
+                if (model, use_pp) == BNS_MODEL:
+                    pre[rate] = pr.fns.precompute(pr.blk).numpy()
+            out["bns", model, use_pp, spmm] = _steps(pr, init)
+            if pre:
+                out["pre", spmm] = pre
+    out["unbiased"] = _unbiased(art, ctx.comm, ctx.rank)
+
+    # --inductive: the train subgraph's artifacts, rate RATE
+    art_i = load_artifacts(induc_path, parts=[ctx.rank])
     init = {k: torch.from_numpy(v)
             for k, v in inits[MODELS.index(BNS_MODEL)].items()}
     for spmm in SPMMS:
-        pre = {}
-        for rate in (1.0, RATE):
-            pr = prepare_part(_cfg(*BNS_MODEL, spmm, P, rate), art, None,
-                              ctx.device, _quiet, ctx.rank, ctx.comm)
-            pre[rate] = pr.fns.precompute(pr.blk).numpy()
-        out["bns", spmm] = _steps(pr, init)
-        out["pre", spmm] = pre
-    out["unbiased"] = _unbiased(art, ctx.comm, ctx.rank)
+        cfg = _cfg(*BNS_MODEL, spmm, P, RATE).replace(inductive=True)
+        pr = prepare_part(cfg, art_i, None, ctx.device, _quiet, ctx.rank,
+                          ctx.comm)
+        out["induc", spmm] = _steps(pr, init)
     return out
 
 
-def _jax_reference(art_j, h, cot):
+def _jax_train(art_j, mesh, model, use_pp, rate):
+    """One case of the JAX package on the 4-device mesh: (forward logits,
+    EPOCHS losses, final parameters) from jax.random.key(9)'s initial
+    parameters (returned too, as numpy), sample key jax.random.key(0)."""
+    import jax
+    import jax.numpy as jnp
+
+    from bnsgcn_tpu.config import Config as JConfig
+    from bnsgcn_tpu.models.gnn import ModelSpec, init_params
+    from bnsgcn_tpu.trainer import (build_block_arrays, build_step_fns,
+                                    init_training as j_init_training,
+                                    place_blocks, place_replicated)
+
+    spec = ModelSpec(model, (art_j.n_feat, 8, 8, art_j.n_class),
+                     norm="layer", dropout=0.0, use_pp=use_pp,
+                     train_size=art_j.n_train)
+    cfg = JConfig(model=model, dropout=0.0, use_pp=use_pp, norm="layer",
+                  n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
+                  sampling_rate=rate, spmm="ell", n_partitions=P)
+    params, state = init_params(jax.random.key(9), spec)
+    params_np = jax.tree.map(np.asarray, params)
+    fns, _, tb, tbf = build_step_fns(cfg, spec, art_j, mesh)
+    blk_np = build_block_arrays(art_j, model)
+    blk_np.update(fns.extra_blk)
+    for k in fns.drop_blk_keys:
+        blk_np.pop(k, None)
+    blk = place_blocks(blk_np, mesh)
+    tb = place_replicated(tb, mesh)
+    if use_pp:
+        blk["feat"] = fns.precompute(blk, place_replicated(tbf, mesh))
+    keys = (jax.random.key(0), jax.random.key(1))
+    pp = place_replicated(params_np, mesh)
+    ss = place_replicated(state, mesh)
+    logits = np.asarray(fns.forward(pp, ss, jnp.uint32(0), blk, tb, *keys))
+    _, _, opt = j_init_training(cfg, spec, mesh)
+    losses = []
+    for e in range(EPOCHS):
+        pp, ss, opt, loss = fns.train_step(pp, ss, opt, jnp.uint32(e), blk,
+                                           tb, *keys)
+        losses.append(float(loss))
+    return (logits, losses, jax.tree.map(np.asarray, jax.device_get(pp))), \
+        params_np
+
+
+def _jax_reference(art_j, h, cot, art_ij):
     """The JAX package on 4 virtual devices: halo_apply + VJP under
     shard_map, and per model the forward logits, EPOCHS train steps and the
-    final parameters (with the initial parameters it drew)."""
+    final parameters (with the initial parameters it drew), at rate 1.0
+    and RATE; then the inductive case on `art_ij`, the artifacts of the
+    train subgraph."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as PS
@@ -226,40 +290,12 @@ def _jax_reference(art_j, h, cot):
     ref["bns_spec"] = (bspec.pad_send, jax.tree.map(np.asarray, btables))
 
     inits = []
-    for model, use_pp, rate in ([m + (1.0,) for m in MODELS]
-                                + [BNS_MODEL + (RATE,)]):
-        spec = ModelSpec(model, (GRAPH["n_feat"], 8, 8, GRAPH["n_class"]),
-                         norm="layer", dropout=0.0, use_pp=use_pp,
-                         train_size=art_j.n_train)
-        cfg = JConfig(model=model, dropout=0.0, use_pp=use_pp, norm="layer",
-                      n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
-                      sampling_rate=rate, spmm="ell", n_partitions=P)
-        params, state = init_params(jax.random.key(9), spec)
-        params_np = jax.tree.map(np.asarray, params)
-        fns, _, tb, tbf = build_step_fns(cfg, spec, art_j, mesh)
-        blk_np = build_block_arrays(art_j, model)
-        blk_np.update(fns.extra_blk)
-        for k in fns.drop_blk_keys:
-            blk_np.pop(k, None)
-        blk = place_blocks(blk_np, mesh)
-        tb = place_replicated(tb, mesh)
-        if use_pp:
-            blk["feat"] = fns.precompute(blk, place_replicated(tbf, mesh))
-        keys = (jax.random.key(0), jax.random.key(1))
-        pp = place_replicated(params_np, mesh)
-        ss = place_replicated(state, mesh)
-        logits = np.asarray(fns.forward(pp, ss, jnp.uint32(0), blk, tb,
-                                        *keys))
-        _, _, opt = j_init_training(cfg, spec, mesh)
-        losses = []
-        for e in range(EPOCHS):
-            pp, ss, opt, loss = fns.train_step(pp, ss, opt, jnp.uint32(e),
-                                               blk, tb, *keys)
-            losses.append(float(loss))
-        ref[model, use_pp, rate] = (logits, losses, jax.tree.map(
-            np.asarray, jax.device_get(pp)))
-        if rate == 1.0:
-            inits.append((params_np, spec))
+    for model, use_pp in MODELS:
+        for rate in (1.0, RATE):
+            ref[model, use_pp, rate], params_np = _jax_train(
+                art_j, mesh, model, use_pp, rate)
+        inits.append(params_np)
+    ref["induc"], _ = _jax_train(art_ij, mesh, *BNS_MODEL, RATE)
     return ref, inits
 
 
@@ -276,19 +312,27 @@ def runs(tmp_path_factory):
     art = build_artifacts(g, pid)
     path = str(tmp_path_factory.mktemp("parts"))
     save_artifacts(art, path)
+    train_g = g.subgraph(g.train_mask)
+    pid_i = partition_graph(train_g, P, method="random", seed=3)
+    art_i = build_artifacts(train_g, pid_i)
+    induc_path = str(tmp_path_factory.mktemp("parts_induc"))
+    save_artifacts(art_i, induc_path)
     rng = np.random.default_rng(0)
     h = rng.normal(size=(P, art.pad_inner, HALO_D)).astype(np.float32)
     cot = rng.normal(size=(P, art.n_ext, HALO_D)).astype(np.float32)
-    ref, inits = _jax_reference(j_build(j_synthetic(**GRAPH), pid), h, cot)
+    g_j = j_synthetic(**GRAPH)
+    ref, inits = _jax_reference(
+        j_build(g_j, pid), h, cot,
+        j_build(g_j.subgraph(g_j.train_mask), pid_i))
     init_sd = []
-    for (model, use_pp), (params_np, _) in zip(MODELS, inits):
+    for (model, use_pp), params_np in zip(MODELS, inits):
         spec = spec_from_config(_cfg(model, use_pp, "ell", P).replace(
             n_feat=art.n_feat, n_class=art.n_class, n_train=art.n_train))
         init_sd.append({k: v.numpy() for k, v in
                         params_from_jax(params_np, spec).items()})
     t0 = time.perf_counter()
-    ranks = launch(_rank_job, P, [(path, h, cot, init_sd)] * P, "gloo",
-                   "cpu", log=_quiet)
+    ranks = launch(_rank_job, P, [(path, h, cot, init_sd, induc_path)] * P,
+                   "gloo", "cpu", log=_quiet)
     launch_s = time.perf_counter() - t0
     p1 = {}
     for (model, use_pp), init in zip(MODELS, init_sd):
@@ -296,8 +340,8 @@ def runs(tmp_path_factory):
             pr = prepare_run(_cfg(model, use_pp, spmm, 1), g=g, log=_quiet)
             p1[model, use_pp, spmm] = _steps(
                 pr, {k: torch.from_numpy(v) for k, v in init.items()})
-    return dict(art=art, ranks=ranks, ref=ref, p1=p1, init_sd=init_sd,
-                launch_s=launch_s)
+    return dict(art=art, art_i=art_i, ranks=ranks, ref=ref, p1=p1,
+                init_sd=init_sd, launch_s=launch_s)
 
 
 def test_halo_apply_matches_jax(runs):
@@ -316,13 +360,15 @@ def _close_params(got: dict, want: dict):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **PARAM_TOL)
 
 
-def _match_jax(runs, case, model, use_pp, spmm, rate):
+def _match_jax(runs, case, model, use_pp, spmm, rate, ref_key=None,
+               art_key="art"):
     """Every rank's forward logits, 3-step losses and parameters against
     the JAX 4-device run of the same case."""
     from bnsgcn_tpu_torch.models.gnn import spec_from_config
     from bnsgcn_tpu_torch.trainer import params_from_jax
-    art = runs["art"]
-    logits_ref, losses_ref, params_ref = runs["ref"][model, use_pp, rate]
+    art = runs[art_key]
+    logits_ref, losses_ref, params_ref = runs["ref"][
+        ref_key or (model, use_pp, rate)]
     for r, out in enumerate(runs["ranks"]):
         logits, losses, params = out[case]
         inner = art.inner_mask[r]
@@ -356,8 +402,9 @@ def test_p4_equals_p1(runs, model, use_pp, spmm):
 def test_ranks_end_replicated(runs):
     """Every rank applied the same updates: bitwise the same parameters."""
     first = runs["ranks"][0]
-    cases = [m + (s,) for m in MODELS for s in SPMMS] + [("bns", s)
-                                                         for s in SPMMS]
+    cases = ([m + (s,) for m in MODELS for s in SPMMS]
+             + [("bns",) + m + (s,) for m in MODELS for s in SPMMS]
+             + [("induc", s) for s in SPMMS])
     for out in runs["ranks"][1:]:
         for key in cases:
             for k, v in first[key][2].items():
@@ -403,7 +450,30 @@ def test_bns_halo_apply_matches_jax(runs):
 def test_bns_p4_matches_jax_p4(runs, spmm):
     """GraphSAGE with use_pp at rate RATE, dropout 0: logits, losses and
     parameters against the JAX 4-device run with the same sample key."""
-    _match_jax(runs, ("bns", spmm), *BNS_MODEL, spmm, RATE)
+    _match_jax(runs, ("bns",) + BNS_MODEL + (spmm,), *BNS_MODEL, spmm, RATE)
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+@pytest.mark.parametrize("model,use_pp", [m for m in MODELS
+                                          if m != BNS_MODEL])
+def test_bns_other_models_match_jax_p4(runs, model, use_pp, spmm):
+    """GCN with use_pp and GraphSAGE without it at rate RATE, dropout 0:
+    logits, losses and parameters against the JAX 4-device run with the
+    same sample key, as test_bns_p4_matches_jax_p4 holds GraphSAGE with
+    use_pp."""
+    _match_jax(runs, ("bns", model, use_pp, spmm), model, use_pp, spmm,
+               RATE)
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+def test_inductive_p4_matches_jax_p4(runs, spmm):
+    """--inductive at rate RATE: the 4 ranks train on the train subgraph's
+    artifacts (n_train its train count) as the JAX package does on its own
+    artifacts of the same subgraph: logits, 3-step losses and parameters
+    at the tolerances above."""
+    assert runs["art_i"].n_train == runs["art_i"].n_inner.sum()
+    _match_jax(runs, ("induc", spmm), *BNS_MODEL, spmm, RATE,
+               ref_key="induc", art_key="art_i")
 
 
 @pytest.mark.parametrize("spmm", SPMMS)
@@ -469,7 +539,8 @@ def test_cli_trains_p4_on_cpu_over_gloo(tmp_path, capsys):
                       "--n-partitions", "4", "--partition-method", "random",
                       "--device", "cpu", "--dist-backend", "gloo",
                       "--part-path", str(tmp_path), "--n-epochs", "3",
-                      "--log-every", "1"])
+                      "--log-every", "1", "--ckpt-path", str(tmp_path / "ck"),
+                      "--results-path", str(tmp_path / "res")])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Mesh: 4 ranks | gloo | devices cpu,cpu,cpu,cpu" in out
@@ -489,7 +560,8 @@ def test_cli_trains_p4_with_bns_on_cpu_over_gloo(tmp_path, capsys):
                       "--sampling-rate", "0.5", "--device", "cpu",
                       "--dist-backend", "gloo", "--part-path", str(tmp_path),
                       "--n-epochs", "6", "--log-every", "3", "--dropout",
-                      "0"])
+                      "0", "--ckpt-path", str(tmp_path / "ck"),
+                      "--results-path", str(tmp_path / "res")])
     out = capsys.readouterr().out
     assert rc == 0
     assert "at sampling rate 0.5:" in out
@@ -573,10 +645,11 @@ def test_rank_hook_sees_each_ranks_own_layout(tmp_path):
     With eval on, rank 0 evaluates while its peers wait at the barrier; the
     ranks hand back positive exchange and reduce seconds."""
     cfg = _cfg("graphsage", True, "hybrid", P).replace(
-        dataset="synthetic", part_path=str(tmp_path), eval=True, log_every=1,
-        partition_method="random", n_epochs=2)
+        dataset="synthetic", part_path=str(tmp_path / "parts"), eval=True,
+        log_every=1, partition_method="random", n_epochs=2,
+        ckpt_path=str(tmp_path / "ck"), results_path=str(tmp_path / "res"))
     res = run_training(cfg, log=_quiet, rank_hook=_layout_hook)
-    path = str(next(tmp_path.iterdir()))
+    path = str(next((tmp_path / "parts").iterdir()))
     for r, rep in enumerate(res.ranks):
         assert rep["hook"]["rank"] == r
         _, layout = build_spmm(cfg, load_artifacts(path, parts=[r]), "cpu",

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of bnsgcn_tpu_torch/ and not
 chip_smoke.py imports jax or anything of the JAX package (bnsgcn_tpu,
-tools/), by static scan and by importing every module in a fresh process."""
+tools/), nor flax or msgpack (the card's machine has neither: checkpoints
+go through the port's own codec), by static scan and by importing every
+module in a fresh process."""
 
 import ast
 import os
@@ -8,7 +10,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "optax", "bnsgcn_tpu", "tools"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "msgpack", "bnsgcn_tpu",
+             "tools"}
 
 
 def _port_files():

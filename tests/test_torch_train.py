@@ -196,12 +196,14 @@ def test_sampling_rate_outside_0_1_exits_2(rate, capsys):
     assert "--sampling-rate must be in (0, 1]" in capsys.readouterr().err
 
 
-def test_entry_point_trains_on_cpu_when_asked(capsys):
-    rc = t_main.main(["--dataset", "sbm", "--model", "graphsage",
-                      "--n-layers", "2", "--n-hidden", "16", "--use-pp",
-                      "--spmm", "hybrid", "--use-pallas", "--block-tile", "64",
-                      "--n-epochs", "2", "--log-every", "1", "--device",
-                      "cpu"])
+def test_entry_point_trains_on_cpu_when_asked(capsys, tmp_path):
+    rc = t_main.main(["--dataset", "sbm", "--n-partitions", "1", "--model",
+                      "graphsage", "--n-layers", "2", "--n-hidden", "16",
+                      "--use-pp", "--spmm", "hybrid", "--use-pallas",
+                      "--block-tile", "64", "--n-epochs", "2", "--log-every",
+                      "1", "--device", "cpu", "--ckpt-path",
+                      str(tmp_path / "ck"), "--results-path",
+                      str(tmp_path / "res")])
     out = capsys.readouterr().out
     assert rc == 0
     assert "Process 000 | Epoch 00001 | Time(s)" in out
@@ -233,7 +235,8 @@ def test_seed_is_drawn_unless_fix_seed(flags, want, monkeypatch, capsys):
     assert ("seed 424242 (drawn" in capsys.readouterr().out) == (not flags)
 
 
-def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch):
+def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch,
+                                                         tmp_path):
     """The last evaluation scores the best-validation parameters on a copy:
     the trained model keeps its final parameters, which at P > 1 every rank
     must hold alike for the replication check (rank 0 used to load the best
@@ -242,15 +245,17 @@ def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch):
     accs = iter([0.9, 0.5, 0.7])        # the best validation comes first
     seen = []
 
-    def fake_eval(tag, model, g, device, log=print):
+    def fake_eval(tag, model, g, device, log=print, result_file=None):
         seen.append((tag, {k: v.clone() for k, v in
                            model.state_dict().items()}))
         acc = next(accs)
         return acc, acc
 
     monkeypatch.setattr(t_run, "evaluate_trans", fake_eval)
-    cfg = TConfig(dataset="sbm", n_layers=2, n_hidden=8, dropout=0.0,
-                  n_epochs=4, log_every=2, device="cpu", seed=0)
+    cfg = TConfig(dataset="sbm", n_partitions=1, n_layers=2, n_hidden=8,
+                  dropout=0.0, n_epochs=4, log_every=2, device="cpu", seed=0,
+                  ckpt_path=str(tmp_path / "ck"),
+                  results_path=str(tmp_path / "res"))
     pr = prepare_run(cfg, g=t_sbm_graph(**GRAPH), log=_quiet)
     res, model = t_run.train_loop(pr, log=_quiet)
     assert [t for t, _ in seen] == ["Epoch 00001", "Epoch 00003",
