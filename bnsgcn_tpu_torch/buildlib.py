@@ -98,15 +98,19 @@ def build_many(specs, timeout: float = 600.0) -> dict[str, str]:
 
 class LaunchCount:
     """Launches of one CUDA kernel in this process, by phase ('fwd', 'bwd',
-    'pre', ...). A kernel's wrapper adds one where it launches the kernel and
-    nowhere else, so a run can show that its main path went through the
-    kernel (chip_smoke.py resets, drives the path, and reads)."""
+    'pre', ...) and by variant (the kernel's element type or mode: 'f32',
+    'bf16', 'int8', ...). A kernel's wrapper adds one where it launches the
+    kernel and nowhere else, so a run can show that its main path went
+    through the kernel (chip_smoke.py resets, drives the path, and
+    reads)."""
 
     def __init__(self):
         self.by_phase: dict[str, int] = {}
+        self.by_kind: dict[str, int] = {}
 
-    def add(self, phase: str):
+    def add(self, phase: str, kind: str = "f32"):
         self.by_phase[phase] = self.by_phase.get(phase, 0) + 1
+        self.by_kind[kind] = self.by_kind.get(kind, 0) + 1
 
     @property
     def total(self) -> int:
@@ -114,6 +118,7 @@ class LaunchCount:
 
     def reset(self):
         self.by_phase = {}
+        self.by_kind = {}
 
 
 def load(name: str, kind: str, sources, declare=None) -> ctypes.CDLL:

@@ -63,11 +63,19 @@ class Config:
     keep_ckpt: int = 5
 
     # --- aggregation ---
-    dtype: str = "float32"
-    spmm: str = "ell"                   # 'ell' | 'hybrid'
+    dtype: str = "float32"              # 'float32' | 'bfloat16': parameters,
+                                        # Adam moments and activations
+    spmm: str = "ell"                   # 'ell' | 'hybrid' | 'auto' (hybrid
+                                        # when enough edges densify)
     use_pallas: bool = False            # accepted for command-line parity: on
                                         # the card the hand-written kernels
                                         # always run
+    spmm_gather: str = "native"         # 'native' | 'int8' | 'fp8': the ELL
+                                        # gathers' rows, one scale per call
+    spmm_dense: str = "native"          # 'native' | 'int8': the dense
+                                        # tiles' slabs
+    halo_wire: str = "native"           # 'native' | 'bf16' | 'int8' | 'fp8':
+                                        # the training exchange's payload
     block_occupancy: int = 0            # hybrid: min edges for a dense tile
                                         # (0 = tile*tile/512)
     block_tile_budget_mb: int = 2048    # hybrid: int8 tile budget per direction
@@ -111,12 +119,8 @@ _NOT_PORTED = (
     (("model",), ("gcn", "graphsage"), "GAT"),
     (("heads",), None, "GAT"),
     (("norm",), ("layer", "none"), "SyncBatchNorm"),
-    (("dtype",), None, "bfloat16 training"),
-    (("spmm",), ("ell", "hybrid"), "the coverage pick and the segment SpMM"),
-    (("spmm_gather",), None, "low-precision residual gathers"),
-    (("spmm_dense",), None, "int8 dense tiles"),
+    (("spmm",), ("ell", "hybrid", "auto"), "the segment SpMM"),
     (("halo_exchange",), None, "the shift and ragged exchanges"),
-    (("halo_wire",), None, "quantized halo wires"),
     (("halo_refresh",), None, "the halo cache"),
     (("halo_mode",), None, "local-only aggregation"),
     (("overlap",), None, "the split exchange overlap"),

@@ -121,6 +121,7 @@ def init_params(model: GNN, generator: Optional[torch.Generator] = None):
 # ----------------------------------------------------------------------------
 
 def _dropout(h, rate, generator, training):
+    # in the activations' dtype, as the JAX package's `_dropout`
     if not training or rate <= 0.0:
         return h
     keep = 1.0 - rate
@@ -139,7 +140,11 @@ def _layer_norm(p: nn.LayerNorm, h, eps=1e-5):
 
 
 def _linear(p: nn.Linear, h):
-    return F.linear(h, p.weight, p.bias)
+    """h @ W + b in the promoted dtype of h and the parameters, as jnp
+    promotes `h @ w + b`: bf16 in a bf16 step, f32 when a bf16 model
+    evaluates on f32 features (bnsgcn_tpu/evaluate.py)."""
+    dt = torch.promote_types(h.dtype, p.weight.dtype)
+    return F.linear(h.to(dt), p.weight.to(dt), p.bias.to(dt))
 
 
 def env_agg_exchange(env: GraphEnv, i: int, h, scale_out_norm: bool = False):

@@ -17,7 +17,9 @@ cheaper per edge than row gathers:
     * x_slabs = h in cluster order as [n_cb, TC, H] slabs (plain indexing);
     * kernel K2 (ops/tile_matmul.py) sums tiles @ slabs into each output
       row-block, from the tiles' nonzero entries (packed once per layout,
-      `pack_tiles`), in cluster order;
+      `pack_tiles`), in cluster order; under --spmm-dense int8 the slabs
+      are quantized first (one scale per call, or per slab where int32 row
+      sums could wrap);
     * kernel K1 (ops/bucket_sum.py) sums the ELL residual's rows and adds
       K2's output, gathered back to row order by the permutation, in the
       same launch (ops/ell.py).
@@ -28,6 +30,7 @@ torch.autograd.Function that saves only the layout.
 
 from __future__ import annotations
 
+import copy
 import sys
 import time
 from dataclasses import dataclass
@@ -104,6 +107,30 @@ def _select_dense(tile_id, occupancy_min, tile_budget_bytes,
         dense_sel = above
         dense_sel[ties[:max_tiles - int(above.sum())]] = True
     return uniq, inv, counts, dense_sel
+
+
+def estimate_coverage(perm_rows, perm_cols, n_rows, n_src, rows, cols,
+                      occupancy_min=512, tile_budget_bytes=2 << 30,
+                      tile_r=TR, tile_c=TC) -> float:
+    """Fraction of edges that would land on dense tiles under the given
+    cluster order: the decision statistic of --spmm auto
+    (bnsgcn_tpu/ops/block_spmm.py `estimate_coverage`). One O(E) histogram
+    pass over exactly _build_tiles' selection rule; no tile stacks or
+    residual tables are built. Edges beyond 127 per (tile, row, col) count
+    as dense here though _build_tiles sends the excess to the residual, so
+    on multigraphs of high multiplicity it can overstate coverage."""
+    if len(rows) == 0:
+        return 0.0
+    n_cb = (n_src + tile_c - 1) // tile_c
+    tile_id = (perm_rows[rows] // tile_r).astype(np.int64) * n_cb \
+        + perm_cols[cols] // tile_c
+    n_rb = (n_rows + tile_r - 1) // tile_r
+    _, _, counts, dense_sel = _select_dense(tile_id, occupancy_min,
+                                            tile_budget_bytes,
+                                            tile_bytes=tile_r * tile_c,
+                                            need_inverse=False,
+                                            n_tiles=n_rb * n_cb)
+    return float(counts[dense_sel].sum()) / float(len(rows))
 
 
 def _build_tiles(perm_rows, perm_cols, n_rows, n_src, rows, cols,
@@ -222,7 +249,7 @@ def build_block_layouts(src_all, dst_all, n_dst, n_src_ext, perm_inner,
 
     B = max(max(e[0].shape[0] for e in per_part), 1)
     # max dense edges on any single output row, per direction: the bound
-    # the int8 tile path (a later slice) checks its int32 accumulator against
+    # `dense_mode` checks the int8 route's int32 accumulator against
     mrd_f = mrd_b = 0
     area = tile_r * tile_c
     for p, (tiles, rb, cb, rle) in enumerate(per_part):
@@ -347,16 +374,59 @@ def build_x_slabs(spec: BlockSpec, perm_src, h):
     return x.view(n_cb, spec.col_tile, h.shape[1])
 
 
+# the int32 accumulator of the int8 per-call route holds row sums of
+# |q| <= 127 times multiplicities <= 127: a row with more dense edges than
+# this could wrap (bnsgcn_tpu/ops/block_spmm.py `_I8_ROW_CAP`)
+I8_ROW_CAP = (2 ** 31 - 1) // (127 * 127)
+DENSE_DTYPES = ("native", "int8")
+
+
+def dense_mode(spec: BlockSpec, dense_dtype: str,
+               row_cap: int = I8_ROW_CAP) -> str:
+    """How one direction's dense tiles run: 'native' (slabs in h's dtype),
+    'int8' (one per-call scale, int32 sums: `dense_apply_pallas`) where the
+    layout's max_row_dense keeps the int32 sums from wrapping, else
+    'int8-slab' (per-slab scales rescaled to f32 per tile: `_dense_apply`'s
+    int8 route, which the JAX package takes for such layouts)."""
+    if dense_dtype == "native":
+        return "native"
+    if dense_dtype != "int8":
+        raise ValueError(f"dense dtype {dense_dtype!r} is not one of "
+                         f"{DENSE_DTYPES}")
+    return "int8" if spec.max_row_dense <= row_cap else "int8-slab"
+
+
+def quantize_slabs(x: torch.Tensor, per_slab: bool):
+    """(int8 slabs, scale): symmetric amax/127 with a 1e-30 floor, one scale
+    for all slabs (`dense_apply_pallas`) or one per slab [n_cb]
+    (`_dense_apply`); round half to even, clip to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(1, 2)) if per_slab else xf.abs().amax()
+    scale = (amax / 127.0).clamp(min=1e-30)
+    s = scale[:, None, None] if per_slab else scale
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), scale
+
+
 def dense_tiles(spec: BlockSpec, tiles, rowb, colb, off, ent, ent_off,
-                perm_src, h, phase: str = "fwd"):
-    """Dense-tile aggregation through K2, [n_row_blocks * row_tile, H] in
-    cluster order (a row-block no tile visits is zero): what
+                perm_src, h, mode: str = "native",
+                phase: str = "fwd") -> torch.Tensor:
+    """Dense-tile aggregation through K2, [n_row_blocks * row_tile, H] f32
+    in cluster order (a row-block no tile visits is zero): what
     bnsgcn_tpu/ops/pallas_block.py `dense_apply_pallas` computes before its
-    permutation gather, which K1 applies here. `off` is row_offsets(rowb),
-    (ent, ent_off) pack_tiles(tiles)."""
-    x_slabs = build_x_slabs(spec, perm_src, h.contiguous())
-    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x_slabs,
-                      spec.n_row_blocks, phase=phase)
+    cast to h's dtype and its permutation gather, which K1 applies here
+    (`mode` as `dense_mode` gives it; 'int8' scales K2's int32 sums back
+    here, 'int8-slab' inside K2). `off` is row_offsets(rowb), (ent,
+    ent_off) pack_tiles(tiles)."""
+    x = build_x_slabs(spec, perm_src, h.contiguous())
+    scale = None
+    if mode != "native":
+        x, scale = quantize_slabs(x, per_slab=mode == "int8-slab")
+    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x,
+                      spec.n_row_blocks,
+                      slab_scale=scale if mode == "int8-slab" else None,
+                      phase=phase)
+    if mode == "int8":
+        out = out.float() * scale
     return out.view(spec.n_row_blocks * spec.row_tile, h.shape[1])
 
 
@@ -364,17 +434,24 @@ class BlockSpmm:
     """spmm(h_ext [n_src_ext, H]) -> [n_dst, H]: dense tiles through K2, then
     the ELL residual through K1, which adds K2's output (in cluster order,
     gathered back to row order by the permutation) to its own row sums in
-    the same launch. The backward runs K2 on the transposed tiles and the
-    residual with the fwd/bwd roles swapped. `arrays` holds one part's
-    layout as device tensors (build_block_layouts' keys, without the part
-    axis); `self.arrays` adds what K2 walks, for each direction d: the CSR
-    offsets over rowb (`blk_off_d`) and the tiles' packed nonzero entries
-    (`blk_ent_d`, `blk_entoff_d`). These and the residual's row schedules
-    are layout set-up, timed together as `pack_seconds`. Counterpart of
+    the same launch, in h's dtype. The backward runs K2 on the transposed
+    tiles and the residual with the fwd/bwd roles swapped. `arrays` holds
+    one part's layout as device tensors (build_block_layouts' keys, without
+    the part axis); `self.arrays` adds what K2 walks, for each direction d:
+    the CSR offsets over rowb (`blk_off_d`) and the tiles' packed nonzero
+    entries (`blk_ent_d`, `blk_entoff_d`). These and the residual's row
+    schedules are layout set-up, timed together as `pack_seconds`.
+    gather_dtype quantizes the residual's gathers (ops/ell.py EllSpmm);
+    dense_dtype 'int8' the dense tiles' slabs, each direction in the mode
+    `dense_mode` picks from its max_row_dense and `row_cap`. Counterpart of
     bnsgcn_tpu/ops/block_spmm.py `make_block_spmm` with use_pallas."""
 
-    def __init__(self, fwd: BlockSpec, bwd: BlockSpec, ell_pair, arrays: dict):
+    def __init__(self, fwd: BlockSpec, bwd: BlockSpec, ell_pair, arrays: dict,
+                 gather_dtype: str = "native", dense_dtype: str = "native",
+                 row_cap: int = I8_ROW_CAP):
         self.fwd, self.bwd = fwd, bwd
+        self.mode = {"fwd": dense_mode(fwd, dense_dtype, row_cap),
+                     "bwd": dense_mode(bwd, dense_dtype, row_cap)}
         self.arrays = dict(arrays)
         t0 = time.perf_counter()
         for d, spec in (("fwd", fwd), ("bwd", bwd)):
@@ -386,10 +463,23 @@ class BlockSpmm:
         self.residual = EllSpmm(
             ell_pair[0], ell_pair[1],
             {k[len("res_"):]: v for k, v in arrays.items()
-             if k.startswith("res_")})
+             if k.startswith("res_")}, gather_dtype=gather_dtype)
         self.pack_seconds = time.perf_counter() - t0   # ends in a host read
 
-    def apply_dir(self, direction: str, h, phase: str):
+    def with_dtypes(self, gather_dtype: str, dense_dtype: str,
+                    row_cap: int = I8_ROW_CAP) -> "BlockSpmm":
+        """The same layout (shared, not packed again) with other gather and
+        dense dtypes, the dense modes picked at `row_cap`."""
+        op = copy.copy(self)
+        op.mode = {"fwd": dense_mode(self.fwd, dense_dtype, row_cap),
+                   "bwd": dense_mode(self.bwd, dense_dtype, row_cap)}
+        op.residual = self.residual.with_dtypes(gather_dtype)
+        return op
+
+    def apply_dir(self, direction: str, h, phase: str, native: bool = False):
+        """The direction's aggregation of h in h's dtype; `native` runs the
+        dense tiles and the gathers in h's dtype whatever the operator's
+        dtypes say (the use_pp precompute's codecs)."""
         a = self.arrays
         if direction == "fwd":
             src, out = a["blk_perm_ext"], a["blk_perm_inner"]
@@ -400,9 +490,9 @@ class BlockSpmm:
             a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
             a[f"blk_colb_{direction}"], a[f"blk_off_{direction}"],
             a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"], src, h,
-            phase=phase)
+            mode="native" if native else self.mode[direction], phase=phase)
         return self.residual.apply_dir(direction, h, phase, base=dense,
-                                       base_row=out)
+                                       base_row=out, native=native)
 
     def __call__(self, h, phase: str = "fwd"):
         return _BlockFn.apply(h, self, phase)

@@ -14,7 +14,8 @@ scatter-free work:
   * on the device, per pass: one launch of K1 (CUDA on the card) computes
     every row's sum, the split rows' chunks joined, in row order; on the CPU
     the plain version runs the tables (bucket sums, the split-row combine,
-    the permutation gather);
+    the permutation gather); with --spmm-gather int8 or fp8 the gathered
+    rows are quantized first, one scale per call;
   * the backward runs the transposed layout (rows = source nodes, grouped by
     out-degree) through a torch.autograd.Function, so d_h is the same
     scatter-free shape.
@@ -22,6 +23,7 @@ scatter-free work:
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, pack_rows
+from bnsgcn_tpu_torch.utils.quant import f8_quant, i8_quant
 
 
 def run_parallel(fns):
@@ -410,15 +413,40 @@ class GeoAccum:
 # on the device
 # ----------------------------------------------------------------------------
 
+GATHER_DTYPES = ("native", "int8", "fp8")
+
+
+def gather_quant(h: torch.Tensor, gather_dtype: str):
+    """(rows K1 gathers, their scale or None): h itself for 'native', else
+    h quantized to int8 or e4m3 with one per-call scale
+    (bnsgcn_tpu/ops/ell.py `_ell_apply`)."""
+    if gather_dtype == "native":
+        return h, None
+    if gather_dtype == "int8":
+        return i8_quant(h)
+    if gather_dtype == "fp8":
+        return f8_quant(h)
+    raise ValueError(f"gather dtype {gather_dtype!r} is not one of "
+                     f"{GATHER_DTYPES}")
+
+
 class EllSpmm:
-    """spmm(h_ext [n_src, H]) -> [n_rows, H] over one part's layout arrays
+    """spmm(h_ext [n_src, H]) -> [n_dst, H] over one part's layout arrays
     (device tensors keyed as build_layouts names them, without the part
     axis); the backward runs the bwd_* layout. `rows[d]` is direction d's
     K1 layout (ops/bucket_sum.py `EllRows`): the tables and the row schedule
     packed from them here, layout set-up timed as `pack_seconds`.
-    Counterpart of bnsgcn_tpu/ops/ell.py `make_ell_spmm`."""
+    gather_dtype 'int8' / 'fp8' quantizes what each pass gathers with one
+    scale per call, the backward's cotangent with its own, and rounds the
+    scaled sums to h's dtype. Counterpart of bnsgcn_tpu/ops/ell.py
+    `make_ell_spmm`."""
 
-    def __init__(self, fwd_spec: EllSpec, bwd_spec: EllSpec, arrays: dict):
+    def __init__(self, fwd_spec: EllSpec, bwd_spec: EllSpec, arrays: dict,
+                 gather_dtype: str = "native"):
+        if gather_dtype not in GATHER_DTYPES:
+            raise ValueError(f"gather dtype {gather_dtype!r} is not one of "
+                             f"{GATHER_DTYPES}")
+        self.gather_dtype = gather_dtype
         t0 = time.perf_counter()
         self.rows = {}
         for d, spec in (("fwd", fwd_spec), ("bwd", bwd_spec)):
@@ -428,11 +456,29 @@ class EllSpmm:
                 arrays.get(f"{d}_chunk_seg"))
         self.pack_seconds = time.perf_counter() - t0   # ends in a host read
 
+    def with_dtypes(self, gather_dtype: str, dense_dtype: str = "native",
+                    row_cap: int = 0) -> "EllSpmm":
+        """The same layout (shared, not packed again) gathering in
+        `gather_dtype`; dense_dtype and row_cap, BlockSpmm's, mean nothing
+        here."""
+        if gather_dtype not in GATHER_DTYPES:
+            raise ValueError(f"gather dtype {gather_dtype!r} is not one of "
+                             f"{GATHER_DTYPES}")
+        op = copy.copy(self)
+        op.gather_dtype = gather_dtype
+        return op
+
     def apply_dir(self, direction: str, h, phase: str, base=None,
-                  base_row=None):
-        """The direction's aggregation of h, plus base[base_row] if given,
-        through K1 on a CUDA tensor and its plain version on the CPU."""
-        return ell_apply(self.rows[direction], h.contiguous(), base, base_row,
+                  base_row=None, native: bool = False):
+        """The direction's aggregation of h in h's dtype, plus
+        base[base_row] if given, through K1 on a CUDA tensor and its plain
+        version on the CPU; `native` gathers h itself whatever
+        gather_dtype says (the use_pp precompute's codecs)."""
+        hq, scale = gather_quant(h.contiguous(),
+                                 "native" if native else self.gather_dtype)
+        return ell_apply(self.rows[direction], hq.contiguous(), base,
+                         base_row, scale=scale,
+                         out_dtype=None if scale is None else h.dtype,
                          phase=phase)
 
     def __call__(self, h, phase: str = "fwd"):
@@ -450,4 +496,3 @@ class _EllFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.op.apply_dir("bwd", g, "bwd").to(g.dtype), None, None
-

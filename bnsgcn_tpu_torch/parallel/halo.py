@@ -1,5 +1,8 @@
 """The halo (boundary-activation) exchange (counterpart of
-bnsgcn_tpu/parallel/halo.py), strategy 'padded' with wire 'native'.
+bnsgcn_tpu/parallel/halo.py), strategy 'padded', wire 'native' (h's dtype)
+or a narrow codec: 'bf16', or 'int8' / 'fp8' with one f32 scale per
+(sender, peer) block that travels in an all-to-all of its own; the
+backward quantizes the cotangent with its own scales.
 
 Slot layout (data/artifacts.py): extended row `pad_inner + q*pad_b + k` on
 part j holds the k-th entry of q's boundary list toward j. One exchange:
@@ -7,7 +10,8 @@ part j holds the k-th entry of q's boundary list toward j. One exchange:
   * send: rows h[sel] of my boundary lists toward each peer (all of them
     at rate 1.0, this epoch's BNS sample below it), times the weight
     (1/ratio on a sent entry, 0 on padding), as [P, S_pad, d];
-  * one tiled all-to-all over P*S_pad contiguous rows (block j to rank j);
+  * one tiled all-to-all over P*S_pad contiguous rows (block j to rank j),
+    of the wire's payload (`wire_all_to_all`);
   * receive: index_add_ the P blocks into a zero [n_halo + 1, d] buffer at
     `slots` (padding lands in the trash row n_halo, which is dropped).
 
@@ -32,6 +36,9 @@ import torch
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.sampling import (identity_sample, pair_key,
                                                 pair_sample)
+from bnsgcn_tpu_torch.utils.quant import F8, f8_dequant, f8_quant, i8_quant
+
+WIRES = ("native", "bf16", "int8", "fp8")
 
 
 @dataclass(frozen=True)
@@ -60,7 +67,7 @@ def make_halo_spec(n_b: np.ndarray, pad_inner: int, pad_boundary: int,
     are computed in float64 numpy, as the JAX package does: a float32
     product floors some sizes differently. Returns (spec, tables): tables =
     {n_b, send_size} int32 and {inv_ratio} float32, numpy [P, P]."""
-    if strategy != "padded" or wire != "native":
+    if strategy != "padded" or wire not in WIRES:
         raise ValueError(f"halo exchange {strategy}/{wire} is not ported yet")
     n_b = np.asarray(n_b, dtype=np.int64)
     exact = rate >= 1.0
@@ -87,9 +94,45 @@ def full_rate_spec(n_b: np.ndarray, pad_inner: int,
 
 def wire_bytes(spec: HaloSpec, width: int, native_bytes: int = 4) -> int:
     """Per-rank payload bytes of ONE exchange at the given feature width:
-    the full P-block all-to-all buffer (the self block rides along). The
-    backward exchange costs the same."""
-    return spec.n_parts * spec.pad_send * width * native_bytes
+    the full P-block all-to-all buffer (the self block rides along), at the
+    wire's bytes per element (`native_bytes`, the compute dtype's, for
+    'native'); the [P] f32 scales are left out. The backward exchange costs
+    the same."""
+    b = {"native": native_bytes, "bf16": 2, "fp8": 1, "int8": 1}[spec.wire]
+    return spec.n_parts * spec.pad_send * width * b
+
+
+def wire_quant(x: torch.Tensor, wire: str):
+    """x [P, S, d] -> (payload, scales [P, 1, 1] or None): the wire codec,
+    one scale per (sender, peer) block over the last two axes
+    (bnsgcn_tpu/parallel/halo.py `_quant`)."""
+    if wire == "bf16":
+        return x.to(torch.bfloat16), None
+    if wire == "int8":
+        return i8_quant(x, axes=(-2, -1))
+    return f8_quant(x, axes=(-2, -1))
+
+
+def wire_all_to_all(spec: HaloSpec, send: torch.Tensor,
+                    comm: Comm) -> torch.Tensor:
+    """send [P, S, d] through the wire's tiled all-to-all: [P*S, d] in
+    send's dtype, block q from rank q. A quantized wire ships the payload
+    (an e4m3 one as its bytes) and the [P] scales in an all-to-all of their
+    own, and dequantizes with the sender's scales
+    (bnsgcn_tpu/parallel/halo.py `_a2a_wire_impl`)."""
+    P, S, d = send.shape
+    if spec.wire == "native":
+        return comm.all_to_all(send.reshape(P * S, d))
+    payload, scale = wire_quant(send, spec.wire)
+    raw = payload.view(torch.uint8) if payload.dtype == F8 else payload
+    recv = comm.all_to_all(raw.reshape(P * S, d))
+    if payload.dtype == F8:
+        recv = recv.view(F8)
+    if scale is None:
+        return recv.to(send.dtype)
+    rscale = comm.all_to_all(scale.reshape(P, 1)).reshape(P, 1, 1)
+    return f8_dequant(recv.reshape(P, S, d), rscale,
+                      send.dtype).reshape(P * S, d)
 
 
 @dataclass
@@ -147,11 +190,10 @@ def make_halo_plan(spec: HaloSpec, tables: dict, bnd: torch.Tensor, me: int,
 
 def halo_start(spec: HaloSpec, plan: HaloPlan, h: torch.Tensor,
                comm: Comm) -> torch.Tensor:
-    """Pack my boundary rows and run the all-to-all: the received payload
-    [P*S_pad, d], block q from rank q."""
-    P, Sp, d = spec.n_parts, spec.pad_send, h.shape[-1]
+    """Pack my boundary rows and run the all-to-all: the received rows
+    [P*S_pad, d] in h's dtype, block q from rank q."""
     send = (h[plan.sel] * plan.weight[..., None]).to(h.dtype)   # [P, S, d]
-    return comm.all_to_all(send.reshape(P * Sp, d))
+    return wire_all_to_all(spec, send, comm)
 
 
 def halo_finish(spec: HaloSpec, plan: HaloPlan, recv: torch.Tensor,
@@ -175,7 +217,10 @@ class _HaloFn(torch.autograd.Function):
         spec, plan = ctx.spec, ctx.plan
         P, Sp, d = spec.n_parts, spec.pad_send, g.shape[-1]
         g_halo = torch.cat([g[spec.pad_inner:], g.new_zeros((1, d))])
-        back = ctx.comm.all_to_all(g_halo[plan.slots.reshape(-1)])  # [P*S, d]
+        # the tiled all-to-all is its own transpose; a quantized wire
+        # quantizes the cotangent with its own scales
+        back = wire_all_to_all(spec, g_halo[plan.slots].reshape(P, Sp, d),
+                               ctx.comm)                             # [P*S, d]
         grad = g[:spec.pad_inner].clone()
         part = (back * plan.weight.reshape(P * Sp, 1)).to(g.dtype)
         # one peer's block at a time: within a block the weighted rows are

@@ -19,13 +19,18 @@ from bnsgcn_tpu_torch.parallel.mesh import Comm
 
 
 def reduce_gradients(params, comm: Comm, loss: torch.Tensor) -> torch.Tensor:
-    """SUM every parameter's .grad over the ranks in place; returns the
-    all-reduced loss (a 0-d tensor)."""
+    """SUM every parameter's .grad over the ranks in place, in the
+    parameters' dtype; returns the all-reduced loss (a 0-d f32 tensor),
+    which rides in the same buffer when the gradients are f32 and in one
+    f32 all-reduce of its own otherwise (the JAX package sums its f32 loss
+    apart from the bf16 gradients)."""
     params = [p for p in params]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
+    dt = grads[0].dtype
+    ride = dt == torch.float32
     flat = torch.cat([g.reshape(-1) for g in grads]
-                     + [loss.detach().reshape(1).to(grads[0].dtype)])
+                     + ([loss.detach().reshape(1).to(dt)] if ride else []))
     comm.all_reduce_(flat)
     off = 0
     for p, g in zip(params, grads):
@@ -34,7 +39,10 @@ def reduce_gradients(params, comm: Comm, loss: torch.Tensor) -> torch.Tensor:
             p.grad = g
         p.grad.copy_(flat[off:off + n].view_as(g))
         off += n
-    return flat[-1]
+    if ride:
+        return flat[-1]
+    total = loss.detach().float().reshape(1).clone()
+    return comm.all_reduce_(total)[0]
 
 
 @torch.no_grad()
@@ -55,7 +63,8 @@ def assert_replicated(params, comm: Comm) -> str:
     (did every rank apply the same update?). Returns this rank's digest."""
     h = hashlib.sha256()
     for p in params:
-        h.update(p.detach().contiguous().cpu().numpy().tobytes())
+        h.update(p.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
     digest = h.hexdigest()
     digests = comm.all_gather_object(digest)
     bad = [r for r, d in enumerate(digests) if d != digests[0]]

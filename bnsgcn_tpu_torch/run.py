@@ -60,7 +60,8 @@ from bnsgcn_tpu_torch.parallel.mesh import (Comm, RankContext,
 from bnsgcn_tpu_torch.parallel.reducer import (assert_replicated,
                                                broadcast_parameters)
 from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
-                                      build_step_fns, dropout_generator,
+                                      build_step_fns, compute_dtype,
+                                      dropout_generator,
                                       local_row, make_tx, opt_state_from_jax,
                                       opt_state_to_jax, params_from_jax,
                                       params_to_jax, to_device)
@@ -141,35 +142,40 @@ class Prepared:
     n_edges: int                       # this part's edges
     rank: int = 0
     comm: Optional[Comm] = None        # None at P=1
+    art: Optional[PartitionArtifacts] = None   # what the layout came from
 
 
 def prepare_part(cfg: Config, art: PartitionArtifacts,
                  eval_graphs: Optional[tuple], device, log, rank: int = 0,
-                 comm: Optional[Comm] = None) -> Prepared:
+                 comm: Optional[Comm] = None,
+                 reuse: Optional[StepFns] = None, **spmm_kw) -> Prepared:
     """Artifacts -> this part's SpMM layout (on the device) -> block arrays.
     `eval_graphs` is (val graph, test graph) where eval runs, else None. The
-    use_pp precompute is the first step of the loop."""
+    use_pp precompute is the first step of the loop. `reuse` and `spmm_kw`
+    (row_cap) go to trainer.build_step_fns: another dtype configuration of
+    an earlier prepared run reuses its layout."""
     set_float32_math()
     cfg = cfg.replace(n_feat=art.n_feat, n_class=art.n_class,
                       n_train=art.n_train)
     spec = spec_from_config(cfg)
     t0 = time.perf_counter()
     fns = build_step_fns(cfg, spec, art, device, log=log, rank=rank,
-                         comm=comm)
+                         comm=comm, reuse=reuse, **spmm_kw)
     row = local_row(art, rank)
     n_edges = int((art.dst[row] < art.pad_inner).sum())
     log(("Graph: " if comm is None else f"Part {rank} of {art.n_parts}: ")
         + f"{int(art.n_inner[rank])} nodes, {n_edges} edges, "
-        f"F={art.n_feat}, {art.n_class} classes | spmm={cfg.spmm} layout "
-        f"{time.perf_counter() - t0:.1f}s"
+        f"F={art.n_feat}, {art.n_class} classes | {cfg.dtype} "
+        f"spmm={fns.spmm_kind} gather={cfg.spmm_gather} "
+        f"dense={cfg.spmm_dense} layout {time.perf_counter() - t0:.1f}s"
         + (f" | dense tiles carry {fns.dense_edges} edges "
            f"({fns.dense_edges / max(n_edges, 1):.1%})"
-           if cfg.spmm == "hybrid" else ""))
+           if fns.spmm_kind == "hybrid" else ""))
     blk = to_device({k: v for k, v in build_block_arrays(
         art, spec.model).items() if k in TRAIN_KEYS}, device, row)
     val_g, test_g = eval_graphs if eval_graphs is not None else (None, None)
     return Prepared(cfg, spec, val_g, test_g, fns, blk, device, n_edges,
-                    rank, comm)
+                    rank, comm, art)
 
 
 def split_graphs(cfg: Config, g: Graph) -> tuple[Graph, Graph, Graph]:
@@ -195,14 +201,20 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
     """(block arrays with the use_pp precompute applied, model, optimizer)
     for a prepared run. The model is initialized on the host from cfg.seed,
     so the draw does not depend on the device; `model_init` (a state_dict)
-    replaces it. Under P > 1 every rank then takes rank 0's parameters."""
+    replaces it. Under --dtype bfloat16 the parameters (and so Adam's
+    moments) are bf16, and the features are cast to bf16 on the device
+    before the precompute, whose result is cast to bf16 too
+    (bnsgcn_tpu/run.py:429-438). Under P > 1 every rank then takes rank 0's
+    parameters."""
+    dtype = compute_dtype(pr.cfg)
     blk = dict(pr.blk)
+    blk["feat"] = blk["feat"].to(dtype)
     if pr.spec.use_pp:
-        blk["feat"] = pr.fns.precompute(blk)
+        blk["feat"] = pr.fns.precompute(blk).to(dtype)
     model = GNN(pr.spec, torch.Generator().manual_seed(pr.cfg.seed))
     if model_init is not None:
         model.load_state_dict(model_init)
-    model = model.to(pr.device)
+    model = model.to(device=pr.device, dtype=dtype)
     if pr.comm is not None:
         broadcast_parameters(model.parameters(), pr.comm)
     opt = make_tx(pr.cfg, model.parameters())
@@ -434,6 +446,8 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         "comm_times": res.comm_times, "reduce_times": res.reduce_times,
         "launches": {"K1": dict(bucket_sum.launches.by_phase),
                      "K2": dict(tile_matmul.launches.by_phase)},
+        "kinds": {"K1": dict(bucket_sum.launches.by_kind),
+                  "K2": dict(tile_matmul.launches.by_kind)},
         "max_memory_bytes": (torch.cuda.max_memory_allocated(ctx.device)
                              if ctx.device.type == "cuda" else None),
         "dense_edges": res.dense_edges, "n_edges": res.n_edges,
@@ -461,8 +475,9 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
     path = artifacts_dir(cfg)
     _prebuild(cfg)
     hspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
-                              cfg.sampling_rate)
+                              cfg.sampling_rate, wire=cfg.halo_wire)
     hfull, _ = full_rate_spec(art.n_b, art.pad_inner, art.pad_boundary)
+    nb = 2 if cfg.dtype == "bfloat16" else 4     # the native wire's bytes
     devs = [str(rank_device(cfg.device, cfg.dist_backend, r))
             for r in range(P)]
     staged = cfg.dist_backend == "gloo" and cfg.device == "cuda"
@@ -470,11 +485,13 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         + (" (collectives staged through host memory)" if staged else "")
         + f" | devices {','.join(devs)} | pad_inner={art.pad_inner} "
         f"pad_boundary={art.pad_boundary} pad_send={hspec.pad_send} "
-        f"edges/part={art.pad_edges} | halo {hspec.strategy}/{hspec.wire} "
-        f"at sampling rate {cfg.sampling_rate:g}: "
-        f"{wire_bytes(hspec, cfg.n_hidden) / 1e6:.2f} MB/exchange/rank at "
-        f"hidden width {cfg.n_hidden} "
-        f"({wire_bytes(hfull, art.n_feat) / 1e6:.2f} MB at feature width "
+        f"edges/part={art.pad_edges} | {cfg.dtype} spmm={cfg.spmm} "
+        f"gather={cfg.spmm_gather} dense={cfg.spmm_dense} | halo "
+        f"{hspec.strategy}/{hspec.wire} at sampling rate "
+        f"{cfg.sampling_rate:g}: "
+        f"{wire_bytes(hspec, cfg.n_hidden, nb) / 1e6:.2f} MB/exchange/rank "
+        f"at hidden width {cfg.n_hidden} "
+        f"({wire_bytes(hfull, art.n_feat, nb) / 1e6:.2f} MB at feature width "
         f"{art.n_feat}, the precompute's full-rate exchange) | artifacts "
         f"{path} {time.perf_counter() - t0:.1f}s")
     evals = (val_g, test_g) if cfg.eval else None

@@ -31,7 +31,8 @@ from bnsgcn_tpu_torch.data.artifacts import PartitionArtifacts
 from bnsgcn_tpu_torch.models.gnn import GNN, GraphEnv, ModelSpec, apply_model
 from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              cluster_order, dense_edge_count,
-                                             effective_occupancy)
+                                             I8_ROW_CAP, effective_occupancy,
+                                             estimate_coverage)
 from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
 from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
                                             halo_apply, make_halo_plan,
@@ -40,6 +41,17 @@ from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
 from bnsgcn_tpu_torch.utils import prng
+from bnsgcn_tpu_torch.utils.msgpack_codec import Bfloat16Array
+
+# --spmm auto picks the dense-tile hybrid when at least this fraction of the
+# edges would densify onto tiles, else the ELL gathers
+# (bnsgcn_tpu/trainer.py AUTO_HYBRID_MIN_COVERAGE)
+AUTO_HYBRID_MIN_COVERAGE = 0.5
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The parameters', Adam moments' and activations' dtype (--dtype)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def ce_sum(logits, labels, mask):
@@ -96,10 +108,15 @@ def make_tx(cfg: Config, params) -> torch.optim.Adam:
 def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
     """The JAX parameter tree (numpy leaves) -> the port's state_dict:
     {'w' [fin, fout], 'b'} -> nn.Linear weight [fout, fin] (transposed) and
-    bias; {'scale', 'bias'} of norm_i -> LayerNorm weight and bias."""
+    bias; {'scale', 'bias'} of norm_i -> LayerNorm weight and bias. bf16
+    leaves (a checkpoint's Bfloat16Array) give bf16 tensors, any other
+    leaf f32."""
     sd = OrderedDict()
 
     def t(x):
+        if isinstance(x, Bfloat16Array):
+            return torch.from_numpy(x.bits.view(np.int16).copy()).view(
+                torch.bfloat16)
         return torch.tensor(np.asarray(x, np.float32))
 
     for i in range(spec.n_layers):
@@ -118,11 +135,15 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
 def params_to_jax(state, spec: ModelSpec) -> dict:
     """The inverse of params_from_jax: a state_dict-shaped mapping (the
     model's parameters, or Adam's moments keyed by parameter name) -> the
-    JAX parameter tree with numpy float32 leaves, the layout of the JAX
-    package's `init_params` and of its checkpoints."""
+    JAX parameter tree with numpy float32 leaves (Bfloat16Array leaves for
+    bf16 tensors), the layout of the JAX package's `init_params` and of its
+    checkpoints."""
     def a(t, transpose=False):
-        t = t.detach().cpu().float()
-        return np.ascontiguousarray((t.T if transpose else t).numpy())
+        t = t.detach().cpu()
+        t = (t.T if transpose else t).contiguous()
+        if t.dtype == torch.bfloat16:
+            return Bfloat16Array(t.view(torch.int16).numpy().view(np.uint16))
+        return np.ascontiguousarray(t.float().numpy())
 
     def lin(name):
         return {"w": a(state[f"{name}.weight"], True),
@@ -192,47 +213,102 @@ class StepFns:
     dense_edges: int = 0               # edges on dense tiles (hybrid)
     halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
+    spmm_kind: str = "ell"             # 'ell' | 'hybrid' (--spmm resolved)
+
+
+def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
+                 comm: Optional[Comm] = None, log=print, perms=None):
+    """(spmm kind, cluster perms or None): cfg.spmm, with 'auto' resolved as
+    the JAX package's build_step_fns resolves it: the part's cluster order
+    (`perms` when the caller already holds it), then the fraction of edges
+    that would densify onto tiles (estimate_coverage), summed over the
+    ranks; hybrid at AUTO_HYBRID_MIN_COVERAGE or more (reusing the perms),
+    else ELL. Rank 0 prints the same `spmm=auto: ...` line."""
+    if cfg.spmm != "auto":
+        return cfg.spmm, None
+    tile = cfg.block_tile
+    src, dst = art.src[row], art.dst[row]
+    pi, pe = perms if perms is not None else cluster_order(
+        src, dst, art.pad_inner, art.n_ext, target=tile, log=log)
+    real = dst < art.pad_inner
+    d, s = dst[real], src[real]
+    cov = estimate_coverage(
+        pi, pe, art.pad_inner, art.n_ext, d, s,
+        occupancy_min=effective_occupancy(cfg.block_occupancy, tile, tile),
+        tile_budget_bytes=cfg.block_tile_budget_mb << 20, tile_r=tile,
+        tile_c=tile)
+    both = torch.tensor([cov * len(d), float(len(d))], dtype=torch.float64)
+    if comm is not None:
+        both = comm.all_reduce_(both.to(comm.device)).cpu()
+    frac = float(both[0]) / max(float(both[1]), 1.0)
+    kind = "hybrid" if frac >= AUTO_HYBRID_MIN_COVERAGE else "ell"
+    log(f"spmm=auto: {frac:.1%} of edges densify onto dense tiles -> {kind}")
+    return kind, ((pi, pe) if kind == "hybrid" else None)
 
 
 def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
-               row: int = 0):
-    """(operator, numpy layout) for cfg.spmm over the part in row `row` of
-    `art`. Each part builds its own layout: the ELL pads come from the
-    artifacts' global geometry, the hybrid tiles and residual from the part
-    alone."""
+               row: int = 0, comm: Optional[Comm] = None,
+               reuse: Optional["StepFns"] = None,
+               row_cap: int = I8_ROW_CAP):
+    """(operator, numpy layout, resolved spmm kind) for cfg.spmm over the
+    part in row `row` of `art`, with cfg's gather and dense dtypes (the
+    int8 dense modes picked at `row_cap`). Each part builds its own layout:
+    the ELL pads come from the artifacts' global geometry, the hybrid tiles
+    and residual from the part alone. `reuse`, the step functions of an
+    earlier build of the same part and tiling, lends its layout when the
+    resolved kind is its own (only the dtypes change), and a hybrid's
+    cluster order to the auto pick (cluster_order is deterministic, so it
+    is the order the pick would compute)."""
+    held = None
+    if reuse is not None and reuse.spmm_kind == "hybrid":
+        held = (reuse.layout["blk_perm_inner"][0],
+                reuse.layout["blk_perm_ext"][0])
+    kind, perms = resolve_spmm(cfg, art, row, comm, log, held)
+    if reuse is not None and reuse.spmm_kind == kind:
+        return (reuse.spmm.with_dtypes(cfg.spmm_gather, cfg.spmm_dense,
+                                       row_cap), reuse.layout, kind)
     src, dst = art.src[row:row + 1], art.dst[row:row + 1]
-    if cfg.spmm == "hybrid":
+    if kind == "hybrid":
         tile = cfg.block_tile
-        pi, pe = cluster_order(src[0], dst[0], art.pad_inner, art.n_ext,
-                               target=tile, log=log)
+        pi, pe = perms if perms is not None else cluster_order(
+            src[0], dst[0], art.pad_inner, art.n_ext, target=tile, log=log)
         fwd, bwd, ell_pair, arrays = build_block_layouts(
             src, dst, art.pad_inner, art.n_ext, pi[None], pe[None],
             occupancy_min=effective_occupancy(cfg.block_occupancy, tile, tile),
             tile_budget_bytes=cfg.block_tile_budget_mb << 20,
             tile_r=tile, tile_c=tile)
-        return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device)), arrays
-    if cfg.spmm == "ell":
+        return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device),
+                         gather_dtype=cfg.spmm_gather,
+                         dense_dtype=cfg.spmm_dense,
+                         row_cap=row_cap), arrays, kind
+    if kind == "ell":
         fwd, bwd, arrays = build_layouts(src, dst, art.pad_inner, art.n_ext,
                                          geometry=art.ell_geometry)
-        return EllSpmm(fwd, bwd, to_device(arrays, device)), arrays
+        return (EllSpmm(fwd, bwd, to_device(arrays, device),
+                        gather_dtype=cfg.spmm_gather), arrays, kind)
     raise ValueError(f"--spmm {cfg.spmm} is not ported yet")
 
 
 def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    device, log=print, rank: int = 0,
-                   comm: Optional[Comm] = None) -> StepFns:
-    """Rank `rank`'s step functions. Without `comm` the run is P=1."""
+                   comm: Optional[Comm] = None,
+                   reuse: Optional[StepFns] = None,
+                   row_cap: int = I8_ROW_CAP) -> StepFns:
+    """Rank `rank`'s step functions. Without `comm` the run is P=1. `reuse`
+    and `row_cap` go to build_spmm."""
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
-    spmm, layout = build_spmm(cfg, art, device, log, row)
+    spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm, reuse,
+                                    row_cap)
     n_train = max(art.n_train, 1)
     n_halo = art.n_ext - art.pad_inner
     hspec = hfull = None
     if comm is not None:
         bnd = torch.from_numpy(np.ascontiguousarray(art.bnd[row])).to(device)
         hspec, tables = make_halo_spec(art.n_b, art.pad_inner,
-                                       art.pad_boundary, cfg.sampling_rate)
+                                       art.pad_boundary, cfg.sampling_rate,
+                                       wire=cfg.halo_wire)
         hfull, tables_full = full_rate_spec(art.n_b, art.pad_inner,
                                             art.pad_boundary)
         tables = tables_to(tables, device)
@@ -273,19 +349,22 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     def precompute(blk):
         """use_pp layer-0 input, once before training (JAX trainer
         local_precompute): GCN (sum feat/out_norm)/in_norm; GraphSAGE
-        cat(feat, sum(feat)/in_deg). The exchange (full-rate at any
-        training rate, the JAX package's precompute exchange) and the
-        aggregation (the same SpMM) run at the raw feature width."""
+        cat(feat, sum(feat)/in_deg), in f32 (the norms are f32; the caller
+        casts a bf16 run's result). The exchange (full-rate at any training
+        rate, native wire: the JAX package's precompute exchange) and the
+        aggregation (the same SpMM with native codecs, as the JAX package's
+        precompute operator) run at the raw feature width in its dtype."""
         feat_ext = (exchange_for(0)(0, blk["feat"]) if comm is None else
                     precompute_exchange(hfull, tables_full, bnd, blk["feat"],
                                         rank, comm))
         if spec.model == "gcn":
             return spmm.apply_dir("fwd", feat_ext / blk["out_norm"][:, None],
-                                  "pre") / blk["in_norm"][:, None]
-        ah = spmm.apply_dir("fwd", feat_ext, "pre") / blk["in_norm"][:, None]
+                                  "pre", native=True) / blk["in_norm"][:, None]
+        ah = spmm.apply_dir("fwd", feat_ext, "pre",
+                            native=True) / blk["in_norm"][:, None]
         return torch.cat([blk["feat"], ah], 1)
 
-    dense = dense_edge_count(layout) if cfg.spmm == "hybrid" else 0
+    dense = dense_edge_count(layout) if kind == "hybrid" else 0
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
                    forward=forward, precompute=precompute, dense_edges=dense,
-                   halo=hspec, halo_full=hfull)
+                   halo=hspec, halo_full=hfull, spmm_kind=kind)

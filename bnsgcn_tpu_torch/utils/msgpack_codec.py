@@ -11,6 +11,9 @@ installed flax):
     msgpack's strict_types refuses it);
   * an ndarray as ExtType 1 holding the msgpack of (shape, dtype name, the
     C-order bytes); a numpy scalar as ExtType 3, the same of its 0-d array;
+    a `Bfloat16Array` (numpy has no bfloat16 without ml_dtypes) as an
+    ndarray of dtype name 'bfloat16', 2 bytes per element, as flax writes a
+    bfloat16 leaf, and read back as one;
   * an ndarray above MAX_CHUNK_SIZE bytes as flax's chunked form, a dict
     {'__msgpack_chunked_array__': True, 'shape': {'0': ...}, 'chunks':
     {'0': flat piece, ...}}, which `unpackb` joins back.
@@ -33,6 +36,28 @@ MAX_CHUNK_SIZE = 2 ** 30               # flax.serialization.MAX_CHUNK_SIZE
 CHUNKED = "__msgpack_chunked_array__"
 
 
+class Bfloat16Array:
+    """A bfloat16 array carried without ml_dtypes: its bits, uint16 in C
+    order. torch's bfloat16 tensors map to and from it through a 16-bit
+    integer view (trainer.py)."""
+
+    def __init__(self, bits: np.ndarray):
+        if bits.dtype != np.uint16:
+            raise ValueError(f"bfloat16 bits must be uint16, got {bits.dtype}")
+        self.bits = np.ascontiguousarray(bits)
+
+    @property
+    def shape(self) -> tuple:
+        return self.bits.shape
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, Bfloat16Array)
+                and np.array_equal(self.bits, other.bits)
+                and self.bits.shape == other.bits.shape)
+
+    __hash__ = None
+
+
 # ----------------------------------------------------------------------------
 # encoding
 # ----------------------------------------------------------------------------
@@ -51,18 +76,22 @@ def _index_dict(items) -> dict:
     return {str(i): v for i, v in enumerate(items)}
 
 
-def _chunk(arr: np.ndarray) -> dict:
+def _chunk(arr) -> dict:
     """flax's `_chunk`: the array as flat pieces of MAX_CHUNK_SIZE bytes."""
-    size = max(1, int(MAX_CHUNK_SIZE / arr.dtype.itemsize))
-    flat = arr.reshape(-1)
-    return {CHUNKED: True, "shape": _index_dict(arr.shape),
-            "chunks": _index_dict(flat[i:i + size]
-                                  for i in range(0, flat.size, size))}
+    bf16 = isinstance(arr, Bfloat16Array)
+    a = arr.bits if bf16 else arr
+    size = max(1, int(MAX_CHUNK_SIZE / a.dtype.itemsize))
+    flat = a.reshape(-1)
+    pieces = (flat[i:i + size] for i in range(0, flat.size, size))
+    return {CHUNKED: True, "shape": _index_dict(a.shape),
+            "chunks": _index_dict(Bfloat16Array(p) if bf16 else p
+                                  for p in pieces)}
 
 
 def _chunk_leaves(x):
-    if (isinstance(x, np.ndarray)
-            and x.size * x.dtype.itemsize > MAX_CHUNK_SIZE):
+    a = x.bits if isinstance(x, Bfloat16Array) else x
+    if (isinstance(a, np.ndarray)
+            and a.size * a.dtype.itemsize > MAX_CHUNK_SIZE):
         return _chunk(x)
     if type(x) is dict:
         return {k: _chunk_leaves(v) for k, v in x.items()}
@@ -162,6 +191,9 @@ def _pack(x, out: bytearray):
             _pack(v, out)
     elif isinstance(x, np.ndarray):
         _ext(EXT_NDARRAY, _ndarray_bytes(x), out)
+    elif t is Bfloat16Array:
+        _ext(EXT_NDARRAY, packb_raw([list(x.shape), "bfloat16",
+                                     x.bits.tobytes("C")]), out)
     elif isinstance(x, np.generic):
         _ext(EXT_NPSCALAR, _ndarray_bytes(np.asarray(x)), out)
     else:
@@ -263,11 +295,12 @@ def _read_all(data: bytes, raw: bool):
     return x
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+def _ndarray_from_bytes(data: bytes):
     shape, name, buf = _read_all(data, raw=True)
     name = name.decode() if isinstance(name, bytes) else name
     if name == "bfloat16":
-        raise ValueError("a bfloat16 array: numpy has no bfloat16 dtype")
+        return Bfloat16Array(
+            np.frombuffer(buf, dtype=np.uint16).reshape(shape).copy())
     return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
 
 
@@ -275,7 +308,10 @@ def _ext_value(code: int, data: bytes):
     if code == EXT_NDARRAY:
         return _ndarray_from_bytes(data)
     if code == EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
+        arr = _ndarray_from_bytes(data)
+        if isinstance(arr, Bfloat16Array):
+            raise ValueError("a bfloat16 scalar: numpy has no bfloat16 dtype")
+        return arr[()]
     raise ValueError(f"unknown msgpack ExtType {code}")
 
 
@@ -284,6 +320,9 @@ def _unchunk(x):
         if CHUNKED in x:
             shape = tuple(x["shape"][str(i)] for i in range(len(x["shape"])))
             chunks = [x["chunks"][str(i)] for i in range(len(x["chunks"]))]
+            if chunks and isinstance(chunks[0], Bfloat16Array):
+                return Bfloat16Array(np.concatenate(
+                    [c.bits for c in chunks]).reshape(shape))
             return np.concatenate(chunks).reshape(shape)
         return {k: _unchunk(v) for k, v in x.items()}
     return x

@@ -19,9 +19,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bitwise at the probe's [4, 8, 128]; and time kernel, plain version
      and a one-call PyTorch yardstick with CUDA events (K1 and K2 against
      torch.sparse.mm, K2 also against torch.bmm of its tiles; K3 and K4
-     also by host microseconds per call); sweep K1's column chunk and work
-     order; probe the L2's rate; print K2's tiles per row-block and the
-     time the layout's packing took;
+     also by host microseconds per call); probe the L2's rate; print K2's
+     tiles per row-block and the time the layout's packing took; then
+     [lowp]: K1 on bf16, int8 and e4m3 rows and K2 on bf16, int8 and
+     per-slab int8 slabs, as the low-precision path calls them (int8
+     bitwise equal to the plain version, bf16 and e4m3 within a stated
+     per-element bound, each with a control the check must reject), timed
+     beside their bounds;
   3. a small-input agreement check: the same short training run on the card
      and on the CPU (plain versions) must give the same losses;
   4. drive the main path through the entry point a user calls
@@ -55,6 +59,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      j's slots stand for, the rest trashed); it prints each rank's wire MB
      per exchange, the plan's ms, the exchange's share and the epoch at
      rate 0.1 beside rate 1.0's;
+  5b. [lowp] on the P=1 graph and layouts (shared, not rebuilt): the
+     low-precision main path, --dtype bfloat16 --spmm auto --use-pallas
+     --spmm-dense int8 --spmm-gather int8 (auto must pick the hybrid):
+     finite losses, K1 and K2 launched int8 on every aggregation and bf16
+     in the precompute, the epoch beside the f32 one, peak memory; then the
+     guard's route, 2 epochs with e4m3 gathers and the dense tiles past
+     their int8 row cap (the per-slab mode);
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 12 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -63,8 +74,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      --skip-partition --n-epochs 16 it must start at epoch 12, and its
      losses for epochs 12-15 must equal an uninterrupted 16-epoch run's to
      1e-5 (relative);
-  7. print the card's name and power limit, one {"kernels": [...]} line and,
-     last, {"ok": true, "device": {...}}.
+  7. [anchor]: the JAX package's calibrated accuracy gate
+     (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
+     inside (0.93, 0.985), the TPU recipe's quantized stack at P=4 and rate
+     0.1 within 0.005 of it, the same stack in bf16 recorded;
+  8. print the card's name and power limit, one {"kernels": [...]} line
+     (every kernel variant) and, last, {"ok": true, "device": {...}}.
 
 Short runs report their own mean of epochs 1.. (labelled so), beside the
 epoch line's Time(s), which drops 5 warm-up epochs as the JAX package does.
@@ -91,20 +106,35 @@ import time
 # bytes over the first and its f32 operations over the second.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the tensor cores' dense peaks (the same data sheet): the least time of an
+# operation of the type, whatever unit the kernel uses
+BF16_TC_FLOPS_PER_S = 989e12
+INT8_TC_OPS_PER_S = 1979e12
 U32 = 2.0 ** -24               # f32 unit roundoff
 
-REPLACES = {
-    "ell_bucket_sum": "tools/pallas_spmm.py:35",
-    "tile_matmul": "bnsgcn_tpu/ops/pallas_block.py:30",
-    "bucket_reduce": "tools/pallas_spmm.py:104",
-    "copy_probe": "tools/hw_session.py:102",
+K1_SRC, K2_SRC = ("bnsgcn_tpu_torch/csrc/bucket_sum.cu",
+                  "bnsgcn_tpu_torch/csrc/tile_matmul.cu")
+# every kernel variant of the kernels line: (source, the TPU kernel it
+# replaces, which launch count and variant it reads)
+KERNELS = {
+    "ell_bucket_sum": (K1_SRC, "tools/pallas_spmm.py:35", "K1", "f32"),
+    "ell_bucket_sum_bf16": (K1_SRC, "tools/pallas_spmm.py:35", "K1", "bf16"),
+    "ell_bucket_sum_int8": (K1_SRC, "tools/pallas_spmm.py:35", "K1", "int8"),
+    "ell_bucket_sum_fp8": (K1_SRC, "tools/pallas_spmm.py:35", "K1", "fp8"),
+    "tile_matmul": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
+                    "f32"),
+    "tile_matmul_bf16": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
+                         "bf16"),
+    "tile_matmul_int8": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
+                         "int8"),
+    "tile_matmul_int8_slab": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30",
+                              "K2", "int8-slab"),
+    "bucket_reduce": ("bnsgcn_tpu_torch/csrc/bucket_reduce.cu",
+                      "tools/pallas_spmm.py:104", None, None),
+    "copy_probe": ("bnsgcn_tpu_torch/csrc/copy_probe.cu",
+                   "tools/hw_session.py:102", None, None),
 }
-SOURCES = {
-    "ell_bucket_sum": "bnsgcn_tpu_torch/csrc/bucket_sum.cu",
-    "tile_matmul": "bnsgcn_tpu_torch/csrc/tile_matmul.cu",
-    "bucket_reduce": "bnsgcn_tpu_torch/csrc/bucket_reduce.cu",
-    "copy_probe": "bnsgcn_tpu_torch/csrc/copy_probe.cu",
-}
+LOWP_GUARD_EPOCHS = 2   # [lowp]'s run of the guard's route
 # K3 at the shapes it ran on the TPU (hw_logs/bench_tb3g.log:93,136), f32,
 # and once in bf16
 K3_CASES = (((3592, 32, 602), "float32"), ((64, 16, 602), "float32"),
@@ -200,12 +230,12 @@ def k1_bound(rows, h, base=None, base_row=None):
         rows, h.abs(), None if base is None else base.abs(), base_row)
 
 
-def compare_k1(fns, widths, gen, reps, detail, sweep=False):
+def compare_k1(fns, widths, gen, reps, detail):
     """K1 against its plain version on the hybrid's residual layout, both
     directions, at each width, with K2's output shape as the base (the main
     path's call), within k1_bound per element and bitwise equal to itself
     on a second call. With reps > 0, times one forward pass at widths[0]
-    (time_k1); with `sweep`, also every column chunk and work order."""
+    (time_k1)."""
     import torch
     from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
     op = fns.spmm
@@ -225,13 +255,11 @@ def compare_k1(fns, widths, gen, reps, detail, sweep=False):
             max_err, max_rel = max(max_err, e), max(max_rel, rel)
             detail.append({"kernel": "ell_bucket_sum", "dir": direction,
                            "rows": rows.n_rows, "terms": int(rows.src.numel()),
-                           "long_rows": rows.n_long, "order": rows.order,
-                           "H": hdim, "max_abs_err": e, "max_rel_err": rel,
+                           "long_rows": rows.n_long, "H": hdim, "max_abs_err": e, "max_rel_err": rel,
                            "bitwise_repeat": True})
             del ref
             if direction == "fwd" and hdim == widths[0] and reps:
-                timing = time_k1(op, rows, h, base, base_row, got, reps,
-                                 sweep)
+                timing = time_k1(rows, h, base, base_row, reps)
             del got, again
     return (max_err, max_rel), timing
 
@@ -251,15 +279,12 @@ def schedule_csr(rows):
     return coo.coalesce().to_sparse_csr()
 
 
-def time_k1(op, rows, h, base, base_row, out, reps, sweep):
+def time_k1(rows, h, base, base_row, reps):
     """One forward residual pass of the hybrid (base included): K1, its
     plain version, and torch.sparse.mm (cuSPARSE) on the schedule's CSR,
     which computes the row sums without the base (held to k1_bound). Bytes
     bound: the CSR once, each h row the layout uses once, the base rows and
-    their indices once, the output once. With `sweep`: every column chunk
-    C in (H, 64, 32) that the kernel is built for, in every work order
-    (the shipped schedule's order, the others from the same CSR), each
-    bitwise equal to the shipped output."""
+    their indices once, the output once."""
     import torch
     from bnsgcn_tpu_torch.ops import bucket_sum as k1
     hdim = h.shape[1]
@@ -276,8 +301,7 @@ def time_k1(op, rows, h, base, base_row, out, reps, sweep):
     t = {
         "H": hdim, "rows": n_rows, "nnz": nnz, "long_rows": rows.n_long,
         "h_rows_used": n_used, "bytes": nbytes, "flops": flops,
-        "gathered_bytes": nnz * hdim * 4, "order": rows.order,
-        "chunk": k1.CHUNK,
+        "gathered_bytes": nnz * hdim * 4,
         "ms": cuda_ms(lambda: k1.ell_apply(rows, h, base, base_row,
                                            phase="check"), reps),
         "ms_no_base": cuda_ms(lambda: k1.ell_apply(rows, h, phase="check"),
@@ -292,23 +316,6 @@ def time_k1(op, rows, h, base, base_row, out, reps, sweep):
     }
     del csr
     torch.cuda.empty_cache()
-    if sweep:
-        cpos = op.arrays["blk_perm_inner"]
-        t["sweep"] = []
-        for order in k1.ORDERS:
-            r = rows if order == rows.order else rows.with_order(order, cpos)
-            for c in dict.fromkeys((hdim, 64, 32)):
-                if c not in k1.CHUNKS:
-                    continue
-                got = k1.ell_apply(r, h, base, base_row, phase="check",
-                                   chunk=c)
-                if not torch.equal(got, out):
-                    raise AssertionError(f"K1 order {order} C={c}: differs "
-                                         f"from the shipped schedule's bits")
-                del got
-                t["sweep"].append({"order": order, "chunk": c, "ms": cuda_ms(
-                    lambda: k1.ell_apply(r, h, base, base_row,
-                                         phase="check", chunk=c), reps)})
     return t
 
 
@@ -939,6 +946,381 @@ def small_agreement(base_cfg):
         f"{cpu[-1]:.6f}, max |diff| {diff:.2e} <= 1e-4")
 
 
+def lowp_k1_bound(rows, h, scale, acc_ref, ref):
+    """Per element, for K1 on rows of a narrow float type: the f32
+    accumulators differ by at most 2 n u sum|x| (n the row's terms, u =
+    2^-24, sum|x| the plain version on |x|, times the scale); a bf16 out
+    rounds the residual and then base + residual, each a half ulp on either
+    side, 2^-7 (|a| + |out|) together (acc_ref: the plain accumulator times
+    the scale, in f32); (1 + 2^-6) covers the bound's own rounding."""
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply_plain
+    n = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()[:, None]
+    mag = ell_apply_plain(rows, h.float().abs())
+    if scale is not None:
+        mag = mag * scale
+    return (1 + 2.0 ** -6) * (2 * n.clamp(min=1) * U32 * mag + 2.0 ** -7 * (
+        acc_ref.abs() + ref.float().abs()))
+
+
+def last_terms(rows, hf):
+    """[n_rows, H]: each row's last term of hf (zero for an empty row), what
+    a K1 that dropped each row's last index would miss."""
+    import torch
+    deg = rows.row_ptr[1:] - rows.row_ptr[:-1]
+    out = torch.zeros((rows.n_rows, hf.shape[1]), device=hf.device)
+    has = deg > 0
+    out[has] = hf[rows.src[(rows.row_ptr[1:][has] - 1).long()].long()]
+    return out
+
+
+def compare_k1_lowp(fns, widths, gen, reps, detail):
+    """K1's narrow-row variants on the hybrid's residual layout, both
+    directions, as the low-precision main path calls them: bf16, int8 and
+    e4m3 rows with K2's f32 output shape as the base, out bf16, at
+    widths[0] (bf16 also at widths[1], the precompute's raw feature width).
+    int8: bitwise equal to the
+    plain version, and its raw int32 sums too; bf16 and e4m3 within
+    lowp_k1_bound, and the plain version minus each row's last term must be
+    rejected (the control). Times each forward at widths[0]. Returns
+    {variant: (max abs err, timing)}."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
+    from bnsgcn_tpu_torch.ops.ell import gather_quant
+    op = fns.spmm
+    out = {}
+    for kind, ws in (("bf16", widths), ("int8", widths[:1]),
+                     ("fp8", widths[:1])):
+        max_err, timing = 0.0, None
+        for direction in ("fwd", "bwd"):
+            for hdim in ws:
+                rows, h, base, base_row = k1_inputs(op, direction, hdim, gen)
+                hq, scale = ((h.to(torch.bfloat16), None) if kind == "bf16"
+                             else gather_quant(h, kind))
+                args = (rows, hq, base, base_row)
+                kw = dict(scale=scale, out_dtype=torch.bfloat16)
+                got = ell_apply(*args, phase="check", **kw)
+                again = ell_apply(*args, phase="check", **kw)
+                ref = ell_apply_plain(*args, **kw)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K1 {kind} {direction} H={hdim}: "
+                                         f"two calls differ")
+                hf = hq.float()
+                acc = ell_apply_plain(rows, hf)
+                if scale is not None:
+                    acc = acc * scale
+                wrong = ref.float() - last_terms(rows, hf) * (
+                    1.0 if scale is None else scale)
+                if kind == "int8":
+                    raw = ell_apply(rows, hq, phase="check")
+                    if not (torch.equal(got, ref) and torch.equal(
+                            raw, ell_apply_plain(rows, hq))):
+                        raise AssertionError(f"K1 int8 {direction} H={hdim}: "
+                                             f"not bitwise the plain version")
+                    e = 0.0
+                    if torch.equal(got.float(), wrong):
+                        raise AssertionError("K1 int8 control: dropping "
+                                             "each row's last term passed")
+                else:
+                    bound = lowp_k1_bound(rows, hq, scale, acc, ref)
+                    e, _ = check(f"K1 {kind} {direction} H={hdim}",
+                                 got.float(), ref.float(), bound)
+                    try:
+                        check("control", wrong, ref.float(), bound)
+                    except AssertionError:
+                        pass
+                    else:
+                        raise AssertionError(
+                            f"K1 {kind}: the bound admits dropping each "
+                            f"row's last term")
+                max_err = max(max_err, e)
+                detail.append({"kernel": f"ell_bucket_sum_{kind}",
+                               "dir": direction, "H": hdim,
+                               "max_abs_err": e, "bitwise": kind == "int8"})
+                if direction == "fwd" and hdim == widths[0] and reps:
+                    timing = time_k1_lowp(kind, rows, hq, scale, base,
+                                          base_row, reps)
+                del got, again, ref, acc, wrong
+        out[kind] = (max_err, timing)
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_k1_lowp(kind, rows, hq, scale, base, base_row, reps):
+    """One forward residual pass of a narrow-row variant as the main path
+    calls it (base f32, out bf16): kernel, plain version, and the one
+    PyTorch call that computes the same sums where there is one:
+    torch.sparse.mm on bf16 (cuSPARSE), none for int8 -> int32 or e4m3.
+    Bound: the CSR, each used row of hq, the base rows and indices and
+    the bf16 output once over 3.35 TB/s, against the adds over the 67
+    TFLOP/s outside the tensor cores."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
+    hdim = hq.shape[1]
+    n_rows, nnz = rows.n_rows, int(rows.src.numel())
+    n_used = int(torch.unique(rows.src).numel())
+    nbytes = ((n_rows + 1) * 4 + nnz * 4 + n_used * hdim * hq.element_size()
+              + n_rows * 4 + n_rows * hdim * 4 + n_rows * hdim * 2)
+    ops = (nnz + n_rows) * hdim
+    kw = dict(scale=scale, out_dtype=torch.bfloat16)
+    lib = lib_error = None
+    if kind == "bf16":
+        try:
+            csr = schedule_csr(rows).to(torch.bfloat16)
+            lib = cuda_ms(lambda: torch.sparse.mm(csr, hq), reps)
+            del csr
+        except (RuntimeError, NotImplementedError) as e:
+            lib_error = str(e)[:200]    # no bf16 sparse.mm in this build
+    t = {"kind": kind, "H": hdim, "rows": n_rows, "nnz": nnz,
+         "bytes": nbytes, "ops": ops, "library_error": lib_error,
+         "ms": cuda_ms(lambda: ell_apply(rows, hq, base, base_row,
+                                         phase="check", **kw), reps),
+         "plain_ms": cuda_ms(lambda: ell_apply_plain(rows, hq, base,
+                                                     base_row, **kw), reps),
+         "library_ms": lib,
+         "bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                         ops / F32_FLOPS_PER_S) * 1e3,
+         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                      >= ops / F32_FLOPS_PER_S else "operations")}
+    torch.cuda.empty_cache()
+    return t
+
+
+def compare_k2_lowp(fns, widths, gen, reps, detail):
+    """K2's narrow-slab variants on the forward and backward tile stacks at
+    widths[0]: bf16 slabs (also at widths[1], the raw feature width) within
+    2 n u sum|a x| (the
+    products are exact in f32); int8 slabs with one per-call scale (raw
+    int32 sums) and with per-slab scales (each tile's int32 sums scaled and
+    added in tile order), both bitwise equal to the plain version. Control:
+    the plain version skipping each row-block's last tile must be rejected.
+    Times each forward at widths[0]. Returns {variant: (max abs err,
+    timing)}."""
+    import torch
+    from bnsgcn_tpu_torch.ops.block_spmm import build_x_slabs, quantize_slabs
+    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+                                                  tile_matmul_plain)
+    op = fns.spmm
+    a = op.arrays
+    out = {}
+    for kind, ws in (("bf16", widths), ("int8", widths[:1]),
+                     ("int8-slab", widths[:1])):
+        max_err, timing = 0.0, None
+        for direction, spec in (("fwd", op.fwd), ("bwd", op.bwd)):
+            nrb = spec.n_row_blocks
+            tiles = a[f"blk_tiles_{direction}"]
+            rowb, colb = (a[f"blk_rowb_{direction}"],
+                          a[f"blk_colb_{direction}"])
+            off = a[f"blk_off_{direction}"]
+            ent, ent_off = (a[f"blk_ent_{direction}"],
+                            a[f"blk_entoff_{direction}"])
+            perm = a["blk_perm_ext" if direction == "fwd"
+                     else "blk_perm_inner"]
+            last = off[1:][off[1:] > off[:-1]].long() - 1
+            keep = torch.ones(len(rowb), dtype=torch.int8, device="cuda")
+            keep[last] = 0
+            for hdim in ws:
+                h = torch.randn((spec.n_src, hdim), generator=gen,
+                                device="cuda")
+                x = build_x_slabs(spec, perm, h)
+                scale = None
+                if kind == "bf16":
+                    x = x.to(torch.bfloat16)
+                else:
+                    x, sc = quantize_slabs(x, per_slab=kind == "int8-slab")
+                    scale = sc if kind == "int8-slab" else None
+                got = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x,
+                                  nrb, slab_scale=scale, phase="check")
+                ref = tile_matmul_plain(tiles, rowb, colb, x, nrb, scale)
+                skipped = tile_matmul_plain(tiles * keep[:, None, None],
+                                            rowb, colb, x, nrb, scale)
+                if kind == "bf16":
+                    n_row = torch.zeros((nrb + 1, spec.row_tile),
+                                        dtype=torch.int64,
+                                        device="cuda").index_add_(
+                        0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
+                    bound = 2 * n_row.clamp(min=1) * U32 * tile_matmul_plain(
+                        tiles, rowb, colb, x.float().abs(), nrb)
+                    e, _ = check(f"K2 bf16 {direction} H={hdim}", got, ref,
+                                 bound)
+                    try:
+                        check("control", skipped, ref, bound)
+                    except AssertionError:
+                        pass
+                    else:
+                        raise AssertionError("K2 bf16: the bound admits "
+                                             "skipping each row-block's last "
+                                             "tile")
+                    del n_row, bound
+                else:
+                    if not torch.equal(got, ref):
+                        raise AssertionError(f"K2 {kind} {direction} "
+                                             f"H={hdim}: not bitwise the "
+                                             f"plain version")
+                    if torch.equal(got, skipped):
+                        raise AssertionError(f"K2 {kind} control: skipping "
+                                             f"each row-block's last tile "
+                                             f"passed")
+                    e = 0.0
+                max_err = max(max_err, e)
+                detail.append({"kernel": f"tile_matmul_{kind}",
+                               "dir": direction, "H": hdim,
+                               "max_abs_err": e, "bitwise": kind != "bf16"})
+                if direction == "fwd" and hdim == widths[0] and reps:
+                    timing = time_k2_lowp(kind, spec, tiles, rowb, colb, off,
+                                          ent, ent_off, x, scale, reps)
+                del got, ref, skipped, x
+        out[kind] = (max_err, timing)
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_k2_lowp(kind, spec, tiles, rowb, colb, off, ent, ent_off, x, scale,
+                 reps):
+    """One forward dense pass of a narrow-slab variant: kernel, plain
+    version, and torch.sparse.mm on bf16 (cuSPARSE) where PyTorch has the
+    function (none for int8 x int8 -> int32). Bound: the packed entries,
+    offsets, slabs (and scales) and the output once over 3.35 TB/s,
+    against 2 entries H operations over the tensor cores' dense peak for
+    the type (989 TFLOP/s bf16, 1979 TOPS int8)."""
+    import torch
+    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+                                                  tile_matmul_plain)
+    nrb, tr = spec.n_row_blocks, spec.row_tile
+    hdim = x.shape[-1]
+    b_real = int((rowb < nrb).sum())
+    entries = int(ent.numel())
+    nbytes = (entries * 4 + b_real * (tr + 1) * 4 + (nrb + 1) * 4
+              + b_real * 4 + x.numel() * x.element_size()
+              + nrb * tr * hdim * 4
+              + (0 if scale is None else scale.numel() * 4))
+    ops = 2 * entries * hdim
+    peak = BF16_TC_FLOPS_PER_S if kind == "bf16" else INT8_TC_OPS_PER_S
+    lib = lib_error = None
+    if kind == "bf16":
+        try:
+            csr = entries_csr(spec, rowb, colb, ent, ent_off).to(
+                torch.bfloat16)
+            xf = x.view(-1, hdim)
+            lib = cuda_ms(lambda: torch.sparse.mm(csr, xf), reps)
+            del csr
+        except (RuntimeError, NotImplementedError) as e:
+            lib_error = str(e)[:200]    # no bf16 sparse.mm in this build
+    t = {"kind": kind, "H": hdim, "entries": entries, "bytes": nbytes,
+         "ops": ops, "peak_ops_per_s": peak, "library_error": lib_error,
+         "ms": cuda_ms(lambda: tile_matmul(tiles, rowb, colb, off, ent,
+                                           ent_off, x, nrb, slab_scale=scale,
+                                           phase="check"), reps),
+         "plain_ms": cuda_ms(lambda: tile_matmul_plain(tiles, rowb, colb, x,
+                                                       nrb, scale), reps),
+         "library_ms": lib,
+         "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
+         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak
+                      else "operations")}
+    torch.cuda.empty_cache()
+    return t
+
+
+def lowp_runs(cfg, pr, args):
+    """[lowp] training, on the P=1 phase's graph and layouts (no rebuild:
+    the operator shares them and changes only its dtypes): the low-precision
+    main path, args.epochs epochs of --dtype bfloat16 --spmm auto
+    --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
+    hybrid), losses finite, K1 and K2 launched int8 on every aggregation
+    and bf16 in the precompute; then the guard's route, LOWP_GUARD_EPOCHS
+    epochs of the same stack (--spmm hybrid, the pick made) with e4m3
+    gathers and the dense tiles held past their int8 row cap (row_cap 0),
+    so they take the per-slab mode.
+    Launch counts are reset just before each run and read just after."""
+    import torch
+    from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+    from bnsgcn_tpu_torch.run import prepare_part, run_training
+    lc = cfg.replace(dtype="bfloat16", spmm="auto", use_pallas=True,
+                     spmm_dense="int8", spmm_gather="int8")
+    evals = (pr.val_g, pr.test_g)
+    out = {}
+    for name, c, n_ep, kw in (
+            ("main", lc, args.epochs, {}),
+            ("guard", lc.replace(spmm="hybrid", spmm_gather="fp8",
+                                 eval=False),
+             LOWP_GUARD_EPOCHS, {"row_cap": 0})):
+        c = c.replace(n_epochs=n_ep, log_every=n_ep)
+        t0 = time.perf_counter()
+        pl = prepare_part(c, pr.art, evals, pr.device, log, reuse=pr.fns,
+                          **kw)
+        setup_s = time.perf_counter() - t0
+        if pl.fns.spmm_kind != "hybrid":
+            raise AssertionError(f"[lowp] spmm=auto resolved to "
+                                 f"{pl.fns.spmm_kind}, not hybrid")
+        bucket_sum.launches.reset()
+        tile_matmul.launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_training(c, log=log, prepared=pl)
+        k1 = dict(bucket_sum.launches.by_kind)
+        k2 = dict(tile_matmul.launches.by_kind)
+        passes = (c.n_layers - 1) * n_ep * 2
+        q1 = "int8" if c.spmm_gather == "int8" else "fp8"
+        q2 = "int8" if name == "main" else "int8-slab"
+        want1, want2 = {q1: passes, "bf16": 1}, {q2: passes, "bf16": 1}
+        if k1 != want1 or k2 != want2:
+            raise AssertionError(f"[lowp] {name}: K1 launched {k1}, K2 {k2}; "
+                                 f"expected {want1} and {want2}")
+        if not all(math.isfinite(x) for x in res.losses):
+            raise AssertionError(f"[lowp] {name}: non-finite loss "
+                                 f"{res.losses}")
+        out[name] = {"losses": res.losses, "epoch_times_s": res.epoch_times,
+                     "epoch_from_1_s": mean_from_1(res.epoch_times),
+                     "launches": {"K1": k1, "K2": k2}, "setup_s": setup_s,
+                     "modes": dict(pl.fns.spmm.mode),
+                     "max_memory_gib":
+                         torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "val_acc": res.val_acc, "test_acc": res.test_acc}
+        del pl, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def anchor_phase(work):
+    """[anchor]: the JAX package's calibrated accuracy gate on the card
+    (bnsgcn_tpu_torch/anchor.py; tests/test_accuracy_anchor.py's bands):
+    exact (P=1, rate 1.0, f32, ELL) inside EXACT_BAND; the TPU recipe's
+    stack (P=4 ranks sharing the card over gloo, rate 0.1, hybrid, int8
+    dense tiles, int8 gathers, int8 halo wire) within QUANT_TOL of exact;
+    the same stack in bf16 recorded beside them, not gated."""
+    from bnsgcn_tpu_torch import anchor
+    g = anchor.anchor_graph()
+    quant = dict(spmm="hybrid", use_pallas=True, spmm_gather="int8",
+                 spmm_dense="int8", halo_wire="int8")
+    out = {}
+    for name, P, rate, kw in (("exact", 1, 1.0, {}),
+                              ("quant", PARTS, BNS_RATE, quant),
+                              ("quant_bf16", PARTS, BNS_RATE,
+                               dict(quant, dtype="bfloat16"))):
+        t0 = time.perf_counter()
+        acc = anchor.train_eval(g, P, rate, epochs=anchor.EPOCHS,
+                                device="cuda",
+                                work=os.path.join(work, "anchor", name),
+                                **kw)
+        out[name] = {"val_acc": acc, "seconds": time.perf_counter() - t0}
+    e, q, b = (out[k]["val_acc"] for k in ("exact", "quant", "quant_bf16"))
+    lo, hi = anchor.EXACT_BAND
+    log(f"[anchor] reddit_like_graph {g.n_nodes} nodes, {g.n_edges} edges, "
+        f"GraphSAGE 3x32, {anchor.EPOCHS} epochs: exact (P=1, rate 1.0, f32, "
+        f"ELL) val {e:.4f} (band ({lo}, {hi})); quant (P={PARTS} over gloo "
+        f"on one card, rate {BNS_RATE}, hybrid, int8 dense, int8 gathers, "
+        f"int8 wire) val {q:.4f}, |quant - exact| {abs(q - e):.4f} <= "
+        f"{anchor.QUANT_TOL}; the same in bf16 (recorded) val {b:.4f} ("
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in out.items())
+        + ")")
+    if not lo < e < hi:
+        raise AssertionError(f"[anchor] exact accuracy {e:.4f} outside "
+                             f"({lo}, {hi})")
+    if not abs(q - e) <= anchor.QUANT_TOL:
+        raise AssertionError(f"[anchor] quantized stack {q:.4f} is "
+                             f"{abs(q - e):.4f} from exact {e:.4f}, over "
+                             f"{anchor.QUANT_TOL}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=1.0,
@@ -972,7 +1354,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     t_all = time.perf_counter()
 
     # 1. build
@@ -1000,7 +1382,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     widths = (cfg.n_hidden, pr.cfg.n_feat)
     detail = []
-    e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail, sweep=True)
+    e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail)
     e2, t2 = compare_k2(pr.fns, widths, gen, args.reps, detail)
     log(f"[check] K1 max abs err {e1[0]:.3e} (relative to max |ref| "
         f"{e1[1]:.3e}), K2 {e2[0]:.3e} ({e2[1]:.3e}); every element within "
@@ -1016,8 +1398,8 @@ def main(argv=None) -> int:
         f"embedding_bag gather {l2['gather_bytes_per_s'] / 1e12:.3f} TB/s, "
         f"K1 on the same gather {l2['k1_bytes_per_s'] / 1e12:.3f} TB/s; "
         f"L2 rate (probe) {l2['l2_bytes_per_s'] / 1e12:.3f} TB/s")
-    log(f"[time] K1 fwd residual pass H={t1['H']} (order {t1['order']}, "
-        f"C={t1['chunk']}, {t1['rows']} rows, {t1['nnz']} terms, "
+    log(f"[time] K1 fwd residual pass H={t1['H']} ({t1['rows']} rows, "
+        f"{t1['nnz']} terms, "
         f"{t1['long_rows']} long rows): kernel {t1['ms']:.3f} ms with K2's "
         f"output as base ({t1['ms_no_base']:.3f} without), plain "
         f"{t1['plain_ms']:.3f}, torch.sparse.mm {t1['library_ms']:.3f} "
@@ -1025,8 +1407,6 @@ def main(argv=None) -> int:
         f"diagnostic, not a bound: the {t1['gathered_bytes'] / 1e9:.2f} GB "
         f"gathered over the probed L2 rate take "
         f"{t1['gathered_over_l2_ms']:.3f}")
-    log("[sweep] K1 fwd pass, ms by work order and column chunk: " + ", ".join(
-        f"{x['order']} C={x['chunk']} {x['ms']:.3f}" for x in t1["sweep"]))
     log(f"[time] K2 fwd dense pass H={t2['H']}: kernel {t2['ms']:.3f} ms, "
         f"plain {t2['plain_ms']:.3f}, torch.sparse.mm "
         f"{t2['library_ms']:.3f}, bmm {t2['bmm_ms']}, bound "
@@ -1060,6 +1440,18 @@ def main(argv=None) -> int:
         f"time, the output's allocation {t4['alloc_host_us']:.2f} us and the "
         f"C call with its launch {t4['launch_host_us']:.2f} us")
 
+    lk1 = compare_k1_lowp(pr.fns, widths, gen, args.reps, detail)
+    lk2 = compare_k2_lowp(pr.fns, widths, gen, args.reps, detail)
+    for name, res_k in (("K1", lk1), ("K2", lk2)):
+        for kind, (err, t) in res_k.items():
+            lib = ("none" if t["library_ms"] is None
+                   else f"{t['library_ms']:.3f}")
+            log(f"[lowp] {name} {kind} H={t['H']}: max abs err {err:.3e} "
+                f"({'bitwise equal' if kind.startswith('int8') else 'every element within its bound'}"
+                f"; the control rejected); kernel {t['ms']:.3f} ms, plain "
+                f"{t['plain_ms']:.3f}, library {lib}, bound "
+                f"{t['bound_ms']:.3f} ({t['bound_by']})")
+
     # 3. small-input agreement, card vs CPU
     small_agreement(cfg)
 
@@ -1069,6 +1461,8 @@ def main(argv=None) -> int:
     res = run_training(cfg, log=log, prepared=pr)
     k1 = dict(bucket_sum.launches.by_phase)
     k2 = dict(tile_matmul.launches.by_phase)
+    p1_kinds = {"K1": dict(bucket_sum.launches.by_kind),
+                "K2": dict(tile_matmul.launches.by_kind)}
     log(f"[launches] K1 {k1} | K2 {k2}")
     log(f"[hybrid] dense tiles carry {res.dense_edges} of {res.n_edges} "
         f"edges ({res.dense_edges / max(res.n_edges, 1):.1%})")
@@ -1100,7 +1494,20 @@ def main(argv=None) -> int:
           "epoch_from_1_s": mean_from_1(res.epoch_times),
           "launches": {"K1": k1, "K2": k2}, "dense_edges": res.dense_edges,
           "n_edges": res.n_edges, "val_acc": val, "test_acc": test}
-    del pr, res
+    del res
+    torch.cuda.empty_cache()
+
+    # [lowp]: the low-precision main path on the same graph and layouts
+    lowp = lowp_runs(cfg, pr, args)
+    for name, x in lowp.items():
+        log(f"[lowp] {name}: losses "
+            + " ".join(f"{v:.4f}" for v in x["losses"])
+            + f"; epoch {x['epoch_from_1_s'] * 1e3:.1f} ms, mean of epochs "
+            f"1.. (f32: {p1['epoch_from_1_s'] * 1e3:.1f}); dense modes "
+            f"{x['modes']}; launches K1 {x['launches']['K1']} K2 "
+            f"{x['launches']['K2']}; peak memory {x['max_memory_gib']:.2f} "
+            f"GiB; layout reused, set-up {x['setup_s']:.1f} s")
+    del pr
     torch.cuda.empty_cache()
 
     # 5. the P-rank path
@@ -1111,37 +1518,55 @@ def main(argv=None) -> int:
 
     # 6. the flagship's script: train, checkpoint, resume
     cli = cli_phase(work)
-    shutil.rmtree(work, ignore_errors=True)
-    launches = {name: sum(c.values()) + sum(
-        sum(rep["launches"][name].values()) for rep in res4.ranks)
-        for name, c in (("K1", k1), ("K2", k2))}
-    # the largest error of each kernel's checks, P=1's and every rank's
-    err1 = max([e1[0]] + [rep["hook"]["K1"][0] for rep in res4.ranks])
-    err2 = max([e2[0]] + [rep["hook"]["K2"][0] for rep in res4.ranks])
 
-    # 7. report
-    out = {"card": smi, "p1": p1, "parts": parts, "cli": cli, "k1_time": t1,
-           "k2_time": t2, "k3_times": t3s, "k4_time": t4,
+    # 7. [anchor]: the calibrated accuracy gate, on the card
+    anc = anchor_phase(work)
+    shutil.rmtree(work, ignore_errors=True)
+    # launches by variant on the main paths: the P=1 run, every rank of the
+    # P=4 main path, and [lowp]'s two runs
+    counts = {"K1": {}, "K2": {}}
+    for src in ([{"K1": p1_kinds["K1"], "K2": p1_kinds["K2"]}]
+                + [rep["kinds"] for rep in res4.ranks]
+                + [x["launches"] for x in lowp.values()]):
+        for name in ("K1", "K2"):
+            for kind, n in src[name].items():
+                counts[name][kind] = counts[name].get(kind, 0) + n
+    # the largest error of each kernel's checks, P=1's and every rank's
+    errs = {"ell_bucket_sum": max([e1[0]] + [rep["hook"]["K1"][0]
+                                             for rep in res4.ranks]),
+            "tile_matmul": max([e2[0]] + [rep["hook"]["K2"][0]
+                                          for rep in res4.ranks]),
+            "bucket_reduce": e3, "copy_probe": 0.0}
+    times = {"ell_bucket_sum": t1, "tile_matmul": t2, "bucket_reduce": t3,
+             "copy_probe": t4}
+    for prefix, res_k in (("ell_bucket_sum", lk1), ("tile_matmul", lk2)):
+        for kind, (err, t) in res_k.items():
+            name = f"{prefix}_{kind.replace('-', '_')}"
+            errs[name], times[name] = err, t
+
+    # 8. report
+    out = {"card": smi, "p1": p1, "lowp": lowp, "parts": parts, "cli": cli,
+           "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)
     kernels = []
-    for name, err, t, n in (("ell_bucket_sum", err1, t1, launches["K1"]),
-                            ("tile_matmul", err2, t2, launches["K2"]),
-                            ("bucket_reduce", e3, t3, 0),
-                            ("copy_probe", 0.0, t4, 0)):
+    for name, (src, replaces, count, variant) in KERNELS.items():
+        t = times[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": n,
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": counts[count].get(variant, 0) if count else 0,
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -15,13 +15,22 @@
     match;
   * a resumed P=1 run at dropout 0.5 equals the uninterrupted run bitwise:
     losses, and the checkpoint files both runs write after the resume point;
-  * dropout is keyed by (seed, epoch, rank).
+  * dropout is keyed by (seed, epoch, rank);
+  * --dtype bfloat16: bf16 leaves go as flax writes them (dtype name
+    'bfloat16', 2 bytes each), bytes-equal to flax, chunked too; a bf16
+    model and Adam written by the port is byte for byte the JAX package's
+    file for the same trees and restores into its bf16 templates, and a
+    JAX bf16 file loads into the port's bf16 model and Adam and writes
+    back byte for byte; a resumed bf16 run equals the uninterrupted one
+    bitwise.
 """
 
 import os
 
 import flax.serialization as fs
 import jax
+import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import optax
 import pytest
@@ -282,13 +291,13 @@ def test_final_best_payload_refuses_another_runs_best(tmp_path):
     assert "restarting best tracking" in seen[0]
 
 
-def _run(tmp_path, name, n_epochs, resume=False):
+def _run(tmp_path, name, n_epochs, resume=False, dtype="float32"):
     cfg = Config(dataset="sbm", n_partitions=1, model="graphsage",
                  n_layers=2, n_hidden=16, use_pp=True, dropout=0.5,
                  n_epochs=n_epochs, log_every=2, device="cpu", seed=3,
                  resume=resume, ckpt_path=str(tmp_path / name),
                  results_path=str(tmp_path / "res"),
-                 graph_name="sbm-1-metis-vol-trans")
+                 graph_name="sbm-1-metis-vol-trans", dtype=dtype)
     return cfg, run_training(cfg, log=_quiet)
 
 
@@ -327,3 +336,123 @@ def test_dropout_is_keyed_by_seed_epoch_and_rank():
     assert torch.equal(mask(3, 5, 1), mask(3, 5, 1))
     others = [mask(4, 5, 1), mask(3, 6, 1), mask(3, 5, 2)]
     assert all(not torch.equal(mask(3, 5, 1), m) for m in others)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return msgpack_codec.Bfloat16Array(
+        np.asarray(x, ml_dtypes.bfloat16).view(np.uint16))
+
+
+def test_codec_bf16_leaves_equal_flax(monkeypatch):
+    """bf16 arrays (as Bfloat16Array) pack as flax packs ml_dtypes
+    bfloat16 arrays, plain and chunked (limit lowered to 64 bytes), and
+    flax's bytes read back to the same bits."""
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(6, 9)).astype(ml_dtypes.bfloat16)
+    b = rng.normal(size=(40,)).astype(ml_dtypes.bfloat16)
+    tree_j = {"a": a, "s": {"b": b, "n": np.asarray(3, np.int32)}}
+    tree_p = {"a": _bf16(a), "s": {"b": _bf16(b),
+                                   "n": np.asarray(3, np.int32)}}
+    for limit in (fs.MAX_CHUNK_SIZE, 64):
+        monkeypatch.setattr(fs, "MAX_CHUNK_SIZE", limit)
+        monkeypatch.setattr(msgpack_codec, "MAX_CHUNK_SIZE", limit)
+        blob = fs.msgpack_serialize(tree_j)
+        assert msgpack_codec.packb(tree_p) == blob
+        got = msgpack_codec.unpackb(blob)
+        assert got["a"] == tree_p["a"] and got["s"]["b"] == tree_p["s"]["b"]
+        assert got["a"].shape == (6, 9)
+    assert b"__msgpack_chunked_array__" in blob
+
+
+def _bf16_port(cfg, spec, steps=2):
+    """The port's bf16 model and Adam after `steps` random updates."""
+    model, opt = _trained_port(cfg, spec, 0)
+    model = model.to(torch.bfloat16)
+    opt = make_tx(cfg, model.parameters())
+    for _ in range(steps):
+        for p in model.parameters():
+            p.grad = torch.randn_like(p)
+        opt.step()
+    return model, opt
+
+
+def test_bf16_checkpoint_is_byte_equal_to_jax_both_ways(tmp_path):
+    """--dtype bfloat16 checkpoints (parameters and Adam moments bf16, the
+    count int32): the port's file restores into the JAX package's bf16
+    templates (init_params(dtype=bfloat16), its optax chain) and is byte
+    for byte the file the JAX package writes for the restored trees; a
+    JAX bf16 file (after two optax updates) loads into the port's bf16
+    model and Adam, bit for bit, and the port writes it back byte for
+    byte."""
+    cfg, spec, spec_j = _specs()
+    net, opt = _bf16_port(cfg, spec)
+    assert all(st["exp_avg"].dtype == torch.bfloat16
+               for st in opt.state.values())
+    path = str(tmp_path / "port.ckpt")
+    ckpt.save_checkpoint(path, params=params_to_jax(net.state_dict(), spec),
+                         opt_state=opt_state_to_jax(opt, net), epoch=9,
+                         best_acc=0.625, seed=77, extra={"retry_nonce": 0})
+    params_t, state_t = j_init_params(jax.random.key(0), spec_j,
+                                      jnp.bfloat16)
+    opt_t = j_make_tx(JConfig(weight_decay=WD)).init(params_t)
+    p, o, s = j_ckpt.restore_into(j_ckpt.read_blob(path),
+                                  jax.device_get(params_t),
+                                  jax.device_get(opt_t), state_t)
+    assert jax.tree.leaves(p)[0].dtype == jnp.bfloat16
+    j_path = str(tmp_path / "jax.ckpt")
+    j_ckpt.save_checkpoint(j_path, params=p, opt_state=o, bn_state=s,
+                           epoch=9, best_acc=0.625, seed=77,
+                           extra={"retry_nonce": 0})
+    with open(path, "rb") as a, open(j_path, "rb") as b:
+        assert a.read() == b.read()
+
+    # the JAX package's bf16 file into the port, and back out
+    params, state = j_init_params(jax.random.key(2), spec_j, jnp.bfloat16)
+    tx = j_make_tx(JConfig(weight_decay=WD))
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        grads = jax.tree.map(lambda x: jnp.asarray(
+            rng.normal(size=x.shape), jnp.bfloat16), params)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+    j_path2 = str(tmp_path / "jax2.ckpt")
+    j_ckpt.save_checkpoint(j_path2, params=params, opt_state=opt_state,
+                           bn_state=state, epoch=4, best_acc=0.5, seed=3,
+                           extra={"retry_nonce": 0})
+    payload = ckpt.read_blob(j_path2)
+    net2 = GNN(spec).to(torch.bfloat16)
+    net2.load_state_dict(params_from_jax(payload["params"], spec))
+    opt2 = make_tx(cfg, net2.parameters())
+    opt_state_from_jax(payload["opt_state"], opt2, net2)
+    assert all(st["exp_avg_sq"].dtype == torch.bfloat16
+               for st in opt2.state.values())
+    p_path = str(tmp_path / "port2.ckpt")
+    ckpt.save_checkpoint(p_path,
+                         params=params_to_jax(net2.state_dict(), spec),
+                         opt_state=opt_state_to_jax(opt2, net2), epoch=4,
+                         best_acc=0.5, seed=3, extra={"retry_nonce": 0})
+    with open(p_path, "rb") as a, open(j_path2, "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_resumed_bf16_run_equals_the_uninterrupted_run_bitwise(tmp_path):
+    """--dtype bfloat16: stop after 4 epochs, resume from the epoch-3
+    checkpoint (bf16 parameters and moments) to 6: the resumed losses and
+    the final checkpoint file are the uninterrupted run's, bitwise."""
+    cfg, full = _run(tmp_path, "full", 6, dtype="bfloat16")
+    _run(tmp_path, "cut", 4, dtype="bfloat16")
+    _, res = _run(tmp_path, "cut", 6, resume=True, dtype="bfloat16")
+    assert res.start_epoch == 4
+    assert res.losses == full.losses[4:]
+    path = ckpt.final_path(cfg)
+    twin = path.replace(os.sep + "full" + os.sep, os.sep + "cut" + os.sep)
+    with open(path, "rb") as a, open(twin, "rb") as b:
+        assert a.read() == b.read()
+    payload = ckpt.read_blob(ckpt.periodic_path(cfg, 5))
+    leaf = payload["params"]["layer_0"]["w"]
+    assert isinstance(leaf, msgpack_codec.Bfloat16Array)

@@ -30,8 +30,8 @@ from bnsgcn_tpu_torch.ops import ell as t_ell
 from bnsgcn_tpu_torch.ops.bucket_reduce import (bucket_reduce,
                                                 bucket_reduce_plain,
                                                 launches as k3_launches)
-from bnsgcn_tpu_torch.ops.bucket_sum import (CHUNKS, LONG_ROW, ORDERS,
-                                             ell_apply, ell_apply_plain,
+from bnsgcn_tpu_torch.ops.bucket_sum import (LONG_ROW, ell_apply,
+                                             ell_apply_plain,
                                              launches as k1_launches,
                                              pack_rows)
 from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
@@ -46,6 +46,7 @@ from bnsgcn_tpu_torch.parallel.halo import (halo_apply, make_halo_plan,
 from bnsgcn_tpu_torch.parallel.mesh import launch
 from bnsgcn_tpu_torch.parallel.sampling import pair_key, pair_sample
 from bnsgcn_tpu_torch.utils import prng
+from bnsgcn_tpu_torch.utils.quant import f8_quant, i8_quant
 
 TOL = dict(rtol=1e-5, atol=1e-4)
 
@@ -140,26 +141,91 @@ def test_bucket_sum_kernel_matches_plain(cuda, h_dim, direction, with_base):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", CHUNKS)
-@pytest.mark.parametrize("order", ORDERS)
-def test_bucket_sum_kernel_each_chunk_and_order(cuda, chunk, order):
-    """Every column chunk and work order gives the same bits: a row's terms
-    are summed in the same order whichever CTA takes it. A long-row
-    threshold of 64 sends many rows down the CTA path."""
+def test_bucket_sum_kernel_at_any_long_row_threshold(cuda):
+    """A threshold of 64 sends many rows down the long-row path, which
+    sums a row in its warps' slices: within the bound, repeatable, and a
+    row short under both thresholds keeps its bits (the same CTA path, the
+    same order, wherever the work order puts it)."""
     op = _ell_rows(cuda)
     rows = op.rows["fwd"]
-    pos = torch.randperm(rows.n_rows, device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(chunk)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    short = (rows.row_ptr[1:] - rows.row_ptr[:-1]) <= 64
     for h_dim in (256, 33):
         h = torch.randn(rows.n_src, h_dim, generator=gen, device=cuda)
         ref = ell_apply(rows, h)
-        for long_row in (LONG_ROW, 64):
-            r = rows.with_order(order, pos, long_row=long_row)
-            out = _k1_matches_plain(r, h, chunk=chunk)
-            if long_row == LONG_ROW:
-                assert torch.equal(out, ref)
-            else:
-                assert r.n_long > 10
+        r = rows.with_long_row(64)
+        assert r.n_long > 10
+        assert torch.equal(_k1_matches_plain(r, h)[short], ref[short])
+
+
+def _k1_lowp(rows, h, base, base_row, scale, out_dtype):
+    """(kernel, plain, per-element bound) for rows of a narrow dtype: the
+    f32 accumulators of the two versions differ by at most 2 n u sum|x|
+    (times the scale); a bf16 out rounds twice (the residual, then base +
+    residual), each a half ulp of either side: 2^-7 (|a| + |out|). int8
+    rows sum exactly, so their bound is 0."""
+    out = ell_apply(rows, h, base, base_row, scale=scale, out_dtype=out_dtype)
+    ref = ell_apply_plain(rows, h, base, base_row, scale, out_dtype)
+    torch.cuda.synchronize()
+    if h.dtype == torch.int8:
+        return out, ref, torch.zeros_like(ref, dtype=torch.float32)
+    n = (rows.row_ptr[1:] - rows.row_ptr[:-1]).long()[:, None]
+    s = 1.0 if scale is None else scale
+    mag = ell_apply_plain(rows, h.float().abs(), None, None) * s
+    acc = ell_apply_plain(rows, h.float(), None, None) * s
+    e = 2 * n.clamp(min=1) * 2.0 ** -24 * mag
+    u = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -23
+    return out, ref, (1 + 2.0 ** -6) * (
+        e + u * (acc.abs() + ref.float().abs()))
+
+
+_LOWP_K1 = [(r, o, b) for r, o in [
+    (torch.int8, torch.int32), (torch.int8, torch.float32),
+    (torch.int8, torch.bfloat16), (torch.float8_e4m3fn, torch.float32),
+    (torch.float8_e4m3fn, torch.bfloat16), (torch.bfloat16, torch.bfloat16)]
+    for b in (False, True) if not (o == torch.int32 and b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_dtype,out_dtype,with_base", _LOWP_K1)
+@pytest.mark.parametrize("h_dim", [256, 602, 33])
+def test_bucket_sum_kernel_low_precision(cuda, rows_dtype, out_dtype,
+                                         with_base, h_dim):
+    """int8 rows (exact int32 sums: bitwise equal to the plain version in
+    every out dtype, the scale and the base applied alike), e4m3 and bf16
+    rows (f32 sums) within _k1_lowp's bound, at 16-byte, narrower and
+    scalar loads; split rows, a long row and degree-0 rows."""
+    op = _ell_rows(cuda)
+    rows = op.rows["fwd"]
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    x = torch.randn(rows.n_src, h_dim, generator=gen, device=cuda)
+    if rows_dtype == torch.int8:
+        h, scale = i8_quant(x)
+    elif rows_dtype == torch.float8_e4m3fn:
+        h, scale = f8_quant(x)
+    else:
+        h, scale = x.to(torch.bfloat16), None
+    if out_dtype == torch.int32:
+        scale = None
+    base = base_row = None
+    if with_base:
+        base = torch.randn(rows.n_rows + 7, h_dim, generator=gen, device=cuda)
+        base_row = torch.randperm(rows.n_rows + 7, generator=gen,
+                                  device=cuda)[:rows.n_rows].to(torch.int32)
+    before = k1_launches.total
+    out, ref, bound = _k1_lowp(rows, h, base, base_row, scale, out_dtype)
+    assert k1_launches.total == before + 1
+    assert out.dtype == ref.dtype == out_dtype
+    if rows_dtype == torch.int8:
+        assert torch.equal(out, ref)
+    else:
+        assert bool(torch.isfinite(out.float()).all())
+        assert bool(((out.float() - ref.float()).abs() <= bound).all())
+        wrong = ref.float().clone()
+        wrong[rows.row_ptr[1:] > rows.row_ptr[:-1]] *= 1.05
+        assert not bool(((out.float() - wrong).abs() <= bound).all())
+    assert torch.equal(out, ell_apply(rows, h, base, base_row, scale=scale,
+                                      out_dtype=out_dtype))
 
 
 @pytest.mark.cuda
@@ -224,8 +290,17 @@ def test_bucket_sum_rejects_what_the_kernel_does_not_take(cuda):
         ell_apply(rows, h, base.cpu(), br)
     with pytest.raises(ValueError):                     # base of another H
         ell_apply(rows, h, base[:, :4].contiguous(), br)
-    with pytest.raises(ValueError):                     # no such chunk
-        ell_apply(rows, h, chunk=128)
+    with pytest.raises(ValueError):                     # f16 rows
+        ell_apply(rows, h.half())
+    q, sc = i8_quant(h)
+    with pytest.raises(ValueError):                     # raw sums + base
+        ell_apply(rows, q, base, br)
+    with pytest.raises(ValueError):                     # scale of f32 rows
+        ell_apply(rows, h, scale=sc)
+    with pytest.raises(ValueError):                     # f32 rows to bf16
+        ell_apply(rows, h, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                     # scale on the CPU
+        ell_apply(rows, q, scale=sc.cpu(), out_dtype=torch.float32)
     cpu_rows = pack_rows(rows.spec, [t.cpu() for t in rows.idx],
                          rows.perm.cpu(), rows.chunk_pos.cpu(),
                          rows.chunk_seg.cpu())
@@ -305,6 +380,61 @@ def test_tile_matmul_kernel_on_a_skewed_layout(cuda, tr, tc, h_dim):
     x = torch.randn(n_cb, tc, h_dim, generator=gen, device=cuda)
     out = _k2_matches_plain(tiles, rowb, colb, x, 3, per_element=True)
     assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8", "int8-slab"])
+@pytest.mark.parametrize("h_dim", [256, 602, 36])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_tile_matmul_kernel_low_precision(cuda, mode, h_dim, direction):
+    """bf16 slabs within 2 n u sum|a x| (the products are exact in f32);
+    int8 slabs bitwise: the per-call mode's raw int32 sums, and the
+    per-slab mode's tile sums scaled and added in tile order. A plain run
+    that skips each row-block's last tile must differ."""
+    if mode != "bf16" and h_dim == 602:
+        h_dim = 604                                 # int8 rows: 4-byte copies
+    art, (fwd, bwd, _, arrays) = _layout(64)
+    spec = fwd if direction == "fwd" else bwd
+    a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
+         for k, v in arrays.items()}
+    perm = a["blk_perm_ext" if direction == "fwd" else "blk_perm_inner"]
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    h = torch.randn(spec.n_src, h_dim, generator=gen, device=cuda)
+    x = block_spmm.build_x_slabs(spec, perm, h)
+    scale = None
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    else:
+        x, sc = block_spmm.quantize_slabs(x, per_slab=mode == "int8-slab")
+        scale = sc if mode == "int8-slab" else None
+    tiles, rowb, colb = (a[f"blk_{k}_{direction}"]
+                         for k in ("tiles", "rowb", "colb"))
+    nrb = spec.n_row_blocks
+    off = row_offsets(rowb, nrb)
+    ent, ent_off = pack_tiles(tiles)
+    before = k2_launches.total
+    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x, nrb,
+                      slab_scale=scale)
+    torch.cuda.synchronize()
+    assert k2_launches.total == before + 1
+    ref = tile_matmul_plain(tiles, rowb, colb, x, nrb, scale)
+    assert out.dtype == ref.dtype == (torch.int32 if mode == "int8"
+                                      else torch.float32)
+    if mode == "bf16":
+        n_row = torch.zeros((nrb + 1, tiles.shape[1]), dtype=torch.int64,
+                            device=cuda).index_add_(
+            0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
+        bound = 2 * n_row.clamp(min=1) * 2.0 ** -24 * tile_matmul_plain(
+            tiles, rowb, colb, x.float().abs(), nrb)
+        assert bool(((out - ref).abs() <= bound).all())
+    else:
+        assert torch.equal(out, ref)
+    last = off[1:][off[1:] > off[:-1]].long() - 1   # each row-block's last
+    keep = torch.ones(len(rowb), dtype=torch.bool, device=cuda)
+    keep[last] = False
+    skipped = tile_matmul_plain(tiles * keep[:, None, None].to(torch.int8),
+                                rowb, colb, x, nrb, scale)
+    assert not torch.equal(out, skipped)
 
 
 @pytest.mark.cuda

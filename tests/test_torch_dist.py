@@ -29,7 +29,14 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     at rate 0.5 against the JAX 4-device run as well;
   * --inductive at rate 0.5: the artifacts of the train subgraph, GraphSAGE
     with use_pp on ELL and hybrid, 3 steps against the JAX 4-device run on
-    the JAX package's artifacts of the same subgraph.
+    the JAX package's artifacts of the same subgraph;
+  * the halo wire codecs bf16, int8 and fp8 at rate 0.5: halo_apply forward
+    array-equal to the JAX 4-device run (both quantize the same rows with
+    the same per-block scales), VJP to 1e-6; the quantizers' payloads and
+    scales array-equal to the JAX package's `_quant` before any exchange;
+  * the TPU recipe at rate 0.5 (--spmm hybrid --use-pallas --spmm-dense
+    int8 --spmm-gather int8 --halo-wire int8, f32): GraphSAGE with use_pp
+    against the JAX 4-device run of the same flags (the RECIPE_* bounds).
 
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
@@ -67,6 +74,21 @@ PARAM_TOL = dict(rtol=5e-4, atol=1e-5)
 MODELS = [("graphsage", False), ("graphsage", True), ("gcn", True)]
 SPMMS = ["ell", "hybrid"]
 RATE = 0.5                      # the BNS cases' sampling rate
+WIRES = ("bf16", "int8", "fp8")   # the quantized halo wires
+# the TPU recipe's quantized flags, and its bounds against the JAX run: the
+# port's dense tiles take one int8 scale per call (dense_apply_pallas), the
+# JAX package's on the CPU one per slab (its XLA route), so the two
+# quantize the slabs differently, by up to half an int8 step (amax/254) per
+# value. Logits: 1e-2 of the largest logit, a little over one int8 step
+# (1/127) of it (measured 0.5%). Losses: rtol 2e-3 (measured 4.3e-4).
+# Parameters: 10 lr absolute, since Adam turns a gradient entry near zero
+# whose sign the rounding flips into a step of up to ~lr either way, each
+# of the 3 epochs (measured 5.8% of the largest parameter)
+RECIPE = dict(spmm="hybrid", use_pallas=True, spmm_dense="int8",
+              spmm_gather="int8", halo_wire="int8")
+RECIPE_LOGIT_FRAC = 1e-2
+RECIPE_LOSS_RTOL = 2e-3
+RECIPE_PARAM_ATOL = 10 * 0.01
 BNS_MODEL = ("graphsage", True)   # the model of the precompute check
 UNBIASED_EPOCHS = 300
 
@@ -172,6 +194,16 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
             if pre:
                 out["pre", spmm] = pre
     out["unbiased"] = _unbiased(art, ctx.comm, ctx.rank)
+    for wire in WIRES:
+        wspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  RATE, wire=wire)
+        out["halo_wire", wire] = _halo_vjp(wspec, plans[1], h[ctx.rank],
+                                           cot[ctx.rank], ctx.comm)
+    init = {k: torch.from_numpy(v)
+            for k, v in inits[MODELS.index(BNS_MODEL)].items()}
+    pr = prepare_part(_cfg(*BNS_MODEL, "hybrid", P, RATE).replace(**RECIPE),
+                      art, None, ctx.device, _quiet, ctx.rank, ctx.comm)
+    out["recipe"] = _steps(pr, init)
 
     # --inductive: the train subgraph's artifacts, rate RATE
     art_i = load_artifacts(induc_path, parts=[ctx.rank])
@@ -185,10 +217,11 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
     return out
 
 
-def _jax_train(art_j, mesh, model, use_pp, rate):
+def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
     """One case of the JAX package on the 4-device mesh: (forward logits,
     EPOCHS losses, final parameters) from jax.random.key(9)'s initial
-    parameters (returned too, as numpy), sample key jax.random.key(0)."""
+    parameters (returned too, as numpy), sample key jax.random.key(0);
+    `flags` add Config fields (the TPU recipe's)."""
     import jax
     import jax.numpy as jnp
 
@@ -201,9 +234,11 @@ def _jax_train(art_j, mesh, model, use_pp, rate):
     spec = ModelSpec(model, (art_j.n_feat, 8, 8, art_j.n_class),
                      norm="layer", dropout=0.0, use_pp=use_pp,
                      train_size=art_j.n_train)
-    cfg = JConfig(model=model, dropout=0.0, use_pp=use_pp, norm="layer",
-                  n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
-                  sampling_rate=rate, spmm="ell", n_partitions=P)
+    cfg = JConfig(**{**dict(
+        model=model, dropout=0.0, use_pp=use_pp, norm="layer",
+        n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
+        sampling_rate=rate, spmm="ell", n_partitions=P, block_tile=16,
+        block_occupancy=2), **flags})
     params, state = init_params(jax.random.key(9), spec)
     params_np = jax.tree.map(np.asarray, params)
     fns, _, tb, tbf = build_step_fns(cfg, spec, art_j, mesh)
@@ -289,6 +324,22 @@ def _jax_reference(art_j, h, cot, art_ij):
     ref["halo_bns"] = (np.asarray(y), np.asarray(dx))
     ref["bns_spec"] = (bspec.pad_send, jax.tree.map(np.asarray, btables))
 
+    for wire in WIRES:
+        wspec, _ = j_spec(art_j.n_b, art_j.pad_inner, art_j.pad_boundary,
+                          RATE, wire=wire)
+
+        def local_wire(bnd, x, c, wspec=wspec):
+            plan = j_plan(wspec, btables, bnd[0], jnp.uint32(1),
+                          jax.random.key(0))
+            y, vjp = jax.vjp(lambda v: j_halo_apply(wspec, plan, v), x[0])
+            return y[None], vjp(c[0])[0][None]
+
+        f = jax.jit(shard_map(local_wire, mesh=mesh,
+                              in_specs=(PS("parts"),) * 3,
+                              out_specs=(PS("parts"), PS("parts"))))
+        y, dx = f(jnp.asarray(art_j.bnd), jnp.asarray(h), jnp.asarray(cot))
+        ref["halo_wire", wire] = (np.asarray(y), np.asarray(dx))
+
     inits = []
     for model, use_pp in MODELS:
         for rate in (1.0, RATE):
@@ -296,6 +347,7 @@ def _jax_reference(art_j, h, cot, art_ij):
                 art_j, mesh, model, use_pp, rate)
         inits.append(params_np)
     ref["induc"], _ = _jax_train(art_ij, mesh, *BNS_MODEL, RATE)
+    ref["recipe"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE, **RECIPE)
     return ref, inits
 
 
@@ -515,6 +567,83 @@ def test_bns_unbiasedness(runs):
         assert err.mean() / scale < 0.05, f"biased? {err.mean() / scale}"
 
 
+@pytest.mark.parametrize("wire", WIRES)
+def test_halo_wire_codecs_match_jax(runs, wire):
+    """halo_apply with a quantized wire at rate RATE: the forward is the
+    JAX package's to the dequant's rounding (the same rows and payloads;
+    XLA computes a block's scale amax/127 inside the fused step as a
+    product with the reciprocal, one ulp off the division, so the f32
+    dequant may differ by an ulp: rtol 2^-22; the bf16 wire has no scale
+    and is array-equal), the VJP (the cotangent quantized with its own
+    scales) to 1e-6; the wire really rounds (it differs from the native
+    exchange)."""
+    y_ref, dx_ref = runs["ref"]["halo_wire", wire]
+    y_nat, _ = runs["ref"]["halo_bns"]
+    for r, out in enumerate(runs["ranks"]):
+        y, dx = out["halo_wire", wire]
+        np.testing.assert_allclose(y, y_ref[r], rtol=2.0 ** -22, atol=0)
+        if wire == "bf16":
+            np.testing.assert_array_equal(y, y_ref[r])
+        np.testing.assert_allclose(dx, dx_ref[r], rtol=1e-6, atol=1e-6)
+    assert not np.array_equal(y_ref, y_nat)
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_wire_quant_payloads_match_jax(wire):
+    """The send buffer's codec before the all-to-all: payload and the [P]
+    scales array-equal to bnsgcn_tpu/parallel/halo.py `_quant`, an
+    all-zero block and a large one included."""
+    import jax.numpy as jnp
+    from bnsgcn_tpu.parallel.halo import _quant as j_quant
+    from bnsgcn_tpu_torch.parallel.halo import wire_quant
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(P, 6, HALO_D)).astype(np.float32)
+    x[1] = 0.0
+    x[2] *= 1e4
+    q, s = wire_quant(torch.from_numpy(x), wire)
+    jq, js = j_quant(jnp.asarray(x), wire)
+    if wire == "fp8":
+        np.testing.assert_array_equal(q.view(torch.uint8).numpy(),
+                                      np.asarray(jq).view(np.uint8))
+    else:
+        np.testing.assert_array_equal(q.float().numpy(),
+                                      np.asarray(jq).astype(np.float32))
+    if wire == "bf16":
+        assert s is None and js is None
+    else:
+        assert tuple(s.shape) == (P, 1, 1)
+        np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+
+
+def test_tpu_recipe_p4_matches_jax_p4(runs):
+    """The TPU recipe's flags at P=4, rate RATE (hybrid, int8 dense tiles,
+    int8 gathers, int8 wire, f32), GraphSAGE with use_pp, dropout 0:
+    logits, 3-step losses and parameters against the JAX 4-device run of
+    the same flags, within the RECIPE_* bounds (the dense tiles' scale
+    granularity differs, see there), and the ranks end replicated."""
+    from bnsgcn_tpu_torch.models.gnn import spec_from_config
+    from bnsgcn_tpu_torch.trainer import params_from_jax
+    art = runs["art"]
+    logits_ref, losses_ref, params_ref = runs["ref"]["recipe"]
+    spec = spec_from_config(_cfg(*BNS_MODEL, "hybrid", P).replace(
+        n_feat=art.n_feat, n_class=art.n_class, n_train=art.n_train))
+    want = {k: v.numpy() for k, v in params_from_jax(params_ref,
+                                                      spec).items()}
+    first = runs["ranks"][0]["recipe"][2]
+    for r, out in enumerate(runs["ranks"]):
+        logits, losses, params = out["recipe"]
+        ref = logits_ref[r][art.inner_mask[r]]
+        np.testing.assert_allclose(
+            logits[art.inner_mask[r]], ref, rtol=0,
+            atol=RECIPE_LOGIT_FRAC * np.abs(ref).max())
+        np.testing.assert_allclose(losses, losses_ref, rtol=RECIPE_LOSS_RTOL)
+        for k in params:
+            np.testing.assert_allclose(params[k], want[k], err_msg=k, rtol=0,
+                                       atol=RECIPE_PARAM_ATOL)
+            np.testing.assert_array_equal(params[k], first[k])
+    assert losses[-1] < losses[0]
+
+
 def test_sampling_rate_reduces_payload_not_shapes():
     """The twin of tests/test_distributed.py's test: rate 0.1 sends
     int(0.1 n_b) rows per pair (float64, as the JAX package) in a send
@@ -652,8 +781,8 @@ def test_rank_hook_sees_each_ranks_own_layout(tmp_path):
     path = str(next((tmp_path / "parts").iterdir()))
     for r, rep in enumerate(res.ranks):
         assert rep["hook"]["rank"] == r
-        _, layout = build_spmm(cfg, load_artifacts(path, parts=[r]), "cpu",
-                               log=_quiet)
+        _, layout, _ = build_spmm(cfg, load_artifacts(path, parts=[r]),
+                                  "cpu", log=_quiet)
         assert rep["hook"]["layout"] == _digest(layout)
         assert all(t > 0 for t in rep["comm_times"] + rep["reduce_times"])
     assert len({str(rep["hook"]["layout"]) for rep in res.ranks}) == P

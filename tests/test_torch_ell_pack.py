@@ -5,8 +5,8 @@ The schedule must hold exactly the ELL tables' terms: for the residual
 layouts of a P=1 and a P=4 hybrid, both directions, its CSR equals the
 residual edges (every edge the dense tiles do not carry) grouped by row, and
 each row lists its table rows' terms in table order, a split row's chunks
-joined in chunk order. Every work order is a permutation of the rows with
-the long rows first. A plain CSR sum over the schedule, which is what the
+joined in chunk order. The work order is a permutation of the rows with
+the long rows first, each part longest first. A plain CSR sum over the schedule, which is what the
 kernel computes, equals `ell_apply_plain` on the tables, and that equals the
 JAX package's `_ell_apply` / `make_ell_spmm` and `pallas_ell_apply` (the
 Pallas bucket kernel in interpret mode). Inputs come from numpy with a seed;
@@ -24,7 +24,7 @@ from bnsgcn_tpu_torch.data.graph import sbm_graph, synthetic_graph
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.ops import block_spmm as t_blk
 from bnsgcn_tpu_torch.ops import ell as t_ell
-from bnsgcn_tpu_torch.ops.bucket_sum import (LONG_ROW, ORDERS, ell_apply_plain,
+from bnsgcn_tpu_torch.ops.bucket_sum import (LONG_ROW, ell_apply_plain,
                                              work_order)
 from tools.pallas_spmm import pallas_ell_apply
 
@@ -69,7 +69,7 @@ def _table_terms(rows):
 
 def _check_schedule(rows, expect_pairs=None):
     """The CSR against the tables (and, given, a multiset of (row, src)
-    pairs); every work order against its definition."""
+    pairs); the work order against its definition."""
     rp = rows.row_ptr.numpy()
     assert rp[0] == 0 and np.all(np.diff(rp) >= 0)
     assert rp[-1] == rows.src.numel()
@@ -82,14 +82,10 @@ def _check_schedule(rows, expect_pairs=None):
         got = np.repeat(np.arange(rows.n_rows), deg).astype(np.int64) \
             * rows.n_src + src
         np.testing.assert_array_equal(np.sort(got), np.sort(expect_pairs))
-    for order in ORDERS:
-        if order == "cluster" and rows.order != "cluster":
-            continue
-        _check_work(rows if order == rows.order else rows.with_order(
-            order, None), deg)
+    _check_work(rows, deg)
 
 
-def _check_work(rows, deg, cluster_pos=None):
+def _check_work(rows, deg):
     w = rows.work.numpy()
     assert rows.work.dtype == torch.int32
     np.testing.assert_array_equal(np.sort(w), np.arange(rows.n_rows))
@@ -97,13 +93,7 @@ def _check_work(rows, deg, cluster_pos=None):
     assert nl == int((deg > rows.long_row).sum())
     assert np.all(deg[w[:nl]] > rows.long_row)
     assert np.all(np.diff(deg[w[:nl]]) <= 0)
-    rest = w[nl:]
-    if rows.order == "original":
-        assert np.all(np.diff(rest) > 0)
-    elif rows.order == "longest":
-        assert np.all(np.diff(deg[rest]) <= 0)
-    elif cluster_pos is not None:
-        assert np.all(np.diff(cluster_pos[rest]) > 0)
+    assert np.all(np.diff(deg[w[nl:]]) <= 0)
 
 
 def _hybrid_parts(n_parts, tile=32, seed=67):
@@ -162,9 +152,8 @@ def _minus(a, b):
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_schedule_round_trips_the_residual(n_parts, direction):
     """The residual of each part's hybrid layout: the CSR holds the residual
-    edges grouped by row, in table order; the shipped work order and every
-    other one are permutations of the rows, the cluster order by the
-    hybrid's cluster positions."""
+    edges grouped by row, in table order; the work order is a permutation
+    of the rows, also at a long-row threshold that makes most rows long."""
     tile, n_terms = 32, 0
     for op, a, s, d in _hybrid_parts(n_parts, tile):
         rows = op.residual.rows[direction]
@@ -175,9 +164,7 @@ def test_schedule_round_trips_the_residual(n_parts, direction):
         n_terms += len(pairs)
         _check_schedule(rows, pairs)
         deg = np.diff(rows.row_ptr.numpy())
-        cpos = a["blk_perm_inner" if direction == "fwd" else "blk_perm_ext"]
-        for order in ORDERS:
-            _check_work(rows.with_order(order, cpos), deg, cpos.numpy())
+        _check_work(rows.with_long_row(2), deg)
     assert n_terms > 0
 
 
@@ -233,23 +220,16 @@ def test_schedule_of_an_empty_layout():
 
 
 def test_work_order_edge_cases():
-    """Long rows (past the threshold) come first, longest first, ties in the
-    order's own sequence; degree-0 rows are listed; an unknown order or a
-    cluster order without positions raises."""
+    """Long rows (past the threshold) come first, longest first, then the
+    others longest first, ties in row order; degree-0 rows are listed."""
     deg = np.array([0, 5, 300, 2, 300, 0, 700, 1])
     rp = _t(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
-    work, n_long = work_order(rp, "original", long_row=250)
-    assert n_long == 3 and work.tolist()[:3] == [6, 2, 4]
-    assert work.tolist()[3:] == [0, 1, 3, 5, 7]
-    work, _ = work_order(rp, "longest", long_row=250)
-    assert work.tolist() == [6, 2, 4, 1, 3, 7, 0, 5]
-    cpos = _t(np.array([7, 6, 5, 4, 3, 2, 1, 0], np.int32))
-    work, _ = work_order(rp, "cluster", cpos, long_row=250)
-    assert work.tolist() == [6, 4, 2, 7, 5, 3, 1, 0]
-    with pytest.raises(ValueError):
-        work_order(rp, "cluster", None)
-    with pytest.raises(ValueError):
-        work_order(rp, "random")
+    work, n_long = work_order(rp, long_row=250)
+    assert n_long == 3 and work.tolist() == [6, 2, 4, 1, 3, 7, 0, 5]
+    work, n_long = work_order(rp, long_row=1000)
+    assert n_long == 0 and work.tolist() == [6, 2, 4, 1, 3, 7, 0, 5]
+    work, n_long = work_order(rp, long_row=300)
+    assert n_long == 1 and work.tolist()[0] == 6
 
 
 def _ell_case(graph):

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of bnsgcn_tpu_torch/ and not
 chip_smoke.py imports jax or anything of the JAX package (bnsgcn_tpu,
-tools/), nor flax or msgpack (the card's machine has neither: checkpoints
-go through the port's own codec), by static scan and by importing every
-module in a fresh process."""
+tools/), nor flax, msgpack or ml_dtypes (the card's machine has none of
+them: checkpoints, bf16 leaves included, go through the port's own codec),
+by static scan and by importing every module in a fresh process."""
 
 import ast
 import os
@@ -10,8 +10,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "msgpack", "bnsgcn_tpu",
-             "tools"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "msgpack", "ml_dtypes",
+             "bnsgcn_tpu", "tools"}
 
 
 def _port_files():
@@ -54,7 +54,8 @@ def test_no_jax_import_in_port_sources():
     assert {"bnsgcn_tpu_torch.parallel.halo", "bnsgcn_tpu_torch.parallel.mesh",
             "bnsgcn_tpu_torch.parallel.reducer",
             "bnsgcn_tpu_torch.parallel.sampling",
-            "bnsgcn_tpu_torch.utils.prng"} <= set(_port_modules())
+            "bnsgcn_tpu_torch.utils.prng", "bnsgcn_tpu_torch.utils.quant",
+            "bnsgcn_tpu_torch.anchor"} <= set(_port_modules())
 
 
 def test_importing_the_port_loads_no_jax():

@@ -176,9 +176,10 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
      "shift"], ["--replicas", "2"], ["--model", "gat"],
-    ["--dtype", "bfloat16"], ["--spmm-dense", "int8"],
-    ["--spmm-gather", "fp8"], ["--spmm-gather", "int8"], ["--norm", "batch"],
-    ["--spmm", "auto"], ["--halo-exchange", "ragged"], ["--halo-wire", "bf16"],
+    ["--spmm", "segment"], ["--feat-storage", "bfloat16"],
+    ["--overlap", "split"], ["--reorder", "cluster"], ["--norm", "batch"],
+    ["--halo-exchange", "auto"], ["--halo-exchange", "ragged"],
+    ["--feat", "2"],
     ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-refresh",
      "2"],
 ])
@@ -186,6 +187,26 @@ def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
     assert rc == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--dtype", "bfloat16"], ["--spmm-dense", "int8", "--spmm", "hybrid"],
+    ["--spmm-gather", "fp8"], ["--spmm-gather", "int8"], ["--spmm", "auto"],
+    ["--halo-wire", "bf16"],
+])
+def test_reduced_precision_flags_train_on_cpu(flags, capsys, tmp_path):
+    """The values slice 5 ports, once refused: each trains at P=1 through
+    the entry point (the Graph line names the dtypes), 2 epochs."""
+    rc = t_main.main(["--dataset", "sbm", "--device", "cpu",
+                      "--n-partitions", "1", "--n-layers", "2",
+                      "--n-hidden", "16", "--block-tile", "64",
+                      "--n-epochs", "2", "--log-every", "2",
+                      "--ckpt-path", str(tmp_path / "ck"),
+                      "--results-path", str(tmp_path / "res")] + flags)
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "RESULT final_loss=" in out
+    assert f"{'bfloat16' if '--dtype' in flags else 'float32'} spmm=" in out
 
 
 @pytest.mark.parametrize("rate", ["0", "1.5", "-0.1", "nan"])
