@@ -16,10 +16,11 @@ cheaper per edge than row gathers:
   on the device, per pass:
     * x_slabs = h in cluster order as [n_cb, TC, H] slabs (plain indexing);
     * kernel K2 (ops/tile_matmul.py) sums tiles @ slabs into each output
-      row-block, from the tiles' nonzero entries (packed once per layout,
-      `pack_tiles`), in cluster order; under --spmm-dense int8 the slabs
-      are quantized first (one scale per call, or per slab where int32 row
-      sums could wrap);
+      row-block, in cluster order: f32 slabs from the tiles' nonzero
+      entries (packed once per layout, `pack_tiles`), bf16 and int8 slabs
+      (transposed to K-major) on the tensor cores over the dense tiles;
+      under --spmm-dense int8 the slabs are quantized first (one scale per
+      call, or per slab where int32 row sums could wrap);
     * kernel K1 (ops/bucket_sum.py) sums the ELL residual's rows and adds
       K2's output, gathered back to row order by the permutation, in the
       same launch (ops/ell.py).
@@ -41,8 +42,9 @@ import torch
 
 from bnsgcn_tpu_torch.ops.ell import (ELL_SPLIT_CAP, EllSpmm, GeoAccum,
                                      build_layouts, run_parallel)
-from bnsgcn_tpu_torch.ops.tile_matmul import (pack_tiles, row_offsets,
-                                              tile_matmul)
+from bnsgcn_tpu_torch.ops.tile_matmul import (MMA_KINDS, k_major,
+                                              pack_tiles, row_offsets,
+                                              tile_matmul, work_order)
 
 TR = 512          # default dst rows per dense tile (square: transposes keep
 TC = 512          # shape); --block-tile selects another edge
@@ -397,34 +399,39 @@ def dense_mode(spec: BlockSpec, dense_dtype: str,
 
 
 def quantize_slabs(x: torch.Tensor, per_slab: bool):
-    """(int8 slabs, scale): symmetric amax/127 with a 1e-30 floor, one scale
-    for all slabs (`dense_apply_pallas`) or one per slab [n_cb]
-    (`_dense_apply`); round half to even, clip to +-127."""
+    """(int8 slabs, scale) of slabs x [n_cb, TC, H]: symmetric amax/127 with
+    a 1e-30 floor, one scale for all slabs (`dense_apply_pallas`) or one per
+    slab [n_cb] (`_dense_apply`); round half to even, clip to +-127. The
+    int8 slabs are K-major, [n_cb, H, TC], as the tensor-core K2 reads them
+    (one transposing copy of the int8 bytes)."""
     xf = x.float()
     amax = xf.abs().amax(dim=(1, 2)) if per_slab else xf.abs().amax()
     scale = (amax / 127.0).clamp(min=1e-30)
     s = scale[:, None, None] if per_slab else scale
-    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), scale
+    return k_major(torch.round(xf / s).clamp(-127, 127).to(torch.int8)), \
+        scale
 
 
 def dense_tiles(spec: BlockSpec, tiles, rowb, colb, off, ent, ent_off,
                 perm_src, h, mode: str = "native",
-                phase: str = "fwd") -> torch.Tensor:
+                phase: str = "fwd", order=None) -> torch.Tensor:
     """Dense-tile aggregation through K2, [n_row_blocks * row_tile, H] f32
     in cluster order (a row-block no tile visits is zero): what
     bnsgcn_tpu/ops/pallas_block.py `dense_apply_pallas` computes before its
     cast to h's dtype and its permutation gather, which K1 applies here
     (`mode` as `dense_mode` gives it; 'int8' scales K2's int32 sums back
     here, 'int8-slab' inside K2). `off` is row_offsets(rowb), (ent,
-    ent_off) pack_tiles(tiles)."""
+    ent_off) pack_tiles(tiles), `order` work_order(off)."""
     x = build_x_slabs(spec, perm_src, h.contiguous())
     scale = None
     if mode != "native":
         x, scale = quantize_slabs(x, per_slab=mode == "int8-slab")
+    elif x.dtype in MMA_KINDS:
+        x = k_major(x)
     out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x,
                       spec.n_row_blocks,
                       slab_scale=scale if mode == "int8-slab" else None,
-                      phase=phase)
+                      phase=phase, order=order)
     if mode == "int8":
         out = out.float() * scale
     return out.view(spec.n_row_blocks * spec.row_tile, h.shape[1])
@@ -438,9 +445,10 @@ class BlockSpmm:
     tiles and the residual with the fwd/bwd roles swapped. `arrays` holds
     one part's layout as device tensors (build_block_layouts' keys, without
     the part axis); `self.arrays` adds what K2 walks, for each direction d:
-    the CSR offsets over rowb (`blk_off_d`) and the tiles' packed nonzero
-    entries (`blk_ent_d`, `blk_entoff_d`). These and the residual's row
-    schedules are layout set-up, timed together as `pack_seconds`.
+    the CSR offsets over rowb (`blk_off_d`), the row-blocks' work order
+    (`blk_order_d`) and the tiles' packed nonzero entries (`blk_ent_d`,
+    `blk_entoff_d`). These and the residual's row schedules are layout
+    set-up, timed together as `pack_seconds`.
     gather_dtype quantizes the residual's gathers (ops/ell.py EllSpmm);
     dense_dtype 'int8' the dense tiles' slabs, each direction in the mode
     `dense_mode` picks from its max_row_dense and `row_cap`. Counterpart of
@@ -457,6 +465,8 @@ class BlockSpmm:
         for d, spec in (("fwd", fwd), ("bwd", bwd)):
             self.arrays[f"blk_off_{d}"] = row_offsets(arrays[f"blk_rowb_{d}"],
                                                       spec.n_row_blocks)
+            self.arrays[f"blk_order_{d}"] = work_order(
+                self.arrays[f"blk_off_{d}"])
             (self.arrays[f"blk_ent_{d}"],
              self.arrays[f"blk_entoff_{d}"]) = pack_tiles(
                 arrays[f"blk_tiles_{d}"])
@@ -490,7 +500,8 @@ class BlockSpmm:
             a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
             a[f"blk_colb_{direction}"], a[f"blk_off_{direction}"],
             a[f"blk_ent_{direction}"], a[f"blk_entoff_{direction}"], src, h,
-            mode="native" if native else self.mode[direction], phase=phase)
+            mode="native" if native else self.mode[direction], phase=phase,
+            order=a[f"blk_order_{direction}"])
         return self.residual.apply_dir(direction, h, phase, base=dense,
                                        base_row=out, native=native)
 

@@ -21,6 +21,7 @@ from bnsgcn_tpu_torch import buildlib
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "bucket_reduce.cu")
 LIB_NAME = "bnsgcn_bucket_reduce"
+BUILDS = ((LIB_NAME, SOURCE),)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = buildlib.LaunchCount()

@@ -47,6 +47,7 @@ from bnsgcn_tpu_torch import buildlib
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "bucket_sum.cu")
 LIB_NAME = "bnsgcn_bucket_sum"
+BUILDS = ((LIB_NAME, SOURCE),)
 LONG_ROW = 1024         # a row of more terms gets a CTA of its own
 # the kernel's row kinds and out kinds (csrc/bucket_sum.cu's codes)
 ROW_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,

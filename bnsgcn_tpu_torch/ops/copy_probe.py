@@ -20,6 +20,7 @@ from bnsgcn_tpu_torch import buildlib
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "copy_probe.cu")
 LIB_NAME = "bnsgcn_copy_probe"
+BUILDS = ((LIB_NAME, SOURCE),)
 PROBE_SHAPE = (4, 8, 128)
 
 launches = buildlib.LaunchCount()

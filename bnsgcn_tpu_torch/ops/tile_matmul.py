@@ -7,22 +7,33 @@ bf16 slabs give f32 sums; int8 slabs give exact int32 sums, the raw
 accumulators whose one per-call scale the caller owns, or, with a per-slab
 scale array, each tile's int32 sum times its slab's scale summed over the
 row-block's tiles in f32 (bnsgcn_tpu/ops/block_spmm.py `_dense_apply`'s
-int8 formulation). The CUDA kernel is csrc/tile_matmul.cu, which reads the
-tiles' nonzero entries as `pack_tiles` packs them (once per layout) and
-skips every zero; `tile_matmul_plain` is the same function in plain PyTorch
-on the dense tiles (chunked products + index_add_ by row-block, as
-`_dense_apply` does), which the CPU tests use and chip_smoke.py holds the
-kernel to.
+int8 formulation).
+
+Two CUDA kernels, one route per slab type, chosen by the slabs' dtype
+alone:
+  * int8 and bf16 slabs: csrc/tile_mma.cu, a grouped GEMM on the tensor
+    cores (wgmma s8 x s8 -> s32, exact; bf16 x bf16 -> f32) over the dense
+    tiles, the row-blocks taken in `work_order` (most tiles first). wgmma
+    reads int8 operands K-major only, so these slabs are [n_cb, H, TC],
+    each slab transposed (`k_major`; ops/block_spmm.py writes them so);
+  * f32 slabs ([n_cb, TC, H]): csrc/tile_matmul.cu, which reads the
+    tiles' nonzero entries as `pack_tiles` packs them (once per layout)
+    and skips every zero on the CUDA cores (the tensor cores would take
+    f32 as TF32).
+`tile_matmul_plain` is the same function in plain PyTorch on the dense
+tiles (chunked products + index_add_ by row-block, as `_dense_apply`
+does), which the CPU tests use and chip_smoke.py holds both kernels to.
 
 Contract: tiles [B, TR, TC] int8 sorted by rowb; rowb/colb [B] int32, pad
 tiles carry rowb == n_row_blocks; off [n_row_blocks + 1] int32, the CSR
 offsets of `row_offsets(rowb)`; (ent, ent_off) = `pack_tiles(tiles)`; all
-built once per layout by the caller (the kernel walks off, ent_off and ent;
-the plain version reads tiles and rowb); x_slabs [n_cb, TC, H] f32, bf16 or
-int8; slab_scale [n_cb] f32 or None (int8 only). Returns [n_row_blocks, TR,
-H], f32 (int32 for int8 slabs without slab_scale), in which a row-block
-that no tile visits is zero (the Pallas kernel's extra trash block and the
-caller's visited-mask are gone).
+built once per layout by the caller (the zero-skipping kernel walks off,
+ent_off and ent, the tensor-core kernel off and tiles; the plain version
+reads tiles and rowb); x_slabs [n_cb, TC, H] f32, or [n_cb, H, TC] int8
+or bf16; slab_scale [n_cb] f32 or None (int8 only). Returns
+[n_row_blocks, TR, H], f32 (int32 for int8 slabs without slab_scale), in
+which a row-block that no tile visits is zero (the Pallas kernel's extra
+trash block and the caller's visited-mask are gone).
 """
 
 from __future__ import annotations
@@ -34,56 +45,79 @@ import torch
 
 from bnsgcn_tpu_torch import buildlib
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "tile_matmul.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+SOURCE = os.path.join(_CSRC, "tile_matmul.cu")
 LIB_NAME = "bnsgcn_tile_matmul"
-_SMEM = 232448          # a block's shared memory, bytes
-_HC = 32                # slab columns a CTA stages
-# slab kinds (csrc/tile_matmul.cu's codes) and the stages each needs: the
-# kernel stages two or three [TC, 32] slab chunks in shared memory (f32:
-# three where they fit, else two; bf16 and int8: three)
-SLAB_KINDS = {torch.float32: (0, 2), torch.bfloat16: (1, 3),
-              torch.int8: (2, 3)}
+MMA_SOURCE = os.path.join(_CSRC, "tile_mma.cu")
+MMA_LIB_NAME = "bnsgcn_tile_mma"
+BUILDS = ((LIB_NAME, SOURCE), (MMA_LIB_NAME, MMA_SOURCE))
+# the f32 kernel stages at least two [TC, 32] f32 slab chunks in 232,448
+# bytes of shared memory: TC <= 908. The tensor-core kernel (its slab kinds
+# and codes: MMA_KINDS) stages pieces of a tile and takes any TC.
+MAX_TC = 232448 // (2 * 32 * 4)
+MMA_KINDS = {torch.int8: 0, torch.bfloat16: 1}
 _COL_BITS = 24          # a packed entry: column << 8 | (int8 multiplicity)
-
-
-def max_tc(dtype: torch.dtype = torch.float32) -> int:
-    """The largest TC the kernel takes for slabs of `dtype`."""
-    _, stages = SLAB_KINDS[dtype]
-    return _SMEM // (stages * _HC * torch.tensor([], dtype=dtype)
-                     .element_size())
-
-
-MAX_TC = max_tc(torch.float32)      # 908
 
 launches = buildlib.LaunchCount()
 _kernel = buildlib.Kernel(
-    LIB_NAME, SOURCE, "bnsgcn_tile_spmm",
+    LIB_NAME, SOURCE, "bnsgcn_tile_spmm_f32",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "bnsgcn_tile_spmm_error")
+_mma = buildlib.Kernel(
+    MMA_LIB_NAME, MMA_SOURCE, "bnsgcn_tile_mma",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p], "bnsgcn_tile_spmm_error")
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p], "bnsgcn_tile_mma_error")
 
 
 def lib() -> ctypes.CDLL:
-    return _kernel.load()
+    """Build and load both kernels' libraries; the tensor-core one is
+    returned."""
+    _kernel.load()
+    return _mma.load()
+
+
+def slab_dims(x_slabs: torch.Tensor) -> tuple[int, int, int]:
+    """(n_cb, TC, H) of a slab stack: [n_cb, TC, H] for f32 slabs, [n_cb, H,
+    TC] (K-major) for the tensor cores' int8 and bf16."""
+    n_cb, a, b = x_slabs.shape
+    return (n_cb, b, a) if x_slabs.dtype in MMA_KINDS else (n_cb, a, b)
+
+
+def k_major(x_slabs: torch.Tensor) -> torch.Tensor:
+    """Slabs [n_cb, TC, H] as the tensor cores read them: [n_cb, H, TC]
+    (one transposing copy)."""
+    return x_slabs.transpose(1, 2).contiguous()
 
 
 def kind_name(slab_dtype: torch.dtype, per_slab: bool = False) -> str:
-    """The launch count's name of a variant: 'f32', 'bf16', 'int8' (one
-    per-call scale, int32 out) or 'int8-slab' (per-slab scales)."""
-    return {torch.float32: "f32", torch.bfloat16: "bf16",
+    """The launch count's name of a variant, which names its route: 'f32'
+    (the zero-skipping kernel); 'tc-bf16', 'tc-int8' (one per-call scale,
+    int32 out) and 'tc-int8-slab' (per-slab scales) on the tensor cores."""
+    name = {torch.float32: "f32", torch.bfloat16: "bf16",
             torch.int8: "int8"}[slab_dtype] + ("-slab" if per_slab else "")
+    return f"tc-{name}" if slab_dtype in MMA_KINDS else name
 
 
 def out_dtype_for(slab_dtype: torch.dtype, per_slab: bool = False
                   ) -> torch.dtype:
     """int32 for int8 slabs without per-slab scales, else f32."""
-    if slab_dtype not in SLAB_KINDS:
+    if slab_dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise ValueError(f"tile_matmul: slabs of {slab_dtype} are not taken "
                          f"(f32, bf16, int8)")
     if per_slab and slab_dtype != torch.int8:
         raise ValueError("tile_matmul: per-slab scales go with int8 slabs")
     return (torch.int32 if slab_dtype == torch.int8 and not per_slab
             else torch.float32)
+
+
+def work_order(off: torch.Tensor) -> torch.Tensor:
+    """[n_row_blocks] int32: the row-blocks in the order the tensor-core
+    kernel's CTAs take them, most tiles first (ties in row-block order), so
+    the longest row-blocks do not start last. Built once per layout."""
+    counts = (off[1:] - off[:-1]).long()
+    return torch.argsort(counts, descending=True, stable=True).to(
+        torch.int32)
 
 
 def _chunk_for(row_tile: int, width: int,
@@ -100,16 +134,18 @@ _EXACT_COLS = 1024
 
 
 def _tile_products(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Per-tile products [C, TR, H] of int8 tiles t [C, TR, TC] with slabs x
-    [C, TC, H]: f32 for float slabs (products of the slab dtype's values,
-    summed in f32); exact int32 for int8 slabs, summed as f32 column pieces
-    whose sums are exact integers."""
+    """Per-tile products [C, TR, H] of int8 tiles t [C, TR, TC] with slabs x:
+    f32 for f32 slabs [C, TC, H] and bf16 slabs [C, H, TC] (products of the
+    slab dtype's values, summed in f32); exact int32 for int8 slabs [C, H,
+    TC], summed as f32 column pieces whose sums are exact integers."""
+    if x.dtype == torch.float32:
+        return torch.einsum("brc,bch->brh", t.float(), x)
     if x.dtype != torch.int8:
-        return torch.einsum("brc,bch->brh", t.float(), x.float())
+        return torch.einsum("brc,bhc->brh", t.float(), x.float())
     out = None
     for c0 in range(0, t.shape[2], _EXACT_COLS):
-        p = torch.einsum("brc,bch->brh", t[:, :, c0:c0 + _EXACT_COLS].float(),
-                         x[:, c0:c0 + _EXACT_COLS].float()).to(torch.int32)
+        p = torch.einsum("brc,bhc->brh", t[:, :, c0:c0 + _EXACT_COLS].float(),
+                         x[:, :, c0:c0 + _EXACT_COLS].float()).to(torch.int32)
         out = p if out is None else out + p
     return out
 
@@ -124,7 +160,7 @@ def tile_matmul_plain(tiles: torch.Tensor, rowb: torch.Tensor,
     order (one index_add_ per position within the row-block, so no two adds
     meet at an address: the kernel's order, on any device)."""
     b, tr, _ = tiles.shape
-    h = x_slabs.shape[-1]
+    h = slab_dims(x_slabs)[2]
     dt = out_dtype_for(x_slabs.dtype, slab_scale is not None)
     acc = torch.zeros((n_row_blocks + 1, tr, h), dtype=dt,
                       device=x_slabs.device)
@@ -203,13 +239,24 @@ def pack_tiles(tiles: torch.Tensor, chunk_bytes: int = 64 << 20
     return ent, ent_off
 
 
+def _check_int32(name, v, shape, dev):
+    if (v.dtype != torch.int32 or tuple(v.shape) != tuple(shape)
+            or v.device != dev or not v.is_contiguous()):
+        raise ValueError(f"tile_matmul: {name} must be contiguous int32 "
+                         f"{list(shape)} on {dev}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+
+
 def tile_matmul(tiles: torch.Tensor, rowb: torch.Tensor, colb: torch.Tensor,
                 off: torch.Tensor, ent: torch.Tensor, ent_off: torch.Tensor,
                 x_slabs: torch.Tensor, n_row_blocks: int, slab_scale=None,
-                phase: str = "fwd") -> torch.Tensor:
+                phase: str = "fwd", order=None) -> torch.Tensor:
     """[n_row_blocks, TR, H] (see the module docstring). A CPU tensor takes
-    the plain version on the dense tiles; a CUDA tensor launches the kernel
-    on the packed entries, on the current stream, or raises."""
+    the plain version on the dense tiles; a CUDA tensor launches a kernel on
+    the current stream, or raises: int8 and bf16 slabs the tensor-core
+    kernel on the dense tiles, the row-blocks in `order` (`work_order(off)`
+    when not given), f32 slabs the zero-skipping kernel on the packed
+    entries."""
     if x_slabs.device.type == "cpu":
         return tile_matmul_plain(tiles, rowb, colb, x_slabs, n_row_blocks,
                                  slab_scale)
@@ -224,16 +271,10 @@ def tile_matmul(tiles: torch.Tensor, rowb: torch.Tensor, colb: torch.Tensor,
         raise ValueError(f"tile_matmul: tiles must be 3-D, got "
                          f"{tuple(tiles.shape)}")
     b, tr, tc = tiles.shape
-    n_cb, tc_x, h = x_slabs.shape
-    checks = [("rowb", rowb, (b,)), ("colb", colb, (b,)),
-              ("off", off, (n_row_blocks + 1,)),
-              ("ent", ent, (ent.numel(),)), ("ent_off", ent_off, (b, tr + 1))]
-    for name, v, shape in checks:
-        if (v.dtype != torch.int32 or tuple(v.shape) != shape
-                or v.device != dev or not v.is_contiguous()):
-            raise ValueError(f"tile_matmul: {name} must be contiguous int32 "
-                             f"{list(shape)} on {dev}, got {v.dtype} "
-                             f"{tuple(v.shape)} on {v.device}")
+    n_cb, tc_x, h = slab_dims(x_slabs)
+    for name, v, shape in (("rowb", rowb, (b,)), ("colb", colb, (b,)),
+                           ("off", off, (n_row_blocks + 1,))):
+        _check_int32(name, v, shape, dev)
     if slab_scale is not None and (
             slab_scale.dtype != torch.float32 or slab_scale.dim() != 1
             or slab_scale.numel() != n_cb or slab_scale.device != dev
@@ -243,20 +284,35 @@ def tile_matmul(tiles: torch.Tensor, rowb: torch.Tensor, colb: torch.Tensor,
                          f"{tuple(slab_scale.shape)} on {slab_scale.device}")
     if tc_x != tc:
         raise ValueError(f"tile_matmul: tiles have TC={tc}, slabs {tc_x}")
-    if tc > max_tc(x_slabs.dtype):
-        raise ValueError(f"tile_matmul: the kernel takes TC <= "
-                         f"{max_tc(x_slabs.dtype)} for {x_slabs.dtype} "
-                         f"slabs (its stages in shared memory), got {tc}")
-    if h * x_slabs.element_size() % 4:
-        raise ValueError(f"tile_matmul: a slab row of H={h} "
-                         f"{x_slabs.dtype} is not a multiple of 4 bytes")
+    tensor_cores = x_slabs.dtype in MMA_KINDS
+    if tensor_cores:
+        if (tiles.dtype != torch.int8 or tiles.device != dev
+                or not tiles.is_contiguous()):
+            raise ValueError(f"tile_matmul: tiles must be contiguous int8 "
+                             f"on {dev}, got {tiles.dtype} on {tiles.device}")
+        if order is None:
+            order = work_order(off)
+        _check_int32("order", order, (n_row_blocks,), dev)
+    else:
+        _check_int32("ent", ent, (ent.numel(),), dev)
+        _check_int32("ent_off", ent_off, (b, tr + 1), dev)
+        if tc > MAX_TC:
+            raise ValueError(f"tile_matmul: the f32 kernel takes TC <= "
+                             f"{MAX_TC} (its stages in shared memory), got "
+                             f"{tc}")
     out = torch.empty((n_row_blocks, tr, h), dtype=out_dtype, device=dev)
     if n_row_blocks == 0 or h == 0:
         return out
-    _kernel(ent.data_ptr(), ent_off.data_ptr(), colb.data_ptr(),
-            off.data_ptr(), x_slabs.data_ptr(), SLAB_KINDS[x_slabs.dtype][0],
-            None if slab_scale is None else slab_scale.data_ptr(),
-            out.data_ptr(), n_row_blocks, tr, tc, h,
-            buildlib.raw_stream(dev.index))
+    scale_ptr = None if slab_scale is None else slab_scale.data_ptr()
+    stream = buildlib.raw_stream(dev.index)
+    if tensor_cores:
+        _mma(tiles.data_ptr(), colb.data_ptr(), off.data_ptr(),
+             order.data_ptr(), x_slabs.data_ptr(), MMA_KINDS[x_slabs.dtype],
+             scale_ptr, out.data_ptr(), b, n_cb, n_row_blocks, tr, tc, h,
+             stream)
+    else:
+        _kernel(ent.data_ptr(), ent_off.data_ptr(), colb.data_ptr(),
+                off.data_ptr(), x_slabs.data_ptr(), out.data_ptr(),
+                n_row_blocks, tr, tc, h, stream)
     launches.add(phase, kind_name(x_slabs.dtype, slab_scale is not None))
     return out

@@ -413,8 +413,8 @@ def _prebuild(cfg: Config) -> None:
     from bnsgcn_tpu_torch import native
     specs = [(native.LIB_NAME, "cxx", [native.SOURCE])]
     if cfg.device == "cuda":
-        specs += [(m.LIB_NAME, "cuda", [m.SOURCE])
-                  for m in (bucket_sum, tile_matmul)]
+        specs += [(name, "cuda", [src]) for m in (bucket_sum, tile_matmul)
+                  for name, src in m.BUILDS]
     buildlib.build_many(specs)
 
 

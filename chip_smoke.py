@@ -22,10 +22,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      also by host microseconds per call); probe the L2's rate; print K2's
      tiles per row-block and the time the layout's packing took; then
      [lowp]: K1 on bf16, int8 and e4m3 rows and K2 on bf16, int8 and
-     per-slab int8 slabs, as the low-precision path calls them (int8
-     bitwise equal to the plain version, bf16 and e4m3 within a stated
-     per-element bound, each with a control the check must reject), timed
-     beside their bounds;
+     per-slab int8 slabs (the tensor-core kernel), as the low-precision
+     path calls them (int8 bitwise equal to the plain version, bf16 and
+     e4m3 within a stated per-element bound, each with a control the check
+     must reject), timed beside their bounds, K2 also beside its design's
+     floor and a dense-equivalent GEMM;
   3. a small-input agreement check: the same short training run on the card
      and on the CPU (plain versions) must give the same losses;
   4. drive the main path through the entry point a user calls
@@ -63,7 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      low-precision main path, --dtype bfloat16 --spmm auto --use-pallas
      --spmm-dense int8 --spmm-gather int8 (auto must pick the hybrid):
      finite losses, K1 and K2 launched int8 on every aggregation and bf16
-     in the precompute, the epoch beside the f32 one, peak memory; then the
+     in the precompute (K2 on the tensor cores, as its launch count names
+     the route), the epoch beside the f32 one, peak memory; then the
      guard's route, 2 epochs with e4m3 gathers and the dense tiles past
      their int8 row cap (the per-slab mode);
   6. [cli]: the flagship's command line as a user types it,
@@ -112,8 +114,9 @@ BF16_TC_FLOPS_PER_S = 989e12
 INT8_TC_OPS_PER_S = 1979e12
 U32 = 2.0 ** -24               # f32 unit roundoff
 
-K1_SRC, K2_SRC = ("bnsgcn_tpu_torch/csrc/bucket_sum.cu",
-                  "bnsgcn_tpu_torch/csrc/tile_matmul.cu")
+K1_SRC, K2_SRC, K2_MMA_SRC = ("bnsgcn_tpu_torch/csrc/bucket_sum.cu",
+                              "bnsgcn_tpu_torch/csrc/tile_matmul.cu",
+                              "bnsgcn_tpu_torch/csrc/tile_mma.cu")
 # every kernel variant of the kernels line: (source, the TPU kernel it
 # replaces, which launch count and variant it reads)
 KERNELS = {
@@ -123,12 +126,13 @@ KERNELS = {
     "ell_bucket_sum_fp8": (K1_SRC, "tools/pallas_spmm.py:35", "K1", "fp8"),
     "tile_matmul": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
                     "f32"),
-    "tile_matmul_bf16": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
-                         "bf16"),
-    "tile_matmul_int8": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
-                         "int8"),
-    "tile_matmul_int8_slab": (K2_SRC, "bnsgcn_tpu/ops/pallas_block.py:30",
-                              "K2", "int8-slab"),
+    "tile_matmul_bf16": (K2_MMA_SRC, "bnsgcn_tpu/ops/pallas_block.py:30",
+                         "K2", "tc-bf16"),
+    "tile_matmul_int8": (K2_MMA_SRC, "bnsgcn_tpu/ops/pallas_block.py:30",
+                         "K2", "tc-int8"),
+    "tile_matmul_int8_slab": (K2_MMA_SRC,
+                              "bnsgcn_tpu/ops/pallas_block.py:30", "K2",
+                              "tc-int8-slab"),
     "bucket_reduce": ("bnsgcn_tpu_torch/csrc/bucket_reduce.cu",
                       "tools/pallas_spmm.py:104", None, None),
     "copy_probe": ("bnsgcn_tpu_torch/csrc/copy_probe.cu",
@@ -1097,7 +1101,7 @@ def compare_k2_lowp(fns, widths, gen, reps, detail):
     timing)}."""
     import torch
     from bnsgcn_tpu_torch.ops.block_spmm import build_x_slabs, quantize_slabs
-    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+    from bnsgcn_tpu_torch.ops.tile_matmul import (k_major, tile_matmul,
                                                   tile_matmul_plain)
     op = fns.spmm
     a = op.arrays
@@ -1124,7 +1128,7 @@ def compare_k2_lowp(fns, widths, gen, reps, detail):
                 x = build_x_slabs(spec, perm, h)
                 scale = None
                 if kind == "bf16":
-                    x = x.to(torch.bfloat16)
+                    x = k_major(x.to(torch.bfloat16))
                 else:
                     x, sc = quantize_slabs(x, per_slab=kind == "int8-slab")
                     scale = sc if kind == "int8-slab" else None
@@ -1139,7 +1143,7 @@ def compare_k2_lowp(fns, widths, gen, reps, detail):
                                         device="cuda").index_add_(
                         0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
                     bound = 2 * n_row.clamp(min=1) * U32 * tile_matmul_plain(
-                        tiles, rowb, colb, x.float().abs(), nrb)
+                        tiles, rowb, colb, x.abs(), nrb)
                     e, _ = check(f"K2 bf16 {direction} H={hdim}", got, ref,
                                  bound)
                     try:
@@ -1176,35 +1180,59 @@ def compare_k2_lowp(fns, widths, gen, reps, detail):
 
 def time_k2_lowp(kind, spec, tiles, rowb, colb, off, ent, ent_off, x, scale,
                  reps):
-    """One forward dense pass of a narrow-slab variant: kernel, plain
-    version, and torch.sparse.mm on bf16 (cuSPARSE) where PyTorch has the
-    function (none for int8 x int8 -> int32). Bound: the packed entries,
-    offsets, slabs (and scales) and the output once over 3.35 TB/s,
-    against 2 entries H operations over the tensor cores' dense peak for
-    the type (989 TFLOP/s bf16, 1979 TOPS int8)."""
+    """One forward dense pass of a narrow-slab variant (the tensor-core
+    kernel): kernel, plain version, and torch.sparse.mm on bf16 (cuSPARSE)
+    where PyTorch has the function (none for int8 x int8 -> int32). Bound:
+    the packed entries, offsets, slabs (and scales) and the output once
+    over 3.35 TB/s, against 2 entries H operations over the tensor cores'
+    dense peak for the type (989 TFLOP/s bf16, 1979 TOPS int8): what the
+    function needs, whatever computes it. Beside it, the floor of the
+    tensor-core design, which computes every tile entry: the dense tile
+    bytes, slabs, scales and output over 3.35 TB/s against 2 B TR TC H
+    operations over the same peak; a dense-equivalent GEMM, not the same
+    function: one torch._int_mm (int8) or torch.matmul (bf16) of the tile
+    stack as [B TR, TC] with one slab [TC, H], the same multiply-adds over
+    the same tile bytes without the segment sum (an error string where
+    PyTorch refuses the call); and the card's device-memory rate on these
+    tiles: one copy of the tile stack (its bytes read and written once)."""
     import torch
-    from bnsgcn_tpu_torch.ops.tile_matmul import (tile_matmul,
+    from bnsgcn_tpu_torch.ops.tile_matmul import (slab_dims, tile_matmul,
                                                   tile_matmul_plain)
-    nrb, tr = spec.n_row_blocks, spec.row_tile
-    hdim = x.shape[-1]
+    nrb, tr, tc = spec.n_row_blocks, spec.row_tile, spec.col_tile
+    hdim = slab_dims(x)[2]
     b_real = int((rowb < nrb).sum())
     entries = int(ent.numel())
+    out_bytes = nrb * tr * hdim * 4
+    slab_bytes = (x.numel() * x.element_size()
+                  + (0 if scale is None else scale.numel() * 4))
     nbytes = (entries * 4 + b_real * (tr + 1) * 4 + (nrb + 1) * 4
-              + b_real * 4 + x.numel() * x.element_size()
-              + nrb * tr * hdim * 4
-              + (0 if scale is None else scale.numel() * 4))
+              + b_real * 4 + slab_bytes + out_bytes)
     ops = 2 * entries * hdim
     peak = BF16_TC_FLOPS_PER_S if kind == "bf16" else INT8_TC_OPS_PER_S
+    dense_bytes = b_real * tr * tc + b_real * 4 + (nrb + 1) * 8 + \
+        slab_bytes + out_bytes
+    dense_ops = 2 * b_real * tr * tc * hdim
     lib = lib_error = None
     if kind == "bf16":
         try:
             csr = entries_csr(spec, rowb, colb, ent, ent_off).to(
                 torch.bfloat16)
-            xf = x.view(-1, hdim)
+            xf = x.transpose(1, 2).reshape(-1, hdim)   # [n_cb TC, H]
             lib = cuda_ms(lambda: torch.sparse.mm(csr, xf), reps)
             del csr
         except (RuntimeError, NotImplementedError) as e:
             lib_error = str(e)[:200]    # no bf16 sparse.mm in this build
+    gemm = gemm_error = None
+    try:
+        a = tiles[:b_real].view(-1, tc)     # pads lie past the real tiles
+        if kind == "bf16":                  # x[0].t(): [TC, H], K-major
+            a = a.to(torch.bfloat16)
+            gemm = cuda_ms(lambda: torch.matmul(a, x[0].t()), reps)
+        else:
+            gemm = cuda_ms(lambda: torch._int_mm(a, x[0].t()), reps)
+        del a
+    except (RuntimeError, NotImplementedError) as e:
+        gemm_error = str(e)[:200]
     t = {"kind": kind, "H": hdim, "entries": entries, "bytes": nbytes,
          "ops": ops, "peak_ops_per_s": peak, "library_error": lib_error,
          "ms": cuda_ms(lambda: tile_matmul(tiles, rowb, colb, off, ent,
@@ -1215,7 +1243,16 @@ def time_k2_lowp(kind, spec, tiles, rowb, colb, off, ent, ent_off, x, scale,
          "library_ms": lib,
          "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
          "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / peak
-                      else "operations")}
+                      else "operations"),
+         "dense_bytes": dense_bytes, "dense_ops": dense_ops,
+         "floor_ms": max(dense_bytes / HBM_BYTES_PER_S,
+                         dense_ops / peak) * 1e3,
+         "floor_by": ("bytes" if dense_bytes / HBM_BYTES_PER_S
+                      >= dense_ops / peak else "operations"),
+         "gemm_ms": gemm, "gemm_error": gemm_error,
+         "tile_copy_ms": cuda_ms(lambda: torch.empty_like(tiles).copy_(tiles),
+                                 reps),
+         "tile_bytes": tiles.numel()}
     torch.cuda.empty_cache()
     return t
 
@@ -1226,7 +1263,8 @@ def lowp_runs(cfg, pr, args):
     main path, args.epochs epochs of --dtype bfloat16 --spmm auto
     --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
     hybrid), losses finite, K1 and K2 launched int8 on every aggregation
-    and bf16 in the precompute; then the guard's route, LOWP_GUARD_EPOCHS
+    and bf16 in the precompute, K2 on the tensor cores; then the guard's
+    route, LOWP_GUARD_EPOCHS
     epochs of the same stack (--spmm hybrid, the pick made) with e4m3
     gathers and the dense tiles held past their int8 row cap (row_cap 0),
     so they take the per-slab mode.
@@ -1259,8 +1297,8 @@ def lowp_runs(cfg, pr, args):
         k2 = dict(tile_matmul.launches.by_kind)
         passes = (c.n_layers - 1) * n_ep * 2
         q1 = "int8" if c.spmm_gather == "int8" else "fp8"
-        q2 = "int8" if name == "main" else "int8-slab"
-        want1, want2 = {q1: passes, "bf16": 1}, {q2: passes, "bf16": 1}
+        q2 = "tc-int8" if name == "main" else "tc-int8-slab"
+        want1, want2 = {q1: passes, "bf16": 1}, {q2: passes, "tc-bf16": 1}
         if k1 != want1 or k2 != want2:
             raise AssertionError(f"[lowp] {name}: K1 launched {k1}, K2 {k2}; "
                                  f"expected {want1} and {want2}")
@@ -1360,7 +1398,8 @@ def main(argv=None) -> int:
     # 1. build
     t0 = time.perf_counter()
     kmods = (bucket_sum, tile_matmul, bucket_reduce, copy_probe)
-    buildlib.build_many([(m.LIB_NAME, "cuda", [m.SOURCE]) for m in kmods])
+    buildlib.build_many([(name, "cuda", [src]) for m in kmods
+                         for name, src in m.BUILDS])
     for m in kmods:
         m.lib()
     log(f"[build] K1-K4 built in {time.perf_counter() - t0:.1f} s "
@@ -1446,11 +1485,23 @@ def main(argv=None) -> int:
         for kind, (err, t) in res_k.items():
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.3f}")
+            extra = ""
+            if name == "K2":
+                gemm = (f"{t['gemm_ms']:.3f}" if t["gemm_ms"] is not None
+                        else f"refused ({t['gemm_error']})")
+                extra = (f"; the dense tensor-core design's floor "
+                         f"{t['floor_ms']:.3f} ({t['floor_by']}; "
+                         f"{t['dense_ops']:.4e} dense-stack operations), "
+                         f"dense-equivalent GEMM, not the same function, "
+                         f"{gemm}; a copy of the tile stack "
+                         f"{t['tile_copy_ms']:.3f} ("
+                         f"{2 * t['tile_bytes'] / t['tile_copy_ms'] / 1e9:.2f}"
+                         f" TB/s)")
             log(f"[lowp] {name} {kind} H={t['H']}: max abs err {err:.3e} "
                 f"({'bitwise equal' if kind.startswith('int8') else 'every element within its bound'}"
                 f"; the control rejected); kernel {t['ms']:.3f} ms, plain "
                 f"{t['plain_ms']:.3f}, library {lib}, bound "
-                f"{t['bound_ms']:.3f} ({t['bound_by']})")
+                f"{t['bound_ms']:.3f} ({t['bound_by']}){extra}")
 
     # 3. small-input agreement, card vs CPU
     small_agreement(cfg)

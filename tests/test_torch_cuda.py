@@ -37,7 +37,7 @@ from bnsgcn_tpu_torch.ops.bucket_sum import (LONG_ROW, ell_apply,
 from bnsgcn_tpu_torch.ops.copy_probe import (PROBE_SHAPE, copy_probe,
                                              copy_probe_plain,
                                              launches as k4_launches)
-from bnsgcn_tpu_torch.ops.tile_matmul import (MAX_TC,
+from bnsgcn_tpu_torch.ops.tile_matmul import (MAX_TC, k_major,
                                               launches as k2_launches,
                                               pack_tiles, row_offsets,
                                               tile_matmul, tile_matmul_plain)
@@ -309,20 +309,26 @@ def test_bucket_sum_rejects_what_the_kernel_does_not_take(cuda):
 
 
 def _k2_matches_plain(tiles, rowb, colb, x, n_row_blocks,
-                      per_element=False):
-    """K2 on the packed entries against the plain version on the dense
-    tiles; row-blocks that no tile visits must come out zero. per_element:
-    hold each element to 2 n u sum|a x| (n the row's nonzero terms, u =
-    2^-24: two f32 sums of the same n products in different orders) instead
-    of TOL, for rows of hundreds of terms up to 127 x |x|."""
+                      per_element=False, scale=None):
+    """One launch of K2 on the tiles against the plain version on the dense
+    tiles; row-blocks that no tile visits must come out zero. int8 slabs
+    (raw int32 sums, or per-slab scaled f32) bitwise; float slabs within
+    TOL, or, per_element, each element within 2 n u sum|a x| (n the row's
+    nonzero terms, u = 2^-24: two f32 sums of the same products, exact in
+    f32, in different orders) for rows of hundreds of terms up to 127 x
+    |x|."""
     off = row_offsets(rowb, n_row_blocks)
     ent, ent_off = pack_tiles(tiles)
     before = k2_launches.total
-    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x, n_row_blocks)
+    out = tile_matmul(tiles, rowb, colb, off, ent, ent_off, x, n_row_blocks,
+                      slab_scale=scale)
     torch.cuda.synchronize()
     assert k2_launches.total == before + 1
-    ref = tile_matmul_plain(tiles, rowb, colb, x, n_row_blocks)
-    if per_element:
+    ref = tile_matmul_plain(tiles, rowb, colb, x, n_row_blocks, scale)
+    assert out.dtype == ref.dtype
+    if x.dtype == torch.int8:
+        assert torch.equal(out, ref)
+    elif per_element:
         n_row = torch.zeros((n_row_blocks + 1, tiles.shape[1]),
                             dtype=torch.int64, device=x.device).index_add_(
             0, rowb.long(), (tiles != 0).sum(-1))[:n_row_blocks, :, None]
@@ -355,14 +361,29 @@ def test_tile_matmul_kernel_matches_plain(cuda, h_dim, direction):
                       a[f"blk_colb_{direction}"], x, spec.n_row_blocks)
 
 
+def _narrow_slabs(x, mode):
+    """(slabs, per-slab scale or None) of f32 slabs x for a K2 mode."""
+    if mode == "f32":
+        return x, None
+    if mode == "bf16":
+        return k_major(x.to(torch.bfloat16)), None
+    q, sc = block_spmm.quantize_slabs(x, per_slab=mode == "int8-slab")
+    return q, (sc if mode == "int8-slab" else None)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8", "int8-slab"])
 @pytest.mark.parametrize("tr,tc,h_dim", [(512, 512, 256), (600, 96, 33),
                                          (48, MAX_TC, 602)])
-def test_tile_matmul_kernel_on_a_skewed_layout(cuda, tr, tc, h_dim):
+def test_tile_matmul_kernel_on_a_skewed_layout(cuda, tr, tc, h_dim, mode):
     """Row-block 0 owns many tiles, row-block 1 none, row-block 2 one tile
     with a dense row (every column, multiplicities up to 127) beside sparse
-    ones; a pad tile follows. TR = 600 spans two 512-row slices, TC = 908
-    fills both shared-memory stages."""
+    ones; a pad tile follows. f32 slabs on the zero-skipping kernel: TR =
+    600 spans two 512-row slices, TC = 908 fills both shared-memory stages.
+    int8 and bf16 slabs on the tensor cores: TR = 600 and 48 leave ragged
+    128-row slices, TC = 96 and 908 a ragged last piece (908: cp.async in
+    4-byte copies in place of TMA), H = 33 and 602 ragged 128-column
+    chunks."""
     gen = torch.Generator(device=cuda).manual_seed(tr + tc)
     n_many, n_cb = 40, 41
     b = n_many + 2
@@ -377,9 +398,35 @@ def test_tile_matmul_kernel_on_a_skewed_layout(cuda, tr, tc, h_dim):
                         device=cuda)
     colb = torch.cat([torch.randperm(n_cb, generator=gen, device=cuda)[
         :n_many], torch.tensor([5, 0], device=cuda)]).to(torch.int32)
-    x = torch.randn(n_cb, tc, h_dim, generator=gen, device=cuda)
-    out = _k2_matches_plain(tiles, rowb, colb, x, 3, per_element=True)
+    x, scale = _narrow_slabs(
+        torch.randn(n_cb, tc, h_dim, generator=gen, device=cuda), mode)
+    out = _k2_matches_plain(tiles, rowb, colb, x, 3, per_element=True,
+                            scale=scale)
     assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_tile_matmul_routes_narrow_slabs_to_the_tensor_cores(cuda):
+    """int8 and bf16 slabs launch the tensor-core kernel, f32 slabs the
+    zero-skipping one: the launch count names the route. Tile entries of
+    either sign (no layout holds negative ones) convert to bf16 exactly."""
+    art, (fwd, _, _, arrays) = _layout(64)
+    a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
+         for k, v in arrays.items()}
+    tiles = a["blk_tiles_fwd"].clone()
+    tiles[:, ::3] *= -1
+    tiles[0, 0, :8] = torch.tensor([-128, 127, -1, 1, -127, 64, -64, 0],
+                                   dtype=torch.int8)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn(fwd.n_src, 64, generator=gen, device=cuda)
+    x = block_spmm.build_x_slabs(fwd, a["blk_perm_ext"], h)
+    k2_launches.reset()
+    for mode in ("f32", "bf16", "int8", "int8-slab"):
+        xs, scale = _narrow_slabs(x, mode)
+        _k2_matches_plain(tiles, a["blk_rowb_fwd"], a["blk_colb_fwd"], xs,
+                          fwd.n_row_blocks, per_element=True, scale=scale)
+    assert k2_launches.by_kind == {"f32": 1, "tc-bf16": 1, "tc-int8": 1,
+                                   "tc-int8-slab": 1}
 
 
 @pytest.mark.cuda
@@ -391,8 +438,6 @@ def test_tile_matmul_kernel_low_precision(cuda, mode, h_dim, direction):
     int8 slabs bitwise: the per-call mode's raw int32 sums, and the
     per-slab mode's tile sums scaled and added in tile order. A plain run
     that skips each row-block's last tile must differ."""
-    if mode != "bf16" and h_dim == 602:
-        h_dim = 604                                 # int8 rows: 4-byte copies
     art, (fwd, bwd, _, arrays) = _layout(64)
     spec = fwd if direction == "fwd" else bwd
     a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
@@ -403,7 +448,7 @@ def test_tile_matmul_kernel_low_precision(cuda, mode, h_dim, direction):
     x = block_spmm.build_x_slabs(spec, perm, h)
     scale = None
     if mode == "bf16":
-        x = x.to(torch.bfloat16)
+        x = k_major(x.to(torch.bfloat16))
     else:
         x, sc = block_spmm.quantize_slabs(x, per_slab=mode == "int8-slab")
         scale = sc if mode == "int8-slab" else None
@@ -425,7 +470,7 @@ def test_tile_matmul_kernel_low_precision(cuda, mode, h_dim, direction):
                             device=cuda).index_add_(
             0, rowb.long(), (tiles != 0).sum(-1))[:nrb, :, None]
         bound = 2 * n_row.clamp(min=1) * 2.0 ** -24 * tile_matmul_plain(
-            tiles, rowb, colb, x.float().abs(), nrb)
+            tiles, rowb, colb, x.abs(), nrb)
         assert bool(((out - ref).abs() <= bound).all())
     else:
         assert torch.equal(out, ref)
@@ -457,6 +502,18 @@ def test_tile_matmul_rejects_what_the_kernel_does_not_take(cuda):
         tile_matmul(t64, ids, ids, off, e64.long(), o64, x64, 1)
     with pytest.raises(ValueError):                 # slabs of another TC
         tile_matmul(t64, ids, ids, off, e64, o64, x[:, :32].contiguous(), 1)
+    # the tensor-core kernel (int8 and bf16 slabs, K-major [n_cb, H, TC])
+    # stages pieces of a tile: it takes TC > MAX_TC; it refuses tiles other
+    # than int8 and a work order of another length
+    xq = torch.zeros(1, 8, MAX_TC + 1, dtype=torch.int8, device=cuda)
+    out = tile_matmul(tiles, ids, ids, off, ent, ent_off, xq, 1)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and not bool(out.any())
+    with pytest.raises(ValueError):                 # f32 tiles
+        tile_matmul(tiles.float(), ids, ids, off, ent, ent_off, xq, 1)
+    with pytest.raises(ValueError):                 # order for 2 row-blocks
+        tile_matmul(tiles, ids, ids, off, ent, ent_off, xq, 1,
+                    order=torch.zeros(2, dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.cuda

@@ -37,8 +37,9 @@ from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.ops import block_spmm as t_blk
 from bnsgcn_tpu_torch.ops import ell as t_ell
 from bnsgcn_tpu_torch.ops.bucket_sum import bucket_sum_plain, ell_apply
-from bnsgcn_tpu_torch.ops.tile_matmul import (pack_tiles, row_offsets,
-                                              tile_matmul_plain)
+from bnsgcn_tpu_torch.ops.tile_matmul import (k_major, pack_tiles,
+                                              row_offsets, tile_matmul_plain,
+                                              work_order)
 from bnsgcn_tpu_torch.utils import quant as t_quant
 
 
@@ -258,9 +259,10 @@ _DIRS = (("fwd", "blk_perm_ext", "blk_perm_inner"),
 @pytest.mark.parametrize("slabs", ["int8", "bf16"])
 def test_tile_matmul_plain_narrow_slabs_match_pallas(slabs):
     """K2's plain version against pallas_tile_matmul (interpret) on the
-    same slabs, forward and transposed stacks: int8 slabs give the raw
-    int32 sums, array-equal; bf16 slabs f32 sums of products exact in f32
-    (rtol 1e-6). Unvisited row-blocks are zero."""
+    same slabs, forward and transposed stacks (K-major [n_cb, H, TC] as the
+    tensor cores read them; the Pallas kernel takes them [n_cb, TC, H]):
+    int8 slabs give the raw int32 sums, array-equal; bf16 slabs f32 sums
+    of products exact in f32 (rtol 1e-6). Unvisited row-blocks are zero."""
     art, fwd, bwd, _, a = _hybrid()
     rng = np.random.default_rng(5)
     for (d, psrc, _), spec in zip(_DIRS, (fwd, bwd)):
@@ -270,10 +272,12 @@ def test_tile_matmul_plain_narrow_slabs_match_pallas(slabs):
         x = t_blk.build_x_slabs(spec, _t(a[psrc]), _t(h))
         if slabs == "int8":
             x, _ = t_blk.quantize_slabs(x, per_slab=False)
-            jx = jnp.asarray(x.numpy())
+            assert x.shape == (x.shape[0], 9, spec.col_tile)
+            jx = jnp.asarray(x.transpose(1, 2).contiguous().numpy())
         else:
-            x = x.to(torch.bfloat16)
-            jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+            jx = jnp.asarray(x.to(torch.bfloat16).float().numpy(),
+                             jnp.bfloat16)
+            x = k_major(x.to(torch.bfloat16))
         ours = tile_matmul_plain(_t(tiles), _t(rowb), _t(colb), x,
                                  spec.n_row_blocks).numpy()
         pal = np.asarray(pallas_tile_matmul(
@@ -295,8 +299,9 @@ def test_int8_dense_per_call_matches_dense_apply_pallas(dtype):
     """The per-call int8 mode (one amax/127 scale, int32 sums, x scale)
     against dense_apply_pallas(dense_dtype='int8', interpret=True), in row
     order, for f32 and bf16 activations: array-equal (the same
-    quantization, exact sums, one f32 multiply; JAX's cast to bf16 is the
-    one K1 makes of its base)."""
+    quantization, exact sums over the K-major int8 slabs the tensor-core
+    route takes, one f32 multiply; JAX's cast to bf16 is the one K1 makes
+    of its base)."""
     art, fwd, bwd, _, a = _hybrid()
     rng = np.random.default_rng(6)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
@@ -342,6 +347,33 @@ def test_int8_dense_per_slab_matches_dense_apply():
                                             dense_dtype="int8"))
         np.testing.assert_allclose(port, ref, rtol=1e-5,
                                    atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_tile_mma_work_order_visits_each_cta_item_once(direction):
+    """The tensor-core K2's work order (built once per layout): every
+    row-block once, most tiles first, ties in row-block order; the grid's
+    (row-block, 128-row slice, column chunk) items, by csrc/tile_mma.cu's
+    block-index mapping (the chunk fastest, then the slice, then the
+    row-block of the order), each exactly once, at the slices and chunks
+    of TR = 32 (one slice) and of a TR of 600 with H = 602 (5 x 5)."""
+    art, fwd, bwd, _, a = _hybrid()
+    spec = fwd if direction == "fwd" else bwd
+    off = row_offsets(_t(a[f"blk_rowb_{direction}"]), spec.n_row_blocks)
+    order = work_order(off)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(spec.n_row_blocks))
+    counts = (off[1:] - off[:-1])[order.long()]
+    assert bool((counts[:-1] >= counts[1:]).all())
+    ties = counts[:-1] == counts[1:]
+    assert bool((order[:-1][ties] < order[1:][ties]).all())
+    for n_slices, n_chunks in ((1, 1), (5, 5)):
+        i = torch.arange(spec.n_row_blocks * n_slices * n_chunks)
+        rb = order.long()[i // (n_chunks * n_slices)]
+        slice_, chunk = (i // n_chunks) % n_slices, i % n_chunks
+        key = (rb * n_slices + slice_) * n_chunks + chunk
+        assert torch.equal(torch.sort(key).values,
+                           torch.arange(len(key)))
 
 
 @pytest.mark.parametrize("row_cap", [t_blk.I8_ROW_CAP, 2])
