@@ -41,19 +41,29 @@
 //
 // Design:
 //   * L2-sized column passes: the grid's slowest axis (y) is a chunk of
-//     128 bytes of each row (32 f32, 64 bf16 or 128 int8/e4m3 columns), so
+//     kChunkBytes of each row (32 f32, 64 bf16 or 128 int8/e4m3 columns), so
 //     the CTAs resident at any time gather from the same n_src x 128-byte
 //     slice of h (30 MB at full size, inside the L2). The indices are read
 //     again for every chunk;
 //   * a group of 8 lanes per row, each lane 16 bytes of the chunk as
 //     accumulators, read as one 16-byte vector where the row width and the
 //     pointer allow it (else 8 (f32), 4, 2 (bf16) or 1 byte per load) and
-//     converted to the accumulator type in the load (int8 -> int32, e4m3 ->
-//     f32 by the cvt instruction, bf16 -> f32 by a shift): 4 rows per warp
-//     step, 32 rows per 256-thread CTA. A group reads its row's indices 8 at
-//     a time, coalesced, one per lane, and broadcasts each by shuffle; the
-//     next 8 are in flight meanwhile. A warp step lasts as long as its
-//     longest row; lanes past a shorter row's end load nothing;
+//     converted to the accumulator type in the load (bf16 -> f32 by a
+//     shift; int8 and e4m3 at narrower loads element by element): 4 rows
+//     per warp step, 32 rows per 256-thread CTA. A group reads its row's
+//     indices 8 at a time, coalesced, one per lane, and broadcasts each by
+//     shuffle; the next 8 are in flight meanwhile. A warp step lasts as
+//     long as its longest row; lanes past a shorter row's end load nothing;
+//   * int8 and e4m3 rows at 16-byte loads have their own routine
+//     (gather_bytes): widening each byte alone cost ~49 (int8) and ~89
+//     (e4m3) instructions per 16-byte vector against f32's ~20, and the
+//     instruction rate, not the gather, set their time. The group loads 4
+//     terms at a time; int8 turns the lane's 4 words of the 4 terms into 4
+//     words of one column each by a byte transpose (8 permutes) and adds
+//     each column's 4 terms with one dp4a (exact); e4m3 converts two bytes
+//     per instruction (cvt.rn.f16x2.e4m3x2) and adds in f32 in term order.
+//     A short row's 16 columns leave with the base read and the output
+//     written 16 bytes at a time (emit16);
 //   * long rows (more than the wrapper's threshold of terms) get a CTA of
 //     their own, dispatched first: its 8 warps sum fixed contiguous slices
 //     of the row (each warp's 4 groups a quarter of its slice), reduce the
@@ -63,6 +73,7 @@
 //     zero-fill, and two calls give the same bits.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,7 +127,7 @@ struct Shape {
   static constexpr int kVe = VB / (int)sizeof(T);      // elements per load
   static constexpr int kLaneCols = kLaneBytes / (int)sizeof(T);
   static constexpr int kSlots = kLaneCols / kVe;       // loads per term
-  static constexpr int kChunk = kGroup * kLaneCols;    // columns per pass
+  static constexpr int kChunk = kChunkBytes / (int)sizeof(T);  // per pass
 };
 
 // Adds h[src[b .. b + n), h0 + columns] into the group's accumulators; slot
@@ -157,6 +168,105 @@ __device__ __forceinline__ void gather_sum(
   }
 }
 
+// The byte mask of the first m of 4 terms: dp4a's second operand.
+__device__ __forceinline__ int term_mask(int m) {
+  return m >= 4 ? 0x01010101 : (int)(0x01010101u & ((1u << (8 * m)) - 1u));
+}
+
+__device__ __forceinline__ unsigned word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// int8: adds the first m of the 4 terms x[0..3] (16 columns each) into the
+// column accumulators. Word j of the 4 terms, [a b c d], is transposed into
+// 4 words of one column each, [a_i b_i c_i d_i], and dp4a adds a word's 4
+// bytes, each times its term's mask byte (0 past the row's end, where x
+// holds stale bytes), to the column's int32 sum: exact.
+__device__ __forceinline__ void add_terms(const uint4 (&x)[4], int m,
+                                          int (&acc)[16]) {
+  const int mask = term_mask(m);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned ab_lo = __byte_perm(word(x[0], j), word(x[1], j), 0x5140);
+    const unsigned ab_hi = __byte_perm(word(x[0], j), word(x[1], j), 0x7362);
+    const unsigned cd_lo = __byte_perm(word(x[2], j), word(x[3], j), 0x5140);
+    const unsigned cd_hi = __byte_perm(word(x[2], j), word(x[3], j), 0x7362);
+    int* a = &acc[4 * j];
+    a[0] = __dp4a((int)__byte_perm(ab_lo, cd_lo, 0x5410), mask, a[0]);
+    a[1] = __dp4a((int)__byte_perm(ab_lo, cd_lo, 0x7632), mask, a[1]);
+    a[2] = __dp4a((int)__byte_perm(ab_hi, cd_hi, 0x5410), mask, a[2]);
+    a[3] = __dp4a((int)__byte_perm(ab_hi, cd_hi, 0x7632), mask, a[3]);
+  }
+}
+
+// e4m3: adds one term's 16 columns into the f32 accumulators, two bytes
+// per conversion (e4m3x2 -> f16x2, exact), then f16 -> f32 and the add.
+__device__ __forceinline__ void add_e4m3(const uint4& x, float (&acc)[16]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned w = word(x, j);
+    const float2 lo = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3)));
+    const float2 hi = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3)));
+    acc[4 * j] += lo.x;
+    acc[4 * j + 1] += lo.y;
+    acc[4 * j + 2] += hi.x;
+    acc[4 * j + 3] += hi.y;
+  }
+}
+
+// e4m3: adds the first m of the 4 terms, in term order.
+__device__ __forceinline__ void add_terms(const uint4 (&x)[4], int m,
+                                          float (&acc)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < m) add_e4m3(x[k], acc);
+}
+
+// gather_sum for int8 (T = int8_t) and e4m3 (uint8_t) rows at 16-byte
+// loads: the lane's 16 columns of 4 terms at a time, their loads in flight
+// together, each address one wide multiply-add from the lane's slice of h.
+template <typename T>
+__device__ __forceinline__ void gather_bytes(
+    const T* __restrict__ h, const int32_t* __restrict__ src, int64_t b,
+    int n, int h0, int H, int grp, int gl,
+    typename AccOf<T>::A (&acc)[kLaneBytes]) {
+  const int n_max = __reduce_max_sync(kAll, n);
+  int cur = gl < n ? src[b + gl] : -1;
+  const bool cols = h0 + gl * kLaneBytes < H;
+  const unsigned char* __restrict__ hb =
+      reinterpret_cast<const unsigned char*>(h) + h0 + gl * kLaneBytes;
+  uint4 x[4] = {};
+  for (int p = 0; p < n_max; p += kGroup) {
+    const int q = p + kGroup + gl;
+    const int nxt = q < n ? src[b + q] : -1;           // in flight
+#pragma unroll
+    for (int k0 = 0; k0 < kGroup; k0 += 4) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int s = __shfl_sync(kAll, cur, grp * kGroup + k0 + k);
+        if (s >= 0 && cols)
+          x[k] = __ldg(reinterpret_cast<const uint4*>(
+              hb + (size_t)(unsigned)s * (unsigned)H));
+      }
+      add_terms(x, min(max(n - p - k0, 0), 4), acc);
+    }
+    cur = nxt;
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void gather(
+    const T* __restrict__ h, const int32_t* __restrict__ src, int64_t b,
+    int n, int h0, int H, int grp, int gl,
+    typename AccOf<T>::A (&acc)[Shape<T, VB>::kLaneCols]) {
+  if constexpr (sizeof(T) == 1 && VB == 16)
+    gather_bytes<T>(h, src, b, n, h0, H, grp, gl, acc);
+  else
+    gather_sum<T, VB>(h, src, b, n, h0, H, grp, gl, acc);
+}
+
 // Output element (r, c) from the row's accumulated value: scaled, rounded
 // to the out type, plus the base (rounded to bf16 first for a bf16 out).
 template <typename A>
@@ -180,6 +290,68 @@ __device__ __forceinline__ void emit(A a, int64_t at, const float* scale,
   } else {
     if (base != nullptr) v = __fadd_rn(base[base_at], v);
     static_cast<float*>(out)[at] = v;
+  }
+}
+
+// emit for a lane's 16 consecutive columns from at (a multiple of 16 in
+// a row of a multiple of 16 columns, out and base 16-byte aligned): the
+// same values, 8 columns at a time, with the base read and the output
+// written 16 bytes at a time.
+template <typename A>
+__device__ __forceinline__ void emit16(const A (&acc)[16], int64_t at,
+                                       const float* scale,
+                                       const float* __restrict__ base,
+                                       int64_t base_at, void* out,
+                                       int out_kind) {
+#pragma unroll
+  for (int c0 = 0; c0 < 16; c0 += 8) {
+    if (out_kind == kOutI32) {
+      int4* o = reinterpret_cast<int4*>(static_cast<int32_t*>(out) + at + c0);
+      o[0] = make_int4((int)acc[c0], (int)acc[c0 + 1], (int)acc[c0 + 2],
+                       (int)acc[c0 + 3]);
+      o[1] = make_int4((int)acc[c0 + 4], (int)acc[c0 + 5], (int)acc[c0 + 6],
+                       (int)acc[c0 + 7]);
+      continue;
+    }
+    float v[8], bv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = static_cast<float>(acc[c0 + e]);
+      if (scale != nullptr) v[e] = __fmul_rn(v[e], *scale);
+    }
+    if (base != nullptr) {
+      const float4* bp = reinterpret_cast<const float4*>(base + base_at + c0);
+      const float4 lo = __ldg(bp), hi = __ldg(bp + 1);
+      bv[0] = lo.x; bv[1] = lo.y; bv[2] = lo.z; bv[3] = lo.w;
+      bv[4] = hi.x; bv[5] = hi.y; bv[6] = hi.z; bv[7] = hi.w;
+    }
+    if (out_kind == kOutBF16) {
+      unsigned pk[4];
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        unsigned short r[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          __nv_bfloat16 t = __float2bfloat16_rn(v[e + d]);
+          if (base != nullptr)
+            t = __float2bfloat16_rn(__fadd_rn(
+                __bfloat162float(__float2bfloat16_rn(bv[e + d])),
+                __bfloat162float(t)));
+          r[d] = __bfloat16_as_ushort(t);
+        }
+        pk[e / 2] = (unsigned)r[0] | ((unsigned)r[1] << 16);
+      }
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + at + c0) =
+          make_uint4(pk[0], pk[1], pk[2], pk[3]);
+    } else {
+      if (base != nullptr) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(bv[e], v[e]);
+      }
+      float4* o = reinterpret_cast<float4*>(static_cast<float*>(out) + at + c0);
+      o[0] = make_float4(v[0], v[1], v[2], v[3]);
+      o[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
   }
 }
 
@@ -212,7 +384,7 @@ ell_rows_kernel(const T* __restrict__ h,
     const int per_g = (w_hi - w_lo + kRowsPerStep - 1) / kRowsPerStep;
     const int g_lo = min(w_hi, w_lo + grp * per_g);
     const int g_hi = min(w_hi, g_lo + per_g);
-    gather_sum<T, VB>(h, src, b + g_lo, g_hi - g_lo, h0, H, grp, gl, acc);
+    gather<T, VB>(h, src, b + g_lo, g_hi - g_lo, h0, H, grp, gl, acc);
 #pragma unroll
     for (int j = 0; j < S::kSlots; ++j) {
 #pragma unroll
@@ -247,9 +419,18 @@ ell_rows_kernel(const T* __restrict__ h,
     b = row_ptr[r];
     n = row_ptr[r + 1] - row_ptr[r];
   }
-  gather_sum<T, VB>(h, src, b, n, h0, H, grp, gl, acc);
+  gather<T, VB>(h, src, b, n, h0, H, grp, gl, acc);
   if (r < 0) return;
   const int64_t br = base != nullptr ? base_row[r] : 0;
+  if constexpr (sizeof(T) == 1 && VB == 16) {
+    const int c = h0 + gl * kLaneBytes;
+    if (c < H && ((reinterpret_cast<uintptr_t>(out) |
+                   reinterpret_cast<uintptr_t>(base)) & 15) == 0) {
+      emit16(acc, (int64_t)r * H + c, scale, base, br * H + c, out,
+             out_kind);
+      return;
+    }
+  }
 #pragma unroll
   for (int j = 0; j < S::kSlots; ++j) {
     const int v = j * kGroup + gl;

@@ -1076,6 +1076,7 @@ def time_k1_lowp(kind, rows, hq, scale, base, base_row, reps):
             lib_error = str(e)[:200]    # no bf16 sparse.mm in this build
     t = {"kind": kind, "H": hdim, "rows": n_rows, "nnz": nnz,
          "bytes": nbytes, "ops": ops, "library_error": lib_error,
+         "gathered_bytes": nnz * hdim * hq.element_size(),
          "ms": cuda_ms(lambda: ell_apply(rows, hq, base, base_row,
                                          phase="check", **kw), reps),
          "plain_ms": cuda_ms(lambda: ell_apply_plain(rows, hq, base,
@@ -1486,6 +1487,14 @@ def main(argv=None) -> int:
             lib = ("none" if t["library_ms"] is None
                    else f"{t['library_ms']:.3f}")
             extra = ""
+            if name == "K1":
+                # the design's floor, as [time] K1 gives f32's: the row
+                # slices the terms gather, over the probed L2 rate
+                t["floor_ms"] = (t["gathered_bytes"] / l2["l2_bytes_per_s"]
+                                 * 1e3)
+                extra = (f"; the design's floor {t['floor_ms']:.3f} (the "
+                         f"{t['gathered_bytes'] / 1e9:.2f} GB gathered over "
+                         f"the probed L2 rate)")
             if name == "K2":
                 gemm = (f"{t['gemm_ms']:.3f}" if t["gemm_ms"] is not None
                         else f"refused ({t['gemm_error']})")

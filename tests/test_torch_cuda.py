@@ -228,6 +228,105 @@ def test_bucket_sum_kernel_low_precision(cuda, rows_dtype, out_dtype,
                                       out_dtype=out_dtype))
 
 
+# the row lengths that wrap a 16-bit lane of 255 * 257, and one past 4096
+_EDGE_LENS = (1, 255, 256, 257, 258, 513, 4100)
+_F8_CODES = [c for c in range(256) if c & 0x7F != 0x7F]    # finite e4m3
+
+
+def _one_bucket(idx, n_src, device):
+    """K1's row schedule of one ELL bucket [r, w] (entries n_src: pads)."""
+    r, w = idx.shape
+    spec = t_ell.EllSpec(widths=(w,), rows=(r,), n_rows=r, n_src=n_src)
+    return pack_rows(spec, [torch.from_numpy(idx).to(device)],
+                     torch.arange(r, dtype=torch.int32, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim", [256, 602, 33])
+def test_bucket_sum_kernel_int8_edges(cuda, h_dim):
+    """int8 rows where a packed or narrow accumulator would wrap: every
+    term 127, every term -128, and mixed signs, at each of _EDGE_LENS terms
+    (4100: past the long-row threshold), through the short-row path and,
+    at a threshold of 64, the long-row CTAs' slices; bitwise the plain
+    version in every out kind, the constant rows at their exact sums."""
+    n_src = 64
+    rng = np.random.default_rng(h_dim)
+    idx = np.full((3 * len(_EDGE_LENS), max(_EDGE_LENS)), n_src, np.int32)
+    for i, (lo, hi) in enumerate(((0, 16), (16, 32), (32, 64))):
+        for j, n in enumerate(_EDGE_LENS):
+            idx[i * len(_EDGE_LENS) + j, :n] = rng.integers(lo, hi, n)
+    h = torch.empty((n_src, h_dim), dtype=torch.int8)
+    h[:16], h[16:32] = 127, -128
+    h[32:] = torch.from_numpy(rng.integers(-128, 128, (32, h_dim)))
+    h = h.to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    scale = torch.tensor(0.0123, device=cuda)
+    lens = torch.tensor(_EDGE_LENS, device=cuda)[:, None]
+    for long_row in (LONG_ROW, 64):
+        rows = _one_bucket(idx, n_src, cuda).with_long_row(long_row)
+        assert rows.n_long == (3 if long_row == LONG_ROW else 18)
+        base = torch.randn(rows.n_rows, h_dim, generator=gen, device=cuda)
+        base_row = torch.randperm(rows.n_rows, generator=gen,
+                                  device=cuda).to(torch.int32)
+        raw = ell_apply(rows, h)
+        torch.cuda.synchronize()
+        assert torch.equal(raw, ell_apply_plain(rows, h))
+        k = len(_EDGE_LENS)
+        assert bool((raw[:k] == 127 * lens).all())
+        assert bool((raw[k:2 * k] == -128 * lens).all())
+        # a base 4 bytes off 16-byte alignment takes the element-wise
+        # epilogue, an aligned one the 16-byte one: the same bits
+        odd = torch.empty(base.numel() + 1, device=cuda)[1:].view_as(base)
+        odd.copy_(base)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            for b, br in ((None, None), (base, base_row), (odd, base_row)):
+                got = ell_apply(rows, h, b, br, scale=scale,
+                                out_dtype=out_dtype)
+                assert torch.equal(got, ell_apply_plain(
+                    rows, h, b, br, scale, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim", [256, 602, 33])
+def test_bucket_sum_kernel_every_e4m3_code(cuda, h_dim):
+    """e4m3 rows of every finite code (both zeros, the subnormals, +-448):
+    one-term rows decode each code to its float32 value exactly; rows of
+    every code once (in order, reversed, the positive ones) and a long row
+    of each code 17 times sum within _k1_lowp's bound at both long-row
+    thresholds, and the control (every non-empty row 5% off) is
+    rejected."""
+    codes = np.array(_F8_CODES, np.uint8)
+    n_src = len(codes)
+    bits = codes[(np.arange(n_src)[:, None] + np.arange(h_dim)) % n_src]
+    h = torch.from_numpy(bits).view(torch.float8_e4m3fn).to(cuda)
+    pos = np.flatnonzero((codes > 0) & (codes < 0x80))
+    w = 17 * n_src
+    idx = np.full((n_src + 4, w), n_src, np.int32)
+    idx[:n_src, 0] = np.arange(n_src)
+    idx[n_src, :n_src] = np.arange(n_src)
+    idx[n_src + 1, :n_src] = np.arange(n_src)[::-1]
+    idx[n_src + 2, :len(pos)] = pos
+    idx[n_src + 3] = np.tile(np.arange(n_src), 17)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    scale = torch.tensor(0.0123, device=cuda)
+    for long_row in (LONG_ROW, 64):
+        rows = _one_bucket(idx, n_src, cuda).with_long_row(long_row)
+        one = ell_apply(rows, h)                 # f32 sums, no scale
+        torch.cuda.synchronize()
+        assert torch.equal(one[:n_src], h.float())
+        base = torch.randn(rows.n_rows, h_dim, generator=gen, device=cuda)
+        base_row = torch.randperm(rows.n_rows, generator=gen,
+                                  device=cuda).to(torch.int32)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out, ref, bound = _k1_lowp(rows, h, base, base_row, scale,
+                                       out_dtype)
+            assert bool(torch.isfinite(out.float()).all())
+            assert bool(((out.float() - ref.float()).abs() <= bound).all())
+            wrong = ref.float().clone()
+            wrong[rows.row_ptr[1:] > rows.row_ptr[:-1]] *= 1.05
+            assert not bool(((out.float() - wrong).abs() <= bound).all())
+
+
 @pytest.mark.cuda
 def test_bucket_sum_kernel_on_an_empty_layout(cuda):
     """A layout without edges: K1 still launches, writes zeros, or the base

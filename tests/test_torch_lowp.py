@@ -114,24 +114,79 @@ def test_quantizers_are_array_equal_to_jax(axes):
 # K1's plain version at the narrow row dtypes
 # ---------------------------------------------------------------------------
 
+# the row lengths that wrap a 16-bit lane of 255 * 257 (a packed int8
+# accumulator's), in one bucket of width 513; the finite e4m3 codes
+_EDGE_LENS = (1, 255, 256, 257, 258, 513)
+_F8_CODES = np.array([c for c in range(256) if (c & 0x7F) != 0x7F], np.uint8)
+# each row kind's largest and smallest value (e4m3's as bit codes)
+_EXTREMES = {"int8": (127, -128), "fp8": (0x7E, 0xFE), "bf16": (448, -448)}
+
+
+def _narrow_edge_case(rows, n, h_dim, r, w):
+    """(h, jh, idx) for the two edge geometries, else None. Extremes
+    (n=3, w=513): sources all at the kind's largest value, all at its
+    smallest, and alternating by column, each summed over each of
+    _EDGE_LENS terms (the rest pads). Every code (n=254): source i holds
+    the finite e4m3 codes rotated by i (as int8 bytes, e4m3 values, or
+    those values in bf16); rows sum every code in order, in reverse, and
+    the positive ones."""
+    if (n, w) == (3, 513):
+        hi, lo = _EXTREMES[rows]
+        vals = np.array([[hi] * h_dim, [lo] * h_dim,
+                         [hi, lo] * (h_dim // 2) + [hi] * (h_dim % 2)])
+        idx = np.full((r, w), n, np.int32)
+        for i, (s, ln) in enumerate((s, ln) for s in range(n)
+                                    for ln in _EDGE_LENS):
+            idx[i, :ln] = s
+    elif (n, w) == (254, 254):
+        vals = _F8_CODES[(np.arange(n)[:, None] + np.arange(h_dim)) % n]
+        pos = np.flatnonzero((_F8_CODES > 0) & (_F8_CODES < 0x80))
+        idx = np.stack([np.arange(n), np.arange(n)[::-1],
+                        np.pad(pos, (0, n - len(pos)), constant_values=n)])
+    else:
+        return None
+    idx = idx.astype(np.int32)
+    if rows == "int8":
+        x = vals.astype(np.uint8).view(np.int8) if n == 254 else \
+            vals.astype(np.int8)
+        return _t(x), jnp.asarray(x), idx
+    if rows == "fp8" or n == 254:
+        bits = vals.astype(np.uint8)
+        f8 = _t(bits).view(torch.float8_e4m3fn)
+        if rows == "fp8":
+            return f8, jnp.asarray(bits.view(jnp.float8_e4m3fn)), idx
+        x = f8.float().numpy()              # every code's value, in bf16
+    else:
+        x = vals.astype(np.float32)
+    return _t(x).to(torch.bfloat16), jnp.asarray(x, jnp.bfloat16), idx
+
+
 @pytest.mark.parametrize("rows", ["int8", "fp8", "bf16"])
-@pytest.mark.parametrize("n,h_dim,r,w", [(50, 8, 16, 4), (40, 7, 24, 16)])
+@pytest.mark.parametrize("n,h_dim,r,w", [(50, 8, 16, 4), (40, 7, 24, 16),
+                                         (3, 8, 18, 513), (254, 8, 3, 254)])
 def test_bucket_sum_plain_narrow_rows_match_jax(rows, n, h_dim, r, w):
     """One bucket's sums against bnsgcn_tpu/ops/ell.py `_bucket_sum`
     (accum='reduce'): int8 rows give int32 sums, array-equal; e4m3 rows
     f32 sums (rtol 1e-6); bf16 rows f32 sums, which the JAX package keeps
-    in bf16 (2^-8 relative)."""
-    rng = np.random.default_rng(n + w)
-    x = rng.normal(size=(n, h_dim)).astype(np.float32)
-    idx = rng.integers(0, n + 1, size=(r, w)).astype(np.int32)   # n = pad
-    if rows == "int8":
-        h, _ = t_quant.i8_quant(_t(x))
-        jh, _ = j_quant.i8_quant(jnp.asarray(x))
-    elif rows == "fp8":
-        h, _ = t_quant.f8_quant(_t(x))
-        jh, _ = j_quant.f8_quant(jnp.asarray(x))
+    in bf16 (2^-8 relative). Random rows quantized by both packages, and
+    the edges a kernel's packed accumulator or e4m3 decode could break
+    (_narrow_edge_case): rows past 257 terms of 127 and of -128, and rows
+    of every finite e4m3 code (both zeros, the subnormals, +-448)."""
+    edge = _narrow_edge_case(rows, n, h_dim, r, w)
+    if edge is not None:
+        h, jh, idx = edge
     else:
-        h, jh = _t(x).to(torch.bfloat16), jnp.asarray(x, jnp.bfloat16)
+        rng = np.random.default_rng(n + w)
+        x = rng.normal(size=(n, h_dim)).astype(np.float32)
+        idx = rng.integers(0, n + 1, size=(r, w)).astype(np.int32)  # pad n
+        if rows == "int8":
+            h, _ = t_quant.i8_quant(_t(x))
+            jh, _ = j_quant.i8_quant(jnp.asarray(x))
+        elif rows == "fp8":
+            h, _ = t_quant.f8_quant(_t(x))
+            jh, _ = j_quant.f8_quant(jnp.asarray(x))
+        else:
+            h, jh = _t(x).to(torch.bfloat16), jnp.asarray(x, jnp.bfloat16)
     hp = jnp.concatenate([jh, jnp.zeros((1, h_dim), jh.dtype)])
     ref = np.asarray(j_ell._bucket_sum(hp, jnp.asarray(idx), w,
                                        accum="reduce"))
