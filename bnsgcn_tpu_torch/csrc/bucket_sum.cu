@@ -54,16 +54,21 @@
 //     indices 8 at a time, coalesced, one per lane, and broadcasts each by
 //     shuffle; the next 8 are in flight meanwhile. A warp step lasts as
 //     long as its longest row; lanes past a shorter row's end load nothing;
-//   * int8 and e4m3 rows at 16-byte loads have their own routine
-//     (gather_bytes): widening each byte alone cost ~49 (int8) and ~89
-//     (e4m3) instructions per 16-byte vector against f32's ~20, and the
-//     instruction rate, not the gather, set their time. The group loads 4
-//     terms at a time; int8 turns the lane's 4 words of the 4 terms into 4
-//     words of one column each by a byte transpose (8 permutes) and adds
-//     each column's 4 terms with one dp4a (exact); e4m3 converts two bytes
-//     per instruction (cvt.rn.f16x2.e4m3x2) and adds in f32 in term order.
-//     A short row's 16 columns leave with the base read and the output
-//     written 16 bytes at a time (emit16);
+//   * int8, e4m3 and bf16 rows at 16-byte loads have their own routine
+//     (gather_batched): widening element by element cost ~49 (int8), ~89
+//     (e4m3) and ~39 (bf16) instructions per 16-byte vector against f32's
+//     ~20, and the instruction rate, not the gather, set their time. The
+//     group loads 4 terms at a time, with no branch per term, before any
+//     add; int8 turns the lane's 4 words of the 4 terms into 4 words of one
+//     column each by a byte transpose (8 permutes) and adds each column's 4
+//     terms with one dp4a (exact); e4m3 converts two bytes per instruction
+//     (cvt.rn.f16x2.e4m3x2), bf16 widens a word's two values by one shift
+//     and one mask, and both add in f32 in term order, the order of the
+//     element-wise path, whose bits they give. A short row's lane (16
+//     columns of 1-byte rows, 8 of bf16) leaves with the base read and the
+//     output written 16 bytes at a time (emit_vec). bf16 rows of a width
+//     that is not a multiple of 8 (the use_pp precompute at F=602: 1,204-
+//     byte rows, 4-byte loads) keep the element-wise path (gather_sum, emit);
 //   * long rows (more than the wrapper's threshold of terms) get a CTA of
 //     their own, dispatched first: its 8 warps sum fixed contiguous slices
 //     of the row (each warp's 4 groups a quarter of its slice), reduce the
@@ -224,19 +229,40 @@ __device__ __forceinline__ void add_terms(const uint4 (&x)[4], int m,
     if (k < m) add_e4m3(x[k], acc);
 }
 
-// gather_sum for int8 (T = int8_t) and e4m3 (uint8_t) rows at 16-byte
-// loads: the lane's 16 columns of 4 terms at a time, their loads in flight
-// together, each address one wide multiply-add from the lane's slice of h.
+// bf16: adds the first m of the 4 terms x[0..3] (8 columns each) into the
+// f32 accumulators, in term order (gather_sum's, so the sums are its bits).
+// A word holds two columns; each widens to f32 by one bit operation.
+__device__ __forceinline__ void add_terms(const uint4 (&x)[4], int m,
+                                          float (&acc)[8]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (k < m) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned w = word(x[k], j);
+        acc[2 * j] += __uint_as_float(w << 16);
+        acc[2 * j + 1] += __uint_as_float(w & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// gather_sum for int8 (T = int8_t), e4m3 (uint8_t) and bf16 (uint16_t)
+// rows at 16-byte loads: the lane's 16 bytes of 4 terms at a time, their
+// loads in flight together before any add, each address one wide
+// multiply-add from the lane's slice of h; add_terms sums them by type.
 template <typename T>
-__device__ __forceinline__ void gather_bytes(
+__device__ __forceinline__ void gather_batched(
     const T* __restrict__ h, const int32_t* __restrict__ src, int64_t b,
     int n, int h0, int H, int grp, int gl,
-    typename AccOf<T>::A (&acc)[kLaneBytes]) {
+    typename AccOf<T>::A (&acc)[kLaneBytes / sizeof(T)]) {
+  constexpr int L = kLaneBytes / (int)sizeof(T);
   const int n_max = __reduce_max_sync(kAll, n);
   int cur = gl < n ? src[b + gl] : -1;
-  const bool cols = h0 + gl * kLaneBytes < H;
+  const bool cols = h0 + gl * L < H;
+  const unsigned row_bytes = (unsigned)H * (unsigned)sizeof(T);
   const unsigned char* __restrict__ hb =
-      reinterpret_cast<const unsigned char*>(h) + h0 + gl * kLaneBytes;
+      reinterpret_cast<const unsigned char*>(h + h0 + gl * L);
   uint4 x[4] = {};
   for (int p = 0; p < n_max; p += kGroup) {
     const int q = p + kGroup + gl;
@@ -248,7 +274,7 @@ __device__ __forceinline__ void gather_bytes(
         const int s = __shfl_sync(kAll, cur, grp * kGroup + k0 + k);
         if (s >= 0 && cols)
           x[k] = __ldg(reinterpret_cast<const uint4*>(
-              hb + (size_t)(unsigned)s * (unsigned)H));
+              hb + (size_t)(unsigned)s * row_bytes));
       }
       add_terms(x, min(max(n - p - k0, 0), 4), acc);
     }
@@ -261,8 +287,8 @@ __device__ __forceinline__ void gather(
     const T* __restrict__ h, const int32_t* __restrict__ src, int64_t b,
     int n, int h0, int H, int grp, int gl,
     typename AccOf<T>::A (&acc)[Shape<T, VB>::kLaneCols]) {
-  if constexpr (sizeof(T) == 1 && VB == 16)
-    gather_bytes<T>(h, src, b, n, h0, H, grp, gl, acc);
+  if constexpr (sizeof(T) <= 2 && VB == 16)
+    gather_batched<T>(h, src, b, n, h0, H, grp, gl, acc);
   else
     gather_sum<T, VB>(h, src, b, n, h0, H, grp, gl, acc);
 }
@@ -293,18 +319,19 @@ __device__ __forceinline__ void emit(A a, int64_t at, const float* scale,
   }
 }
 
-// emit for a lane's 16 consecutive columns from at (a multiple of 16 in
-// a row of a multiple of 16 columns, out and base 16-byte aligned): the
-// same values, 8 columns at a time, with the base read and the output
-// written 16 bytes at a time.
-template <typename A>
-__device__ __forceinline__ void emit16(const A (&acc)[16], int64_t at,
-                                       const float* scale,
-                                       const float* __restrict__ base,
-                                       int64_t base_at, void* out,
-                                       int out_kind) {
+// emit for a lane's N consecutive columns from at (N = 16 for 1-byte
+// rows, 8 for bf16; at a multiple of N in a row of a multiple of N
+// columns, out and base 16-byte aligned): the same values, 8 columns at a
+// time, with the base read as two float4 and the output written 16 bytes
+// at a time.
+template <int N, typename A>
+__device__ __forceinline__ void emit_vec(const A (&acc)[N], int64_t at,
+                                         const float* scale,
+                                         const float* __restrict__ base,
+                                         int64_t base_at, void* out,
+                                         int out_kind) {
 #pragma unroll
-  for (int c0 = 0; c0 < 16; c0 += 8) {
+  for (int c0 = 0; c0 < N; c0 += 8) {
     if (out_kind == kOutI32) {
       int4* o = reinterpret_cast<int4*>(static_cast<int32_t*>(out) + at + c0);
       o[0] = make_int4((int)acc[c0], (int)acc[c0 + 1], (int)acc[c0 + 2],
@@ -422,12 +449,12 @@ ell_rows_kernel(const T* __restrict__ h,
   gather<T, VB>(h, src, b, n, h0, H, grp, gl, acc);
   if (r < 0) return;
   const int64_t br = base != nullptr ? base_row[r] : 0;
-  if constexpr (sizeof(T) == 1 && VB == 16) {
-    const int c = h0 + gl * kLaneBytes;
+  if constexpr (sizeof(T) <= 2 && VB == 16) {
+    const int c = h0 + gl * S::kLaneCols;
     if (c < H && ((reinterpret_cast<uintptr_t>(out) |
                    reinterpret_cast<uintptr_t>(base)) & 15) == 0) {
-      emit16(acc, (int64_t)r * H + c, scale, base, br * H + c, out,
-             out_kind);
+      emit_vec(acc, (int64_t)r * H + c, scale, base, br * H + c, out,
+               out_kind);
       return;
     }
   }

@@ -61,13 +61,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      per exchange, the plan's ms, the exchange's share and the epoch at
      rate 0.1 beside rate 1.0's;
   5b. [lowp] on the P=1 graph and layouts (shared, not rebuilt): the
-     low-precision main path, --dtype bfloat16 --spmm auto --use-pallas
-     --spmm-dense int8 --spmm-gather int8 (auto must pick the hybrid):
+     TPU recipe with its finer knobs, --dtype bfloat16 --spmm auto
+     --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
+     hybrid):
      finite losses, K1 and K2 launched int8 on every aggregation and bf16
      in the precompute (K2 on the tensor cores, as its launch count names
      the route), the epoch beside the f32 one, peak memory; then the
      guard's route, 2 epochs with e4m3 gathers and the dense tiles past
      their int8 row cap (the per-slab mode);
+  5c. [recipe]: the TPU recipe's own knobs (RECIPE_TPU, scripts/reddit.sh's
+     --dtype bfloat16 --spmm auto --use-pallas --halo-wire int8): at P=1 on
+     the same graph and layouts, the P=1 main path's model for --epochs
+     epochs (auto must pick the hybrid; K1 on bf16 rows and K2 on bf16
+     slabs exactly once per aggregation and once in the precompute; the
+     loss finite and falling; the epoch beside the f32 and [lowp] ones,
+     peak memory); at P=4, appended to the P=4 main path's command line on
+     its artifacts (no repartitioning), 4 epochs, in which each rank first
+     holds K1 and K2 on bf16 to their plain versions on its own layout
+     (phase 2's bounds and controls), then launches them as at P=1; the
+     loss finite, every rank ending with rank 0's parameters; it prints
+     each rank's epoch and exchange share and the int8 wire's MB per
+     exchange beside the f32 path's;
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 12 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -78,8 +92,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-5 (relative);
   7. [anchor]: the JAX package's calibrated accuracy gate
      (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
-     inside (0.93, 0.985), the TPU recipe's quantized stack at P=4 and rate
-     0.1 within 0.005 of it, the same stack in bf16 recorded;
+     inside (0.93, 0.985), the quantized stack of the recipe's finer knobs
+     at P=4 and rate 0.1 within 0.005 of it, the same stack in bf16
+     recorded;
   8. print the card's name and power limit, one {"kernels": [...]} line
      (every kernel variant) and, last, {"ok": true, "device": {...}}.
 
@@ -162,10 +177,27 @@ CLI_FLAGS = ["--dataset", "synth-reddit:0.02", "--n-partitions", str(PARTS),
 CLI_EPOCHS = (12, 16)
 CLI_RTOL = 1e-5
 CLI_TIMEOUT_S = 300
+# the TPU recipe's own perf knobs, as scripts/reddit.sh's comment lists
+# them ("append --dtype bfloat16 ..."): K1 on bf16 rows and K2 on bf16
+# slabs on every aggregation. The int8 gathers and tiles of [lowp] are its
+# finer knobs.
+RECIPE_TPU = ["--dtype", "bfloat16", "--spmm", "auto", "--use-pallas",
+              "--halo-wire", "int8"]
+RECIPE_P4_EPOCHS = 4    # [recipe]'s run at P=4
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def recipe_fields():
+    """RECIPE_TPU as Config fields: those the port's parser sets otherwise
+    than for an empty command line."""
+    import dataclasses
+    from bnsgcn_tpu_torch.config import parse_config
+    got, default = parse_config(RECIPE_TPU), parse_config([])
+    return {f.name: getattr(got, f.name) for f in dataclasses.fields(got)
+            if getattr(got, f.name) != getattr(default, f.name)}
 
 
 def mean_from_1(xs):
@@ -751,7 +783,9 @@ def parts_runs(cfg, args, part_path):
             f"ms, peak memory {ranks[-1]['max_memory_gib']:.2f} GiB, "
             f"launches K1 {rep['launches']['K1']} K2 {rep['launches']['K2']}")
     bns = bns_phase(main4, r4, ranks, args.reps)
-    return {"scale": args.parts_scale, "law_losses_p4": r4.losses,
+    recipe = recipe_p4(main4, g)
+    return {"scale": args.parts_scale, "recipe": recipe,
+            "law_losses_p4": r4.losses,
             "law_losses_p1": r1.losses, "law_max_rel": rel,
             "law_p1_epoch_s": mean_from_1(r1.epoch_times),
             "rate": BNS_RATE, "losses": res.losses, "val_acc": res.val_acc,
@@ -977,10 +1011,11 @@ def last_terms(rows, hf):
     return out
 
 
-def compare_k1_lowp(fns, widths, gen, reps, detail):
-    """K1's narrow-row variants on the hybrid's residual layout, both
-    directions, as the low-precision main path calls them: bf16, int8 and
-    e4m3 rows with K2's f32 output shape as the base, out bf16, at
+def compare_k1_lowp(fns, widths, gen, reps, detail,
+                    kinds=("bf16", "int8", "fp8")):
+    """K1's narrow-row variants (`kinds`) on the hybrid's residual layout,
+    both directions, as the low-precision main path calls them: bf16, int8
+    and e4m3 rows with K2's f32 output shape as the base, out bf16, at
     widths[0] (bf16 also at widths[1], the precompute's raw feature width).
     int8: bitwise equal to the
     plain version, and its raw int32 sums too; bf16 and e4m3 within
@@ -994,6 +1029,8 @@ def compare_k1_lowp(fns, widths, gen, reps, detail):
     out = {}
     for kind, ws in (("bf16", widths), ("int8", widths[:1]),
                      ("fp8", widths[:1])):
+        if kind not in kinds:
+            continue
         max_err, timing = 0.0, None
         for direction in ("fwd", "bwd"):
             for hdim in ws:
@@ -1090,13 +1127,14 @@ def time_k1_lowp(kind, rows, hq, scale, base, base_row, reps):
     return t
 
 
-def compare_k2_lowp(fns, widths, gen, reps, detail):
-    """K2's narrow-slab variants on the forward and backward tile stacks at
-    widths[0]: bf16 slabs (also at widths[1], the raw feature width) within
-    2 n u sum|a x| (the
-    products are exact in f32); int8 slabs with one per-call scale (raw
-    int32 sums) and with per-slab scales (each tile's int32 sums scaled and
-    added in tile order), both bitwise equal to the plain version. Control:
+def compare_k2_lowp(fns, widths, gen, reps, detail,
+                    kinds=("bf16", "int8", "int8-slab")):
+    """K2's narrow-slab variants (`kinds`) on the forward and backward tile
+    stacks at widths[0]: bf16 slabs (also at widths[1], the raw feature
+    width) within 2 n u sum|a x| (the products are exact in f32); int8
+    slabs with one per-call scale (raw int32 sums) and with per-slab scales
+    (each tile's int32 sums scaled and added in tile order), both bitwise
+    equal to the plain version. Control:
     the plain version skipping each row-block's last tile must be rejected.
     Times each forward at widths[0]. Returns {variant: (max abs err,
     timing)}."""
@@ -1109,6 +1147,8 @@ def compare_k2_lowp(fns, widths, gen, reps, detail):
     out = {}
     for kind, ws in (("bf16", widths), ("int8", widths[:1]),
                      ("int8-slab", widths[:1])):
+        if kind not in kinds:
+            continue
         max_err, timing = 0.0, None
         for direction, spec in (("fwd", op.fwd), ("bwd", op.bwd)):
             nrb = spec.n_row_blocks
@@ -1258,73 +1298,183 @@ def time_k2_lowp(kind, spec, tiles, rowb, colb, off, ent, ent_off, x, scale,
     return t
 
 
-def lowp_runs(cfg, pr, args):
-    """[lowp] training, on the P=1 phase's graph and layouts (no rebuild:
-    the operator shares them and changes only its dtypes): the low-precision
-    main path, args.epochs epochs of --dtype bfloat16 --spmm auto
-    --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
-    hybrid), losses finite, K1 and K2 launched int8 on every aggregation
-    and bf16 in the precompute, K2 on the tensor cores; then the guard's
-    route, LOWP_GUARD_EPOCHS
-    epochs of the same stack (--spmm hybrid, the pick made) with e4m3
-    gathers and the dense tiles held past their int8 row cap (row_cap 0),
-    so they take the per-slab mode.
-    Launch counts are reset just before each run and read just after."""
+def dtype_run(name, c, pr, want, **kw):
+    """One training run of c on the P=1 phase's graph and layouts (no
+    rebuild: the operator shares them and changes only its dtypes; `kw`,
+    the row cap, goes to prepare_part): the SpMM must be the hybrid, the
+    launch counts by variant, reset just before the run and read just
+    after, must be `want` (K1's, K2's), and the losses finite."""
     import torch
     from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
     from bnsgcn_tpu_torch.run import prepare_part, run_training
+    t0 = time.perf_counter()
+    pl = prepare_part(c, pr.art, (pr.val_g, pr.test_g), pr.device, log,
+                      reuse=pr.fns, **kw)
+    setup_s = time.perf_counter() - t0
+    if pl.fns.spmm_kind != "hybrid":
+        raise AssertionError(f"{name}: spmm={c.spmm} resolved to "
+                             f"{pl.fns.spmm_kind}, not hybrid")
+    bucket_sum.launches.reset()
+    tile_matmul.launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    res = run_training(c, log=log, prepared=pl)
+    k1 = dict(bucket_sum.launches.by_kind)
+    k2 = dict(tile_matmul.launches.by_kind)
+    if (k1, k2) != want:
+        raise AssertionError(f"{name}: K1 launched {k1}, K2 {k2}; expected "
+                             f"{want[0]} and {want[1]}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"{name}: non-finite loss {res.losses}")
+    out = {"losses": res.losses, "epoch_times_s": res.epoch_times,
+           "epoch_from_1_s": mean_from_1(res.epoch_times),
+           "launches": {"K1": k1, "K2": k2}, "setup_s": setup_s,
+           "modes": dict(pl.fns.spmm.mode),
+           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "val_acc": res.val_acc, "test_acc": res.test_acc}
+    del pl, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def lowp_runs(cfg, pr, args):
+    """[lowp] training on the P=1 phase's graph and layouts (dtype_run):
+    the recipe's finer knobs, args.epochs epochs of --dtype bfloat16 --spmm
+    auto --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick
+    the hybrid), K1 and K2 launched int8 on every aggregation and bf16 in
+    the precompute, K2 on the tensor cores; then the guard's route,
+    LOWP_GUARD_EPOCHS epochs of the same stack (--spmm hybrid, the pick
+    made) with e4m3 gathers and the dense tiles held past their int8 row
+    cap (row_cap 0), so they take the per-slab mode."""
     lc = cfg.replace(dtype="bfloat16", spmm="auto", use_pallas=True,
                      spmm_dense="int8", spmm_gather="int8")
-    evals = (pr.val_g, pr.test_g)
     out = {}
     for name, c, n_ep, kw in (
             ("main", lc, args.epochs, {}),
             ("guard", lc.replace(spmm="hybrid", spmm_gather="fp8",
                                  eval=False),
              LOWP_GUARD_EPOCHS, {"row_cap": 0})):
-        c = c.replace(n_epochs=n_ep, log_every=n_ep)
-        t0 = time.perf_counter()
-        pl = prepare_part(c, pr.art, evals, pr.device, log, reuse=pr.fns,
-                          **kw)
-        setup_s = time.perf_counter() - t0
-        if pl.fns.spmm_kind != "hybrid":
-            raise AssertionError(f"[lowp] spmm=auto resolved to "
-                                 f"{pl.fns.spmm_kind}, not hybrid")
-        bucket_sum.launches.reset()
-        tile_matmul.launches.reset()
-        torch.cuda.reset_peak_memory_stats()
-        res = run_training(c, log=log, prepared=pl)
-        k1 = dict(bucket_sum.launches.by_kind)
-        k2 = dict(tile_matmul.launches.by_kind)
         passes = (c.n_layers - 1) * n_ep * 2
         q1 = "int8" if c.spmm_gather == "int8" else "fp8"
         q2 = "tc-int8" if name == "main" else "tc-int8-slab"
-        want1, want2 = {q1: passes, "bf16": 1}, {q2: passes, "tc-bf16": 1}
-        if k1 != want1 or k2 != want2:
-            raise AssertionError(f"[lowp] {name}: K1 launched {k1}, K2 {k2}; "
-                                 f"expected {want1} and {want2}")
-        if not all(math.isfinite(x) for x in res.losses):
-            raise AssertionError(f"[lowp] {name}: non-finite loss "
-                                 f"{res.losses}")
-        out[name] = {"losses": res.losses, "epoch_times_s": res.epoch_times,
-                     "epoch_from_1_s": mean_from_1(res.epoch_times),
-                     "launches": {"K1": k1, "K2": k2}, "setup_s": setup_s,
-                     "modes": dict(pl.fns.spmm.mode),
-                     "max_memory_gib":
-                         torch.cuda.max_memory_allocated() / 2 ** 30,
-                     "val_acc": res.val_acc, "test_acc": res.test_acc}
-        del pl, res
-        torch.cuda.empty_cache()
+        out[name] = dtype_run(f"[lowp] {name}",
+                              c.replace(n_epochs=n_ep, log_every=n_ep), pr,
+                              ({q1: passes, "bf16": 1},
+                               {q2: passes, "tc-bf16": 1}), **kw)
     return out
+
+
+def recipe_want(c):
+    """The launch counts by variant of a RECIPE_TPU run of c, on every
+    rank: K1 on bf16 rows and K2 on bf16 slabs once per aggregation (the
+    n_layers - 1 layers after the precompute, forward and backward, every
+    epoch) plus the precompute's one."""
+    n = (c.n_layers - 1) * c.n_epochs * 2 + 1
+    return {"bf16": n}, {"tc-bf16": n}
+
+
+def recipe_p1(cfg, pr, args):
+    """[recipe] at P=1: args.epochs epochs of the P=1 main path's model
+    with RECIPE_TPU on its graph and layouts (dtype_run: auto must pick the
+    hybrid; K1 and K2 bf16 on every aggregation); the loss must fall."""
+    c = cfg.replace(**recipe_fields(), n_epochs=args.epochs,
+                    log_every=args.epochs)
+    x = dtype_run("[recipe] P=1", c, pr, recipe_want(c))
+    if not x["losses"][-1] < x["losses"][0]:
+        raise AssertionError(f"[recipe] P=1: loss did not fall: "
+                             f"{x['losses']}")
+    return x
+
+
+def rank_kernel_check_bf16(pr):
+    """[recipe]'s rank hook at P=4: K1 on bf16 rows and K2 on bf16 slabs
+    against their plain versions on the rank's own layout, at H=n_hidden
+    and the raw feature width, with phase 2's bounds and controls
+    (compare_k1_lowp, compare_k2_lowp)."""
+    import torch
+    if pr.fns.spmm_kind != "hybrid":
+        raise AssertionError(f"[recipe] rank {pr.rank}: spmm={pr.cfg.spmm} "
+                             f"resolved to {pr.fns.spmm_kind}, not hybrid")
+    gen = torch.Generator(device=pr.device).manual_seed(4321 + pr.rank)
+    widths = (pr.cfg.n_hidden, pr.cfg.n_feat)
+    detail = []
+    k1 = compare_k1_lowp(pr.fns, widths, gen, 0, detail, kinds=("bf16",))
+    k2 = compare_k2_lowp(pr.fns, widths, gen, 0, detail, kinds=("bf16",))
+    torch.cuda.empty_cache()
+    return {"K1": k1["bf16"][0], "K2": k2["bf16"][0], "widths": widths,
+            "detail": detail}
+
+
+def recipe_p4(main4, g):
+    """[recipe] at P=4: RECIPE_TPU appended to the P=4 main path's command
+    line (the flagship's: --inductive, rate 0.1, dropout 0.5; 4 ranks
+    sharing the card over gloo), RECIPE_P4_EPOCHS epochs on its artifacts
+    (--skip-partition). Each rank first holds K1 and K2 on bf16 to their
+    plain versions (rank_kernel_check_bf16); then every rank's launch
+    counts must be recipe_want's, the loss finite, and the ranks end with
+    rank 0's parameters (run_training checks). Returns the details, with
+    the int8 wire's MB per exchange beside the f32 path's."""
+    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
+    from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
+    from bnsgcn_tpu_torch.run import artifacts_dir, run_training
+    c = main4.replace(**recipe_fields(), n_epochs=RECIPE_P4_EPOCHS,
+                      log_every=RECIPE_P4_EPOCHS, skip_partition=True)
+    t0 = time.perf_counter()
+    res = run_training(c, g=g, log=log, rank_hook=rank_kernel_check_bf16)
+    secs = time.perf_counter() - t0
+    want = dict(zip(("K1", "K2"), recipe_want(c)))
+    for rep in res.ranks:
+        if rep["kinds"] != want:
+            raise AssertionError(f"[recipe] P={PARTS} rank {rep['rank']}: "
+                                 f"launched {rep['kinds']}, not {want}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"[recipe] P={PARTS}: non-finite loss "
+                             f"{res.losses}")
+    art = load_artifacts(artifacts_dir(c), parts=[0])
+    wire = {}
+    for name in ("native", c.halo_wire):
+        spec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                 c.sampling_rate, wire=name)
+        wire[name] = wire_bytes(spec, c.n_hidden) / 1e6
+    ranks = []
+    for rep in res.ranks:
+        ep, ex = (mean_from_1(rep[k]) for k in ("epoch_times", "comm_times"))
+        ranks.append({"rank": rep["rank"], "epoch_s": ep, "exchange_s": ex,
+                      "exchange_share": ex / max(ep, 1e-12),
+                      "reduce_s": mean_from_1(rep["reduce_times"]),
+                      "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
+                      "launches": rep["kinds"], "check": rep["hook"]})
+    for x in ranks:
+        log(f"[recipe] P={PARTS} rank {x['rank']} (4 ranks sharing one card "
+            f"over gloo, not a 4-card number), {' '.join(RECIPE_TPU)}, "
+            f"inductive, rate {c.sampling_rate}: mean of epochs 1.. "
+            f"{x['epoch_s'] * 1e3:.1f} ms, exchange "
+            f"{x['exchange_s'] * 1e3:.1f} ms ({x['exchange_share']:.1%} of "
+            f"the epoch), all-reduce {x['reduce_s'] * 1e3:.1f} ms, peak "
+            f"memory {x['max_memory_gib']:.2f} GiB; launches K1 "
+            f"{x['launches']['K1']} K2 {x['launches']['K2']}; K1 bf16 max "
+            f"abs err {x['check']['K1']:.3e}, K2 bf16 "
+            f"{x['check']['K2']:.3e} on its own layout at H="
+            f"{tuple(x['check']['widths'])} (within their bounds, the "
+            f"controls rejected)")
+    log(f"[recipe] P={PARTS}: {c.n_epochs} epochs, losses "
+        + " ".join(f"{v:.4f}" for v in res.losses)
+        + f"; int8 wire {wire[c.halo_wire]:.2f} MB per exchange at H="
+        f"{c.n_hidden} (the f32 main path's: {wire['native']:.2f}); val "
+        f"{res.val_acc:.3f}, test {res.test_acc:.3f}; every rank ends with "
+        f"rank 0's parameters ({secs:.1f} s)")
+    return {"losses": res.losses, "val_acc": res.val_acc,
+            "test_acc": res.test_acc, "wire_mb": wire[c.halo_wire],
+            "wire_mb_f32": wire["native"], "ranks": ranks, "seconds": secs}
 
 
 def anchor_phase(work):
     """[anchor]: the JAX package's calibrated accuracy gate on the card
     (bnsgcn_tpu_torch/anchor.py; tests/test_accuracy_anchor.py's bands):
-    exact (P=1, rate 1.0, f32, ELL) inside EXACT_BAND; the TPU recipe's
-    stack (P=4 ranks sharing the card over gloo, rate 0.1, hybrid, int8
-    dense tiles, int8 gathers, int8 halo wire) within QUANT_TOL of exact;
-    the same stack in bf16 recorded beside them, not gated."""
+    exact (P=1, rate 1.0, f32, ELL) inside EXACT_BAND; the stack of the
+    recipe's finer knobs (P=4 ranks sharing the card over gloo, rate 0.1,
+    hybrid, int8 dense tiles, int8 gathers, int8 halo wire) within
+    QUANT_TOL of exact; the same stack in bf16 recorded beside them, not
+    gated."""
     from bnsgcn_tpu_torch import anchor
     g = anchor.anchor_graph()
     quant = dict(spmm="hybrid", use_pallas=True, spmm_gather="int8",
@@ -1567,6 +1717,16 @@ def main(argv=None) -> int:
             f"{x['modes']}; launches K1 {x['launches']['K1']} K2 "
             f"{x['launches']['K2']}; peak memory {x['max_memory_gib']:.2f} "
             f"GiB; layout reused, set-up {x['setup_s']:.1f} s")
+    # [recipe]: the TPU recipe's own knobs on the same graph and layouts
+    rec1 = recipe_p1(cfg, pr, args)
+    log(f"[recipe] P=1 {' '.join(RECIPE_TPU)}: spmm=auto -> hybrid; losses "
+        + " ".join(f"{v:.4f}" for v in rec1["losses"])
+        + f"; epoch {rec1['epoch_from_1_s'] * 1e3:.1f} ms, mean of epochs "
+        f"1.. (f32: {p1['epoch_from_1_s'] * 1e3:.1f}, [lowp] main: "
+        f"{lowp['main']['epoch_from_1_s'] * 1e3:.1f}); launches K1 "
+        f"{rec1['launches']['K1']} K2 {rec1['launches']['K2']}; peak memory "
+        f"{rec1['max_memory_gib']:.2f} GiB; val {rec1['val_acc']:.3f}, test "
+        f"{rec1['test_acc']:.3f}")
     del pr
     torch.cuda.empty_cache()
 
@@ -1583,11 +1743,13 @@ def main(argv=None) -> int:
     anc = anchor_phase(work)
     shutil.rmtree(work, ignore_errors=True)
     # launches by variant on the main paths: the P=1 run, every rank of the
-    # P=4 main path, and [lowp]'s two runs
+    # P=4 main path, [lowp]'s two runs, and [recipe]'s at P=1 and P=4
     counts = {"K1": {}, "K2": {}}
     for src in ([{"K1": p1_kinds["K1"], "K2": p1_kinds["K2"]}]
                 + [rep["kinds"] for rep in res4.ranks]
-                + [x["launches"] for x in lowp.values()]):
+                + [x["launches"] for x in lowp.values()]
+                + [rec1["launches"]]
+                + [x["launches"] for x in parts["recipe"]["ranks"]]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
@@ -1603,9 +1765,14 @@ def main(argv=None) -> int:
         for kind, (err, t) in res_k.items():
             name = f"{prefix}_{kind.replace('-', '_')}"
             errs[name], times[name] = err, t
+    # and the bf16 variants' checks on every rank of [recipe] at P=4
+    for name, k in (("ell_bucket_sum_bf16", "K1"), ("tile_matmul_bf16", "K2")):
+        errs[name] = max([errs[name]] + [x["check"][k] for x in
+                                          parts["recipe"]["ranks"]])
 
     # 8. report
-    out = {"card": smi, "p1": p1, "lowp": lowp, "parts": parts, "cli": cli,
+    out = {"card": smi, "p1": p1, "lowp": lowp, "recipe_p1": rec1,
+           "parts": parts, "cli": cli,
            "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:

@@ -327,6 +327,86 @@ def test_bucket_sum_kernel_every_e4m3_code(cuda, h_dim):
             assert not bool(((out.float() - wrong).abs() <= bound).all())
 
 
+# bf16 rows of every remainder of a 4-term batch, and more than 8 terms
+_BF16_LENS = (0, 1, 3, 4, 5, 9)
+
+
+def _k1_into(rows, h, base, base_row, out):
+    """K1 on bf16 rows into a caller's `out` [n_rows, H] (bf16, contiguous,
+    at any address): the launch ell_apply makes, without its allocation,
+    so that a test can hand the kernel an output off 16-byte alignment."""
+    from bnsgcn_tpu_torch.ops import bucket_sum as k1
+    k1._kernel(h.data_ptr(), k1.ROW_KINDS[h.dtype], rows.row_ptr.data_ptr(),
+               rows.src.data_ptr(), rows.work.data_ptr(), rows.n_rows,
+               rows.n_long, None,
+               None if base is None else base.data_ptr(),
+               None if base is None else base_row.data_ptr(), out.data_ptr(),
+               k1.OUT_KINDS[torch.bfloat16], h.shape[1],
+               buildlib.raw_stream(h.get_device()))
+    return out
+
+
+def _misaligned(x):
+    """A copy of x whose storage starts one element past x's alignment."""
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return odd.view_as(x).copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim", [256, 64, 72])
+def test_bucket_sum_kernel_bf16_batches(cuda, h_dim):
+    """bf16 rows at 16-byte loads (the batched gather, 4 terms per batch,
+    and the 16-byte epilogue): rows of each of _BF16_LENS terms and a row
+    past the long-row threshold, at that threshold and at 8 (every row of
+    9 terms a long row too); within _k1_lowp's bound of the plain version,
+    with and without a base, bitwise equal on a second call; the plain
+    version without each row's last term is rejected; an output or a base
+    off 16-byte alignment takes the element-wise epilogue with the same
+    bits."""
+    n_src = 300
+    rng = np.random.default_rng(h_dim)
+    lens = np.array([_BF16_LENS[i % len(_BF16_LENS)] for i in range(95)]
+                    + [LONG_ROW + 77])
+    idx = np.full((len(lens), lens.max()), n_src, np.int32)
+    for i, n in enumerate(lens):
+        idx[i, :n] = rng.integers(0, n_src, n)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    h = torch.randn(n_src, h_dim, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    hf = h.float()
+    for long_row in (LONG_ROW, 8):
+        rows = _one_bucket(idx, n_src, cuda).with_long_row(long_row)
+        assert rows.n_long == (1 if long_row == LONG_ROW else
+                               int((lens > 8).sum()))
+        base = torch.randn(rows.n_rows + 3, h_dim, generator=gen,
+                           device=cuda)
+        base_row = torch.randperm(rows.n_rows + 3, generator=gen,
+                                  device=cuda)[:rows.n_rows].to(torch.int32)
+        deg = rows.row_ptr[1:] - rows.row_ptr[:-1]
+        last = torch.zeros((rows.n_rows, h_dim), device=cuda)
+        has = deg > 0
+        last[has] = hf[rows.src[(rows.row_ptr[1:][has] - 1).long()].long()]
+        for b, br in ((None, None), (base, base_row)):
+            before = k1_launches.total
+            out, ref, bound = _k1_lowp(rows, h, b, br, None, torch.bfloat16)
+            assert k1_launches.total == before + 1
+            assert out.dtype == torch.bfloat16
+            assert bool(torch.isfinite(out.float()).all())
+            assert bool(((out.float() - ref.float()).abs() <= bound).all())
+            assert not bool(((out.float() - (ref.float() - last)).abs()
+                             <= bound).all())
+            assert torch.equal(out, ell_apply(rows, h, b, br))
+            odd_out = _misaligned(torch.empty_like(out))
+            assert odd_out.data_ptr() % 16 != 0
+            _k1_into(rows, h, b, br, odd_out)
+            torch.cuda.synchronize()
+            assert torch.equal(odd_out, out)
+            if b is not None:
+                odd_base = _misaligned(b)
+                assert odd_base.data_ptr() % 16 != 0
+                assert torch.equal(ell_apply(rows, h, odd_base, br), out)
+
+
 @pytest.mark.cuda
 def test_bucket_sum_kernel_on_an_empty_layout(cuda):
     """A layout without edges: K1 still launches, writes zeros, or the base

@@ -34,9 +34,16 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     array-equal to the JAX 4-device run (both quantize the same rows with
     the same per-block scales), VJP to 1e-6; the quantizers' payloads and
     scales array-equal to the JAX package's `_quant` before any exchange;
-  * the TPU recipe at rate 0.5 (--spmm hybrid --use-pallas --spmm-dense
-    int8 --spmm-gather int8 --halo-wire int8, f32): GraphSAGE with use_pp
-    against the JAX 4-device run of the same flags (the RECIPE_* bounds).
+  * the TPU recipe's finer knobs at rate 0.5 (--spmm hybrid --use-pallas
+    --spmm-dense int8 --spmm-gather int8 --halo-wire int8, f32): GraphSAGE
+    with use_pp against the JAX 4-device run of the same flags (the
+    FINER_* bounds);
+  * the TPU recipe's own knobs at rate 0.5 (--dtype bfloat16 --spmm hybrid
+    --use-pallas --halo-wire int8, native gathers and dense tiles; the
+    recipe's --spmm auto made hybrid, as auto picks on the Reddit-shaped
+    graph): GraphSAGE with use_pp, 3-step losses against the JAX 4-device
+    run of the same flags within BF16_LOSS_RTOL, the ranks replicated;
+    chip_smoke.py's RECIPE_TPU is the knob list of scripts/reddit.sh.
 
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
@@ -75,7 +82,8 @@ MODELS = [("graphsage", False), ("graphsage", True), ("gcn", True)]
 SPMMS = ["ell", "hybrid"]
 RATE = 0.5                      # the BNS cases' sampling rate
 WIRES = ("bf16", "int8", "fp8")   # the quantized halo wires
-# the TPU recipe's quantized flags, and its bounds against the JAX run: the
+# the TPU recipe's finer knobs (its int8 gathers and dense tiles) with its
+# int8 wire, in f32, and their bounds against the JAX run: the
 # port's dense tiles take one int8 scale per call (dense_apply_pallas), the
 # JAX package's on the CPU one per slab (its XLA route), so the two
 # quantize the slabs differently, by up to half an int8 step (amax/254) per
@@ -84,11 +92,21 @@ WIRES = ("bf16", "int8", "fp8")   # the quantized halo wires
 # Parameters: 10 lr absolute, since Adam turns a gradient entry near zero
 # whose sign the rounding flips into a step of up to ~lr either way, each
 # of the 3 epochs (measured 5.8% of the largest parameter)
-RECIPE = dict(spmm="hybrid", use_pallas=True, spmm_dense="int8",
-              spmm_gather="int8", halo_wire="int8")
-RECIPE_LOGIT_FRAC = 1e-2
-RECIPE_LOSS_RTOL = 2e-3
-RECIPE_PARAM_ATOL = 10 * 0.01
+FINER_KNOBS = dict(spmm="hybrid", use_pallas=True, spmm_dense="int8",
+                   spmm_gather="int8", halo_wire="int8")
+FINER_LOGIT_FRAC = 1e-2
+FINER_LOSS_RTOL = 2e-3
+FINER_PARAM_ATOL = 10 * 0.01
+# the TPU recipe's own knobs (scripts/reddit.sh: --dtype bfloat16 --spmm
+# auto --use-pallas --halo-wire int8), with the hybrid that auto picks on
+# the Reddit-shaped graph forced on this small one. Bound on the losses:
+# tests/test_torch_lowp.py's BF16_LOSS_RTOL, with its reasoning: both
+# frameworks round activations to bf16 at every layer (2^-8 relative per
+# rounding) but at different points, and 3 steps of bf16 Adam at lr 0.01
+# compound that; the int8 wire quantizes the same bf16 rows in both
+RECIPE_TPU = dict(dtype="bfloat16", spmm="hybrid", use_pallas=True,
+                  halo_wire="int8")
+BF16_LOSS_RTOL = 2e-2
 BNS_MODEL = ("graphsage", True)   # the model of the precompute check
 UNBIASED_EPOCHS = 300
 
@@ -109,10 +127,10 @@ def _quiet(*a, **k):
 def _steps(pr, model_init):
     """Forward logits at the initial parameters, then EPOCHS train steps."""
     blk, model, opt = init_training(pr, model_init)
-    logits = pr.fns.forward(model, blk, 0).detach().numpy()
+    logits = pr.fns.forward(model, blk, 0).detach().float().numpy()
     losses = [float(pr.fns.train_step(model, opt, blk, e))
               for e in range(EPOCHS)]
-    return logits, losses, {k: v.detach().numpy().copy()
+    return logits, losses, {k: v.detach().float().numpy().copy()
                             for k, v in model.state_dict().items()}
 
 
@@ -201,9 +219,10 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
                                            cot[ctx.rank], ctx.comm)
     init = {k: torch.from_numpy(v)
             for k, v in inits[MODELS.index(BNS_MODEL)].items()}
-    pr = prepare_part(_cfg(*BNS_MODEL, "hybrid", P, RATE).replace(**RECIPE),
-                      art, None, ctx.device, _quiet, ctx.rank, ctx.comm)
-    out["recipe"] = _steps(pr, init)
+    for key, flags in (("recipe", FINER_KNOBS), ("recipe_tpu", RECIPE_TPU)):
+        pr = prepare_part(_cfg(*BNS_MODEL, "hybrid", P, RATE).replace(
+            **flags), art, None, ctx.device, _quiet, ctx.rank, ctx.comm)
+        out[key] = _steps(pr, init)
 
     # --inductive: the train subgraph's artifacts, rate RATE
     art_i = load_artifacts(induc_path, parts=[ctx.rank])
@@ -219,9 +238,11 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
 
 def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
     """One case of the JAX package on the 4-device mesh: (forward logits,
-    EPOCHS losses, final parameters) from jax.random.key(9)'s initial
-    parameters (returned too, as numpy), sample key jax.random.key(0);
-    `flags` add Config fields (the TPU recipe's)."""
+    EPOCHS losses, final parameters, as f32 numpy) from jax.random.key(9)'s
+    initial parameters (returned too, as numpy), sample key
+    jax.random.key(0); `flags` add Config fields (the TPU recipe's). Under
+    dtype bfloat16 the parameters, the features and the precompute are
+    cast as bnsgcn_tpu/run.py casts them."""
     import jax
     import jax.numpy as jnp
 
@@ -241,27 +262,32 @@ def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
         block_occupancy=2), **flags})
     params, state = init_params(jax.random.key(9), spec)
     params_np = jax.tree.map(np.asarray, params)
+    dtype = jnp.bfloat16 if cfg.dtype == "bfloat16" else jnp.float32
     fns, _, tb, tbf = build_step_fns(cfg, spec, art_j, mesh)
     blk_np = build_block_arrays(art_j, model)
     blk_np.update(fns.extra_blk)
     for k in fns.drop_blk_keys:
         blk_np.pop(k, None)
     blk = place_blocks(blk_np, mesh)
+    blk["feat"] = blk["feat"].astype(dtype)
     tb = place_replicated(tb, mesh)
     if use_pp:
-        blk["feat"] = fns.precompute(blk, place_replicated(tbf, mesh))
+        blk["feat"] = fns.precompute(
+            blk, place_replicated(tbf, mesh)).astype(dtype)
     keys = (jax.random.key(0), jax.random.key(1))
-    pp = place_replicated(params_np, mesh)
+    pp = place_replicated(jax.tree.map(lambda v: jnp.asarray(v, dtype),
+                                       params_np), mesh)
     ss = place_replicated(state, mesh)
-    logits = np.asarray(fns.forward(pp, ss, jnp.uint32(0), blk, tb, *keys))
-    _, _, opt = j_init_training(cfg, spec, mesh)
+    logits = np.asarray(fns.forward(pp, ss, jnp.uint32(0), blk, tb, *keys),
+                        np.float32)
+    _, _, opt = j_init_training(cfg, spec, mesh, dtype=dtype)
     losses = []
     for e in range(EPOCHS):
         pp, ss, opt, loss = fns.train_step(pp, ss, opt, jnp.uint32(e), blk,
                                            tb, *keys)
         losses.append(float(loss))
-    return (logits, losses, jax.tree.map(np.asarray, jax.device_get(pp))), \
-        params_np
+    return (logits, losses, jax.tree.map(lambda v: np.asarray(v, np.float32),
+                                         jax.device_get(pp))), params_np
 
 
 def _jax_reference(art_j, h, cot, art_ij):
@@ -347,7 +373,10 @@ def _jax_reference(art_j, h, cot, art_ij):
                 art_j, mesh, model, use_pp, rate)
         inits.append(params_np)
     ref["induc"], _ = _jax_train(art_ij, mesh, *BNS_MODEL, RATE)
-    ref["recipe"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE, **RECIPE)
+    ref["recipe"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE,
+                                  **FINER_KNOBS)
+    ref["recipe_tpu"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE,
+                                      **RECIPE_TPU)
     return ref, inits
 
 
@@ -616,10 +645,10 @@ def test_wire_quant_payloads_match_jax(wire):
 
 
 def test_tpu_recipe_p4_matches_jax_p4(runs):
-    """The TPU recipe's flags at P=4, rate RATE (hybrid, int8 dense tiles,
-    int8 gathers, int8 wire, f32), GraphSAGE with use_pp, dropout 0:
+    """The TPU recipe's finer knobs at P=4, rate RATE (hybrid, int8 dense
+    tiles, int8 gathers, int8 wire, f32), GraphSAGE with use_pp, dropout 0:
     logits, 3-step losses and parameters against the JAX 4-device run of
-    the same flags, within the RECIPE_* bounds (the dense tiles' scale
+    the same flags, within the FINER_* bounds (the dense tiles' scale
     granularity differs, see there), and the ranks end replicated."""
     from bnsgcn_tpu_torch.models.gnn import spec_from_config
     from bnsgcn_tpu_torch.trainer import params_from_jax
@@ -635,13 +664,51 @@ def test_tpu_recipe_p4_matches_jax_p4(runs):
         ref = logits_ref[r][art.inner_mask[r]]
         np.testing.assert_allclose(
             logits[art.inner_mask[r]], ref, rtol=0,
-            atol=RECIPE_LOGIT_FRAC * np.abs(ref).max())
-        np.testing.assert_allclose(losses, losses_ref, rtol=RECIPE_LOSS_RTOL)
+            atol=FINER_LOGIT_FRAC * np.abs(ref).max())
+        np.testing.assert_allclose(losses, losses_ref, rtol=FINER_LOSS_RTOL)
         for k in params:
             np.testing.assert_allclose(params[k], want[k], err_msg=k, rtol=0,
-                                       atol=RECIPE_PARAM_ATOL)
+                                       atol=FINER_PARAM_ATOL)
             np.testing.assert_array_equal(params[k], first[k])
     assert losses[-1] < losses[0]
+
+
+def test_tpu_recipe_own_knobs_p4_matches_jax_p4(runs):
+    """The TPU recipe's own knobs at P=4, rate RATE (RECIPE_TPU: bf16
+    parameters, activations and Adam moments, K1 on bf16 rows, K2 on bf16
+    slabs, the int8 wire), GraphSAGE with use_pp, dropout 0: 3-step losses
+    against the JAX 4-device run of the same flags within BF16_LOSS_RTOL;
+    every rank ends with rank 0's parameters, and the loss falls in
+    both."""
+    losses_ref = runs["ref"]["recipe_tpu"][1]
+    _, losses0, first = runs["ranks"][0]["recipe_tpu"]
+    for out in runs["ranks"]:
+        _, losses, params = out["recipe_tpu"]
+        np.testing.assert_allclose(losses, losses_ref, rtol=BF16_LOSS_RTOL)
+        assert losses == losses0
+        assert sorted(params) == sorted(first)
+        for k in params:
+            np.testing.assert_array_equal(params[k], first[k])
+    assert losses0[-1] < losses0[0] and losses_ref[-1] < losses_ref[0]
+    # the bf16 arithmetic really ran: the f32 finer-knob run differs
+    assert losses0 != runs["ranks"][0]["recipe"][1]
+
+
+def test_chip_smoke_recipe_is_reddit_sh_knobs():
+    """chip_smoke.py's RECIPE_TPU is the knob list that scripts/reddit.sh's
+    comment tells a user to append, and the Config fields it sets are
+    RECIPE_TPU's here (with --spmm auto)."""
+    import os
+
+    import chip_smoke
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "reddit.sh")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    at = next(i for i, ln in enumerate(lines)
+              if ln.startswith("#") and ln.rstrip().endswith("append"))
+    assert lines[at + 1].lstrip("# ").split() == chip_smoke.RECIPE_TPU
+    assert chip_smoke.recipe_fields() == dict(RECIPE_TPU, spmm="auto")
 
 
 def test_sampling_rate_reduces_payload_not_shapes():
