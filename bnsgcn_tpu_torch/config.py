@@ -27,8 +27,8 @@ class ConfigError(ValueError):
 class Config:
     # --- data / partitioning ---
     dataset: str = "reddit"
-    data_path: str = "./dataset/"       # parsed and carried; the on-disk
-                                        # readers are refused by dataset name
+    data_path: str = "./dataset/"       # root of the on-disk datasets
+                                        # (data/disk_readers.py layouts)
     part_path: str = "./partition/"     # where the artifacts are written
     graph_name: str = ""                # artifact directory ('' = derived)
     n_partitions: int = 2
@@ -55,6 +55,9 @@ class Config:
     # --- bookkeeping ---
     log_every: int = 10
     eval: bool = True
+    eval_device: str = "host"           # 'host': rank 0's overlapped eval on
+                                        # the full graph; 'mesh': on the
+                                        # ranks, through K1 and K2
     seed: int = 0
     fix_seed: bool = False
     ckpt_path: str = "./checkpoint/"
@@ -128,7 +131,6 @@ _NOT_PORTED = (
     (("replicas",), None, "the replica axis"),
     (("feat",), None, "the feat axis"),
     (("remat",), None, "rematerialization"),
-    (("eval_device",), None, "evaluation on the ranks"),
     (("edge_chunk",), None, "chunked evaluation edges"),
     (("streaming_artifacts",), ("auto", "never"),
      "the streaming artifact builder"),

@@ -121,10 +121,12 @@ def _random_masks(rng: np.random.Generator, n: int,
 
 
 def synthetic_graph(n_nodes=200, avg_degree=8, n_feat=16, n_class=5,
-                    seed=0, power_law=False) -> Graph:
+                    seed=0, multilabel=False, power_law=False) -> Graph:
     """Random directed graph with features correlated to labels.
 
     Used by tests and demos in place of downloadable datasets.
+    `multilabel=True` gives multi-hot [N, n_class] f32 labels (each node's
+    class plus each other class with probability 0.2), Yelp's label kind.
     `power_law=True` yields a skewed degree distribution closer to
     Reddit's.
     """
@@ -142,8 +144,14 @@ def synthetic_graph(n_nodes=200, avg_degree=8, n_feat=16, n_class=5,
     label = rng.integers(0, n_class, size=n_nodes).astype(np.int64)
     centers = rng.normal(size=(n_class, n_feat)).astype(np.float32)
     feat = (centers[label] + rng.normal(scale=1.0, size=(n_nodes, n_feat))).astype(np.float32)
+    if multilabel:
+        lab = np.zeros((n_nodes, n_class), dtype=np.float32)
+        lab[np.arange(n_nodes), label] = 1.0
+        extra = rng.random((n_nodes, n_class)) < 0.2
+        label = np.maximum(lab, extra.astype(np.float32))
     train, val, test = _random_masks(rng, n_nodes)
-    g = Graph(n_nodes, src, dst, feat, label, train, val, test)
+    g = Graph(n_nodes, src, dst, feat, label, train, val, test,
+              multilabel=multilabel)
     return g.canonicalize()
 
 

@@ -16,8 +16,9 @@ collectives go through torch.distributed:
     exchange and the all-reduce of the gradient reduce, each timed without
     stalling the stream (CUDA events on a card, the host clock on the CPU),
     and a barrier for the waits on work one rank does alone (set-up, rank
-    0's evaluation), which runs over a gloo group of its own with the longer
-    WAIT_TIMEOUT_S. Tensors go to the backend on their own device: nccl
+    0's checkpoints and its final evaluation, and an evaluation that
+    outlasted its log_every epochs), which runs over a gloo group of its
+    own with the longer WAIT_TIMEOUT_S. Tensors go to the backend on their own device: nccl
     moves CUDA tensors card to card; gloo takes CUDA tensors too and stages
     them through host memory itself. The backend is whatever the caller
     asked for, never switched.
@@ -39,8 +40,10 @@ import torch.distributed as dist
 
 # a step's collectives: every rank runs the same work between two of them
 PG_TIMEOUT_S = 60.0
-# Comm.barrier: peers wait there for set-up and for rank 0's full-graph
-# evaluation, which grow with the graph (and run on the CPU in the tests)
+# Comm.barrier: peers wait there for set-up, for rank 0's checkpoints and
+# its final full-graph evaluation, and for a periodic one that outlasted
+# its log_every epochs, which grow with the graph (and run on the CPU in
+# the tests)
 WAIT_TIMEOUT_S = 1800.0
 
 

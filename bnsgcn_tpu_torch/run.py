@@ -19,14 +19,22 @@ run with the same seed replays the same samples.
 
 --inductive trains on the train subgraph (its artifacts, its n_train), and
 rank 0 alone holds the train+val subgraph and the full graph it evaluates
-on. Every `log_every` epochs rank 0 appends the eval line to the results
-file and writes a periodic checkpoint in the JAX package's format
-(checkpoint.py); after the loop, the best-validation parameters' final
-checkpoint. --resume continues from the newest valid periodic checkpoint
-with its parameters, optimizer, seed and best accuracy; each epoch's
-dropout is keyed by (seed, epoch, rank), so the resumed epochs replay the
-uninterrupted run's. The resilience and coordination layers wait for later
-slices.
+on. Every `log_every` epochs rank 0 writes a periodic checkpoint in the JAX
+package's format (checkpoint.py), then, as the JAX package does
+(bnsgcn_tpu/run.py:1693-1745): with --eval-device host (the default) it
+drains the previous evaluation, which ran in a one-worker thread on its own
+CUDA stream while the ranks trained, keeps its parameters if it beat the
+best accuracy, and submits this epoch's on a copy of the parameters; with
+--eval-device mesh every rank joins the full-rate eval forward over the
+eval graph's partition (evaluate.evaluate_mesh), through K1 and K2. The
+eval line also goes to the results file. After the loop: the last drain,
+the best-validation parameters' final checkpoint and their `Test Result |
+Accuracy` line on the test mask of the full graph, only when an
+evaluation ran. --resume continues from the newest valid periodic
+checkpoint with its parameters, optimizer, seed and best accuracy; each
+epoch's dropout is keyed by (seed, epoch, rank), so the resumed epochs
+replay the uninterrupted run's. The resilience and coordination layers
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from __future__ import annotations
 import copy
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -49,7 +59,8 @@ from bnsgcn_tpu_torch.data.artifacts import (PartitionArtifacts,
 from bnsgcn_tpu_torch.data.datasets import load_data
 from bnsgcn_tpu_torch.data.graph import Graph, inductive_split
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
-from bnsgcn_tpu_torch.evaluate import evaluate_induc, evaluate_trans
+from bnsgcn_tpu_torch.evaluate import (EvalGraph, evaluate_induc,
+                                       evaluate_mesh, evaluate_trans)
 from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
 from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
@@ -93,10 +104,19 @@ class RunResult:
     eval_seconds: list = field(default_factory=list)  # rank 0's evals, the
                                        # final one last (host clock; each
                                        # ends in a copy to the host)
+    # the overlap, on rank 0's host clock (time.perf_counter): each
+    # periodic eval's (epoch, start, end), the thread's for a host eval;
+    # each drain's (epoch, seconds waited), the one after the loop labelled
+    # n_epochs; each epoch's start; the loop's wall time from the first
+    # epoch's start through the last drain
+    eval_spans: list = field(default_factory=list)
+    drain_waits: list = field(default_factory=list)
+    epoch_starts: list = field(default_factory=list)
+    loop_seconds: float = 0.0
     best_val_acc: float = 0.0
-    val_acc: float = 0.0               # of the final evaluation (inductive:
-                                       # the best validation accuracy)
-    test_acc: float = 0.0
+    val_acc: float = 0.0               # the best validation accuracy
+    test_acc: float = 0.0              # the best parameters' on the test
+                                       # mask of the full graph
     dense_edges: int = 0
     n_edges: int = 0
     ranks: list = field(default_factory=list)   # P > 1: each rank's report
@@ -242,20 +262,167 @@ def results_file(cfg: Config) -> str:
         cfg.dataset, cfg.n_partitions, cfg.sampling_rate))
 
 
+def eval_cfg(cfg: Config, suffix: str) -> Config:
+    """The config of an eval graph's partition artifacts: the training
+    graph name plus '-val' or '-test' (bnsgcn_tpu/run.py _eval_resources)."""
+    return cfg.replace(graph_name=(cfg.graph_name or cfg.derive_graph_name())
+                       + suffix)
+
+
+def mesh_eval_part(pr: Prepared, suffix: str, log=print):
+    """(step functions, block arrays on the device, artifacts) that
+    --eval-device mesh scores with on this rank (bnsgcn_tpu/run.py
+    _eval_resources). Transductive: the training layout and blocks, whose
+    'feat' is still the raw f32 features (init_training casts and
+    precomputes a copy). Inductive: the eval graph's own partition, '-val'
+    (the train+val subgraph) or '-test' (the full graph), with its own
+    layout; at P > 1 each rank loads its part of the artifacts the parent
+    wrote, at P=1 they are built in memory (loaded under
+    --skip-partition)."""
+    cfg = pr.cfg
+    if not cfg.inductive:
+        return pr.fns, pr.blk, pr.art
+    cfg_e = eval_cfg(cfg, suffix)
+    if pr.comm is not None:
+        art = load_artifacts(artifacts_dir(cfg_e), parts=[pr.rank])
+    elif cfg.skip_partition:
+        art = prepare_partition(cfg_e)
+    else:
+        g = pr.val_g if suffix == "-val" else pr.test_g
+        art = build_artifacts(g, partition_graph(g, 1))
+    pe = prepare_part(cfg_e, art, None, pr.device,
+                      lambda m: log(f"[eval{suffix}] {m}"), pr.rank, pr.comm)
+    return pe.fns, pe.blk, pe.art
+
+
+def snapshot(model: GNN) -> dict:
+    """A copy of the parameters on the current stream: Adam updates the
+    model's in place."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _eval_job(e: int, thunk):
+    """The eval thread's wrapper (bnsgcn_tpu/run.py `_eval_job`): a raise
+    inside the thread must not kill training a log_every later when
+    .result() re-raises, so the failure is labelled with the epoch it
+    belongs to and handed to the drain. Returns (epoch, thunk's result or
+    None, the exception or None, (start, end) on the host clock)."""
+    t0 = time.perf_counter()
+    try:
+        return e, thunk(), None, (t0, time.perf_counter())
+    except Exception as ex:     # noqa: BLE001 - every eval failure is soft
+        return e, None, ex, (t0, time.perf_counter())
+
+
+def _drain_eval(fut, res: RunResult, log):
+    """(parameters, accuracy) of a finished eval future, or None when it
+    failed (logged, as bnsgcn_tpu/run.py `_drain_eval` logs it); its span
+    and seconds go to `res`."""
+    e, out, err, span = fut.result()
+    res.eval_spans.append((e,) + span)
+    res.eval_seconds.append(span[1] - span[0])
+    if err is not None:
+        log(f"[resilience] host eval for epoch {e} failed "
+            f"({type(err).__name__}: {err}); continuing training")
+        return None
+    return out
+
+
+class HostEval:
+    """Rank 0's --eval-device host evaluations, overlapped with training as
+    the JAX package runs them (bnsgcn_tpu/run.py:969, :1719-1745): one
+    worker thread scores a copy of the parameters taken at the log point
+    while the loop trains on. On a card the thread runs on a CUDA stream of
+    its own (a thread's current stream is per thread; on the training
+    stream the eval would serialize with the steps): the copy is made on
+    the training stream, the eval stream waits on an event recorded after
+    it, and the copy's tensors are recorded on the eval stream, so the
+    caching allocator cannot hand their memory out while the eval reads
+    them. The eval loads the copy into a module of its own, scores the
+    val graph copied to the device once, here (EvalGraph), and hands its
+    logits to the host through pinned memory, so that the thread's waits
+    hold up none of the training thread's copies."""
+
+    def __init__(self, pr: Prepared, model: GNN, log, result_file):
+        self.pr, self.log, self.result_file = pr, log, result_file
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.stream = (torch.cuda.Stream(pr.device)
+                       if pr.device.type == "cuda" else None)
+        self.model = copy.deepcopy(model)
+        self.val = EvalGraph(pr.val_g, pr.spec.model, pr.device)
+        self.pending = None
+
+    def submit(self, epoch: int, model: GNN) -> None:
+        snap = snapshot(model)
+        ready = None
+        if self.stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+        # the epoch is bound here, with the parameters: the thread may run
+        # after the loop has moved on (bnsgcn_tpu/run.py:1727-1730)
+        self.pending = self.pool.submit(
+            _eval_job, epoch,
+            lambda e=epoch, s=snap, r=ready: (s, self._score(e, s, r)))
+
+    def _score(self, epoch: int, snap: dict, ready) -> float:
+        pr, name = self.pr, "Epoch %05d" % epoch
+        ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+               else nullcontext())
+        with ctx:
+            if ready is not None:
+                self.stream.wait_event(ready)
+                for t in snap.values():
+                    t.record_stream(self.stream)
+            self.model.load_state_dict(snap)
+            if pr.cfg.inductive:
+                return evaluate_induc(name, self.model, self.val, pr.device,
+                                      "val", log=self.log,
+                                      result_file=self.result_file)
+            return evaluate_trans(name, self.model, self.val, pr.device,
+                                  log=self.log,
+                                  result_file=self.result_file)[0]
+
+    def drain(self, res: RunResult, label: int):
+        """Wait for the pending eval: its (parameters, accuracy), or None
+        (none pending, or it failed); the wait goes to res.drain_waits."""
+        if self.pending is None:
+            return None
+        t0 = time.perf_counter()
+        done = _drain_eval(self.pending, res, self.log)
+        res.drain_waits.append((label, time.perf_counter() - t0))
+        self.pending = None
+        return done
+
+    def close(self, wait: bool = True) -> None:
+        if wait:
+            self.pool.shutdown(wait=True)
+            if self.stream is not None:
+                self.stream.synchronize()
+        else:
+            self.pool.shutdown(wait=False, cancel_futures=True)
+
+
 def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                log=print, resume_from: Optional[str] = None
                ) -> tuple[RunResult, GNN]:
     """The epoch loop of one process (P=1) or one rank, from epoch 0 or,
     with `resume_from` (a periodic checkpoint), from the epoch after it.
-    Every `log_every` epochs rank 0 logs, with cfg.eval evaluates (on the
-    val graph; the line also goes to the results file) and writes a
-    periodic checkpoint, pruned to cfg.keep_ckpt; the peers wait at a
-    barrier. After the loop rank 0 writes the best-validation parameters'
-    final checkpoint and evaluates them on a copy. The epoch time is taken
-    after the step's gradient all-reduce and ends in float(loss). Returns
-    the trained model, which every rank holds alike."""
+    Every `log_every` epochs, in the JAX package's order
+    (bnsgcn_tpu/run.py:1693-1745): rank 0 logs and writes a periodic
+    checkpoint, pruned to cfg.keep_ckpt; with cfg.eval, under
+    --eval-device host rank 0 drains the previous evaluation and submits
+    this epoch's to its thread (HostEval), under --eval-device mesh every
+    rank joins the evaluation on the ranks. An evaluation becomes the best
+    only if its accuracy is above the best so far, from 0.0. After the
+    loop: the last drain, and only if an evaluation ran, rank 0's final
+    checkpoint of the best parameters and their `Test Result` accuracy on
+    the full graph's test mask (on a copy; on the ranks under mesh). The
+    epoch time is taken after the step's gradient all-reduce and ends in
+    float(loss). Returns the trained model, which every rank holds
+    alike."""
     cfg, spec, fns, device, comm = pr.cfg, pr.spec, pr.fns, pr.device, pr.comm
     lead = pr.rank == 0
+    mesh_eval = cfg.eval and cfg.eval_device == "mesh"
     res = RunResult(dense_edges=fns.dense_edges, n_edges=pr.n_edges)
     blk, model, opt = init_training(pr, model_init)
     seed, best_acc, best_state = cfg.seed, 0.0, None
@@ -266,8 +433,10 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         res.start_epoch = int(payload["epoch"]) + 1
         seed, best_acc = int(payload["seed"]), float(payload["best_acc"])
         log(f"Resumed from {resume_from} at epoch {res.start_epoch}")
+        # every rank holds the best parameters under mesh (the final test
+        # eval is collective), rank 0 alone under host
         final = (ckpt.final_best_payload(cfg, best_acc, log)
-                 if best_acc > 0 and lead else None)
+                 if best_acc > 0 and (lead or mesh_eval) else None)
         if final is not None:
             best_state = params_from_jax(final["params"], spec)
         else:
@@ -276,79 +445,114 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     if lead and cfg.eval:
         os.makedirs(cfg.results_path, exist_ok=True)
         result_file = results_file(cfg)
+    ev_val = mesh_eval_part(pr, "-val", log) if mesh_eval else None
+    modes = ("val",) if cfg.inductive else ("val", "test")
+    host = (HostEval(pr, model, log, result_file)
+            if cfg.eval and lead and not mesh_eval else None)
 
     def mean(xs):
         return warm_mean(xs, res.start_epoch)
 
     clock = "P=1" if comm is None else (
         "events" if device.type == "cuda" else "host")
-    for epoch in range(res.start_epoch, cfg.n_epochs):
-        if comm is not None:
-            comm.reset_seconds()
-        gen = (dropout_generator(seed, epoch, pr.rank, device)
-               if spec.dropout > 0 else None)
-        t_ep = time.perf_counter()
-        loss = fns.train_step(model, opt, blk, epoch, gen)
-        loss_f = float(loss)                    # waits for the device
-        dt = time.perf_counter() - t_ep
-        secs = comm.seconds() if comm else {"exchange": 0.0, "reduce": 0.0}
-        res.losses.append(loss_f)
-        res.epoch_times.append(dt)
-        res.comm_times.append(secs["exchange"])
-        res.reduce_times.append(secs["reduce"])
-        if not np.isfinite(loss_f):
-            raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
-        if (epoch + 1) % cfg.log_every != 0:
-            continue
-        if lead:
-            log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
-                "{:.4f} [{}] | Reduce(s) {:.4f} | Loss {:.4f}".format(
-                    epoch, mean(res.epoch_times), mean(res.comm_times),
-                    clock, mean(res.reduce_times), loss_f))
-        if cfg.eval and lead:
-            name = "Epoch %05d" % epoch
-            t_ev = time.perf_counter()
-            val = (evaluate_induc(name, model, pr.val_g, device, "val",
-                                  log=log, result_file=result_file)
-                   if cfg.inductive else
-                   evaluate_trans(name, model, pr.val_g, device, log=log,
-                                  result_file=result_file)[0])
-            res.eval_seconds.append(time.perf_counter() - t_ev)
-            if best_state is None or val > best_acc:
-                best_acc = val
-                best_state = copy.deepcopy(model.state_dict())
-        if lead:
-            # periodic checkpoint whether or not eval runs
-            ckpt.save_checkpoint(
-                ckpt.periodic_path(cfg, epoch),
-                params=params_to_jax(model.state_dict(), spec),
-                opt_state=opt_state_to_jax(opt, model), epoch=epoch,
-                best_acc=best_acc, seed=seed, extra={"retry_nonce": 0})
-            ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
-        if comm is not None:
-            comm.barrier()                      # the peers wait for rank 0
+    t_loop = time.perf_counter()
+    try:
+        for epoch in range(res.start_epoch, cfg.n_epochs):
+            if comm is not None:
+                comm.reset_seconds()
+            gen = (dropout_generator(seed, epoch, pr.rank, device)
+                   if spec.dropout > 0 else None)
+            t_ep = time.perf_counter()
+            res.epoch_starts.append(t_ep)
+            loss = fns.train_step(model, opt, blk, epoch, gen)
+            loss_f = float(loss)                    # waits for the device
+            dt = time.perf_counter() - t_ep
+            secs = (comm.seconds() if comm else
+                    {"exchange": 0.0, "reduce": 0.0})
+            res.losses.append(loss_f)
+            res.epoch_times.append(dt)
+            res.comm_times.append(secs["exchange"])
+            res.reduce_times.append(secs["reduce"])
+            if not np.isfinite(loss_f):
+                raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
+            if (epoch + 1) % cfg.log_every != 0:
+                continue
+            if lead:
+                log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
+                    "{:.4f} [{}] | Reduce(s) {:.4f} | Loss {:.4f}".format(
+                        epoch, mean(res.epoch_times), mean(res.comm_times),
+                        clock, mean(res.reduce_times), loss_f))
+                # periodic checkpoint whether or not eval runs, before this
+                # log point's eval: it holds the best of the evals drained
+                # so far
+                ckpt.save_checkpoint(
+                    ckpt.periodic_path(cfg, epoch),
+                    params=params_to_jax(model.state_dict(), spec),
+                    opt_state=opt_state_to_jax(opt, model), epoch=epoch,
+                    best_acc=best_acc, seed=seed, extra={"retry_nonce": 0})
+                ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
+            if host is not None:
+                done = host.drain(res, epoch)
+                if done is not None and done[1] > best_acc:
+                    best_acc, best_state = done[1], done[0]
+            if comm is not None:
+                # the peers wait here, under the wait group's long timeout
+                # rather than in the next step's collectives (60 s), for
+                # rank 0's checkpoint write and for a previous eval that
+                # outlasted these log_every epochs; the eval submitted
+                # below runs on while they train
+                comm.barrier()
+            if host is not None:
+                host.submit(epoch, model)
+            elif mesh_eval:
+                t_ev = time.perf_counter()
+                accs = evaluate_mesh("Epoch %05d" % epoch,
+                                     ev_val[0].eval_forward, model,
+                                     ev_val[1], ev_val[2], modes,
+                                     result_file, comm, log)
+                res.eval_spans.append((epoch, t_ev, time.perf_counter()))
+                res.eval_seconds.append(time.perf_counter() - t_ev)
+                if accs["val"] > best_acc:
+                    best_acc, best_state = accs["val"], snapshot(model)
+    except BaseException:
+        if host is not None:
+            host.close(wait=False)
+        raise
+    if host is not None:
+        done = host.drain(res, cfg.n_epochs)
+        if done is not None and done[1] > best_acc:
+            best_acc, best_state = done[1], done[0]
+        host.close()
+    res.loop_seconds = time.perf_counter() - t_loop
     res.epoch_time = mean(res.epoch_times)
-    res.best_val_acc = best_acc
-    if cfg.eval and lead:
-        best = model
-        if best_state is not None:
-            best = copy.deepcopy(model)
-            best.load_state_dict(best_state)
+    res.best_val_acc = res.val_acc = best_acc
+    if cfg.eval and best_state is not None:
+        if lead:
             ckpt.save_checkpoint(ckpt.final_path(cfg),
                                  params=params_to_jax(best_state, spec),
                                  epoch=cfg.n_epochs - 1, best_acc=best_acc,
                                  seed=seed)
             log("model saved")
             log("Max Validation Accuracy {:.2%}".format(best_acc))
+        best = copy.deepcopy(model)
+        best.load_state_dict(best_state)
         t_ev = time.perf_counter()
-        if cfg.inductive:
-            res.val_acc = best_acc
-            res.test_acc = evaluate_induc("Test Result", best, pr.test_g,
+        if mesh_eval:
+            # the full graph's partition, built now (inductive) as the JAX
+            # package builds it after the loop; every rank joins
+            ev = mesh_eval_part(pr, "-test", log) if cfg.inductive else ev_val
+            res.test_acc = evaluate_mesh("Test Result", ev[0].eval_forward,
+                                         best, ev[1], ev[2], ("test",),
+                                         None, comm, log)["test"]
+        elif lead:
+            # transductive: the test graph is the val graph, already on
+            # the device
+            test_g = (host.val if host is not None and pr.test_g is pr.val_g
+                      else pr.test_g)
+            res.test_acc = evaluate_induc("Test Result", best, test_g,
                                           device, "test", log=log)
-        else:
-            res.val_acc, res.test_acc = evaluate_trans(
-                "Test Result", best, pr.test_g, device, log=log)
-        res.eval_seconds.append(time.perf_counter() - t_ev)
+        if lead:
+            res.eval_seconds.append(time.perf_counter() - t_ev)
     return res, model
 
 
@@ -381,12 +585,15 @@ def artifacts_dir(cfg: Config) -> str:
 
 
 def prepare_partition(cfg: Config, g: Optional[Graph] = None,
-                      force: bool = False) -> PartitionArtifacts:
+                      force: bool = False, load: bool = True
+                      ) -> Optional[PartitionArtifacts]:
     """Offline partitioning (bnsgcn_tpu/run.py prepare_partition, without
-    its streaming branch) of `g`, the train graph; without `g`, of the
-    dataset's graph, or under --inductive its train subgraph. The artifact
-    directory is loaded when it exists, as the reference's config-JSON check
-    does, unless `force`; under --skip-partition it must exist."""
+    its streaming branch) of `g`, the train graph (or an eval graph under
+    its eval_cfg); without `g`, of the dataset's graph, or under
+    --inductive its train subgraph. The artifact directory is loaded when
+    it exists, as the reference's config-JSON check does, unless `force`;
+    under --skip-partition it must exist. `load=False` returns None where
+    the directory exists instead of loading it."""
     path = artifacts_dir(cfg)
     exists = os.path.exists(os.path.join(path, "meta.json"))
     if not force and (exists or cfg.skip_partition):
@@ -395,7 +602,7 @@ def prepare_partition(cfg: Config, g: Optional[Graph] = None,
                 f"--skip-partition: no partition artifacts at {path}; write "
                 f"them first with python -m bnsgcn_tpu_torch.partition_cli "
                 f"and the same flags")
-        return load_artifacts(path)
+        return load_artifacts(path) if load else None
     if g is None:
         g, _, _ = load_data(cfg)
         if cfg.inductive:
@@ -437,7 +644,7 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         torch.cuda.reset_peak_memory_stats(ctx.device)
     res, model = train_loop(pr, model_init, log, resume_from)
     if cfg.eval:
-        ctx.comm.barrier()                  # rank 0's final evaluation
+        ctx.comm.barrier()          # rank 0's final checkpoint and eval
     assert_replicated(model.parameters(), ctx.comm)
     return {
         "rank": ctx.rank, "device": str(ctx.device),
@@ -453,6 +660,8 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         "dense_edges": res.dense_edges, "n_edges": res.n_edges,
         "best_val_acc": res.best_val_acc, "val_acc": res.val_acc,
         "test_acc": res.test_acc, "eval_seconds": res.eval_seconds,
+        "eval_spans": res.eval_spans, "drain_waits": res.drain_waits,
+        "epoch_starts": res.epoch_starts, "loop_seconds": res.loop_seconds,
         "hook": hook,
     }
 
@@ -462,17 +671,27 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
               rank_hook: Optional[Callable[[Prepared], dict]] = None,
               resume_from: Optional[str] = None) -> RunResult:
     """P > 1: write (or, under --skip-partition, load) the artifacts here,
-    then train on P spawned ranks; rank 0 alone gets the eval graphs."""
+    then train on P spawned ranks. Under --eval-device host rank 0 alone
+    gets the eval graphs; under mesh with --inductive the eval graphs'
+    artifacts ('-val', '-test') are written here too, before the ranks
+    start, and each rank loads its part."""
     require_device(cfg.device)
     check_mesh_budget(cfg.n_partitions, cfg.dist_backend, cfg.device)
     P = cfg.n_partitions
-    if g is None and (cfg.eval or not cfg.skip_partition):
+    mesh_eval = cfg.eval and cfg.eval_device == "mesh"
+    if g is None and ((cfg.eval and not mesh_eval)
+                      or not cfg.skip_partition):
         g, _, _ = load_data(cfg)
     train_g, val_g, test_g = (split_graphs(cfg, g) if g is not None
                               else (None, None, None))
     t0 = time.perf_counter()
     art = prepare_partition(cfg, train_g)
     path = artifacts_dir(cfg)
+    if mesh_eval and cfg.inductive:
+        for suffix, sub in (("-val", val_g), ("-test", test_g)):
+            # built when missing (from the graph, which --skip-partition
+            # does not load: then they must be there, as the training's)
+            prepare_partition(eval_cfg(cfg, suffix), sub, load=False)
     _prebuild(cfg)
     hspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
                               cfg.sampling_rate, wire=cfg.halo_wire)
@@ -494,7 +713,7 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         f"({wire_bytes(hfull, art.n_feat, nb) / 1e6:.2f} MB at feature width "
         f"{art.n_feat}, the precompute's full-rate exchange) | artifacts "
         f"{path} {time.perf_counter() - t0:.1f}s")
-    evals = (val_g, test_g) if cfg.eval else None
+    evals = (val_g, test_g) if cfg.eval and not mesh_eval else None
     reports = launch(_rank_main, P,
                      [(cfg, path, model_init, evals if r == 0 else None,
                        rank_hook, resume_from) for r in range(P)],
@@ -506,5 +725,8 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         comm_times=lead["comm_times"], reduce_times=lead["reduce_times"],
         best_val_acc=lead["best_val_acc"], val_acc=lead["val_acc"],
         test_acc=lead["test_acc"], eval_seconds=lead["eval_seconds"],
+        eval_spans=lead["eval_spans"], drain_waits=lead["drain_waits"],
+        epoch_starts=lead["epoch_starts"],
+        loop_seconds=lead["loop_seconds"],
         dense_edges=sum(r["dense_edges"] for r in reports),
         n_edges=sum(r["n_edges"] for r in reports), ranks=reports)

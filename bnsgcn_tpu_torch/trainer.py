@@ -2,7 +2,8 @@
 
 One train step: dropout -> layers (halo exchange, then aggregation through
 the ELL or hybrid SpMM, i.e. kernels K1 and K2 on the card) -> sum
-cross-entropy over this part's train rows / global n_train -> backward (the
+cross-entropy (multilabel artifacts: sum binary cross-entropy) over this
+part's train rows / global n_train -> backward (the
 SpMMs' backward runs the same kernels on the transposed layouts, the
 exchange's backward the transposed all-to-all) -> one all-reduce of the
 gradients over the ranks -> Adam with L2 added to the gradient before the
@@ -13,7 +14,9 @@ At sampling rate < 1 each step first draws the epoch's boundary sample
 (parallel/halo.py make_halo_plan, from the base key prng.key(cfg.seed) and
 the epoch, as the JAX step does inside its jit), so the draw's time counts
 in the step; every layer's exchange, forward and backward, uses it. The
-use_pp precompute exchanges at the full rate whatever the training rate.
+use_pp precompute exchanges at the full rate whatever the training rate,
+and so does the eval forward of --eval-device mesh (`eval_forward`: eval
+mode on the raw features, through the training SpMM and its codecs).
 """
 
 from __future__ import annotations
@@ -59,6 +62,16 @@ def ce_sum(logits, labels, mask):
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(1, labels[:, None].long())[:, 0]
     return -torch.where(mask, ll, torch.zeros((), device=ll.device)).sum()
+
+
+def bce_sum(logits, labels, mask):
+    """Binary cross-entropy with logits, in f32, summed over the masked rows
+    and every class: Yelp's multi-hot labels (reference train.py:359-361,
+    bnsgcn_tpu/trainer.py bce_sum)."""
+    per = F.binary_cross_entropy_with_logits(
+        logits.float(), labels.float(), reduction="none")
+    return torch.where(mask[:, None], per,
+                       torch.zeros((), device=per.device)).sum()
 
 
 def build_block_arrays(art: PartitionArtifacts, model: str,
@@ -210,6 +223,7 @@ class StepFns:
     train_step: Callable               # (model, opt, blk, epoch, gen) -> loss
     forward: Callable                  # (model, blk, epoch, gen) -> logits
     precompute: Callable               # (blk) -> layer-0 input features
+    eval_forward: Callable             # (model, blk) -> eval logits
     dense_edges: int = 0               # edges on dense tiles (hybrid)
     halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
@@ -302,6 +316,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm, reuse,
                                     row_cap)
     n_train = max(art.n_train, 1)
+    loss_sum = bce_sum if art.multilabel else ce_sum
     n_halo = art.n_ext - art.pad_inner
     hspec = hfull = None
     if comm is not None:
@@ -312,6 +327,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         hfull, tables_full = full_rate_spec(art.n_b, art.pad_inner,
                                             art.pad_boundary)
         tables = tables_to(tables, device)
+        tables_full = tables_to(tables_full, device)
         sample_key = prng.key(cfg.seed, device)
         # rate 1.0: the identity plan, the same every epoch
         fixed_plan = (make_halo_plan(hspec, tables, bnd, rank)
@@ -338,7 +354,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         """One step at `epoch`; returns the loss summed over the ranks."""
         opt.zero_grad(set_to_none=True)
         logits = forward(model, blk, epoch, generator)
-        loss = ce_sum(logits, blk["label"], blk["train_mask"]) / n_train
+        loss = loss_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
         if comm is not None:
             loss = reduce_gradients(model.parameters(), comm, loss)
@@ -364,7 +380,29 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                             native=True) / blk["in_norm"][:, None]
         return torch.cat([blk["feat"], ah], 1)
 
+    @torch.no_grad()
+    def eval_forward(model: GNN, blk):
+        """The full-rate eval forward of this part (the JAX trainer's
+        local_embed/eval_forward): eval mode (no dropout; with use_pp, layer
+        0 exchanges and aggregates the raw features), every halo row
+        present (the precompute's full-rate plan, native wire), the norms
+        of the artifacts' graph, and the training SpMM with the training
+        codecs (`_aggregate_for`), its K1 and K2 launches counted under
+        'eval'. blk['feat'] holds the raw f32 features. Logits
+        [pad_inner, n_class]; at P > 1 every rank calls it together."""
+        if comm is None:
+            exchange = exchange_for(0)
+        else:
+            plan = make_halo_plan(hfull, tables_full, bnd, rank)
+            exchange = lambda i, h: halo_apply(hfull, plan, h, comm)
+        env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
+                       out_norm=blk["out_norm"], exchange=exchange,
+                       aggregate=lambda h: spmm.apply_dir("fwd", h, "eval"),
+                       training=False)
+        return apply_model(model, blk["feat"], env)
+
     dense = dense_edge_count(layout) if kind == "hybrid" else 0
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
-                   forward=forward, precompute=precompute, dense_edges=dense,
+                   forward=forward, precompute=precompute,
+                   eval_forward=eval_forward, dense_edges=dense,
                    halo=hspec, halo_full=hfull, spmm_kind=kind)

@@ -36,8 +36,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and fall, K1 and K2 must each have launched once per aggregation (the
      3 layers after the precompute, forward and backward, every epoch,
      plus the precompute's one); the run
-     ends with the full-graph eval's accuracy line, which must beat twice
-     chance;
+     evaluates once, at its end, and ends with the best parameters' Test
+     Result on the full graph, whose val and test accuracies must beat
+     twice chance;
   5. the P-rank path on synth-reddit at --parts-scale, the same model: at
      sampling rate 1.0, 4 ranks sharing this one card over gloo (NCCL
      refuses two ranks on one card) and P=1, 3 epochs without dropout from
@@ -52,14 +53,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      H=256 and the raw feature width, with phase 2's bounds) and then hands
      back its launch counts: K1 and K2 must have launched as at P=1 on
      every rank, the loss must stay finite and fall, rank 0's inductive
-     val and test accuracies must beat twice chance, and every rank must end
-     with rank 0's parameters;
+     val and test accuracies must beat twice chance, the eval lines, the
+     best accuracy and the Test Result must print, and every rank must end
+     with rank 0's parameters; rank 0 evaluates in its eval thread on its
+     own stream while the ranks train (the JAX package's overlap), and the
+     phase prints each eval's duration, rank 0's wait for it at the drain
+     and the epochs in flight beside the others, and each rank's loop wall
+     time outside its steps beside the evals' sum (what an inline eval
+     stalls);
      then [bns] at those artifacts: every rank's BNS plan for epochs 0 and
      1 built on the card must be array-equal to the CPU's, and the ranks'
      plans must agree pair by pair (sender p's rows are the ones receiver
      j's slots stand for, the rest trashed); it prints each rank's wire MB
      per exchange, the plan's ms, the exchange's share and the epoch at
      rate 0.1 beside rate 1.0's;
+     then [meval]: --eval-device mesh on the law run's transductive
+     artifacts at rate 0.1, 4 epochs, an eval every 2: each rank first runs
+     the mesh eval forward of the main path's best parameters, whose
+     logits must agree with the host eval's (COO) on the full graph within
+     1e-4 of the largest and whose predictions must too, apart from
+     near-ties; K1 and K2 must launch once per aggregation of training and
+     of each eval (under 'eval'); it prints the mesh eval's seconds beside
+     the host eval's;
   5b. [lowp] on the P=1 graph and layouts (shared, not rebuilt): the
      TPU recipe with its finer knobs, --dtype bfloat16 --spmm auto
      --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
@@ -89,7 +104,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checkpoints, the final one and the results file; rerun with --resume
      --skip-partition --n-epochs 16 it must start at epoch 12, and its
      losses for epochs 12-15 must equal an uninterrupted 16-epoch run's to
-     1e-5 (relative);
+     1e-5 (relative); then with --eval-device mesh: partition_cli writes
+     the train subgraph's artifacts and the eval graphs' ('-val', '-test'),
+     and the script trains 8 epochs from them (--skip-partition), the
+     ranks evaluating;
+  6b. [yelp]: the multilabel path, scripts/yelp_torch.sh's model
+     (GraphSAGE 4 layers, 2 of them linear, H=512, use_pp, dropout 0.1, lr
+     0.001, inductive, rate 0.1) with --spmm hybrid at P=4 over gloo on a
+     multilabel power-law graph at Yelp's widths (300 features, 100 labels,
+     50,000 nodes: Yelp's 716,847 cut), written in the GraphSAINT layout
+     and read through --dataset yelp --data-path: each rank first holds K1
+     and K2 to their plain versions at H=512 and F=300 on its own layout;
+     the BCE loss finite and falling over 40 epochs, the micro-F1 lines;
   7. [anchor]: the JAX package's calibrated accuracy gate
      (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
      inside (0.93, 0.985), the quantized stack of the recipe's finer knobs
@@ -184,10 +210,57 @@ CLI_TIMEOUT_S = 300
 RECIPE_TPU = ["--dtype", "bfloat16", "--spmm", "auto", "--use-pallas",
               "--halo-wire", "int8"]
 RECIPE_P4_EPOCHS = 4    # [recipe]'s run at P=4
+# [meval]: --eval-device mesh on the law run's transductive artifacts, and
+# the bound on its logits against the host eval's (COO) for the same
+# parameters: 1e-4 of the largest |logit| (two f32 forwards through 4
+# layers that sum each aggregation in another order, LayerNorm between;
+# 3.4e-6 of it measured on an H100 at synth-reddit:0.5)
+MEVAL_EPOCHS, MEVAL_LOG_EVERY = 4, 2
+MEVAL_LOGIT_FRAC = 1e-4
+# [cli]'s run of the script with --eval-device mesh
+CLI_MESH_EPOCHS = 8
+# [yelp]: scripts/yelp_torch.sh (the reference's Yelp model) on a
+# multilabel power-law graph at Yelp's widths, written in the GraphSAINT
+# layout; Yelp's 716,847 nodes and ~14M edges cut to YELP_NODES nodes of
+# mean degree YELP_DEGREE to keep the script near 720 s
+YELP_SCRIPT = os.path.join("scripts", "yelp_torch.sh")
+YELP_NODES, YELP_DEGREE = 50_000, 20
+YELP_FEAT, YELP_CLASSES = 300, 100
+YELP_EPOCHS, YELP_LOG_EVERY = 40, 10
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+class Tee:
+    """A log function that prints each line and keeps it."""
+
+    def __init__(self):
+        self.lines = []
+
+    def __call__(self, msg):
+        self.lines.extend(str(msg).splitlines())
+        log(msg)
+
+    def having(self, text):
+        return [ln for ln in self.lines if text in ln]
+
+
+def script_flags(script):
+    """The flags a scripts/*_torch.sh passes to the port's main, as a list
+    (each `${VAR:-default}` at its default)."""
+    import re
+    with open(os.path.join(ROOT, script)) as f:
+        lines = f.read().splitlines()
+    at = next(i for i, ln in enumerate(lines) if "bnsgcn_tpu_torch.main" in ln)
+    out = []
+    for ln in lines[at + 1:]:
+        ln = ln.strip().rstrip("\\").strip()
+        if ln.startswith('"$@"'):
+            break
+        out += re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", ln).split()
+    return out
 
 
 def recipe_fields():
@@ -728,10 +801,13 @@ def parts_runs(cfg, args, part_path):
     # its sampling rate), through the user's entry point; each rank checks
     # K1 and K2 on its own layout, resets its launch counts just before its
     # epoch loop and hands them back
+    # an eval every quarter of the run: each after the first (which holds
+    # the epoch beside it) overlaps the epochs that follow it
     main4 = base.replace(n_partitions=PARTS, n_epochs=args.parts_epochs,
-                         log_every=max(args.parts_epochs // 2, 1),
+                         log_every=max(args.parts_epochs // 4, 1),
                          sampling_rate=BNS_RATE, inductive=True)
-    res = run_training(main4, g=g, log=log, rank_hook=rank_kernel_check)
+    tee = Tee()
+    res = run_training(main4, g=g, log=tee, rank_hook=rank_kernel_check)
     for rep in res.ranks:
         hk = rep["hook"]
         log(f"[check] rank {rep['rank']}'s own layout: K1 max abs err "
@@ -743,7 +819,16 @@ def parts_runs(cfg, args, part_path):
         f"subgraph over {PARTS} parts (the graph: {g.n_edges}); rank 0's "
         f"evaluations took " + ", ".join(f"{t:.2f}" for t in res.eval_seconds)
         + " s (on the train+val subgraph every "
-        f"{main4.log_every} epochs, last the full graph's test)")
+        f"{main4.log_every} epochs, in its eval thread while the ranks "
+        f"trained; last the full graph's test)")
+    overlap = overlap_report(res, "[parts]")
+    evals = [ln for ln in tee.lines if ln.startswith("Epoch ")
+             and " | Accuracy " in ln]
+    wanted = ("Max Validation Accuracy ", "Test Result | Accuracy ")
+    if (len(evals) != main4.n_epochs // main4.log_every
+            or not all(tee.having(w) for w in wanted)):
+        raise AssertionError(f"[parts] eval lines {evals}; "
+                             f"{[tee.having(w) for w in wanted]}")
     passes = (main4.n_layers - 1) * main4.n_epochs
     want = {"fwd": passes, "bwd": passes, "pre": 1}
     for rep in res.ranks:
@@ -783,8 +868,11 @@ def parts_runs(cfg, args, part_path):
             f"ms, peak memory {ranks[-1]['max_memory_gib']:.2f} GiB, "
             f"launches K1 {rep['launches']['K1']} K2 {rep['launches']['K2']}")
     bns = bns_phase(main4, r4, ranks, args.reps)
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    meval = meval_phase(base, g, ckpt.final_path(main4))
     recipe = recipe_p4(main4, g)
-    return {"scale": args.parts_scale, "recipe": recipe,
+    return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
+            "overlap": overlap,
             "law_losses_p4": r4.losses,
             "law_losses_p1": r1.losses, "law_max_rel": rel,
             "law_p1_epoch_s": mean_from_1(r1.epoch_times),
@@ -792,6 +880,176 @@ def parts_runs(cfg, args, part_path):
             "eval_seconds": res.eval_seconds,
             "test_acc": res.test_acc, "ranks": ranks, "bns": bns,
             "rank_checks": [rep["hook"] for rep in res.ranks]}, res
+
+
+def overlap_report(res, tag):
+    """The eval overlap of one run, on rank 0's host clock: for each
+    periodic eval, its own duration, rank 0's wait for it at the drain, and
+    the epochs that ran while it was in flight with their mean time beside
+    the other epochs' (1..); and each rank's loop wall time minus the sum
+    of its step times (what it spent outside steps: log points,
+    checkpoints, drains, barriers). Logged under `tag`; returns the
+    details."""
+    starts, times = res.epoch_starts, res.epoch_times
+    ends = [s + t for s, t in zip(starts, times)]
+    evals, busy = [], set()
+    for (e, t0, t1), (_, wait) in zip(res.eval_spans, res.drain_waits):
+        fl = [i for i in range(len(starts)) if starts[i] < t1 and ends[i] > t0]
+        busy |= set(fl)
+        evals.append({"epoch": e, "seconds": t1 - t0, "drain_wait_s": wait,
+                      "epochs_in_flight": [res.start_epoch + i for i in fl],
+                      "in_flight_mean_s": (sum(times[i] for i in fl) / len(fl)
+                                           if fl else None)})
+    rest = [times[i] for i in range(1, len(times)) if i not in busy]
+    other = sum(rest) / len(rest) if rest else None
+    outside = [{"rank": rep["rank"], "loop_s": rep["loop_seconds"],
+                "steps_s": sum(rep["epoch_times"]),
+                "outside_s": rep["loop_seconds"] - sum(rep["epoch_times"])}
+               for rep in res.ranks]
+    for x in evals:
+        fl = x["epochs_in_flight"]
+        log(f"{tag} eval of epoch {x['epoch']}: {x['seconds']:.3f} s in "
+            f"rank 0's eval thread; rank 0 waited {x['drain_wait_s']:.3f} s "
+            f"for it at the drain; epochs {fl} ran while it was in flight, "
+            + (f"mean {x['in_flight_mean_s'] * 1e3:.1f} ms" if fl else "none")
+            + (f" (the other epochs 1..: {other * 1e3:.1f} ms)"
+               if other is not None else " (no other epoch past 0)"))
+    syn = sum(x["seconds"] for x in evals)
+    for o in outside:
+        log(f"{tag} rank {o['rank']}: loop {o['loop_s']:.3f} s wall, "
+            f"{o['steps_s']:.3f} s in steps, {o['outside_s']:.3f} s outside "
+            f"them; the evals took {syn:.3f} s, which a loop that evaluates "
+            f"inline (the peers at a barrier) adds to every rank")
+    return {"evals": evals, "other_epochs_mean_s": other,
+            "evals_s": syn, "ranks": outside}
+
+
+def meval_hook(params_file, pr):
+    """[meval]'s rank hook: the mesh eval forward of `params_file`'s
+    parameters on the rank's part (a collective: every rank runs it), its
+    second call timed with the device synchronized; its launches come
+    before the counters' reset and do not count. Returns the inner rows'
+    logits and their global ids."""
+    import torch
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    from bnsgcn_tpu_torch.models.gnn import GNN
+    from bnsgcn_tpu_torch.trainer import params_from_jax
+    model = GNN(pr.spec)
+    model.load_state_dict(params_from_jax(ckpt.read_blob(params_file)["params"],
+                                          pr.spec))
+    model = model.to(pr.device)
+    sync = (torch.cuda.synchronize if pr.device.type == "cuda"
+            else lambda d: None)
+    pr.fns.eval_forward(model, pr.blk)                  # warm-up
+    sync(pr.device)
+    t0 = time.perf_counter()
+    logits = pr.fns.eval_forward(model, pr.blk)
+    sync(pr.device)
+    secs = time.perf_counter() - t0
+    inner = pr.art.inner_mask[0]
+    return {"logits": logits.float().cpu().numpy()[inner],
+            "gnid": pr.art.global_nid[0][inner], "seconds": secs}
+
+
+def meval_phase(base, g, params_file):
+    """[meval]: --eval-device mesh, the P=4 main path's model on the law
+    run's transductive artifacts (--skip-partition) at rate BNS_RATE,
+    MEVAL_EPOCHS epochs, an eval every MEVAL_LOG_EVERY. Each rank first runs
+    the mesh eval forward of `params_file`'s parameters (meval_hook); the
+    assembled logits must agree with the host eval's (COO, evaluate.py) on
+    the full graph with the same parameters within MEVAL_LOGIT_FRAC of the
+    largest |logit|, and its val and test predictions with the host's
+    apart from rows whose host top two logits lie within twice that bound.
+    Then every rank's K1 and K2 must have launched once per aggregation of
+    training and of each eval forward (all n_layers layers: use_pp's layer
+    0 aggregates the raw features in eval) under 'eval', the eval lines and
+    the Test Result printed. Returns the details."""
+    import functools
+
+    import numpy as np
+    import torch
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    from bnsgcn_tpu_torch.evaluate import full_graph_logits
+    from bnsgcn_tpu_torch.models.gnn import GNN, spec_from_config
+    from bnsgcn_tpu_torch.run import run_training
+    from bnsgcn_tpu_torch.trainer import params_from_jax
+    c = base.replace(n_partitions=PARTS, n_epochs=MEVAL_EPOCHS,
+                     log_every=MEVAL_LOG_EVERY, sampling_rate=BNS_RATE,
+                     eval_device="mesh", skip_partition=True)
+    tee = Tee()
+    t0 = time.perf_counter()
+    res = run_training(c, g=g, log=tee,
+                       rank_hook=functools.partial(meval_hook, params_file))
+    secs = time.perf_counter() - t0
+    n_evals = MEVAL_EPOCHS // MEVAL_LOG_EVERY + 1
+    evals = [ln for ln in tee.lines if ln.startswith("Epoch ")
+             and "| Validation Accuracy " in ln]
+    if len(evals) != n_evals - 1 or not tee.having("Test Result | Accuracy"):
+        raise AssertionError(f"[meval] eval lines {evals}; Test Result "
+                             f"{tee.having('Test Result')}")
+    # the host eval of the same parameters on the full graph, on the card
+    spec = spec_from_config(c.replace(n_feat=g.n_feat, n_class=g.n_class))
+    model = GNN(spec)
+    model.load_state_dict(params_from_jax(ckpt.read_blob(params_file)["params"],
+                                          spec))
+    dev = torch.device(c.device)
+    model = model.to(dev)
+    full_graph_logits(model, g, dev)                    # warm-up
+    t_h = time.perf_counter()
+    host = full_graph_logits(model, g, dev)             # ends on the host
+    host_s = time.perf_counter() - t_h
+    mesh = np.zeros_like(host)
+    for rep in res.ranks:
+        mesh[rep["hook"]["gnid"]] = rep["hook"]["logits"]
+    bound = MEVAL_LOGIT_FRAC * float(np.abs(host).max())
+    err = float(np.abs(mesh - host).max())
+    if not err <= bound:
+        raise AssertionError(f"[meval] mesh logits differ from the host "
+                             f"eval's by {err:.3e} > {bound:.3e}")
+    top2 = np.sort(host, 1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= 2 * bound
+    accs = {}
+    for mode, mask in (("val", g.val_mask), ("test", g.test_mask)):
+        lab = np.asarray(g.label)[mask]
+        pm, ph = mesh[mask].argmax(1), host[mask].argmax(1)
+        if not (pm == ph)[~near[mask]].all():
+            raise AssertionError(f"[meval] {mode}: the mesh eval predicts "
+                                 f"other classes than the host eval on rows "
+                                 f"that are no near-ties")
+        accs[mode] = (float((pm == lab).mean()), float((ph == lab).mean()),
+                      int((pm != ph).sum()))
+    mesh_s = [rep["hook"]["seconds"] for rep in res.ranks]
+    passes = (c.n_layers - 1) * c.n_epochs
+    want = {"fwd": passes, "bwd": passes, "pre": 1,
+            "eval": c.n_layers * n_evals}
+    for rep in res.ranks:
+        for name, cnt in rep["launches"].items():
+            if cnt != want:
+                raise AssertionError(f"[meval] rank {rep['rank']}: {name} "
+                                     f"launched {cnt}, not {want}")
+    log(f"[meval] --eval-device mesh, P={PARTS} transductive, rate "
+        f"{c.sampling_rate}, {c.n_epochs} epochs: mesh logits of the P={PARTS}"
+        f" main path's best parameters against the host eval's (COO) on the "
+        f"full graph: max |diff| {err:.3e} <= {bound:.3e} ({MEVAL_LOGIT_FRAC}"
+        f" of max |logit|); val accuracy {accs['val'][0]:.4f} (host "
+        f"{accs['val'][1]:.4f}), test {accs['test'][0]:.4f} (host "
+        f"{accs['test'][1]:.4f}); {accs['val'][2] + accs['test'][2]} rows "
+        f"predicted otherwise, all within {2 * bound:.3e} of a tie "
+        f"({int(near.sum())} such rows)")
+    log(f"[meval] one mesh eval forward (synchronized, after a warm-up): "
+        + ", ".join(f"{s:.3f}" for s in mesh_s) + " s on ranks 0-3 beside "
+        f"the host eval's {host_s:.3f} s (rank 0's device, the whole graph);"
+        f" the run's evals on rank 0: "
+        + ", ".join(f"{s:.3f}" for s in res.eval_seconds)
+        + f" s (the last the Test Result); launches per rank K1 "
+        f"{res.ranks[0]['launches']['K1']} K2 "
+        f"{res.ranks[0]['launches']['K2']} ({secs:.1f} s)")
+    return {"max_abs_err": err, "bound": bound, "accs": accs,
+            "near_ties": int(near.sum()), "mesh_forward_s": mesh_s,
+            "host_eval_s": host_s, "eval_seconds": res.eval_seconds,
+            "evals": evals, "losses": res.losses,
+            "launches": [rep["kinds"] for rep in res.ranks],
+            "seconds": secs}
 
 
 def bns_phase(cfg, law, ranks, reps):
@@ -870,15 +1128,16 @@ def bns_phase(cfg, law, ranks, reps):
             "agreed_rows": rows, "ranks": out}
 
 
-def run_cli(argv, timeout_s=CLI_TIMEOUT_S):
-    """Run `bash scripts/reddit_torch.sh argv` from the repo root in a
-    session of its own; returns its stdout. A non-zero exit raises with
-    the end of its output; past the timeout the whole session (the CLI and
-    the ranks it spawned) is killed."""
+def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None):
+    """Run `bash scripts/reddit_torch.sh argv` (or `cmd + argv`) from the
+    repo root in a session of its own; returns its stdout. A non-zero exit
+    raises with the end of its output; past the timeout the whole session
+    (the CLI and the ranks it spawned) is killed."""
     env = dict(os.environ, PYTHON=sys.executable)
-    p = subprocess.Popen(["bash", CLI_SCRIPT] + argv, cwd=ROOT, env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True, start_new_session=True)
+    p = subprocess.Popen((cmd or ["bash", CLI_SCRIPT]) + argv, cwd=ROOT,
+                         env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
     try:
         out, _ = p.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -963,6 +1222,152 @@ def cli_phase(work):
         f"({secs:.1f} s for the three runs)")
     return {"losses_resumed": resumed, "losses_whole": whole, "max_rel": rel,
             "evals": evals, "checkpoints": ckpts, "seconds": secs}
+
+
+def cli_mesh_phase(work):
+    """[cli] with --eval-device mesh: partition_cli with the script's flags
+    and CLI_FLAGS writes the train subgraph's artifacts and the eval
+    graphs' ('-val', '-test'); then the script trains CLI_MESH_EPOCHS epochs
+    from them (--skip-partition), the ranks evaluating on the '-val'
+    partition every 4 epochs and on '-test' at the end. It must exit 0,
+    print the accuracy lines, the Test Result and the final checkpoint,
+    and build no artifacts. Returns the details."""
+    t0 = time.perf_counter()
+    d = {k: os.path.join(work, "cli_mesh", k)
+         for k in ("parts", "results", "ckpt")}
+    flags = (CLI_FLAGS + ["--eval-device", "mesh", "--part-path", d["parts"],
+                          "--results-path", d["results"], "--ckpt-path",
+                          d["ckpt"], "--n-epochs", str(CLI_MESH_EPOCHS)])
+    out0 = run_cli(script_flags(CLI_SCRIPT) + flags,
+                   cmd=[sys.executable, "-m", "bnsgcn_tpu_torch.partition_cli"])
+    dirs = sorted(os.listdir(d["parts"]))
+    if not (len(dirs) == 3 and {x[len(dirs[0]):] for x in dirs}
+            == {"", "-test", "-val"}):
+        raise AssertionError(f"[cli] partition_cli --eval-device mesh wrote "
+                             f"{dirs}:\n{out0[-2000:]}")
+    out = run_cli(flags + ["--skip-partition"])
+    lines = out.splitlines()
+    evals = [ln for ln in lines if ln.startswith("Epoch ")
+             and " | Accuracy " in ln]
+    want = ["Test Result | Accuracy ", "model saved", "[eval-val] Part 0",
+            "[eval-test] Part 0"]
+    missing = [w for w in want if not any(ln.startswith(w) for ln in lines)]
+    if missing or len(evals) != CLI_MESH_EPOCHS // 4:
+        raise AssertionError(f"[cli] --eval-device mesh printed no "
+                             f"{missing or 'accuracy lines'}:\n{out[-3000:]}")
+    if sorted(os.listdir(d["parts"])) != dirs:
+        raise AssertionError("[cli] --skip-partition wrote artifacts")
+    secs = time.perf_counter() - t0
+    test = next(ln for ln in lines if ln.startswith("Test Result"))
+    log(f"[cli] --eval-device mesh: partition_cli wrote {', '.join(dirs)}; "
+        f"bash {CLI_SCRIPT} ... --skip-partition trained {CLI_MESH_EPOCHS} "
+        f"epochs, the ranks evaluating on the '-val' partition ("
+        + "; ".join(evals) + f") and on '-test': {test} ({secs:.1f} s for "
+        f"both)")
+    return {"dirs": dirs, "evals": evals, "test": test, "seconds": secs}
+
+
+def write_yelp_saint(g, root):
+    """g in the GraphSAINT layout load_yelp_saint reads:
+    {root}/yelp/adj_full.npz (scipy.sparse.save_npz's CSR, written with
+    numpy), feats.npy, class_map.json (node -> multi-hot list), role.json
+    ('tr', 'va', 'te' node lists)."""
+    import numpy as np
+    d = os.path.join(root, "yelp")
+    os.makedirs(d, exist_ok=True)
+    n = g.n_nodes
+    order = np.argsort(g.src, kind="stable")
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(g.src,
+                                                        minlength=n))])
+    np.savez(os.path.join(d, "adj_full.npz"), format=np.bytes_("csr"),
+             shape=np.array([n, n]), data=np.ones(len(order), np.float32),
+             indices=g.dst[order].astype(np.int32),
+             indptr=indptr.astype(np.int64))
+    np.save(os.path.join(d, "feats.npy"), g.feat)
+    with open(os.path.join(d, "class_map.json"), "w") as f:
+        json.dump({str(i): row for i, row in
+                   enumerate(g.label.astype(np.int8).tolist())}, f)
+    with open(os.path.join(d, "role.json"), "w") as f:
+        json.dump({k: np.flatnonzero(m).tolist() for k, m in
+                   (("tr", g.train_mask), ("va", g.val_mask),
+                    ("te", g.test_mask))}, f)
+
+
+def yelp_phase(work, hook=None, extra=()):
+    """[yelp]: the multilabel path through the user's entry point
+    (run.run_training on scripts/yelp_torch.sh's flags, plus --spmm hybrid
+    --use-pallas so K2 runs) at P=4 over gloo, --dataset yelp --data-path
+    on a multilabel power-law graph at Yelp's widths written in the
+    GraphSAINT layout (load_yelp_saint, the train rows' feature scaling).
+    Each rank first holds K1 and K2 to their plain versions at H=512 and
+    F=300 on its own layout (rank_kernel_check); then the launches per
+    aggregation, the BCE loss finite and falling, the micro-F1 lines
+    ('Accuracy', as the JAX package prints them) and the Test Result.
+    Returns the details."""
+    from bnsgcn_tpu_torch.config import parse_config
+    from bnsgcn_tpu_torch.data.graph import synthetic_graph
+    from bnsgcn_tpu_torch.run import run_training
+    t0 = time.perf_counter()
+    g = synthetic_graph(n_nodes=YELP_NODES, avg_degree=YELP_DEGREE,
+                        n_feat=YELP_FEAT, n_class=YELP_CLASSES, seed=0,
+                        multilabel=True, power_law=True)
+    data = os.path.join(work, "yelp_data")
+    write_yelp_saint(g, data)
+    prep_s = time.perf_counter() - t0
+    c = parse_config(script_flags(YELP_SCRIPT) + [
+        "--data-path", data, "--n-partitions", str(PARTS), "--dist-backend",
+        "gloo", "--spmm", "hybrid", "--use-pallas", "--n-epochs",
+        str(YELP_EPOCHS), "--log-every", str(YELP_LOG_EVERY), "--fix-seed",
+        "--part-path", os.path.join(work, "yelp_parts"), "--ckpt-path",
+        os.path.join(work, "yelp_ckpt"), "--results-path",
+        os.path.join(work, "yelp_results"), *extra])
+    tee = Tee()
+    res = run_training(c, log=tee, rank_hook=hook or rank_kernel_check)
+    secs = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"[yelp] non-finite loss {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"[yelp] loss did not fall: {res.losses}")
+    f1 = [ln for ln in tee.lines if ln.startswith("Epoch ")
+          and " | Accuracy " in ln]
+    if len(f1) != YELP_EPOCHS // YELP_LOG_EVERY:
+        raise AssertionError(f"[yelp] micro-F1 lines {f1}")
+    # the best parameters' line, when an eval scored above 0
+    test = tee.having("Test Result | Accuracy ") or ["no Test Result"]
+    for rep in res.ranks:
+        if tuple(rep["hook"]["widths"]) != (c.n_hidden, YELP_FEAT):
+            raise AssertionError(f"[yelp] rank {rep['rank']} checked "
+                                 f"{rep['hook']['widths']}")
+    passes = (c.n_layers - c.n_linear - 1) * c.n_epochs
+    want = {"fwd": passes, "bwd": passes, "pre": 1}
+    for rep in res.ranks:
+        for name, cnt in rep["launches"].items():
+            if cnt != want:
+                raise AssertionError(f"[yelp] rank {rep['rank']}: {name} "
+                                     f"launched {cnt}, not {want}")
+    for rep in res.ranks:
+        hk = rep["hook"]
+        log(f"[yelp] rank {rep['rank']}'s own layout: K1 max abs err "
+            f"{hk['K1'][0]:.3e}, K2 {hk['K2'][0]:.3e} over "
+            f"{len(hk['detail'])} checks at H={tuple(hk['widths'])}; every "
+            f"element within its bound; mean of epochs 1.. "
+            f"{mean_from_1(rep['epoch_times']) * 1e3:.1f} ms (4 ranks "
+            f"sharing one card over gloo)")
+    log(f"[yelp] {' '.join(script_flags(YELP_SCRIPT)[:2])} through "
+        f"load_yelp_saint: {g.n_nodes} nodes, {g.n_edges} edges, "
+        f"{YELP_FEAT} features, {YELP_CLASSES} labels (multi-hot, mean "
+        f"{float(g.label.sum(1).mean()):.1f} per node); BCE losses "
+        + " ".join(f"{v:.4f}" for v in res.losses)
+        + f"; micro-F1 lines: " + "; ".join(f1) + f"; {test[0]}; launches "
+        f"per rank K1 {res.ranks[0]['launches']['K1']} K2 "
+        f"{res.ranks[0]['launches']['K2']} (graph written in "
+        f"{prep_s:.1f} s; {secs:.1f} s in all)")
+    return {"losses": res.losses, "f1_lines": f1, "test": test[0],
+            "n_nodes": g.n_nodes, "n_edges": g.n_edges,
+            "launches": [rep["kinds"] for rep in res.ranks],
+            "rank_checks": [rep["hook"] for rep in res.ranks],
+            "epoch_from_1_s": [mean_from_1(rep["epoch_times"])
+                               for rep in res.ranks], "seconds": secs}
 
 
 def small_agreement(base_cfg):
@@ -1560,8 +1965,8 @@ def main(argv=None) -> int:
     cfg = Config(dataset=f"synth-reddit:{args.scale}", n_partitions=1,
                  model="graphsage", n_layers=4, n_hidden=256, use_pp=True,
                  norm="layer", dropout=0.5, lr=0.01, spmm="hybrid",
-                 use_pallas=True, n_epochs=args.epochs, log_every=1,
-                 eval=True, seed=0, device="cuda",
+                 use_pallas=True, n_epochs=args.epochs,
+                 log_every=args.epochs, eval=True, seed=0, device="cuda",
                  ckpt_path=os.path.join(work, "checkpoint"),
                  results_path=os.path.join(work, "results"))
     t0 = time.perf_counter()
@@ -1736,28 +2141,35 @@ def main(argv=None) -> int:
                                                      "partition"))
     log(f"[parts] done in {time.perf_counter() - t0:.1f} s")
 
-    # 6. the flagship's script: train, checkpoint, resume
+    # 6. the flagship's script: train, checkpoint, resume; then with the
+    # evaluation on the ranks
     cli = cli_phase(work)
+    cli["mesh"] = cli_mesh_phase(work)
+
+    # 6b. the multilabel path at Yelp's widths
+    yelp = yelp_phase(work)
 
     # 7. [anchor]: the calibrated accuracy gate, on the card
     anc = anchor_phase(work)
     shutil.rmtree(work, ignore_errors=True)
     # launches by variant on the main paths: the P=1 run, every rank of the
-    # P=4 main path, [lowp]'s two runs, and [recipe]'s at P=1 and P=4
+    # P=4 main path, [lowp]'s two runs, [recipe]'s at P=1 and P=4, and
+    # every rank of [meval] (its evals included) and of [yelp]
     counts = {"K1": {}, "K2": {}}
     for src in ([{"K1": p1_kinds["K1"], "K2": p1_kinds["K2"]}]
                 + [rep["kinds"] for rep in res4.ranks]
                 + [x["launches"] for x in lowp.values()]
                 + [rec1["launches"]]
-                + [x["launches"] for x in parts["recipe"]["ranks"]]):
+                + [x["launches"] for x in parts["recipe"]["ranks"]]
+                + parts["meval"]["launches"] + yelp["launches"]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
     # the largest error of each kernel's checks, P=1's and every rank's
-    errs = {"ell_bucket_sum": max([e1[0]] + [rep["hook"]["K1"][0]
-                                             for rep in res4.ranks]),
-            "tile_matmul": max([e2[0]] + [rep["hook"]["K2"][0]
-                                          for rep in res4.ranks]),
+    hooks = ([rep["hook"] for rep in res4.ranks]
+             + yelp["rank_checks"])
+    errs = {"ell_bucket_sum": max([e1[0]] + [h["K1"][0] for h in hooks]),
+            "tile_matmul": max([e2[0]] + [h["K2"][0] for h in hooks]),
             "bucket_reduce": e3, "copy_probe": 0.0}
     times = {"ell_bucket_sum": t1, "tile_matmul": t2, "bucket_reduce": t3,
              "copy_probe": t4}
@@ -1772,7 +2184,7 @@ def main(argv=None) -> int:
 
     # 8. report
     out = {"card": smi, "p1": p1, "lowp": lowp, "recipe_p1": rec1,
-           "parts": parts, "cli": cli,
+           "parts": parts, "cli": cli, "yelp": yelp,
            "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:

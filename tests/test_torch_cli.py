@@ -20,6 +20,7 @@
 
 import argparse
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -119,7 +120,7 @@ def test_subcommands_exit_2_by_name(name, capsys):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--halo-mode", "grad-only"], "--halo-mode grad-only"),
-    (["--eval-device", "mesh"], "--eval-device mesh"),
+    (["--norm", "batch"], "--norm batch"),
     (["--no-comm-trace", "--remat"], "--remat"),
     (["--serve-port", "9"], "--serve-port 9"),
     (["--n-nodes", "2"], "--n-nodes 2"),
@@ -196,13 +197,42 @@ def test_skip_partition_without_artifacts_fails_by_name(tmp_path, capsys):
     assert not any(tmp_path.iterdir())
 
 
-def test_partition_cli_refuses_eval_device_mesh(tmp_path, capsys):
-    rc = partition_cli.main(BASE + ["--inductive", "--eval-device", "mesh",
-                                    "--part-path", str(tmp_path)])
-    assert rc == 2
-    assert "[config] --eval-device mesh is not ported yet" in \
-        capsys.readouterr().err
-    assert not any(tmp_path.iterdir())
+def test_partition_cli_writes_eval_artifacts_like_jax(tmp_path, capsys):
+    """partition_cli --inductive --eval-device mesh writes, beside the
+    train subgraph's artifacts, the eval graphs' ({name}-val: the train+val
+    subgraph; {name}-test: the full graph), file for file and array for
+    array the JAX partition_cli's for the same flags; without
+    --eval-device mesh it writes the train subgraph's alone."""
+    from bnsgcn_tpu import partition_cli as j_partition_cli
+    flags = BASE + ["--n-partitions", "4", "--inductive", "--eval-device",
+                    "mesh", "--fix-seed", "--graph-name", "sbm-ev"]
+    assert partition_cli.main(flags + ["--part-path",
+                                       str(tmp_path / "port")]) == 0
+    out = capsys.readouterr().out
+    assert out.count("eval partition artifacts written to") == 2
+    # the same flags without the port's own --device and --dist-backend
+    j_partition_cli.main(BASE[:2] + flags[len(BASE):]
+                         + ["--part-path", str(tmp_path / "jax")])
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) == [
+        "sbm-ev", "sbm-ev-test", "sbm-ev-val"]
+    for name in names:
+        a_dir, b_dir = tmp_path / "port" / name, tmp_path / "jax" / name
+        assert sorted(os.listdir(a_dir)) == sorted(os.listdir(b_dir))
+        for fn in os.listdir(a_dir):
+            if fn.endswith(".npz"):
+                with np.load(a_dir / fn) as x, np.load(b_dir / fn) as y:
+                    assert sorted(x.files) == sorted(y.files)
+                    for k in x.files:
+                        np.testing.assert_array_equal(x[k], y[k],
+                                                      err_msg=f"{name}/{k}")
+            else:
+                assert json.loads((a_dir / fn).read_text()) == json.loads(
+                    (b_dir / fn).read_text())
+    assert partition_cli.main(BASE + ["--n-partitions", "4", "--inductive",
+                                      "--part-path", str(tmp_path / "host"),
+                                      "--graph-name", "sbm-ev"]) == 0
+    assert os.listdir(tmp_path / "host") == ["sbm-ev"]
 
 
 def test_flagship_script_trains_at_p1(tmp_path):

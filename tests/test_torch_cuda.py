@@ -879,3 +879,97 @@ def test_p1_resume_on_the_card_matches_the_uninterrupted_run(cuda, tmp_path):
     assert resumed.start_epoch == 4 and len(resumed.losses) == 2
     np.testing.assert_allclose(resumed.losses, whole.losses[4:], rtol=1e-5,
                                atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_dim", [512, 300])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_kernels_at_yelp_widths(cuda, h_dim, direction):
+    """K1 (with a base) and K2 at the Yelp recipe's widths, H=512 (its
+    hidden layers) and F=300 (its features, the use_pp precompute and the
+    mesh eval's layer 0), against their plain versions."""
+    op = _ell_rows(cuda)
+    rows = op.rows[direction]
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    h = torch.randn(rows.n_src, h_dim, generator=gen, device=cuda)
+    base = torch.randn(rows.n_rows + 3, h_dim, generator=gen, device=cuda)
+    base_row = torch.randperm(rows.n_rows + 3, generator=gen,
+                              device=cuda)[:rows.n_rows].to(torch.int32)
+    _k1_matches_plain(rows, h, base, base_row)
+    art, (fwd, bwd, _, arrays) = _layout(64)
+    spec = fwd if direction == "fwd" else bwd
+    a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
+         for k, v in arrays.items()}
+    perm = a["blk_perm_ext" if direction == "fwd" else "blk_perm_inner"]
+    x = block_spmm.build_x_slabs(spec, perm, torch.randn(
+        spec.n_src, h_dim, generator=gen, device=cuda))
+    _k2_matches_plain(a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
+                      a[f"blk_colb_{direction}"], x, spec.n_row_blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,use_pp", [("graphsage", True),
+                                          ("gcn", False)])
+def test_mesh_eval_on_the_card_matches_the_host_eval(cuda, model, use_pp):
+    """--eval-device mesh's forward at P=1 on the card (K1 and K2, counted
+    under 'eval': one launch of each per graph layer) against the host
+    eval (COO index_add_) on the card, for the same parameters: logits to
+    1e-5 of the largest, the same predictions, the same accuracies."""
+    from bnsgcn_tpu_torch.config import Config
+    from bnsgcn_tpu_torch.evaluate import evaluate_mesh, full_graph_logits
+    from bnsgcn_tpu_torch.models.gnn import GNN
+    from bnsgcn_tpu_torch.run import prepare_run
+    from bnsgcn_tpu_torch.utils.metrics import calc_acc
+    g = sbm_graph(n_nodes=600, n_class=5, n_feat=6, p_in=0.15, p_out=0.003,
+                  seed=67)
+    cfg = Config(model=model, n_layers=3, n_hidden=64, use_pp=use_pp,
+                 dropout=0.0, spmm="hybrid", block_tile=64, n_partitions=1,
+                 device="cuda", eval_device="mesh", seed=2)
+    pr = prepare_run(cfg, g=g, log=lambda m: None)
+    net = GNN(pr.spec, torch.Generator().manual_seed(2)).to(cuda)
+    k1, k2 = (dict(c.by_phase) for c in (k1_launches, k2_launches))
+    got = pr.fns.eval_forward(net, pr.blk)
+    for before, c in ((k1, k1_launches), (k2, k2_launches)):
+        assert c.by_phase.get("eval", 0) == before.get("eval", 0) + 3
+    want = torch.from_numpy(full_graph_logits(net, g, cuda))
+    inner = torch.from_numpy(pr.art.inner_mask[0])
+    got = got.cpu()[inner]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got.argmax(1), want.argmax(1))
+    accs = evaluate_mesh("x", pr.fns.eval_forward, net, pr.blk, pr.art,
+                         ("val", "test"), log=lambda m: None)
+    for mode, mask in (("val", g.val_mask), ("test", g.test_mask)):
+        assert accs[mode] == calc_acc(want.numpy()[mask], g.label[mask])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inductive", [False, True])
+def test_eval_devices_agree_on_the_card_at_p2(cuda, tmp_path, inductive):
+    """Two ranks sharing the card over gloo, dropout 0: the run whose ranks
+    evaluate (--eval-device mesh, the eval graphs' own partitions under
+    --inductive) and the run whose rank 0 evaluates in its thread on its
+    own stream (host) print the same eval lines and end on the same test
+    accuracy and losses."""
+    from bnsgcn_tpu_torch.config import Config
+    from bnsgcn_tpu_torch.run import run_training
+    g = sbm_graph(n_nodes=600, n_class=5, n_feat=6, p_in=0.15, p_out=0.003,
+                  seed=67)
+    out = {}
+    for dev in ("mesh", "host"):
+        cfg = Config(dataset="sbm", model="graphsage", n_layers=3,
+                     n_hidden=64, use_pp=True, dropout=0.0, spmm="hybrid",
+                     block_tile=64, n_partitions=2, dist_backend="gloo",
+                     partition_method="random", device="cuda", seed=2,
+                     n_epochs=6, log_every=2, eval_device=dev,
+                     inductive=inductive, part_path=str(tmp_path / "parts"),
+                     ckpt_path=str(tmp_path / dev),
+                     results_path=str(tmp_path / f"res_{dev}"))
+        lines = []
+        res = run_training(cfg, g=g, log=lines.append)
+        out[dev] = ([ln for ln in lines if ln.startswith(
+            ("Epoch ", "Test Result", "Max Validation"))],
+            res.test_acc, res.losses)
+    assert out["mesh"][0] == out["host"][0] and len(out["mesh"][0]) == 5
+    assert out["mesh"][1] == out["host"][1]
+    np.testing.assert_allclose(out["mesh"][2], out["host"][2], rtol=1e-6)

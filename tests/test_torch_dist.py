@@ -45,6 +45,21 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     run of the same flags within BF16_LOSS_RTOL, the ranks replicated;
     chip_smoke.py's RECIPE_TPU is the knob list of scripts/reddit.sh.
 
+  * evaluation: the mesh eval forward (StepFns.eval_forward, full rate,
+    raw features) of every (model, spmm) at the carried-over initial
+    parameters against the JAX package's eval_forward under shard_map
+    (LOGIT_TOL), and evaluate_mesh's accuracies (each rank's metric
+    statistics, one all-reduce) equal to the JAX package's evaluate_mesh;
+    the run loop on the 4 ranks against the JAX package's run_training on
+    4 devices on the same artifacts (LOOPS: rank 0's overlapped host eval
+    at rate 0.5, a run shorter than log_every, and --eval-device mesh
+    transductive and inductive, the eval graphs' own artifacts): eval
+    lines, results file, every periodic checkpoint's best_acc, the final
+    checkpoint's parameters, the RESULT fields, the losses, as
+    test_torch_eval.py holds the P=1 loop;
+  * a multilabel graph (BCE loss, multi-hot labels) at rate 0.5: 3-step
+    losses, logits and parameters against the JAX 4-device run.
+
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
 rank starts with torch alone.
@@ -108,6 +123,12 @@ RECIPE_TPU = dict(dtype="bfloat16", spmm="hybrid", use_pallas=True,
                   halo_wire="int8")
 BF16_LOSS_RTOL = 2e-2
 BNS_MODEL = ("graphsage", True)   # the model of the precompute check
+# the run-loop cases: (name, eval device, inductive, n_epochs, log_every,
+# sampling rate), GraphSAGE with use_pp, dropout 0
+LOOPS = [("host", "host", False, 6, 2, RATE),
+         ("short", "host", False, 2, 3, 1.0),
+         ("mesh", "mesh", False, 4, 2, RATE),
+         ("mesh_induc", "mesh", True, 4, 2, RATE)]
 UNBIASED_EPOCHS = 300
 
 
@@ -170,10 +191,61 @@ def _unbiased(art, comm, rank):
     return (acc / UNBIASED_EPOCHS).numpy(), full.numpy()
 
 
-def _rank_job(ctx, path, h, cot, inits, induc_path):
-    """One rank: the halo exchange and its VJP, then every (model, spmm);
-    then the BNS cases at rate RATE, every model; then the inductive case
-    on the train subgraph's artifacts at `induc_path`."""
+def _mesh_eval(pr, init, comm):
+    """The mesh eval forward's logits at `init` on this rank's part, and
+    evaluate_mesh's accuracies (val and test) from them."""
+    from bnsgcn_tpu_torch.evaluate import evaluate_mesh
+    from bnsgcn_tpu_torch.models.gnn import GNN
+    net = GNN(pr.spec)
+    net.load_state_dict(init)
+    logits = pr.fns.eval_forward(net, pr.blk).numpy()
+    accs = evaluate_mesh("x", pr.fns.eval_forward, net, pr.blk, pr.art,
+                         ("val", "test"), comm=comm, log=_quiet)
+    return logits, accs
+
+
+def _loop(ctx, case, init, g, work):
+    """One LOOPS case through run.py's rank body (_rank_main: this rank's
+    part of the artifacts, the loop, the replication check), its log lines
+    captured on rank 0."""
+    from bnsgcn_tpu_torch.parallel.mesh import RankContext
+    from bnsgcn_tpu_torch.run import _rank_main, artifacts_dir, split_graphs
+    cfg = _loop_cfg(case, work)
+    lines = []
+    sub = RankContext(ctx.rank, ctx.device, ctx.comm, lines.append)
+    graphs = (split_graphs(cfg, g)[1:]
+              if ctx.rank == 0 and cfg.eval_device == "host" else None)
+    rep = _rank_main(sub, cfg, artifacts_dir(cfg), init, graphs, None, None)
+    return lines, {k: rep[k] for k in ("losses", "best_val_acc", "test_acc")}
+
+
+def _loop_cfg(case, work, cls=Config):
+    """The Config (the port's, or with cls the JAX package's) of a LOOPS
+    case: the fixture's artifacts under work/parts, checkpoints and results
+    under work/<who>_<name>."""
+    name, dev, inductive, n_epochs, log_every, rate = case
+    who = "port" if cls is Config else "jax"
+    kw = dict(model="graphsage", n_layers=3, n_hidden=8, dropout=0.0,
+              use_pp=True, norm="layer", lr=0.01, weight_decay=5e-4,
+              spmm="ell", n_partitions=P, seed=0, sampling_rate=rate,
+              eval_device=dev, inductive=inductive, n_epochs=n_epochs,
+              log_every=log_every, dataset="synthetic",
+              part_path=f"{work}/parts",
+              graph_name="induc" if inductive else "trans",
+              skip_partition=True,
+              ckpt_path=f"{work}/{who}_{name}/ck",
+              results_path=f"{work}/{who}_{name}/res")
+    if cls is Config:
+        kw.update(device="cpu", dist_backend="gloo")
+    return cls(**kw)
+
+
+def _rank_job(ctx, path, h, cot, inits, induc_path, ml_path, ml_init,
+              loop_inits, g, work):
+    """One rank: the halo exchange and its VJP, then every (model, spmm)
+    with its mesh eval; then the BNS cases at rate RATE, every model; then
+    the inductive case on the train subgraph's artifacts at `induc_path`;
+    then the multilabel case at `ml_path`; then the LOOPS cases."""
     torch.set_num_threads(1)
     art = load_artifacts(path, parts=[ctx.rank])
     bnd = torch.from_numpy(art.bnd[0])
@@ -187,6 +259,8 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
         for spmm in SPMMS:
             pr = prepare_part(_cfg(model, use_pp, spmm, P), art, None,
                               ctx.device, _quiet, ctx.rank, ctx.comm)
+            out["meval", model, use_pp, spmm] = _mesh_eval(pr, init,
+                                                           ctx.comm)
             out[model, use_pp, spmm] = _steps(pr, init)
 
     # boundary-node sampling at rate RATE
@@ -233,16 +307,30 @@ def _rank_job(ctx, path, h, cot, inits, induc_path):
         pr = prepare_part(cfg, art_i, None, ctx.device, _quiet, ctx.rank,
                           ctx.comm)
         out["induc", spmm] = _steps(pr, init)
+
+    # a multilabel graph: BCE over multi-hot labels, rate RATE
+    pr = prepare_part(_cfg(*BNS_MODEL, "ell", P, RATE),
+                      load_artifacts(ml_path, parts=[ctx.rank]), None,
+                      ctx.device, _quiet, ctx.rank, ctx.comm)
+    out["ml"] = _steps(pr, {k: torch.from_numpy(v)
+                            for k, v in ml_init.items()})
+
+    for case in LOOPS:
+        init = {k: torch.from_numpy(v)
+                for k, v in loop_inits[case[2]].items()}
+        out["loop", case[0]] = _loop(ctx, case, init, g, work)
     return out
 
 
-def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
+def _jax_train(art_j, mesh, model, use_pp, rate, extras=None, **flags):
     """One case of the JAX package on the 4-device mesh: (forward logits,
     EPOCHS losses, final parameters, as f32 numpy) from jax.random.key(9)'s
     initial parameters (returned too, as numpy), sample key
     jax.random.key(0); `flags` add Config fields (the TPU recipe's). Under
     dtype bfloat16 the parameters, the features and the precompute are
-    cast as bnsgcn_tpu/run.py casts them."""
+    cast as bnsgcn_tpu/run.py casts them. With `extras` (a dict), its
+    'eval' gets the eval forward's logits at the initial parameters on the
+    raw features and evaluate_mesh's accuracies (val and test)."""
     import jax
     import jax.numpy as jnp
 
@@ -269,6 +357,19 @@ def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
     for k in fns.drop_blk_keys:
         blk_np.pop(k, None)
     blk = place_blocks(blk_np, mesh)
+    if extras is not None:
+        import contextlib
+        import io
+
+        from bnsgcn_tpu.evaluate import evaluate_mesh
+        pp0 = place_replicated(params, mesh)
+        ss0 = place_replicated(state, mesh)
+        tbf0 = place_replicated(tbf, mesh)
+        with contextlib.redirect_stdout(io.StringIO()):
+            accs = evaluate_mesh("x", fns.eval_forward, pp0, ss0, blk, tbf0,
+                                 art_j, ("val", "test"))
+        extras["eval"] = (np.asarray(fns.eval_forward(pp0, ss0, blk, tbf0)),
+                          accs)
     blk["feat"] = blk["feat"].astype(dtype)
     tb = place_replicated(tb, mesh)
     if use_pp:
@@ -290,12 +391,13 @@ def _jax_train(art_j, mesh, model, use_pp, rate, **flags):
                                          jax.device_get(pp))), params_np
 
 
-def _jax_reference(art_j, h, cot, art_ij):
+def _jax_reference(art_j, h, cot, art_ij, art_mlj):
     """The JAX package on 4 virtual devices: halo_apply + VJP under
     shard_map, and per model the forward logits, EPOCHS train steps and the
     final parameters (with the initial parameters it drew), at rate 1.0
-    and RATE; then the inductive case on `art_ij`, the artifacts of the
-    train subgraph."""
+    (with the eval forward) and RATE; then the inductive case on `art_ij`,
+    the artifacts of the train subgraph, and the multilabel case on
+    `art_mlj`."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as PS
@@ -369,9 +471,14 @@ def _jax_reference(art_j, h, cot, art_ij):
     inits = []
     for model, use_pp in MODELS:
         for rate in (1.0, RATE):
+            extras = {} if rate == 1.0 else None
             ref[model, use_pp, rate], params_np = _jax_train(
-                art_j, mesh, model, use_pp, rate)
+                art_j, mesh, model, use_pp, rate, extras)
+            if extras:
+                ref["meval", model, use_pp] = extras["eval"]
         inits.append(params_np)
+    ref["ml"], ml_params = _jax_train(art_mlj, mesh, *BNS_MODEL, RATE)
+    inits.append(ml_params)
     ref["induc"], _ = _jax_train(art_ij, mesh, *BNS_MODEL, RATE)
     ref["recipe"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE,
                                   **FINER_KNOBS)
@@ -383,46 +490,112 @@ def _jax_reference(art_j, h, cot, art_ij):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """One 4-rank run of every case, its JAX reference and its P=1 twin."""
+    import jax
+
+    from bnsgcn_tpu.config import Config as JConfig
     from bnsgcn_tpu.data.artifacts import build_artifacts as j_build
     from bnsgcn_tpu.data.graph import synthetic_graph as j_synthetic
+    from bnsgcn_tpu.models.gnn import init_params as j_init_params
+    from bnsgcn_tpu.models.gnn import spec_from_config as j_spec
     from bnsgcn_tpu_torch.models.gnn import spec_from_config
     from bnsgcn_tpu_torch.trainer import params_from_jax
 
+    work = str(tmp_path_factory.mktemp("work"))
     g = synthetic_graph(**GRAPH)
     pid = partition_graph(g, P, method="random", seed=3)
     art = build_artifacts(g, pid)
-    path = str(tmp_path_factory.mktemp("parts"))
+    path = f"{work}/parts/trans"
     save_artifacts(art, path)
+    save_artifacts(art, f"{work}/parts/induc-test")     # the full graph
     train_g = g.subgraph(g.train_mask)
     pid_i = partition_graph(train_g, P, method="random", seed=3)
     art_i = build_artifacts(train_g, pid_i)
-    induc_path = str(tmp_path_factory.mktemp("parts_induc"))
+    induc_path = f"{work}/parts/induc"
     save_artifacts(art_i, induc_path)
+    val_g = g.subgraph(g.train_mask | g.val_mask)
+    save_artifacts(build_artifacts(val_g, partition_graph(
+        val_g, P, method="random", seed=3)), f"{work}/parts/induc-val")
+    g_ml = synthetic_graph(**GRAPH, multilabel=True)
+    pid_ml = partition_graph(g_ml, P, method="random", seed=3)
+    art_ml = build_artifacts(g_ml, pid_ml)
+    ml_path = f"{work}/parts/ml"
+    save_artifacts(art_ml, ml_path)
     rng = np.random.default_rng(0)
     h = rng.normal(size=(P, art.pad_inner, HALO_D)).astype(np.float32)
     cot = rng.normal(size=(P, art.n_ext, HALO_D)).astype(np.float32)
     g_j = j_synthetic(**GRAPH)
     ref, inits = _jax_reference(
         j_build(g_j, pid), h, cot,
-        j_build(g_j.subgraph(g_j.train_mask), pid_i))
+        j_build(g_j.subgraph(g_j.train_mask), pid_i),
+        j_build(j_synthetic(**GRAPH, multilabel=True), pid_ml))
     init_sd = []
     for (model, use_pp), params_np in zip(MODELS, inits):
         spec = spec_from_config(_cfg(model, use_pp, "ell", P).replace(
             n_feat=art.n_feat, n_class=art.n_class, n_train=art.n_train))
         init_sd.append({k: v.numpy() for k, v in
                         params_from_jax(params_np, spec).items()})
+    spec = spec_from_config(_cfg(*BNS_MODEL, "ell", P).replace(
+        n_feat=art_ml.n_feat, n_class=art_ml.n_class,
+        n_train=art_ml.n_train))
+    ml_init = {k: v.numpy() for k, v in
+               params_from_jax(inits[-1], spec).items()}
+    # the loops start where the JAX run_training starts: its init_params
+    # from jax.random.key(seed) for its spec of the artifacts
+    loop_inits, loop_params = {}, {}
+    for inductive, a in ((False, art), (True, art_i)):
+        jcfg = _loop_cfg(LOOPS[0], work, JConfig).replace(
+            n_feat=a.n_feat, n_class=a.n_class, n_train=a.n_train)
+        params, _ = j_init_params(jax.random.key(jcfg.seed), j_spec(jcfg))
+        loop_params[inductive] = jax.tree.map(np.asarray, params)
+        spec = spec_from_config(_loop_cfg(LOOPS[0], work).replace(
+            n_feat=a.n_feat, n_class=a.n_class, n_train=a.n_train))
+        loop_inits[inductive] = {
+            k: v.numpy() for k, v in
+            params_from_jax(loop_params[inductive], spec).items()}
     t0 = time.perf_counter()
-    ranks = launch(_rank_job, P, [(path, h, cot, init_sd, induc_path)] * P,
+    ranks = launch(_rank_job, P, [(path, h, cot, init_sd, induc_path,
+                                   ml_path, ml_init, loop_inits, g,
+                                   work)] * P,
                    "gloo", "cpu", log=_quiet)
     launch_s = time.perf_counter() - t0
+    loops = _loop_records(ranks, work, g_j)
     p1 = {}
     for (model, use_pp), init in zip(MODELS, init_sd):
         for spmm in SPMMS:
             pr = prepare_run(_cfg(model, use_pp, spmm, 1), g=g, log=_quiet)
             p1[model, use_pp, spmm] = _steps(
                 pr, {k: torch.from_numpy(v) for k, v in init.items()})
-    return dict(art=art, art_i=art_i, ranks=ranks, ref=ref, p1=p1,
-                init_sd=init_sd, launch_s=launch_s)
+    return dict(art=art, art_i=art_i, art_ml=art_ml, ranks=ranks, ref=ref,
+                p1=p1, init_sd=init_sd, launch_s=launch_s, loops=loops)
+
+
+def _loop_records(ranks, work, g_j):
+    """{LOOPS name: (the port's record, the JAX package's record)}, each
+    test_torch_eval._record's: eval lines, results file, periodic
+    best_acc, final parameters, RESULT fields, losses. The JAX package's
+    run_training runs each case here on 4 devices, from the same
+    artifacts (--skip-partition) and the same initial parameters."""
+    import contextlib
+    import io
+    from types import SimpleNamespace
+
+    from bnsgcn_tpu import checkpoint as j_ckpt
+    from bnsgcn_tpu.config import Config as JConfig
+    from bnsgcn_tpu.run import run_training as j_run_training
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    from tests.test_torch_eval import _record
+    out = {}
+    for case in LOOPS:
+        lines, rep = ranks[0]["loop", case[0]]
+        got = _record(_loop_cfg(case, work), lines, ckpt.read_blob,
+                      SimpleNamespace(**rep))
+        jcfg = _loop_cfg(case, work, JConfig)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = j_run_training(jcfg, g=g_j)
+        out[case[0]] = got, _record(jcfg, buf.getvalue().splitlines(),
+                                    j_ckpt.read_blob, res)
+    return out
 
 
 def test_halo_apply_matches_jax(runs):
@@ -490,6 +663,69 @@ def test_ranks_end_replicated(runs):
         for key in cases:
             for k, v in first[key][2].items():
                 np.testing.assert_array_equal(out[key][2][k], v)
+
+
+@pytest.mark.parametrize("spmm", SPMMS)
+@pytest.mark.parametrize("model,use_pp", MODELS)
+def test_mesh_eval_matches_jax_p4(runs, model, use_pp, spmm):
+    """--eval-device mesh's forward on 4 ranks (full-rate exchange, raw
+    features, no dropout, the rank's own SpMM) at the carried-over initial
+    parameters: every rank's logits against the JAX package's eval_forward
+    (LOGIT_TOL), and evaluate_mesh's accuracies, reduced over the ranks
+    from their metric statistics, equal to the JAX package's."""
+    logits_ref, accs_ref = runs["ref"]["meval", model, use_pp]
+    art = runs["art"]
+    for r, out in enumerate(runs["ranks"]):
+        logits, accs = out["meval", model, use_pp, spmm]
+        inner = art.inner_mask[r]
+        np.testing.assert_allclose(logits[inner], logits_ref[r][inner],
+                                   **LOGIT_TOL)
+        assert accs == accs_ref
+
+
+@pytest.mark.parametrize("case", [c[0] for c in LOOPS])
+def test_loop_matches_jax_loop_p4(runs, case):
+    """The run loop on 4 ranks against the JAX package's run_training on 4
+    devices, from the same artifacts and initial parameters, dropout 0:
+    the eval lines (the final one `Test Result | Accuracy`, none in the
+    short run), the results file, each periodic checkpoint's best_acc
+    (written before its log point's eval), the RESULT fields, equal; the
+    losses (LOSS_TOL) and the final checkpoint's parameters
+    (PARAM_TOL)."""
+    got, want = runs["loops"][case]
+    assert got["lines"] == want["lines"]
+    assert got["results"] == want["results"]
+    assert got["best"] == want["best"]
+    assert got["result"] == want["result"]
+    np.testing.assert_allclose(got["losses"], want["losses"], **LOSS_TOL)
+    if case == "short":
+        assert got["lines"] == [] and got["final"] is None is want["final"]
+        assert got["result"] == "best_val=0.000000 test=0.000000"
+        return
+    assert got["lines"][-1].startswith("Test Result | Accuracy ")
+    flat = {}
+
+    def walk(a, b, key=""):
+        if isinstance(b, dict):
+            assert sorted(a) == sorted(b)
+            for k in b:
+                walk(a[k], b[k], f"{key}/{k}")
+        else:
+            flat[key] = (np.asarray(a, np.float32), np.asarray(b, np.float32))
+
+    walk(got["final"], want["final"])
+    for k, (a, b) in flat.items():
+        np.testing.assert_allclose(a, b, err_msg=k, **PARAM_TOL)
+
+
+def test_multilabel_p4_matches_jax_p4(runs):
+    """A multilabel graph (multi-hot labels, the BCE loss summed over the
+    train rows and classes / global n_train) on 4 ranks at rate RATE,
+    dropout 0: logits, 3-step losses and parameters against the JAX
+    4-device run, at the tolerances above."""
+    assert runs["art_ml"].multilabel
+    _match_jax(runs, "ml", *BNS_MODEL, "ell", RATE, ref_key="ml",
+               art_key="art_ml")
 
 
 def test_bns_plans_match_jax(runs):
@@ -742,7 +978,7 @@ def test_cli_trains_p4_on_cpu_over_gloo(tmp_path, capsys):
     assert "Mesh: 4 ranks | gloo | devices cpu,cpu,cpu,cpu" in out
     assert "MB/exchange/rank" in out
     assert "Process 000 | Epoch 00002 | Time(s)" in out
-    assert "Test Result | Validation Accuracy" in out
+    assert "Test Result | Accuracy" in out
     assert (tmp_path / "synthetic-4-random-vol-trans" / "part3.npz").exists()
 
 
@@ -766,7 +1002,7 @@ def test_cli_trains_p4_with_bns_on_cpu_over_gloo(tmp_path, capsys):
     losses = [float(line.rsplit("Loss ", 1)[1]) for line in out.splitlines()
               if "| Loss " in line]
     assert len(losses) == 2 and losses[1] < losses[0]
-    assert "Test Result | Validation Accuracy" in out
+    assert "Test Result | Accuracy" in out
 
 
 def test_nccl_with_more_parts_than_cards_exits_2(tmp_path, monkeypatch,

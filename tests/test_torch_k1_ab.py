@@ -1,6 +1,6 @@
 """bnsgcn_tpu_torch/k1_ab.py off the card: it refuses to measure without a
 GPU, and hands K1 each row kind as the main paths do (the comparison
-itself runs on the card)."""
+itself runs on the card); loop_ab.py refuses without a GPU too."""
 
 import torch
 
@@ -26,3 +26,11 @@ def test_k1_ab_row_kinds_are_the_main_paths():
         else:
             assert kw["out_dtype"] == torch.bfloat16
             assert kw["scale"].dtype == torch.float32
+
+
+def test_loop_ab_needs_the_gpu(monkeypatch, capsys):
+    """bnsgcn_tpu_torch/loop_ab.py refuses to time the loop without a GPU."""
+    from bnsgcn_tpu_torch import loop_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert loop_ab.main(["tree"]) == 2
+    assert "needs the GPU" in capsys.readouterr().err

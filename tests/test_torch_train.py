@@ -228,7 +228,7 @@ def test_entry_point_trains_on_cpu_when_asked(capsys, tmp_path):
     out = capsys.readouterr().out
     assert rc == 0
     assert "Process 000 | Epoch 00001 | Time(s)" in out
-    assert "Test Result | Validation Accuracy" in out
+    assert "Test Result | Accuracy" in out
 
 
 @pytest.mark.parametrize("flags,want", [([], 424242),
@@ -261,7 +261,11 @@ def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch,
     """The last evaluation scores the best-validation parameters on a copy:
     the trained model keeps its final parameters, which at P > 1 every rank
     must hold alike for the replication check (rank 0 used to load the best
-    ones into it, which failed any run whose best epoch was not its last)."""
+    ones into it, which failed any run whose best epoch was not its last).
+    The periodic evals (evaluate_trans, in the eval thread, on a copy of
+    the parameters taken at their log point) see each log point's
+    parameters; the final one (evaluate_induc on the full graph's test
+    mask, as the JAX package scores it) the best ones."""
     import bnsgcn_tpu_torch.run as t_run
     accs = iter([0.9, 0.5, 0.7])        # the best validation comes first
     seen = []
@@ -272,7 +276,13 @@ def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch,
         acc = next(accs)
         return acc, acc
 
+    def fake_final(tag, model, g, device, mode, log=print,
+                   result_file=None):
+        assert mode == "test"
+        return fake_eval(tag, model, g, device)[0]
+
     monkeypatch.setattr(t_run, "evaluate_trans", fake_eval)
+    monkeypatch.setattr(t_run, "evaluate_induc", fake_final)
     cfg = TConfig(dataset="sbm", n_partitions=1, n_layers=2, n_hidden=8,
                   dropout=0.0, n_epochs=4, log_every=2, device="cpu", seed=0,
                   ckpt_path=str(tmp_path / "ck"),
@@ -285,4 +295,4 @@ def test_final_eval_takes_the_best_parameters_on_a_copy(monkeypatch,
     for k, v in model.state_dict().items():
         assert torch.equal(final[k], best[k]) and torch.equal(v, last[k])
     assert any(not torch.equal(best[k], last[k]) for k in best)
-    assert (res.best_val_acc, res.val_acc) == (0.9, 0.7)
+    assert (res.best_val_acc, res.val_acc, res.test_acc) == (0.9, 0.9, 0.7)
