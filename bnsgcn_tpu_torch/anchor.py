@@ -15,6 +15,14 @@ ELL) in EXACT_BAND; BNS or the quantized stack within QUANT_TOL of exact.
 The weights and the draws are the port's (torch's init and dropout, the
 port's threefry BNS stream), so the accuracies are the port's own, held to
 the JAX package's bands.
+
+Two mutations reproduce ways the BNS math can silently break (the JAX
+harness's): `biased_sampler`, a first-k "sample" of each boundary list (a
+deterministic subset: the estimator's expectation is no longer the full
+aggregate), and `break_rescale`, the 1/ratio sender rescale forced to 1
+(every remote contribution shrinks by about the rate). Neither is a flag of
+the CLI: `train_eval` has each spawned rank apply them to itself (`mutate`,
+its rank hook), since a patch made in the parent would not reach the ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ from __future__ import annotations
 import os
 import tempfile
 from typing import Optional
+
+import functools
+
+import torch
 
 from bnsgcn_tpu_torch.config import Config
 from bnsgcn_tpu_torch.data.artifacts import build_artifacts, save_artifacts
@@ -42,6 +54,39 @@ def anchor_graph() -> Graph:
     return reddit_like_graph(**ANCHOR_GRAPH)
 
 
+def biased_pair_sample(keys, n_valid, s_valid, pad_b: int, pad_s: int):
+    """The biased-sampler mutation in place of parallel/sampling.py
+    `pair_sample` (tools/anchor_harness.py `_biased_pair_sample`): always
+    the first s_valid positions of each list, whatever the key."""
+    pos = torch.arange(pad_s, device=keys.device)
+    return pos.expand(keys.shape[0], pad_s), pos[None] < s_valid[:, None]
+
+
+def unit_rescale(tables: dict) -> dict:
+    """The broken-rescale mutation: make_halo_spec's tables (numpy or
+    tensors) with inv_ratio forced to 1 wherever it is positive, so sampled
+    remote rows arrive unscaled."""
+    inv = torch.as_tensor(tables["inv_ratio"])
+    return dict(tables, inv_ratio=torch.where(inv > 0, 1.0, 0.0).to(
+        torch.float32))
+
+
+def mutate(biased_sampler: bool, break_rescale: bool, pr=None) -> None:
+    """Apply the mutations in this process: the port's halo module draws
+    with biased_pair_sample, and the trainer's per-epoch plans take
+    unit_rescale's tables. `pr` (unused) makes a partial of it a rank hook
+    of run.run_training, which each rank runs after building its step
+    functions and before its first epoch."""
+    from bnsgcn_tpu_torch import trainer
+    from bnsgcn_tpu_torch.parallel import halo
+    if biased_sampler:
+        halo.pair_sample = biased_pair_sample
+    if break_rescale:
+        plan = trainer.make_halo_plan
+        trainer.make_halo_plan = (lambda spec, tables, *a, **k: plan(
+            spec, unit_rescale(tables), *a, **k))
+
+
 def train_eval(g: Graph, P: int, rate: float, epochs: int = 120,
                n_hidden: int = 32, n_layers: int = 3, seed: int = 5,
                lr: float = 0.01, norm: Optional[str] = None,
@@ -49,13 +94,15 @@ def train_eval(g: Graph, P: int, rate: float, epochs: int = 120,
                use_pallas: bool = False, spmm_gather: str = "native",
                spmm_dense: str = "native", halo_wire: str = "native",
                dtype: str = "float32", device: str = "cuda",
-               work: Optional[str] = None, log=lambda m: None) -> float:
+               work: Optional[str] = None, log=lambda m: None,
+               biased_sampler: bool = False,
+               break_rescale: bool = False) -> float:
     """Train GraphSAGE on g over P ranks (gloo; at P > 1 they share the one
     card, or run on the CPU) at BNS `rate` for `epochs` epochs, dropout 0.1,
-    with the given SpMM, gather, dense, wire and compute dtypes; return the
-    full-rate eval-mode validation accuracy of the final parameters.
-    Artifacts, checkpoints and results go under `work` (a temporary
-    directory by default)."""
+    with the given SpMM, gather, dense, wire and compute dtypes, and the
+    mutations asked for (P > 1); return the full-rate eval-mode validation
+    accuracy of the final parameters. Artifacts, checkpoints and results go
+    under `work` (a temporary directory by default)."""
     own = work is None
     work = tempfile.mkdtemp(prefix="anchor_") if own else work
     cfg = Config(dataset="anchor", model="graphsage", n_layers=n_layers,
@@ -76,7 +123,9 @@ def train_eval(g: Graph, P: int, rate: float, epochs: int = 120,
         save_artifacts(build_artifacts(g, partition_graph(
             g, P, method="random", seed=PARTITION_SEED)), artifacts_dir(cfg))
     try:
-        return float(run_training(cfg, g=g, log=log).val_acc)
+        hook = (functools.partial(mutate, biased_sampler, break_rescale)
+                if biased_sampler or break_rescale else None)
+        return float(run_training(cfg, g=g, log=log, rank_hook=hook).val_acc)
     finally:
         if own:
             import shutil

@@ -38,7 +38,8 @@ class Config:
     skip_partition: bool = False        # load the artifacts, never build
 
     # --- model ---
-    model: str = "graphsage"            # 'gcn' | 'graphsage'
+    model: str = "graphsage"            # 'gcn' | 'graphsage' | 'gat'
+    heads: int = 1                      # GAT's attention heads
     n_layers: int = 2
     n_hidden: int = 16
     n_linear: int = 0
@@ -119,8 +120,6 @@ class Config:
 # resilience, rank coordination, telemetry or traced comm columns, and
 # builds artifacts in memory, which is what those values select.
 _NOT_PORTED = (
-    (("model",), ("gcn", "graphsage"), "GAT"),
-    (("heads",), None, "GAT"),
     (("norm",), ("layer", "none"), "SyncBatchNorm"),
     (("spmm",), ("ell", "hybrid", "auto"), "the segment SpMM"),
     (("halo_exchange",), None, "the shift and ragged exchanges"),
@@ -172,8 +171,8 @@ def create_parser() -> argparse.ArgumentParser:
     defaults, types and choices, plus --device and --dist-backend."""
     p = argparse.ArgumentParser(
         description="bnsgcn_tpu_torch: the PyTorch/CUDA port of bnsgcn_tpu "
-                    "(GraphSAGE/GCN training on P ranks with boundary-node "
-                    "sampling)")
+                    "(GraphSAGE/GCN/GAT training on P ranks with "
+                    "boundary-node sampling)")
 
     def both(name, **kw):
         p.add_argument(f"--{name}", f"--{name.replace('-', '_')}", **kw)

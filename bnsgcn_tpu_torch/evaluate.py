@@ -2,7 +2,8 @@
 
 --eval-device host (the default): the eval forward is apply_model in eval
 mode over the whole undistributed graph on rank 0's device: COO
-sum-aggregation (ops/spmm.agg_sum), norms from the eval graph's own
+sum-aggregation (ops/spmm.agg_sum; GAT: the segment softmax over the same
+edges, ops/spmm.segment_softmax), norms from the eval graph's own
 degrees, identity exchange, no dropout. Transductive runs score the val and
 test masks of the full graph in one pass; inductive runs score a
 subgraph's val or test mask (run.py hands in the train+val subgraph or the
@@ -45,12 +46,13 @@ def build_eval_env(g: Graph, model: str, device) -> GraphEnv:
         out_norm=torch.from_numpy(out_deg).to(device),
         exchange=lambda i, h: h,
         aggregate=lambda h_ext: agg_sum(h_ext, src, dst, g.n_nodes),
-        training=False)
+        training=False, src=src, dst=dst)
 
 
 class EvalGraph:
     """An eval graph's tensors on a device, copied once for repeated
-    evaluations (run.HostEval's): the eval env and the raw features. The
+    evaluations (run.HostEval's): the eval env (its COO edges too) and the
+    raw features. The
     evaluate_* functions take it wherever they take a Graph."""
 
     def __init__(self, g: Graph, model: str, device):

@@ -143,6 +143,9 @@ class HaloPlan:
     sel: torch.Tensor                  # [P, S] my boundary rows to send to each peer
     weight: torch.Tensor               # [P, S] f32: 1/ratio on sent entries, 0 on pads
     slots: torch.Tensor                # [P, S] halo slots of received rows (trash = n_halo)
+    presence: torch.Tensor             # [pad_inner + n_halo] bool: the inner
+                                       # rows and the received halo slots
+                                       # (GAT's softmax mask)
 
 
 def tables_to(tables: dict, device) -> dict:
@@ -185,7 +188,18 @@ def make_halo_plan(spec: HaloSpec, tables: dict, bnd: torch.Tensor, me: int,
     sel = bnd.long().gather(1, pos)
     weight = torch.where(valid, t["inv_ratio"][me][:, None], 0.0)
     slots = torch.where(rvalid, peers[:, None] * Bp + rpos, spec.n_halo)
-    return HaloPlan(sel=sel, weight=weight, slots=slots)
+    return HaloPlan(sel=sel, weight=weight, slots=slots,
+                    presence=plan_presence(spec, slots))
+
+
+def plan_presence(spec: HaloSpec, slots: torch.Tensor) -> torch.Tensor:
+    """[pad_inner + n_halo] bool: every inner row, and the halo slots that
+    `slots` fills (bnsgcn_tpu/parallel/halo.py HaloPlan.presence); P=1
+    passes an empty `slots` and gets no halo slot."""
+    halo = torch.zeros(spec.n_halo + 1, dtype=torch.bool, device=slots.device)
+    halo[slots.reshape(-1)] = True
+    return torch.cat([torch.ones(spec.pad_inner, dtype=torch.bool,
+                                 device=slots.device), halo[:-1]])
 
 
 def halo_start(spec: HaloSpec, plan: HaloPlan, h: torch.Tensor,

@@ -183,14 +183,18 @@ def prepare_part(cfg: Config, art: PartitionArtifacts,
                          comm=comm, reuse=reuse, **spmm_kw)
     row = local_row(art, rank)
     n_edges = int((art.dst[row] < art.pad_inner).sum())
+    kernels = (f"model=gat heads={cfg.heads} spmm={fns.spmm_kind} (the ELL "
+               f"attention, layouts {fns.gat.build_seconds:.1f}s)"
+               if fns.gat is not None else
+               f"spmm={fns.spmm_kind} gather={cfg.spmm_gather} "
+               f"dense={cfg.spmm_dense}")
     log(("Graph: " if comm is None else f"Part {rank} of {art.n_parts}: ")
         + f"{int(art.n_inner[rank])} nodes, {n_edges} edges, "
-        f"F={art.n_feat}, {art.n_class} classes | {cfg.dtype} "
-        f"spmm={fns.spmm_kind} gather={cfg.spmm_gather} "
-        f"dense={cfg.spmm_dense} layout {time.perf_counter() - t0:.1f}s"
+        f"F={art.n_feat}, {art.n_class} classes | {cfg.dtype} {kernels} "
+        f"layout {time.perf_counter() - t0:.1f}s"
         + (f" | dense tiles carry {fns.dense_edges} edges "
            f"({fns.dense_edges / max(n_edges, 1):.1%})"
-           if fns.spmm_kind == "hybrid" else ""))
+           if fns.spmm is not None and fns.spmm_kind == "hybrid" else ""))
     blk = to_device({k: v for k, v in build_block_arrays(
         art, spec.model).items() if k in TRAIN_KEYS}, device, row)
     val_g, test_g = eval_graphs if eval_graphs is not None else (None, None)
@@ -224,13 +228,16 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
     replaces it. Under --dtype bfloat16 the parameters (and so Adam's
     moments) are bf16, and the features are cast to bf16 on the device
     before the precompute, whose result is cast to bf16 too
-    (bnsgcn_tpu/run.py:429-438). Under P > 1 every rank then takes rank 0's
+    (bnsgcn_tpu/run.py:429-438); GAT's goes to blk['feat0_ext']. Under P > 1 every rank then takes rank 0's
     parameters."""
     dtype = compute_dtype(pr.cfg)
     blk = dict(pr.blk)
     blk["feat"] = blk["feat"].to(dtype)
     if pr.spec.use_pp:
-        blk["feat"] = pr.fns.precompute(blk).to(dtype)
+        # GAT keeps its raw features and attends over the exchanged ones
+        # at layer 0 (bnsgcn_tpu/run.py:439-440)
+        blk["feat0_ext" if pr.spec.model == "gat" else "feat"] = (
+            pr.fns.precompute(blk).to(dtype))
     model = GNN(pr.spec, torch.Generator().manual_seed(pr.cfg.seed))
     if model_init is not None:
         model.load_state_dict(model_init)

@@ -17,6 +17,14 @@ in the step; every layer's exchange, forward and backward, uses it. The
 use_pp precompute exchanges at the full rate whatever the training rate,
 and so does the eval forward of --eval-device mesh (`eval_forward`: eval
 mode on the raw features, through the training SpMM and its codecs).
+
+GAT aggregates through the ELL attention (ops/ell_attention.py) over its
+own layouts, built per rank from meta.json's 'gat_fwd' and 'bwd' geometry,
+at --spmm ell, hybrid or auto alike (auto stays on ELL for GAT, as the JAX
+package resolves it); it runs no SpMM. Its precompute is the full-rate
+exchange of the raw features alone (`feat0_ext`, training's layer-0 input),
+and each epoch's plan gives the presence mask that takes the unsampled halo
+slots out of the softmax.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              I8_ROW_CAP, effective_occupancy,
                                              estimate_coverage)
 from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
+from bnsgcn_tpu_torch.ops.ell_attention import (GatAttention,
+                                                build_gat_attention)
 from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
                                             halo_apply, make_halo_plan,
                                             make_halo_spec,
@@ -121,7 +131,9 @@ def make_tx(cfg: Config, params) -> torch.optim.Adam:
 def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
     """The JAX parameter tree (numpy leaves) -> the port's state_dict:
     {'w' [fin, fout], 'b'} -> nn.Linear weight [fout, fin] (transposed) and
-    bias; {'scale', 'bias'} of norm_i -> LayerNorm weight and bias. bf16
+    bias; a GAT layer's {'w', 'attn_l', 'attn_r', 'bias'} -> GATLayer's
+    parameters of the same names and layout; {'scale', 'bias'} of norm_i ->
+    LayerNorm weight and bias. bf16
     leaves (a checkpoint's Bfloat16Array) give bf16 tensors, any other
     leaf f32."""
     sd = OrderedDict()
@@ -134,9 +146,15 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
 
     for i in range(spec.n_layers):
         p = params_np[f"layer_{i}"]
-        for prefix, lin in ([(f"layer_{i}", p)] if "w" in p else
-                            [(f"layer_{i}.linear1", p["linear1"]),
-                             (f"layer_{i}.linear2", p["linear2"])]):
+        if "attn_l" in p:                      # GAT: the JAX layout as is
+            for k in ("w", "attn_l", "attn_r", "bias"):
+                sd[f"layer_{i}.{k}"] = t(p[k])
+            lins = []
+        else:
+            lins = ([(f"layer_{i}", p)] if "w" in p else
+                    [(f"layer_{i}.linear1", p["linear1"]),
+                     (f"layer_{i}.linear2", p["linear2"])])
+        for prefix, lin in lins:
             sd[f"{prefix}.weight"] = t(lin["w"]).T.contiguous()
             sd[f"{prefix}.bias"] = t(lin["b"])
         if f"norm_{i}" in params_np:
@@ -165,6 +183,9 @@ def params_to_jax(state, spec: ModelSpec) -> dict:
     tree = {}
     for i in range(spec.n_layers):
         tree[f"layer_{i}"] = (
+            {k: a(state[f"layer_{i}.{k}"])
+             for k in ("w", "attn_l", "attn_r", "bias")}
+            if f"layer_{i}.attn_l" in state else
             lin(f"layer_{i}") if f"layer_{i}.weight" in state else
             {"linear1": lin(f"layer_{i}.linear1"),
              "linear2": lin(f"layer_{i}.linear2")})
@@ -218,7 +239,8 @@ def dropout_generator(seed: int, epoch: int, rank: int,
 
 @dataclass
 class StepFns:
-    spmm: Union[EllSpmm, BlockSpmm]    # the training aggregation operator
+    spmm: Optional[Union[EllSpmm, BlockSpmm]]  # the training aggregation
+                                       # operator (None for GAT)
     layout: dict                       # its numpy layout arrays [1, ...]
     train_step: Callable               # (model, opt, blk, epoch, gen) -> loss
     forward: Callable                  # (model, blk, epoch, gen) -> logits
@@ -228,6 +250,7 @@ class StepFns:
     halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
     spmm_kind: str = "ell"             # 'ell' | 'hybrid' (--spmm resolved)
+    gat: Optional[GatAttention] = None     # GAT's attention (spmm is None)
 
 
 def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
@@ -313,8 +336,19 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
-    spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm, reuse,
-                                    row_cap)
+    gat = None
+    if spec.model == "gat":
+        # no SpMM: --spmm auto stays on ELL (bnsgcn_tpu/trainer.py:707)
+        spmm, layout = None, {}
+        kind = cfg.spmm if cfg.spmm in ("ell", "hybrid") else "ell"
+        gat = build_gat_attention(art, row, device)
+        if cfg.spmm_gather != "native":
+            log(f"spmm_gather={cfg.spmm_gather} has no effect for "
+                f"spmm={kind!r} / model='gat' (only the ell/hybrid GCN/"
+                f"GraphSAGE aggregation paths quantize gathers)")
+    else:
+        spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm,
+                                        reuse, row_cap)
     n_train = max(art.n_train, 1)
     loss_sum = bce_sum if art.multilabel else ce_sum
     n_halo = art.n_ext - art.pad_inner
@@ -333,21 +367,30 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         fixed_plan = (make_halo_plan(hspec, tables, bnd, rank)
                       if hspec.exact else None)
 
+    def local_exchange(i, h):
+        # P=1: no peer sends anything; the halo slots stay zero
+        return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
+
+    def local_presence():
+        return torch.arange(art.n_ext, device=device) < art.pad_inner
+
     def exchange_for(epoch: int):
+        """(exchange, presence) of `epoch`'s plan."""
         if comm is None:
-            # P=1: no peer sends anything; the halo slots stay zero
-            return lambda i, h: torch.cat([h, h.new_zeros((n_halo,
-                                                           h.shape[1]))])
+            return local_exchange, local_presence()
         plan = (fixed_plan if fixed_plan is not None else
                 make_halo_plan(hspec, tables, bnd, rank, epoch, sample_key))
-        return lambda i, h: halo_apply(hspec, plan, h, comm)
+        return (lambda i, h: halo_apply(hspec, plan, h, comm)), plan.presence
 
     def forward(model: GNN, blk, epoch: int, generator=None):
         """Training-mode forward at `epoch` (which keys the boundary
         sample): logits [pad_inner, n_class]."""
+        exchange, presence = exchange_for(epoch)
         env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
-                       out_norm=blk["out_norm"], exchange=exchange_for(epoch),
-                       aggregate=spmm, training=True, generator=generator)
+                       out_norm=blk["out_norm"], exchange=exchange,
+                       aggregate=spmm, training=True, generator=generator,
+                       presence=presence, gat_feat0=blk.get("feat0_ext"),
+                       attention=gat)
         return apply_model(model, blk["feat"], env)
 
     def train_step(model: GNN, opt, blk, epoch: int, generator=None):
@@ -369,10 +412,13 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         casts a bf16 run's result). The exchange (full-rate at any training
         rate, native wire: the JAX package's precompute exchange) and the
         aggregation (the same SpMM with native codecs, as the JAX package's
-        precompute operator) run at the raw feature width in its dtype."""
-        feat_ext = (exchange_for(0)(0, blk["feat"]) if comm is None else
+        precompute operator) run at the raw feature width in its dtype.
+        GAT: the exchanged features themselves, feat0_ext."""
+        feat_ext = (local_exchange(0, blk["feat"]) if comm is None else
                     precompute_exchange(hfull, tables_full, bnd, blk["feat"],
                                         rank, comm))
+        if spec.model == "gat":
+            return feat_ext
         if spec.model == "gcn":
             return spmm.apply_dir("fwd", feat_ext / blk["out_norm"][:, None],
                                   "pre", native=True) / blk["in_norm"][:, None]
@@ -389,20 +435,24 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         of the artifacts' graph, and the training SpMM with the training
         codecs (`_aggregate_for`), its K1 and K2 launches counted under
         'eval'. blk['feat'] holds the raw f32 features. Logits
-        [pad_inner, n_class]; at P > 1 every rank calls it together."""
+        [pad_inner, n_class]; at P > 1 every rank calls it together.
+        GAT attends with the full-rate plan's presence."""
         if comm is None:
-            exchange = exchange_for(0)
+            exchange, presence = local_exchange, local_presence()
         else:
             plan = make_halo_plan(hfull, tables_full, bnd, rank)
             exchange = lambda i, h: halo_apply(hfull, plan, h, comm)
+            presence = plan.presence
         env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
                        out_norm=blk["out_norm"], exchange=exchange,
-                       aggregate=lambda h: spmm.apply_dir("fwd", h, "eval"),
-                       training=False)
+                       aggregate=(None if spmm is None else
+                                  lambda h: spmm.apply_dir("fwd", h, "eval")),
+                       training=False, presence=presence, attention=gat)
         return apply_model(model, blk["feat"], env)
 
-    dense = dense_edge_count(layout) if kind == "hybrid" else 0
+    dense = (dense_edge_count(layout)
+             if spmm is not None and kind == "hybrid" else 0)
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
                    forward=forward, precompute=precompute,
                    eval_forward=eval_forward, dense_edges=dense,
-                   halo=hspec, halo_full=hfull, spmm_kind=kind)
+                   halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat)

@@ -97,6 +97,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      loss finite, every rank ending with rank 0's parameters; it prints
      each rank's epoch and exchange share and the int8 wire's MB per
      exchange beside the f32 path's;
+  5d. [gat]: the P=4 main path's command line with --model gat --heads 2
+     on its artifacts, 6 epochs, rank 0 evaluating every 2 (COO, the
+     segment softmax): each rank's presence masks for epochs 0 and 1 must
+     be those of the plans [bns] checked, the loss finite and falling, no
+     K1 or K2 launch, every rank ending with rank 0's parameters; it prints
+     each rank's epoch, exchange and reduce seconds, peak memory, the GAT
+     layouts' build seconds and the attention's device ms per layer
+     forward and backward (CUDA events), the evals' seconds; then the GAT
+     law at [cli]'s scale: P=4 == P=1 at rate 1.0, dropout 0, 3 epochs, to
+     1e-4 (relative);
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 12 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -118,9 +128,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the BCE loss finite and falling over 40 epochs, the micro-F1 lines;
   7. [anchor]: the JAX package's calibrated accuracy gate
      (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
-     inside (0.93, 0.985), the quantized stack of the recipe's finer knobs
-     at P=4 and rate 0.1 within 0.005 of it, the same stack in bf16
-     recorded;
+     inside (0.93, 0.985); at P=4 and rate 0.1, the quantized stack of the
+     recipe's finer knobs and the recipe's own knobs (RECIPE_TPU; the line
+     names what --spmm auto resolved to) each within 0.005 of it, the
+     finer stack in bf16 recorded; the biased-sampler mutation below
+     exact - 0.05;
   8. print the card's name and power limit, one {"kernels": [...]} line
      (every kernel variant) and, last, {"ok": true, "device": {...}}.
 
@@ -227,6 +239,12 @@ YELP_SCRIPT = os.path.join("scripts", "yelp_torch.sh")
 YELP_NODES, YELP_DEGREE = 50_000, 20
 YELP_FEAT, YELP_CLASSES = 300, 100
 YELP_EPOCHS, YELP_LOG_EVERY = 40, 10
+# [gat]: the flagship's command line with --model gat --heads 2 on the P=4
+# main path's artifacts, an eval every GAT_LOG_EVERY epochs; the law at
+# [cli]'s scale, P=4 against P=1, rate 1.0, dropout 0
+GAT_HEADS = 2
+GAT_EPOCHS, GAT_LOG_EVERY = 6, 2
+GAT_LAW_DATASET = CLI_FLAGS[1]
 
 
 def log(msg):
@@ -871,7 +889,9 @@ def parts_runs(cfg, args, part_path):
     from bnsgcn_tpu_torch import checkpoint as ckpt
     meval = meval_phase(base, g, ckpt.final_path(main4))
     recipe = recipe_p4(main4, g)
+    gat = gat_phase(main4, g, base)
     return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
+            "gat": gat,
             "overlap": overlap,
             "law_losses_p4": r4.losses,
             "law_losses_p1": r1.losses, "law_max_rel": rel,
@@ -1126,6 +1146,154 @@ def bns_phase(cfg, law, ranks, reps):
             f" ms)")
     return {"pad_send": spec.pad_send, "pad_send_rate1": full.pad_send,
             "agreed_rows": rows, "ranks": out}
+
+
+def gat_hook(pr):
+    """[gat]'s rank hook: a CUDA-event timer on the rank's GAT attention
+    (handed back with the report as each call's ms), the layouts' build
+    seconds, and the presence masks of epochs BNS_EPOCHS' plans built on
+    the card as the training builds them."""
+    import torch
+    from bnsgcn_tpu_torch.ops.ell_attention import EventTimer
+    from bnsgcn_tpu_torch.parallel.halo import make_halo_plan, make_halo_spec
+    from bnsgcn_tpu_torch.utils import prng
+    art, c = pr.art, pr.cfg
+    timer = EventTimer()
+    pr.fns.gat.timer = timer
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  c.sampling_rate, wire=c.halo_wire)
+    bnd = torch.from_numpy(art.bnd[0]).to(pr.device)
+    key = prng.key(c.seed, pr.device)
+    pres = [make_halo_plan(spec, tables, bnd, pr.rank, e, key).presence
+            .cpu().numpy() for e in BNS_EPOCHS]
+    return {"timer": timer, "build_s": pr.fns.gat.build_seconds,
+            "presence": pres, "n_ext": art.n_ext}
+
+
+def gat_phase(main4, g, base):
+    """[gat]: the P=4 main path's command line (the flagship's, --inductive,
+    rate 0.1, dropout 0.5) with --model gat --heads GAT_HEADS on its
+    artifacts (--skip-partition), GAT_EPOCHS epochs, rank 0 evaluating every
+    GAT_LOG_EVERY on the train+val subgraph (COO, the segment softmax) and
+    last the full graph's test. Every rank's presence masks for BNS_EPOCHS
+    must be the CPU plans' that [bns] checked (the inner rows and the
+    received slots); the loss finite and falling, no K1 or K2 launch, every
+    rank ending with rank 0's parameters. Prints the epoch, exchange and
+    reduce seconds, peak memory, the layouts' build seconds and the
+    attention's device ms per layer forward and backward (CUDA events,
+    means of epochs 1..; 4 ranks share the card), the evals' seconds and
+    the losses. Then the law: GAT at GAT_LAW_DATASET, P=4 against P=1,
+    rate 1.0, dropout 0, LAW_EPOCHS epochs, losses within LAW_RTOL
+    (relative). Returns the details."""
+    import numpy as np
+    import torch
+    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.parallel.halo import (make_halo_plan,
+                                                make_halo_spec, plan_presence)
+    from bnsgcn_tpu_torch.run import artifacts_dir, run_training
+    from bnsgcn_tpu_torch.utils import prng
+    root = os.path.dirname(main4.ckpt_path.rstrip("/"))
+    c = main4.replace(model="gat", heads=GAT_HEADS, n_epochs=GAT_EPOCHS,
+                      log_every=GAT_LOG_EVERY, skip_partition=True,
+                      ckpt_path=os.path.join(root, "gat", "ckpt"),
+                      results_path=os.path.join(root, "gat", "results"))
+    tee = Tee()
+    t0 = time.perf_counter()
+    res = run_training(c, g=g, log=tee, rank_hook=gat_hook)
+    secs = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"[gat] non-finite loss {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"[gat] loss did not fall: {res.losses}")
+    evals = [ln for ln in tee.lines if ln.startswith("Epoch ")
+             and " | Accuracy " in ln]
+    if (len(evals) != GAT_EPOCHS // GAT_LOG_EVERY
+            or not tee.having("Test Result | Accuracy ")):
+        raise AssertionError(f"[gat] eval lines {evals}")
+    # the presence masks against the CPU plans [bns] held to the card's
+    art = load_artifacts(artifacts_dir(c))
+    spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+                                  c.sampling_rate)
+    present = []
+    for rep in res.ranks:
+        r = rep["rank"]
+        if rep["launches"] != {"K1": {}, "K2": {}}:
+            raise AssertionError(f"[gat] rank {r} launched {rep['launches']}")
+        for e, got in zip(BNS_EPOCHS, rep["hook"]["presence"]):
+            plan = make_halo_plan(spec, tables, torch.from_numpy(art.bnd[r]),
+                                  r, e, prng.key(c.seed))
+            want = plan_presence(spec, plan.slots).numpy()
+            halo = int(got[art.pad_inner:].sum())
+            if not (np.array_equal(got, want) and got[:art.pad_inner].all()
+                    and halo == int(tables["send_size"][:, r].sum())):
+                raise AssertionError(f"[gat] rank {r} epoch {e}: presence "
+                                     f"is not the plan's")
+            present.append(halo)
+    L = c.n_layers - c.n_linear
+    ranks = []
+    for rep in res.ranks:
+        ms = rep["hook"]["timer"].ms
+        per = {}
+        for kind in ("fwd", "bwd"):
+            calls = np.asarray(ms[kind]).reshape(c.n_epochs, L)[1:]
+            if kind == "bwd":
+                calls = calls[:, ::-1]          # the backward runs last first
+            per[kind] = calls.mean(0).tolist()
+        ep, ex, rd = (mean_from_1(rep[k]) for k in
+                      ("epoch_times", "comm_times", "reduce_times"))
+        ranks.append({"rank": rep["rank"], "epoch_s": ep, "exchange_s": ex,
+                      "reduce_s": rd,
+                      "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
+                      "build_s": rep["hook"]["build_s"],
+                      "attention_ms": per, "n_edges": rep["n_edges"]})
+    for x in ranks:
+        att = x["attention_ms"]
+        log(f"[gat] rank {x['rank']} (4 ranks sharing one card over gloo, "
+            f"not a 4-card number), {x['n_edges']} edges: mean of epochs "
+            f"1.. {x['epoch_s'] * 1e3:.1f} ms, exchange "
+            f"{x['exchange_s'] * 1e3:.1f} ms, all-reduce "
+            f"{x['reduce_s'] * 1e3:.1f} ms, peak memory "
+            f"{x['max_memory_gib']:.2f} GiB, GAT layouts built in "
+            f"{x['build_s']:.2f} s; the attention's device ms per layer "
+            f"(events) forward " + " / ".join(f"{v:.2f}" for v in att["fwd"])
+            + ", backward " + " / ".join(f"{v:.2f}" for v in att["bwd"]))
+    log(f"[gat] --model gat --heads {c.heads}, the flagship's command line on "
+        f"the P={PARTS} artifacts (inductive, rate {c.sampling_rate}, "
+        f"dropout {c.dropout}), {c.n_epochs} epochs: losses "
+        + " ".join(f"{v:.4f}" for v in res.losses)
+        + f"; rank 0's evals " + ", ".join(f"{t:.2f}" for t in
+                                          res.eval_seconds)
+        + f" s (every {c.log_every} epochs on the train+val subgraph, then "
+        f"the full graph's test; COO, the segment softmax); val "
+        f"{res.val_acc:.3f}, test {res.test_acc:.3f}; presence masks of "
+        f"epochs {BNS_EPOCHS} equal the checked plans' ({sum(present)} "
+        f"halo slots present); no K1/K2 launch; every rank ends with rank "
+        f"0's parameters ({secs:.1f} s)")
+    # the law at [cli]'s scale
+    law = base.replace(dataset=GAT_LAW_DATASET, model="gat",
+                       heads=GAT_HEADS, dropout=0.0, n_epochs=LAW_EPOCHS,
+                       log_every=1, eval=False, sampling_rate=1.0,
+                       part_path=os.path.join(root, "gat", "parts"))
+    t0 = time.perf_counter()
+    g_law, _, _ = load_data(law)
+    quiet = lambda m: None
+    r4 = run_training(law.replace(n_partitions=PARTS), g=g_law, log=quiet)
+    r1 = run_training(law, g=g_law, log=quiet)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r4.losses, r1.losses))
+    if not (len(r4.losses) == len(r1.losses) == LAW_EPOCHS
+            and rel <= LAW_RTOL):
+        raise AssertionError(f"[gat] law: P={PARTS} losses {r4.losses} differ "
+                             f"from P=1's {r1.losses} by {rel:.3e}")
+    log(f"[gat] law P={PARTS} == P=1 at {GAT_LAW_DATASET} ({g_law.n_nodes} "
+        f"nodes, {g_law.n_edges} edges), rate 1.0, dropout 0, {LAW_EPOCHS} "
+        f"epochs: max relative loss difference {rel:.3e} <= {LAW_RTOL} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    return {"losses": res.losses, "eval_seconds": res.eval_seconds,
+            "val_acc": res.val_acc, "test_acc": res.test_acc,
+            "ranks": ranks, "seconds": secs, "law_losses_p4": r4.losses,
+            "law_losses_p1": r1.losses, "law_max_rel": rel}
 
 
 def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None):
@@ -1875,11 +2043,14 @@ def recipe_p4(main4, g):
 def anchor_phase(work):
     """[anchor]: the JAX package's calibrated accuracy gate on the card
     (bnsgcn_tpu_torch/anchor.py; tests/test_accuracy_anchor.py's bands):
-    exact (P=1, rate 1.0, f32, ELL) inside EXACT_BAND; the stack of the
-    recipe's finer knobs (P=4 ranks sharing the card over gloo, rate 0.1,
-    hybrid, int8 dense tiles, int8 gathers, int8 halo wire) within
-    QUANT_TOL of exact; the same stack in bf16 recorded beside them, not
-    gated."""
+    exact (P=1, rate 1.0, f32, ELL) inside EXACT_BAND; at P=4 ranks sharing
+    the card over gloo and rate 0.1, the stack of the recipe's finer knobs
+    (hybrid, int8 dense tiles, int8 gathers, int8 halo wire) and the
+    recipe's own knobs (RECIPE_TPU; what --spmm auto resolved to on the
+    anchor's random partitions is printed) each within QUANT_TOL of exact;
+    the finer stack in bf16 recorded beside them, not gated; the
+    biased-sampler mutation (each rank draws the first k of every boundary
+    list) below exact - 0.05."""
     from bnsgcn_tpu_torch import anchor
     g = anchor.anchor_graph()
     quant = dict(spmm="hybrid", use_pallas=True, spmm_gather="int8",
@@ -1888,30 +2059,50 @@ def anchor_phase(work):
     for name, P, rate, kw in (("exact", 1, 1.0, {}),
                               ("quant", PARTS, BNS_RATE, quant),
                               ("quant_bf16", PARTS, BNS_RATE,
-                               dict(quant, dtype="bfloat16"))):
+                               dict(quant, dtype="bfloat16")),
+                              ("recipe", PARTS, BNS_RATE, recipe_fields()),
+                              ("biased", PARTS, BNS_RATE,
+                               dict(biased_sampler=True))):
         t0 = time.perf_counter()
+        lines = []
         acc = anchor.train_eval(g, P, rate, epochs=anchor.EPOCHS,
                                 device="cuda",
                                 work=os.path.join(work, "anchor", name),
-                                **kw)
-        out[name] = {"val_acc": acc, "seconds": time.perf_counter() - t0}
-    e, q, b = (out[k]["val_acc"] for k in ("exact", "quant", "quant_bf16"))
+                                log=lines.append, **kw)
+        out[name] = {"val_acc": acc, "seconds": time.perf_counter() - t0,
+                     "auto": [ln for ln in lines
+                              if ln.startswith("spmm=auto:")]}
+    e, q, b, r, m = (out[k]["val_acc"] for k in
+                     ("exact", "quant", "quant_bf16", "recipe", "biased"))
+    auto = out["recipe"]["auto"]
+    if len(auto) != 1:
+        raise AssertionError(f"[anchor] the recipe's run printed {auto}, "
+                             f"not one spmm=auto line")
     lo, hi = anchor.EXACT_BAND
     log(f"[anchor] reddit_like_graph {g.n_nodes} nodes, {g.n_edges} edges, "
         f"GraphSAGE 3x32, {anchor.EPOCHS} epochs: exact (P=1, rate 1.0, f32, "
         f"ELL) val {e:.4f} (band ({lo}, {hi})); quant (P={PARTS} over gloo "
         f"on one card, rate {BNS_RATE}, hybrid, int8 dense, int8 gathers, "
         f"int8 wire) val {q:.4f}, |quant - exact| {abs(q - e):.4f} <= "
-        f"{anchor.QUANT_TOL}; the same in bf16 (recorded) val {b:.4f} ("
+        f"{anchor.QUANT_TOL}; the same in bf16 (recorded) val {b:.4f}")
+    log(f"[anchor] the recipe's own knobs ({' '.join(RECIPE_TPU)}; on the "
+        f"anchor's random partitions {auto[0]}) val {r:.4f}, |recipe - "
+        f"exact| {abs(r - e):.4f} <= {anchor.QUANT_TOL}; the biased-sampler "
+        f"mutation (P={PARTS}, rate {BNS_RATE}, f32 ELL, a first-k sample) "
+        f"val {m:.4f} < exact - 0.05 = {e - 0.05:.4f} ("
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in out.items())
         + ")")
     if not lo < e < hi:
         raise AssertionError(f"[anchor] exact accuracy {e:.4f} outside "
                              f"({lo}, {hi})")
-    if not abs(q - e) <= anchor.QUANT_TOL:
-        raise AssertionError(f"[anchor] quantized stack {q:.4f} is "
-                             f"{abs(q - e):.4f} from exact {e:.4f}, over "
-                             f"{anchor.QUANT_TOL}")
+    for name, acc in (("quantized stack", q), ("recipe", r)):
+        if not abs(acc - e) <= anchor.QUANT_TOL:
+            raise AssertionError(f"[anchor] {name} {acc:.4f} is "
+                                 f"{abs(acc - e):.4f} from exact {e:.4f}, "
+                                 f"over {anchor.QUANT_TOL}")
+    if not m < e - 0.05:
+        raise AssertionError(f"[anchor] the biased sampler's {m:.4f} did not "
+                             f"fall below exact - 0.05 ({e - 0.05:.4f})")
     return out
 
 

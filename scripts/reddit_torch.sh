@@ -1,10 +1,12 @@
 #!/bin/bash
 # Flagship Reddit recipe (scripts/reddit.sh) through the PyTorch/CUDA port:
 # GraphSAGE 4x256, P-partition BNS at rate 0.1, precompute, inductive.
-# The real Reddit dataset has no reader in the port yet; append
+# The real Reddit is read from --data-path's reddit/ (DGL's npz; default
+# ./dataset/); append
 #   --dataset synth-reddit:1.0
-# for its synthetic twin, and --dist-backend gloo to run P ranks on fewer
-# cards than P. Flags appended here override the recipe's.
+# for its synthetic twin, --model gat --heads 2 for GAT on the same
+# recipe, and --dist-backend gloo to run P ranks on fewer cards than P.
+# Flags appended here override the recipe's.
 "${PYTHON:-python3}" -m bnsgcn_tpu_torch.main \
   --dataset reddit \
   --dropout 0.5 \

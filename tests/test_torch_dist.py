@@ -58,7 +58,18 @@ on 4 of conftest's 8 virtual devices, and against the port's own P=1 run.
     checkpoint's parameters, the RESULT fields, the losses, as
     test_torch_eval.py holds the P=1 loop;
   * a multilabel graph (BCE loss, multi-hot labels) at rate 0.5: 3-step
-    losses, logits and parameters against the JAX 4-device run.
+    losses, logits and parameters against the JAX 4-device run;
+  * GAT (2 heads, the ELL attention): at rate 1.0 the 4-rank run equals the
+    P=1 run within the JAX package's 2e-4 (tests/test_gat.py:52); at rate
+    0.5 the logits within 1e-5 of the largest, the losses and parameters at
+    the tolerances above, against the JAX 4-device run on the same plans,
+    whose presence masks for epochs 0 and 1 are array-equal to the port's;
+    the mesh eval forward against the port's host eval (COO, segment
+    softmax) on the full graph;
+  * the estimator mutations of bnsgcn_tpu_torch/anchor.py (the twins of
+    tests/test_accuracy_anchor.py:158,165): with the 1/ratio rescale forced
+    to 1, or the biased first-k sampler, the unbiasedness gate's relative
+    error exceeds 0.05 while the healthy estimator stays under it.
 
 The rank jobs are functions of this module, which the spawned ranks import:
 JAX is imported only inside the functions that build the references, so a
@@ -130,6 +141,9 @@ LOOPS = [("host", "host", False, 6, 2, RATE),
          ("mesh", "mesh", False, 4, 2, RATE),
          ("mesh_induc", "mesh", True, 4, 2, RATE)]
 UNBIASED_EPOCHS = 300
+GAT_HEADS = 2
+GAT_LAW_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_gat.py:52
+UNBIASED_GATE = 0.05
 
 
 def _cfg(model, use_pp, spmm, n_parts, rate=1.0):
@@ -170,9 +184,20 @@ def _aggregate(spec, plan, feat, src, dst, comm):
     return out.index_add_(0, dst, hx[src])[:-1]
 
 
-def _unbiased(art, comm, rank):
+def _unbiased(art, comm, rank, mutation=None):
     """The mean over UNBIASED_EPOCHS epochs of the rate-RATE aggregation
-    of the raw features, and the full-rate aggregation."""
+    of the raw features, and the full-rate aggregation; with `mutation`
+    ('rescale' or 'sampler'), through that estimator mutation of
+    bnsgcn_tpu_torch/anchor.py."""
+    from bnsgcn_tpu_torch import anchor
+    from bnsgcn_tpu_torch.parallel import halo
+    if mutation == "sampler":
+        orig = halo.pair_sample
+        halo.pair_sample = anchor.biased_pair_sample
+        try:
+            return _unbiased(art, comm, rank)
+        finally:
+            halo.pair_sample = orig
     bnd = torch.from_numpy(art.bnd[0])
     feat = torch.from_numpy(art.feat[0])
     src, dst = (torch.from_numpy(art.src[0]).long(),
@@ -183,6 +208,8 @@ def _unbiased(art, comm, rank):
                                                 rank), feat, src, dst, comm)
     spec, tables = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
                                   RATE)
+    if mutation == "rescale":
+        tables = anchor.unit_rescale(tables)
     key = prng.key(42)
     acc = torch.zeros_like(full, dtype=torch.float64)
     for e in range(UNBIASED_EPOCHS):
@@ -240,12 +267,17 @@ def _loop_cfg(case, work, cls=Config):
     return cls(**kw)
 
 
+def _gat_cfg(n_parts, rate=1.0):
+    return _cfg("gat", True, "ell", n_parts, rate).replace(heads=GAT_HEADS)
+
+
 def _rank_job(ctx, path, h, cot, inits, induc_path, ml_path, ml_init,
-              loop_inits, g, work):
+              loop_inits, g, work, gat_init):
     """One rank: the halo exchange and its VJP, then every (model, spmm)
-    with its mesh eval; then the BNS cases at rate RATE, every model; then
-    the inductive case on the train subgraph's artifacts at `induc_path`;
-    then the multilabel case at `ml_path`; then the LOOPS cases."""
+    with its mesh eval; then the BNS cases at rate RATE, every model, and
+    the estimator and its mutations; then the inductive case on the train
+    subgraph's artifacts at `induc_path`; then the multilabel case at
+    `ml_path`; then the LOOPS cases; then GAT."""
     torch.set_num_threads(1)
     art = load_artifacts(path, parts=[ctx.rank])
     bnd = torch.from_numpy(art.bnd[0])
@@ -285,7 +317,9 @@ def _rank_job(ctx, path, h, cot, inits, induc_path, ml_path, ml_init,
             out["bns", model, use_pp, spmm] = _steps(pr, init)
             if pre:
                 out["pre", spmm] = pre
-    out["unbiased"] = _unbiased(art, ctx.comm, ctx.rank)
+    for mutation in (None, "rescale", "sampler"):
+        out["unbiased", mutation] = _unbiased(art, ctx.comm, ctx.rank,
+                                              mutation)
     for wire in WIRES:
         wspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
                                   RATE, wire=wire)
@@ -319,6 +353,16 @@ def _rank_job(ctx, path, h, cot, inits, induc_path, ml_path, ml_init,
         init = {k: torch.from_numpy(v)
                 for k, v in loop_inits[case[2]].items()}
         out["loop", case[0]] = _loop(ctx, case, init, g, work)
+
+    # GAT: the law at rate 1.0 (with the mesh eval), then rate RATE
+    init = {k: torch.from_numpy(v) for k, v in gat_init.items()}
+    for rate in (1.0, RATE):
+        pr = prepare_part(_gat_cfg(P, rate), art, None, ctx.device, _quiet,
+                          ctx.rank, ctx.comm)
+        if rate == 1.0:
+            out["meval", "gat"] = _mesh_eval(pr, init, ctx.comm)[0]
+        out["gat", rate] = _steps(pr, init)
+    out["presence"] = [p.presence.numpy() for p in plans[:2]]
     return out
 
 
@@ -342,7 +386,7 @@ def _jax_train(art_j, mesh, model, use_pp, rate, extras=None, **flags):
 
     spec = ModelSpec(model, (art_j.n_feat, 8, 8, art_j.n_class),
                      norm="layer", dropout=0.0, use_pp=use_pp,
-                     train_size=art_j.n_train)
+                     heads=flags.get("heads", 1), train_size=art_j.n_train)
     cfg = JConfig(**{**dict(
         model=model, dropout=0.0, use_pp=use_pp, norm="layer",
         n_train=art_j.n_train, lr=0.01, weight_decay=5e-4,
@@ -373,7 +417,7 @@ def _jax_train(art_j, mesh, model, use_pp, rate, extras=None, **flags):
     blk["feat"] = blk["feat"].astype(dtype)
     tb = place_replicated(tb, mesh)
     if use_pp:
-        blk["feat"] = fns.precompute(
+        blk["feat0_ext" if model == "gat" else "feat"] = fns.precompute(
             blk, place_replicated(tbf, mesh)).astype(dtype)
     keys = (jax.random.key(0), jax.random.key(1))
     pp = place_replicated(jax.tree.map(lambda v: jnp.asarray(v, dtype),
@@ -434,6 +478,10 @@ def _jax_reference(art_j, h, cot, art_ij, art_mlj):
         plan = j_plan(bspec, btables, bnd[0], epoch, jax.random.key(0))
         return plan.sel[None], plan.weight[None], plan.slots[None]
 
+    def local_presence(bnd, epoch):
+        return j_plan(bspec, btables, bnd[0], epoch,
+                      jax.random.key(0)).presence[None]
+
     def local_bns(bnd, x, c):
         plan = j_plan(bspec, btables, bnd[0], jnp.uint32(1),
                       jax.random.key(0))
@@ -446,6 +494,11 @@ def _jax_reference(art_j, h, cot, art_ij, art_mlj):
     ref["plans"] = [tuple(np.asarray(a) for a in
                           plan_fn(jnp.asarray(art_j.bnd), jnp.uint32(e)))
                     for e in range(EPOCHS)]
+    pres_fn = jax.jit(shard_map(local_presence, mesh=mesh,
+                                in_specs=(PS("parts"), PS()),
+                                out_specs=PS("parts")))
+    ref["presence"] = [np.asarray(pres_fn(jnp.asarray(art_j.bnd),
+                                          jnp.uint32(e))) for e in (0, 1)]
     bns = jax.jit(shard_map(local_bns, mesh=mesh, in_specs=(PS("parts"),) * 3,
                             out_specs=(PS("parts"), PS("parts"))))
     y, dx = bns(jnp.asarray(art_j.bnd), jnp.asarray(h), jnp.asarray(cot))
@@ -484,6 +537,9 @@ def _jax_reference(art_j, h, cot, art_ij, art_mlj):
                                   **FINER_KNOBS)
     ref["recipe_tpu"], _ = _jax_train(art_j, mesh, *BNS_MODEL, RATE,
                                       **RECIPE_TPU)
+    ref["gat"], gat_params = _jax_train(art_j, mesh, "gat", True, RATE,
+                                        heads=GAT_HEADS)
+    inits.append(gat_params)
     return ref, inits
 
 
@@ -538,7 +594,11 @@ def runs(tmp_path_factory):
         n_feat=art_ml.n_feat, n_class=art_ml.n_class,
         n_train=art_ml.n_train))
     ml_init = {k: v.numpy() for k, v in
-               params_from_jax(inits[-1], spec).items()}
+               params_from_jax(inits[-2], spec).items()}
+    gat_spec = spec_from_config(_gat_cfg(P).replace(
+        n_feat=art.n_feat, n_class=art.n_class, n_train=art.n_train))
+    gat_init = {k: v.numpy() for k, v in
+                params_from_jax(inits[-1], gat_spec).items()}
     # the loops start where the JAX run_training starts: its init_params
     # from jax.random.key(seed) for its spec of the artifacts
     loop_inits, loop_params = {}, {}
@@ -555,7 +615,7 @@ def runs(tmp_path_factory):
     t0 = time.perf_counter()
     ranks = launch(_rank_job, P, [(path, h, cot, init_sd, induc_path,
                                    ml_path, ml_init, loop_inits, g,
-                                   work)] * P,
+                                   work, gat_init)] * P,
                    "gloo", "cpu", log=_quiet)
     launch_s = time.perf_counter() - t0
     loops = _loop_records(ranks, work, g_j)
@@ -565,8 +625,18 @@ def runs(tmp_path_factory):
             pr = prepare_run(_cfg(model, use_pp, spmm, 1), g=g, log=_quiet)
             p1[model, use_pp, spmm] = _steps(
                 pr, {k: torch.from_numpy(v) for k, v in init.items()})
+    pr = prepare_run(_gat_cfg(1), g=g, log=_quiet)
+    gat_sd = {k: torch.from_numpy(v) for k, v in gat_init.items()}
+    logits1, losses1, params1 = _steps(pr, gat_sd)
+    p1["gat"] = (_gathered(pr.art, [logits1]), losses1, params1)
+    from bnsgcn_tpu_torch.evaluate import full_graph_logits
+    from bnsgcn_tpu_torch.models.gnn import GNN
+    net = GNN(gat_spec)
+    net.load_state_dict(gat_sd)
+    gat_host = full_graph_logits(net, g, "cpu")
     return dict(art=art, art_i=art_i, art_ml=art_ml, ranks=ranks, ref=ref,
-                p1=p1, init_sd=init_sd, launch_s=launch_s, loops=loops)
+                p1=p1, init_sd=init_sd, launch_s=launch_s, loops=loops,
+                gat_host=gat_host, gat_init=gat_init)
 
 
 def _loop_records(ranks, work, g_j):
@@ -826,10 +896,27 @@ def test_bns_unbiasedness(runs):
     mean over 300 epochs of the sampled, 1/ratio-scaled aggregation is the
     full-rate aggregation (Monte Carlo tolerance 5%)."""
     for out in runs["ranks"]:
-        mean, full = out["unbiased"]
-        err = np.abs(mean - full)
-        scale = np.abs(full).mean() + 1e-6
-        assert err.mean() / scale < 0.05, f"biased? {err.mean() / scale}"
+        rel = _rel_err(*out["unbiased", None])
+        assert rel < UNBIASED_GATE, f"biased? {rel}"
+
+
+def _rel_err(mean, full):
+    """The unbiasedness gate's statistic: mean |mean - full| over mean
+    |full|."""
+    return np.abs(mean - full).mean() / (np.abs(full).mean() + 1e-6)
+
+
+@pytest.mark.parametrize("mutation", ["rescale", "sampler"])
+def test_estimator_mutation_trips_unbiasedness_gate(runs, mutation):
+    """The twins of tests/test_accuracy_anchor.py:158,165: the 1/ratio
+    rescale forced to 1 (anchor.unit_rescale), or the first-k sampler
+    (anchor.biased_pair_sample) in place of the shared-key draw, makes the
+    300-epoch mean miss the full-rate aggregation by more than the gate on
+    every rank, while the healthy estimator passes it."""
+    for out in runs["ranks"]:
+        assert _rel_err(*out["unbiased", None]) < UNBIASED_GATE
+        rel = _rel_err(*out["unbiased", mutation])
+        assert rel > UNBIASED_GATE, f"{mutation} not caught: {rel}"
 
 
 @pytest.mark.parametrize("wire", WIRES)
@@ -928,6 +1015,85 @@ def test_tpu_recipe_own_knobs_p4_matches_jax_p4(runs):
     assert losses0[-1] < losses0[0] and losses_ref[-1] < losses_ref[0]
     # the bf16 arithmetic really ran: the f32 finer-knob run differs
     assert losses0 != runs["ranks"][0]["recipe"][1]
+
+
+def _gathered(art, logits_by_rank):
+    """[N, C] in global node order from each rank's [pad_inner, C]."""
+    out = np.zeros((int(art.n_inner.sum()),) + logits_by_rank[0].shape[1:],
+                   np.float32)
+    for r, lg in enumerate(logits_by_rank):
+        inner = art.inner_mask[r]
+        out[art.global_nid[r][inner]] = lg[inner]
+    return out
+
+
+def test_gat_p4_equals_p1(runs):
+    """GAT at rate 1.0: the 4-rank run (the ELL attention over each part's
+    layouts, every halo present) is the full-graph run, within the JAX
+    package's bound for the same law: logits, 3-step losses and
+    parameters; every rank ends with rank 0's parameters."""
+    art = runs["art"]
+    logits1, losses1, params1 = runs["p1"]["gat"]
+    four = [out["gat", 1.0] for out in runs["ranks"]]
+    np.testing.assert_allclose(_gathered(art, [f[0] for f in four]),
+                               logits1, **GAT_LAW_TOL)
+    for logits4, losses4, params4 in four:
+        np.testing.assert_allclose(losses4, losses1, **GAT_LAW_TOL)
+        assert sorted(params4) == sorted(params1)
+        for k in params4:
+            np.testing.assert_allclose(params4[k], params1[k], err_msg=k,
+                                       **GAT_LAW_TOL)
+            np.testing.assert_array_equal(params4[k], four[0][2][k])
+    assert losses1[-1] < losses1[0]
+
+
+def test_gat_bns_p4_matches_jax_p4(runs):
+    """GAT at rate RATE, dropout 0: every rank's logits within 1e-5 of the
+    largest against the JAX 4-device forward on the same plans (unsampled
+    halos masked out of the softmax, the sampled ones scaled by 1/ratio),
+    the 3-step losses and parameters at the tolerances above."""
+    from bnsgcn_tpu_torch.models.gnn import spec_from_config
+    from bnsgcn_tpu_torch.trainer import params_from_jax
+    art = runs["art"]
+    logits_ref, losses_ref, params_ref = runs["ref"]["gat"]
+    spec = spec_from_config(_gat_cfg(P).replace(
+        n_feat=art.n_feat, n_class=art.n_class, n_train=art.n_train))
+    want = {k: v.numpy() for k, v in params_from_jax(params_ref,
+                                                      spec).items()}
+    for r, out in enumerate(runs["ranks"]):
+        logits, losses, params = out["gat", RATE]
+        inner = art.inner_mask[r]
+        ref = logits_ref[r][inner]
+        np.testing.assert_allclose(logits[inner], ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+        np.testing.assert_allclose(losses, losses_ref, **LOSS_TOL)
+        _close_params(params, want)
+    assert losses[-1] < losses[0]
+
+
+def test_gat_presence_matches_jax(runs):
+    """The plans' presence masks (the inner rows and the sampled halo slots)
+    for epochs 0 and 1 at rate RATE, array-equal to the JAX package's; some
+    halo slot is absent."""
+    for e, ref in enumerate(runs["ref"]["presence"]):
+        for r, out in enumerate(runs["ranks"]):
+            np.testing.assert_array_equal(out["presence"][e], ref[r])
+        assert not ref[:, runs["art"].pad_inner:].all()
+
+
+def test_gat_mesh_eval_matches_host_eval(runs):
+    """--eval-device mesh's GAT forward on 4 ranks (full-rate exchange,
+    the ELL attention with the full plan's presence) at the initial
+    parameters against the host eval on the full graph (COO, the segment
+    softmax), within 1e-5 of the largest logit."""
+    art = runs["art"]
+    got = _gathered(art, [out["meval", "gat"] for out in runs["ranks"]])
+    _close_frac(got, runs["gat_host"], 1e-5)
+
+
+def _close_frac(got, want, frac):
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=frac * np.abs(want).max())
 
 
 def test_chip_smoke_recipe_is_reddit_sh_knobs():

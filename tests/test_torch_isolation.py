@@ -58,7 +58,8 @@ def test_no_jax_import_in_port_sources():
             "bnsgcn_tpu_torch.anchor", "bnsgcn_tpu_torch.evaluate",
             "bnsgcn_tpu_torch.utils.metrics",
             "bnsgcn_tpu_torch.data.disk_readers",
-            "bnsgcn_tpu_torch.data.datasets"} <= set(_port_modules())
+            "bnsgcn_tpu_torch.data.datasets",
+            "bnsgcn_tpu_torch.ops.ell_attention"} <= set(_port_modules())
 
 
 def test_importing_the_port_loads_no_jax():

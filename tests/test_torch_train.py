@@ -175,7 +175,7 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
-     "shift"], ["--replicas", "2"], ["--model", "gat"],
+     "shift"], ["--replicas", "2"], ["--edge-chunk", "1024"],
     ["--spmm", "segment"], ["--feat-storage", "bfloat16"],
     ["--overlap", "split"], ["--reorder", "cluster"], ["--norm", "batch"],
     ["--halo-exchange", "auto"], ["--halo-exchange", "ragged"],
@@ -228,6 +228,34 @@ def test_entry_point_trains_on_cpu_when_asked(capsys, tmp_path):
     out = capsys.readouterr().out
     assert rc == 0
     assert "Process 000 | Epoch 00001 | Time(s)" in out
+    assert "Test Result | Accuracy" in out
+
+
+@pytest.mark.parametrize("parts", [
+    ["--n-partitions", "1", "--spmm-gather", "int8"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--partition-method",
+     "random", "--sampling-rate", "0.5", "--eval-device", "mesh"]])
+def test_gat_trains_through_main_on_cpu(parts, capsys, tmp_path):
+    """--model gat --heads 2, once refused, trains through the entry point
+    at P=1 (where --spmm-gather says it has no effect) and at P=4 over gloo
+    with BNS and the evaluation on the ranks: the Graph or Part line names
+    the model and its heads, the loss falls, the run ends on its Test
+    Result."""
+    rc = t_main.main(["--dataset", "sbm", "--device", "cpu", "--model",
+                      "gat", "--heads", "2", "--n-layers", "2",
+                      "--n-hidden", "16", "--dropout", "0", "--n-epochs", "4",
+                      "--log-every", "2", "--fix-seed",
+                      "--part-path", str(tmp_path / "p"),
+                      "--ckpt-path", str(tmp_path / "ck"),
+                      "--results-path", str(tmp_path / "res")] + parts)
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "| float32 model=gat heads=2 spmm=ell" in out
+    assert ("has no effect for spmm='ell' / model='gat'" in out) == (
+        "--spmm-gather" in parts)
+    losses = [float(x) for x in out.split("LOSSES from_epoch=0 ")[1]
+              .split()[0].split(",")]
+    assert len(losses) == 4 and losses[-1] < losses[0]
     assert "Test Result | Accuracy" in out
 
 
