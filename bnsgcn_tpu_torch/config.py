@@ -36,6 +36,11 @@ class Config:
     partition_obj: str = "vol"          # 'vol' | 'cut' (metis objective)
     inductive: bool = False             # train on the train subgraph
     skip_partition: bool = False        # load the artifacts, never build
+    streaming_artifacts: str = "auto"   # 'always' | 'never' | 'auto' (the
+                                        # streaming builder above
+                                        # run.STREAMING_MIN_EDGES edges)
+    feat_storage: str = "float32"       # the streaming builder's feature
+                                        # storage: 'float32' | 'bfloat16'
 
     # --- model ---
     model: str = "graphsage"            # 'gcn' | 'graphsage' | 'gat'
@@ -65,6 +70,8 @@ class Config:
     results_path: str = "./results/"
     resume: bool = False
     keep_ckpt: int = 5
+    cache_dir: str = ""                 # host-side layouts cached across
+                                        # runs ('' = off)
 
     # --- aggregation ---
     dtype: str = "float32"              # 'float32' | 'bfloat16': parameters,
@@ -86,6 +93,12 @@ class Config:
     block_tile: int = 512               # hybrid: square tile edge
 
     # --- where it runs ---
+    n_nodes: int = 1                    # launchers (one per node)
+    node_rank: int = 0                  # this launcher's node
+    master_addr: str = "127.0.0.1"      # node 0: the launchers' store at
+    port: int = 18118                   # --port, the ranks' rendezvous at
+                                        # --port + 1
+    parts_per_node: int = 10            # ranks per node (n_nodes > 1)
     device: str = "cuda"                # 'cuda' | 'cpu'
     dist_backend: str = "nccl"          # P > 1: 'nccl' (one card per rank)
                                         # | 'gloo' (ranks may share a card
@@ -117,8 +130,9 @@ class Config:
 # their values: (dests, the values the port accepts (None: the flag's
 # default only), what a refused value would select). An accepted value other
 # than the default is one the port honours as it stands: it runs without
-# resilience, rank coordination, telemetry or traced comm columns, and
-# builds artifacts in memory, which is what those values select.
+# resilience, rank coordination, telemetry or traced comm columns, which is
+# what those values select, and --backend names the JAX package's
+# collectives, a no-op here (--dist-backend picks the port's).
 _NOT_PORTED = (
     (("norm",), ("layer", "none"), "SyncBatchNorm"),
     (("spmm",), ("ell", "hybrid", "auto"), "the segment SpMM"),
@@ -131,13 +145,9 @@ _NOT_PORTED = (
     (("feat",), None, "the feat axis"),
     (("remat",), None, "rematerialization"),
     (("edge_chunk",), None, "chunked evaluation edges"),
-    (("streaming_artifacts",), ("auto", "never"),
-     "the streaming artifact builder"),
-    (("feat_storage",), None, "bfloat16 feature storage"),
     (("profile_dir",), None, "profiler traces"),
     (("comm_trace",), (True, False), "traced comm columns"),
     (("strict_exec",), None, "the strict-execution guard"),
-    (("cache_dir",), ("",), "the layout cache"),
     (("tune", "tune_schedule", "tune_prior"), None, "the comm auto-tuner"),
     (("resilience",), ("on", "off"), "resilience"),
     (("inject",), ("",), "fault injection"),
@@ -149,8 +159,8 @@ _NOT_PORTED = (
     (("obs",), ("on", "off"), "telemetry"),
     (("obs_log",), ("",), "telemetry"),
     (("obs_dir",), None, "telemetry"),
-    (("backend", "port", "master_addr", "node_rank", "parts_per_node",
-      "n_nodes"), None, "multi-host launch"),
+    (("backend",), ("xla", "gloo", "mpi"),
+     "collectives other than --dist-backend's"),
     (("serve_port", "serve_addr", "serve_dir", "serve_max_batch",
       "serve_refresh_s", "embeddings", "dump_embeddings",
       "serve_compact_deltas", "parts", "part_replicas", "serve_part",
@@ -319,6 +329,34 @@ def accepted_values(dest: str, parser: argparse.ArgumentParser):
         if dest in dests:
             return ok if ok is not None else (parser.get_default(dest),)
     return None
+
+
+def node_ranks(cfg: Config) -> range:
+    """The global ranks this node's launcher starts: all P with one node;
+    with --n-nodes > 1, node k hosts [k * ppn, min((k + 1) * ppn, P)) for
+    ppn = --parts-per-node (the reference's processes per node). Raises a
+    named ConfigError for a node outside --n-nodes, too few slots for P,
+    and a node that hosts no rank."""
+    P, n, k, ppn = (cfg.n_partitions, cfg.n_nodes, cfg.node_rank,
+                    cfg.parts_per_node)
+    if n < 1:
+        raise ConfigError(f"--n-nodes must be >= 1, got {n}")
+    if not 0 <= k < n:
+        raise ConfigError(f"--node-rank {k} is not a node of --n-nodes {n}")
+    if n == 1:
+        return range(P)
+    if ppn < 1:
+        raise ConfigError(f"--parts-per-node must be >= 1, got {ppn}")
+    if n * ppn < P:
+        raise ConfigError(
+            f"--n-nodes {n} x --parts-per-node {ppn} = {n * ppn} ranks "
+            f"cannot host --n-partitions {P}; raise either to cover it")
+    if k * ppn >= P:
+        raise ConfigError(
+            f"process {k} hosts no partition: node {k} would start at rank "
+            f"{k * ppn} of --n-partitions {P} (--parts-per-node {ppn}); use "
+            f"n_partitions > {k} x {ppn}, or fewer --n-nodes")
+    return range(k * ppn, min((k + 1) * ppn, P))
 
 
 def config_from_args(args: argparse.Namespace) -> Config:

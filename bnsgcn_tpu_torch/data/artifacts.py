@@ -11,7 +11,10 @@ array for array (tests/test_torch_data.py pins it at P=1):
 
 On disk it is the JAX package's format v2 (meta.json + shared.npz +
 part{p}.npz), so a directory written by either package loads in the other.
-The streaming builder for papers100M-scale graphs is not ported yet.
+`build_artifacts_streaming` writes the same format for papers100M-scale
+graphs one part at a time, optionally with the features stored as bf16
+bits (meta.json's 'feat_dtype'); `read_meta` reads a directory's meta.json
+and shared.npz alone, which is all a launcher needs.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from bnsgcn_tpu_torch.data.graph import Graph
 from bnsgcn_tpu_torch.data.partitioner import (degree_norm_row,
@@ -40,7 +44,8 @@ class PartitionArtifacts:
     n_inner: np.ndarray            # [P] real inner counts
     n_b: np.ndarray                # [P, P] boundary sizes, n_b[p, j] = |B(p->j)|, diag 0
     # stacked per-part arrays (leading axis P)
-    feat: np.ndarray               # [P, pad_inner, F] f32
+    feat: np.ndarray               # [P, pad_inner, F] f32, or uint16: the
+                                   # bits of bf16 storage (feat_values)
     label: np.ndarray              # [P, pad_inner] i32  or [P, pad_inner, C] f32
     train_mask: np.ndarray         # [P, pad_inner] bool
     val_mask: np.ndarray
@@ -199,6 +204,221 @@ _PER_PART = ["feat", "label", "train_mask", "val_mask", "test_mask",
              "global_nid"]
 
 
+# ----------------------------------------------------------------------------
+# the streaming builder (bnsgcn_tpu/data/artifacts.py build_artifacts_streaming)
+# ----------------------------------------------------------------------------
+
+FEAT_DTYPES = ("float32", "bfloat16")      # meta.json's 'feat_dtype'
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 values -> their bf16 bits as uint16, rounded to nearest even
+    (torch's conversion; the card's machine has no ml_dtypes)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits (uint16) -> f32 values, exactly."""
+    return (np.asarray(bits, dtype=np.uint16).astype(np.uint32)
+            << 16).view(np.float32)
+
+
+def feat_dtype(art: PartitionArtifacts) -> str:
+    """The artifacts' feature storage: 'bfloat16' (uint16 bits) or
+    'float32'."""
+    return "bfloat16" if art.feat.dtype == np.uint16 else "float32"
+
+
+def feat_values(art: PartitionArtifacts) -> np.ndarray:
+    """The artifacts' features as f32 values: bf16 storage upcast exactly
+    (the JAX package's art.feat.astype(float32))."""
+    return (bf16_to_f32(art.feat) if feat_dtype(art) == "bfloat16"
+            else art.feat)
+
+
+def build_artifacts_streaming(g: Graph, part_id: np.ndarray, path: str,
+                              feat_dtype: str = "float32",
+                              with_gat: bool = True,
+                              node_mult: int = 8, boundary_mult: int = 8,
+                              edge_mult: int = 8, compress: bool = False,
+                              log=None, on_part_written=None) -> None:
+    """Build and write the artifacts of `g` under `part_id` to `path`, one
+    part resident at a time. The arrays are save_artifacts(build_artifacts(
+    g, part_id)) up to the within-part edge order (edges grouped by
+    destination part in edge order), and bitwise the JAX package's
+    build_artifacts_streaming:
+
+      * no [P, pad_inner, F] feature stack: the peak is the global per-edge
+        arrays (int32) plus one part;
+      * every O(E) pass vectorized (sorts, bincounts); the per-part loop
+        only fills and writes one part;
+      * feat_dtype='bfloat16' stores the features as bf16 bits (uint16,
+        round to nearest even), half the bytes on disk and at load;
+      * uncompressed part files unless `compress`;
+      * `on_part_written(file, p)` is called after each part file.
+    """
+    from bnsgcn_tpu_torch.ops.ell import ELL_SPLIT_CAP, GeoAccum
+
+    if feat_dtype not in FEAT_DTYPES:
+        raise ValueError(f"feat_dtype {feat_dtype!r} not in {FEAT_DTYPES}")
+    log = log or (lambda *a: None)
+    part_id = np.asarray(part_id, dtype=np.int32)
+    P = int(part_id.max()) + 1 if part_id.size else 1
+    N = g.n_nodes
+    in_deg_g = g.in_degrees().astype(np.float32)
+    out_deg_g = g.out_degrees().astype(np.float32)
+
+    # inner nodes grouped by part, ascending global id
+    counts = np.bincount(part_id, minlength=P).astype(np.int64)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    order = np.argsort(part_id, kind="stable")
+    loc = np.empty(N, dtype=np.int64)
+    loc[order] = np.arange(N, dtype=np.int64) - np.repeat(off[:-1], counts)
+    pad_inner = _pad_to(int(counts.max()), node_mult)
+
+    src_o = part_id[g.src]
+    dst_o = part_id[g.dst]
+    cross = src_o != dst_o
+    log(f"  [stream] {N} nodes, {g.n_edges} edges, {int(cross.sum())} cross")
+
+    # the boundary sets of every ordered pair in one unique pass over the
+    # key (u, receiver j): uniques sorted by u, regrouped by (sender p, j);
+    # an int32 key whenever N * P fits, which halves the sort's copy
+    kdt = np.int32 if N * P < 2**31 else np.int64
+    cu = g.src[cross].astype(kdt)
+    cj = dst_o[cross].astype(kdt)
+    ukey, inv = np.unique(cu * kdt(P) + cj, return_inverse=True)
+    del cu, cj
+    bu = ukey // P                                   # boundary node (global)
+    bj = (ukey % P).astype(np.int32)                 # receiver
+    bp = part_id[bu]                                 # sender
+    gkey = bp.astype(np.int64) * P + bj
+    gorder = np.argsort(gkey, kind="stable")         # by (p, j), u ascending
+    nb_flat = np.bincount(gkey, minlength=P * P).astype(np.int64)
+    n_b = nb_flat.reshape(P, P).astype(np.int32)
+    goff = np.concatenate([[0], np.cumsum(nb_flat)])
+    slot = np.empty(len(ukey), dtype=np.int64)
+    slot[gorder] = np.arange(len(ukey), dtype=np.int64) - \
+        np.repeat(goff[:-1], nb_flat)
+    max_b = int(nb_flat.max()) if len(ukey) else 0
+    pad_boundary = _pad_to(max_b, boundary_mult) if max_b else boundary_mult
+    n_ext = pad_inner + P * pad_boundary
+
+    # each edge's extended source index (the receiver's halo slot for a
+    # cross edge), int32 per edge: n_ext must fit, since numpy's setitem
+    # would wrap an int64 value into the int32 array silently
+    if n_ext >= 2**31:
+        raise ValueError(
+            f"extended index space n_ext={n_ext} overflows the int32 "
+            f"per-edge arrays (pad_inner={pad_inner}, P={P}, "
+            f"pad_boundary={pad_boundary})")
+    loc32 = loc.astype(np.int32)
+    ext_src = np.empty(g.n_edges, dtype=np.int32)
+    ext_src[~cross] = loc32[g.src[~cross]]
+    ext_src[cross] = (pad_inner + bp[inv].astype(np.int64) * pad_boundary
+                      + slot[inv])
+    del inv
+    ldst = loc32[g.dst]
+
+    # edges grouped by destination part, the owner of their aggregation
+    eorder = np.argsort(dst_o, kind="stable")
+    e_counts = np.bincount(dst_o, minlength=P).astype(np.int64)
+    eoff = np.concatenate([[0], np.cumsum(e_counts)])
+    pad_edges = _pad_to(int(e_counts.max()), edge_mult)
+
+    geo_fwd = GeoAccum(ELL_SPLIT_CAP)
+    geo_bwd = GeoAccum(ELL_SPLIT_CAP)
+    geo_gat = GeoAccum(None) if with_gat else None
+
+    os.makedirs(path, exist_ok=True)
+    save = np.savez_compressed if compress else np.savez
+    multilabel = g.label.ndim > 1
+    for p in range(P):
+        k = int(counts[p])
+        ids = order[off[p]:off[p + 1]]               # sorted global ids
+        eidx = eorder[eoff[p]:eoff[p + 1]]
+        src_p = np.zeros(pad_edges, dtype=np.int32)
+        dst_p = np.full(pad_edges, pad_inner, dtype=np.int32)
+        src_p[:len(eidx)] = ext_src[eidx]
+        dst_p[:len(eidx)] = ldst[eidx]
+
+        # the sender's boundary lists bnd[p, j, :]
+        bnd_p = np.zeros((P, pad_boundary), dtype=np.int32)
+        for j in range(P):
+            s, e = goff[p * P + j], goff[p * P + j + 1]
+            if e > s:
+                bnd_p[j, :e - s] = loc[bu[gorder[s:e]]]
+
+        # the receiver's halo out-degrees (sender q's boundary toward p)
+        out_ext = np.ones(n_ext, dtype=np.float32)
+        out_ext[:k] = out_deg_g[ids]
+        for q in range(P):
+            s, e = goff[q * P + p], goff[q * P + p + 1]
+            if e > s:
+                base = pad_inner + q * pad_boundary
+                out_ext[base:base + (e - s)] = out_deg_g[bu[gorder[s:e]]]
+
+        if feat_dtype == "bfloat16":
+            feat_p = np.zeros((pad_inner, g.n_feat), dtype=np.uint16)
+            feat_p[:k] = bf16_bits(g.feat[ids])
+        else:
+            feat_p = np.zeros((pad_inner, g.n_feat), dtype=np.float32)
+            feat_p[:k] = g.feat[ids]
+        if multilabel:
+            label_p = np.zeros((pad_inner, g.label.shape[1]), dtype=np.float32)
+        else:
+            label_p = np.zeros(pad_inner, dtype=np.int32)
+        label_p[:k] = g.label[ids]
+        masks = {}
+        for name, m in (("train_mask", g.train_mask), ("val_mask", g.val_mask),
+                        ("test_mask", g.test_mask)):
+            mp = np.zeros(pad_inner, dtype=bool)
+            mp[:k] = m[ids]
+            masks[name] = mp
+        im = np.zeros(pad_inner, dtype=bool)
+        im[:k] = True
+        ind = np.ones(pad_inner, dtype=np.float32)
+        ind[:k] = in_deg_g[ids]
+        gnid = np.full(pad_inner, -1, dtype=np.int64)
+        gnid[:k] = ids
+
+        # the geometry's statistics from this part's degrees (fwd rows:
+        # local dst; bwd rows: extended src)
+        real_d = dst_p[:len(eidx)]
+        fwd_deg = np.bincount(real_d, minlength=pad_inner)
+        geo_fwd.add_part(fwd_deg)
+        geo_bwd.add_part(np.bincount(src_p[:len(eidx)], minlength=n_ext))
+        if geo_gat is not None:
+            geo_gat.add_part(fwd_deg)
+
+        part_file = os.path.join(path, f"part{p}.npz")
+        save(part_file, feat=feat_p, label=label_p, inner_mask=im,
+             in_deg=ind, out_deg_ext=out_ext, src=src_p, dst=dst_p,
+             bnd=bnd_p, global_nid=gnid, **masks)
+        log(f"  [stream] part {p}: {k} inner, {len(eidx)} edges written")
+        if on_part_written is not None:
+            on_part_written(part_file, p)
+
+    geometry = {"fwd": geo_fwd.finish(), "bwd": geo_bwd.finish()}
+    if geo_gat is not None:
+        geometry["gat_fwd"] = geo_gat.finish()
+    meta = {
+        "format_version": 2,
+        "n_parts": P, "pad_inner": pad_inner,
+        "pad_boundary": pad_boundary, "pad_edges": pad_edges,
+        "n_feat": g.n_feat, "n_class": g.n_class,
+        "n_train": int(g.train_mask.sum()),
+        "multilabel": bool(multilabel),
+        "n_inner": counts.tolist(),
+        "feat_dtype": feat_dtype,
+        "ell_geometry": geometry,
+    }
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    np.savez_compressed(os.path.join(path, "shared.npz"), n_b=n_b)
+
+
 def save_artifacts(art: PartitionArtifacts, path: str):
     """Write meta.json + shared.npz + part{p}.npz (format v2). The part files
     are uncompressed npz, as the JAX package's streaming builder writes them:
@@ -214,6 +434,8 @@ def save_artifacts(art: PartitionArtifacts, path: str):
         "n_inner": art.n_inner.tolist(),
         "ell_geometry": art.ell_geometry,
     }
+    if feat_dtype(art) != "float32":
+        meta["feat_dtype"] = feat_dtype(art)
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
     np.savez_compressed(os.path.join(path, "shared.npz"), n_b=art.n_b)
@@ -222,30 +444,59 @@ def save_artifacts(art: PartitionArtifacts, path: str):
                  **{k: getattr(art, k)[p] for k in _PER_PART})
 
 
+@dataclass
+class ArtifactMeta:
+    """An artifact directory's meta.json and shared.npz: the pads, widths
+    and boundary sizes, without any part's arrays."""
+    n_parts: int
+    pad_inner: int
+    pad_boundary: int
+    pad_edges: int
+    n_inner: np.ndarray
+    n_b: np.ndarray
+    n_feat: int
+    n_class: int
+    n_train: int
+    multilabel: bool
+    ell_geometry: "dict | None"
+    feat_dtype: str
+
+
+def read_meta(path: str) -> ArtifactMeta:
+    """meta.json and shared.npz of a format-v2 directory; the part files are
+    not opened."""
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    feat_dtype = meta.get("feat_dtype", "float32")
+    if feat_dtype not in FEAT_DTYPES:
+        from bnsgcn_tpu_torch.config import ConfigError
+        raise ConfigError(f"artifact dir {path}: unknown feature storage "
+                          f"{feat_dtype!r}")
+    with np.load(os.path.join(path, "shared.npz")) as shared:
+        n_b = shared["n_b"]
+    return ArtifactMeta(
+        n_parts=meta["n_parts"], pad_inner=meta["pad_inner"],
+        pad_boundary=meta["pad_boundary"], pad_edges=meta["pad_edges"],
+        n_inner=np.asarray(meta["n_inner"], dtype=np.int64), n_b=n_b,
+        n_feat=meta["n_feat"], n_class=meta["n_class"],
+        n_train=meta["n_train"], multilabel=meta["multilabel"],
+        ell_geometry=meta.get("ell_geometry"), feat_dtype=feat_dtype)
+
+
 def load_artifacts(path: str, parts: "list[int] | None" = None
                    ) -> PartitionArtifacts:
     """Load a format-v2 artifact directory. `parts` restricts the per-part
     arrays to the listed part ids (a rank loads only its own): the stacked
     axis then has len(parts) rows in that order; n_parts and the pads stay
-    global."""
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
-    validate_artifact_dir(path, meta["n_parts"], parts)
-    if meta.get("feat_dtype", "float32") != "float32":
-        from bnsgcn_tpu_torch.config import ConfigError
-        raise ConfigError(f"artifact dir {path}: {meta['feat_dtype']} "
-                          f"feature storage is not ported yet")
-    shared = np.load(os.path.join(path, "shared.npz"))
-    part_ids = list(range(meta["n_parts"])) if parts is None else list(parts)
-    loaded = [np.load(os.path.join(path, f"part{p}.npz")) for p in part_ids]
-    stacked = {k: np.stack([pt[k] for pt in loaded]) for k in _PER_PART}
+    global. bf16 feature storage stays bf16 bits (uint16) in `feat`."""
+    meta = read_meta(path)
+    validate_artifact_dir(path, meta.n_parts, parts)
+    part_ids = list(range(meta.n_parts)) if parts is None else list(parts)
+    stacked = {k: [] for k in _PER_PART}
+    for p in part_ids:
+        with np.load(os.path.join(path, f"part{p}.npz")) as pt:
+            for k in _PER_PART:
+                stacked[k].append(pt[k])
+    fields = {k: v for k, v in vars(meta).items() if k != "feat_dtype"}
     return PartitionArtifacts(
-        n_parts=meta["n_parts"], pad_inner=meta["pad_inner"],
-        pad_boundary=meta["pad_boundary"], pad_edges=meta["pad_edges"],
-        n_inner=np.asarray(meta["n_inner"], dtype=np.int64),
-        n_b=shared["n_b"],
-        n_feat=meta["n_feat"], n_class=meta["n_class"],
-        n_train=meta["n_train"], multilabel=meta["multilabel"],
-        ell_geometry=meta.get("ell_geometry"),
-        **stacked,
-    )
+        **fields, **{k: np.stack(v) for k, v in stacked.items()})

@@ -10,6 +10,23 @@ drawn here, before any rank is spawned, so every rank keys its boundary
 sample from the same seed (--resume adopts the checkpoint's instead). The
 artifact directory is named by --graph-name, else derived from the flags.
 
+Across nodes, one launcher per node (the JAX CLI's multi-host flags):
+
+    node 0:  python -m bnsgcn_tpu_torch.main ... --n-nodes N --node-rank 0 \
+                 --master-addr ADDR --port PORT --parts-per-node PPN
+    node k:  the same with --node-rank k
+
+Node k starts global ranks [k * PPN, min((k + 1) * PPN, P)); a node that
+would host none, too few slots for P, or nccl with more ranks on a node
+than its cards exit 2. Node 0 draws the seed, picks the checkpoint to
+resume from and partitions (unless --skip-partition; the others never
+load the dataset), serving the launchers' store at ADDR:PORT; the ranks
+meet at ADDR:PORT+1. A launcher that cannot reach node 0 exits 1 with a
+`[launch]` line. Every launcher prints the RESULT and LOSSES lines of its
+first rank: the same losses everywhere (the loss is all-reduced); under
+--eval-device host a node other than 0 reports best_val and test 0, as a
+JAX process other than 0 does, since rank 0 alone evaluates.
+
 The last two lines are machine-readable: the JAX CLI's `RESULT final_loss=
 ... best_val=... test=...`, then `LOSSES from_epoch=E l_E,l_E+1,...`, every
 epoch's loss this run trained.
@@ -21,7 +38,9 @@ import random
 import sys
 
 from bnsgcn_tpu_torch.config import (SUBCOMMANDS, ConfigError,
-                                     config_from_args, create_parser)
+                                     config_from_args, create_parser,
+                                     node_ranks)
+from bnsgcn_tpu_torch.parallel.mesh import NodeUnreachable
 
 
 def main(argv=None) -> int:
@@ -30,7 +49,8 @@ def main(argv=None) -> int:
         if argv and argv[0] in SUBCOMMANDS:
             raise ConfigError(f"{argv[0]} is not ported yet")
         cfg = config_from_args(create_parser().parse_args(argv))
-        if not cfg.fix_seed:
+        node_ranks(cfg)
+        if not cfg.fix_seed and cfg.node_rank == 0:
             cfg = cfg.replace(seed=random.randrange(1 << 31))
             print(f"seed {cfg.seed} (drawn; --fix-seed --seed {cfg.seed} "
                   f"repeats this run)")
@@ -41,6 +61,9 @@ def main(argv=None) -> int:
     except ConfigError as e:
         print(f"[config] {e}", file=sys.stderr)
         return 2
+    except NodeUnreachable as e:
+        print(f"[launch] {e}", file=sys.stderr)
+        return 1
     final = res.losses[-1] if res.losses else float("nan")
     print("RESULT final_loss=%.9e best_val=%.6f test=%.6f"
           % (final, res.best_val_acc, res.test_acc))

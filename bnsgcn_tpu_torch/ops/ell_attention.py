@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -410,16 +410,23 @@ class EventTimer:
         self.ms = state["ms"]
 
 
-def build_gat_attention(art, row: int, device) -> GatAttention:
-    """The GAT attention of the part in row `row` of `art`: its layouts,
-    with the global pads of the artifacts' 'gat_fwd' and 'bwd' geometry
-    (computed from the part itself when the artifacts carry none), on
-    `device`; the build's seconds in `build_seconds`."""
-    t0 = time.perf_counter()
+def part_gat_layouts(art, row: int) -> tuple[GatEllSpec, dict]:
+    """build_gat_layouts of the part in row `row` of `art`, with the global
+    pads of the artifacts' 'gat_fwd' and 'bwd' geometry (computed from the
+    part itself when the artifacts carry none)."""
     geo = art.ell_geometry or {}
-    spec, arrays = build_gat_layouts(
+    return build_gat_layouts(
         art.src[row:row + 1], art.dst[row:row + 1], art.pad_inner, art.n_ext,
         geometry=geo.get("gat_fwd"), geometry_bwd=geo.get("bwd"))
+
+
+def build_gat_attention(art, row: int, device,
+                        layouts: Optional[Callable] = None) -> GatAttention:
+    """The GAT attention of the part in row `row` of `art` on `device`: its
+    layouts from `layouts()` (part_gat_layouts by default; the trainer's
+    layout cache), the build's seconds in `build_seconds`."""
+    t0 = time.perf_counter()
+    spec, arrays = (layouts or (lambda: part_gat_layouts(art, row)))()
     op = GatAttention(spec, {k: torch.from_numpy(np.ascontiguousarray(v[0]))
                              .to(device) for k, v in arrays.items()})
     op.build_seconds = time.perf_counter() - t0

@@ -9,9 +9,16 @@ collectives go through torch.distributed:
     a hang in a step's collectives fails instead of waiting forever, forwards
     rank log lines to the parent, and collects each rank's result. A rank
     that fails makes `launch` tear the other ranks down and raise.
-  * `rank_device` is the device map: with nccl rank r gets cuda:r; with gloo
-    on CUDA every rank uses cuda:(r % device_count), so several ranks may
-    share one card; with --device cpu the ranks run on the CPU.
+  * `rank_device` is the device map, by a rank's local rank on its node:
+    with nccl local rank l gets cuda:l; with gloo on CUDA cuda:(l %
+    device_count), so several ranks may share one card; with --device cpu
+    the ranks run on the CPU.
+  * Across nodes (--n-nodes > 1) each node's launcher calls `launch` for
+    its own global ranks, all joining one world of P at the rendezvous
+    tcp://master_addr:(port + 1), which global rank 0 serves; before that
+    the launchers meet at a `NodeStore` that node 0 serves at
+    master_addr:port (the seed, the resume choice and the partition's
+    readiness travel through it).
   * `Comm` is one rank's handle on its group: the all-to-all of the halo
     exchange and the all-reduce of the gradient reduce, each timed without
     stalling the stream (CUDA events on a card, the host clock on the CPU),
@@ -27,6 +34,7 @@ collectives go through torch.distributed:
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import queue as queue_mod
 import socket
@@ -45,30 +53,39 @@ PG_TIMEOUT_S = 60.0
 # its log_every epochs, which grow with the graph (and run on the CPU in
 # the tests)
 WAIT_TIMEOUT_S = 1800.0
+# a launcher's wait to reach node 0's NodeStore
+NODE_CONNECT_TIMEOUT_S = 120.0
 
 
-def check_mesh_budget(n_parts: int, backend: str, device: str) -> None:
-    """One named config error when P ranks do not fit the cards: nccl runs
-    one rank per card and refuses two ranks on one (counterpart of
-    bnsgcn_tpu/run.py check_mesh_budget)."""
+def check_mesh_budget(n_parts: int, backend: str, device: str,
+                      n_local: "int | None" = None) -> None:
+    """One named config error when this node's `n_local` ranks (all P by
+    default) do not fit its cards: nccl runs one rank per card and refuses
+    two ranks on one (counterpart of bnsgcn_tpu/run.py check_mesh_budget)."""
     from bnsgcn_tpu_torch.config import ConfigError
-    if n_parts <= 1 or device == "cpu":
+    n_local = n_parts if n_local is None else n_local
+    if n_parts <= 1 or device == "cpu" or backend != "nccl":
         return
     have = torch.cuda.device_count()
-    if backend == "nccl" and n_parts > have:
-        raise ConfigError(
-            f"mesh does not fit: --n-partitions {n_parts} with --dist-backend "
-            f"nccl needs {n_parts} CUDA devices (one rank per card), have "
-            f"{have}; shrink --n-partitions to <= {have}, or pass "
-            f"--dist-backend gloo to run several ranks on one card")
+    if n_local <= have:
+        return
+    what, knob = ((f"--n-partitions {n_parts}", "--n-partitions")
+                  if n_local == n_parts else
+                  (f"{n_local} ranks on this node", "--parts-per-node"))
+    raise ConfigError(
+        f"mesh does not fit: {what} with --dist-backend nccl needs {n_local} "
+        f"CUDA devices (one rank per card), have {have}; shrink {knob} to "
+        f"<= {have}, or pass --dist-backend gloo to run several ranks on "
+        f"one card")
 
 
-def rank_device(device: str, backend: str, rank: int) -> torch.device:
+def rank_device(device: str, backend: str, local_rank: int) -> torch.device:
     if device == "cpu":
         return torch.device("cpu")
     if backend == "nccl":
-        return torch.device("cuda", rank)
-    return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
+        return torch.device("cuda", local_rank)
+    return torch.device("cuda",
+                        local_rank % max(torch.cuda.device_count(), 1))
 
 
 class Comm:
@@ -138,6 +155,13 @@ class Comm:
         dist.broadcast(x, src)
         return x
 
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank `src`'s picklable object on every rank, over the wait group
+        (its long timeout: the sender may first read a checkpoint)."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=src, group=self.wait_group)
+        return box[0]
+
     def all_gather_object(self, obj) -> list:
         out = [None] * self.world
         dist.all_gather_object(out, obj)
@@ -163,29 +187,82 @@ class RankFailed(RuntimeError):
     """A rank raised or died; the message carries its traceback."""
 
 
+class NodeUnreachable(RuntimeError):
+    """A launcher or a rank could not reach node 0 (its NodeStore, or the
+    ranks' rendezvous) in time."""
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def _rank_entry(rank, world, port, backend, device, timeout_s, wait_timeout_s,
-                fn, args, q):
+def _loopback(addr: str) -> bool:
+    return addr == "localhost" or addr.startswith("127.")
+
+
+class NodeStore:
+    """The launchers' meeting point in a --n-nodes > 1 run (the JAX
+    package's broadcast_one_to_all and sync_global_devices): node 0 serves
+    a TCPStore at addr:port, the others connect to it. `publish` sets a key
+    to a JSON value, `fetch` waits for one. Every wait is bounded:
+    NodeUnreachable names what did not come."""
+
+    def __init__(self, addr: str, port: int, n_nodes: int, node_rank: int,
+                 connect_timeout_s: "float | None" = None):
+        self.addr, self.port, self.node_rank = addr, port, node_rank
+        if connect_timeout_s is None:
+            connect_timeout_s = NODE_CONNECT_TIMEOUT_S
+        try:
+            self.store = dist.TCPStore(
+                addr, port, world_size=n_nodes, is_master=node_rank == 0,
+                timeout=datetime.timedelta(seconds=connect_timeout_s),
+                wait_for_workers=False)
+        except (RuntimeError, OSError) as e:
+            raise NodeUnreachable(
+                f"node {node_rank}: the launchers' store at {addr}:{port} "
+                f"({'could not serve' if node_rank == 0 else 'unreachable'}"
+                f" within {connect_timeout_s:g} s: {e})") from e
+
+    def publish(self, key: str, value) -> None:
+        self.store.set(key, json.dumps(value))
+
+    def fetch(self, key: str, timeout_s: "float | None" = None):
+        timeout_s = WAIT_TIMEOUT_S if timeout_s is None else timeout_s
+        try:
+            self.store.wait([key], datetime.timedelta(seconds=timeout_s))
+            return json.loads(self.store.get(key))
+        except (RuntimeError, OSError) as e:
+            raise NodeUnreachable(
+                f"node {self.node_rank}: no {key!r} from node 0 at "
+                f"{self.addr}:{self.port} within {timeout_s:g} s "
+                f"({e})") from e
+
+
+def _rank_entry(rank, local_rank, world, addr, port, backend, device,
+                timeout_s, wait_timeout_s, fn, args, q):
     """A spawned rank: join the group (and the gloo group of Comm.barrier),
     run fn(ctx, *args), send the result (or the traceback) to the parent,
     leave the group."""
     try:
-        dev = rank_device(device, backend, rank)
+        dev = rank_device(device, backend, local_rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         else:
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-        if backend == "gloo":
-            # every rank of this process model is on this host
+        if backend == "gloo" and _loopback(addr):
+            # every rank of this world is on this host
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{addr}:{port}",
+                world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=timeout_s))
+        except (RuntimeError, OSError) as e:
+            raise NodeUnreachable(
+                f"rank {rank} of {world}: no rendezvous at tcp://{addr}:"
+                f"{port} within {timeout_s:g} s ({e})") from e
         try:
             wait_group = dist.new_group(
                 backend="gloo",
@@ -221,33 +298,45 @@ def _failures(q, rank: int, tb: str, n_ranks: int,
 
 def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
            log=print, timeout_s: float = PG_TIMEOUT_S,
-           wait_timeout_s: float = WAIT_TIMEOUT_S) -> list:
-    """Run fn(RankContext, *rank_args[r]) on n_ranks spawned processes and
-    return their results in rank order. `timeout_s` bounds each collective,
-    `wait_timeout_s` each Comm.barrier. `fn` and the arguments are pickled
-    (fn by import path). Log lines a rank sends come out through `log` as
-    they arrive. Raises RankFailed, after terminating every other rank, when
-    a rank raises or dies."""
-    if len(rank_args) != n_ranks:
-        raise ValueError(f"{len(rank_args)} argument tuples for {n_ranks} ranks")
+           wait_timeout_s: float = WAIT_TIMEOUT_S,
+           ranks: "range | None" = None, addr: str = "127.0.0.1",
+           port: "int | None" = None) -> list:
+    """Run fn(RankContext, *rank_args[i]) on spawned processes, one for
+    each global rank in `ranks` (all n_ranks by default), in a world of
+    n_ranks that meets at tcp://addr:port (a free local port by default;
+    a node that starts only some of the ranks names the port every node
+    uses), and return their results in `ranks` order. `timeout_s` bounds
+    the rendezvous and each collective, `wait_timeout_s` each
+    Comm.barrier. `fn` and the arguments are pickled (fn by import path).
+    Log lines a rank sends come out through `log` as they arrive. Raises
+    RankFailed, after terminating every other rank it started, when a rank
+    raises or dies."""
+    ranks = range(n_ranks) if ranks is None else ranks
+    if len(rank_args) != len(ranks):
+        raise ValueError(f"{len(rank_args)} argument tuples for "
+                         f"{len(ranks)} ranks")
+    if port is None:
+        if len(ranks) != n_ranks:
+            raise ValueError("a launch of some of the ranks needs the port "
+                             "every node meets at")
+        port = _free_port()
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(r, n_ranks, port, backend, device, timeout_s,
-                               wait_timeout_s, fn, rank_args[r], q))
-             for r in range(n_ranks)]
-    results: list = [None] * n_ranks
-    done: set = set()
+    procs = {r: ctx.Process(target=_rank_entry, daemon=True,
+                            args=(r, i, n_ranks, addr, port, backend, device,
+                                  timeout_s, wait_timeout_s, fn,
+                                  rank_args[i], q))
+             for i, r in enumerate(ranks)}
+    results: dict = {}
     try:
-        for p in procs:
+        for p in procs.values():
             p.start()
-        while len(done) < n_ranks:
+        while len(results) < len(ranks):
             try:
                 kind, rank, payload = q.get(timeout=0.5)
             except queue_mod.Empty:
-                for r, p in enumerate(procs):
-                    if r not in done and p.exitcode not in (None, 0):
+                for r, p in procs.items():
+                    if r not in results and p.exitcode not in (None, 0):
                         raise RankFailed(f"rank {r} died with exit code "
                                          f"{p.exitcode} and no report")
                 continue
@@ -255,17 +344,16 @@ def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
                 log(payload)
             elif kind == "ok":
                 results[rank] = payload
-                done.add(rank)
             else:
                 raise RankFailed(_failures(q, rank, payload, n_ranks))
-        for p in procs:
+        for p in procs.values():
             p.join(timeout=timeout_s)
-        return results
+        return [results[r] for r in ranks]
     finally:
-        for p in procs:
+        for p in procs.values():
             if p.is_alive():
                 p.terminate()
-        for p in procs:
+        for p in procs.values():
             p.join(timeout=10)
             if p.is_alive():
                 p.kill()

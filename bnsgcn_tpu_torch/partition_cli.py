@@ -10,7 +10,11 @@ that exists; under --inductive it partitions the train subgraph, and with
 {graph_name}-val (the train+val subgraph) and {graph_name}-test (the full
 graph), which the ranks' evaluation reads. A later run with the same flags
 and --skip-partition trains from them. It takes the training CLI's flags;
-a feature the port lacks exits 2 by name.
+a feature the port lacks exits 2 by name. --streaming-artifacts always (or
+auto above run.STREAMING_MIN_EDGES edges) writes every directory through
+the streaming builder, one part resident at a time, with the features
+stored as --feat-storage (bfloat16: half the bytes), as
+scripts/ogbn-papers100m_torch.sh's PARTITION=1 step does.
 """
 
 from __future__ import annotations

@@ -6,8 +6,13 @@ use_pp precompute -> `n_epochs` epochs printing the JAX package's epoch line
 parameters' accuracy line.
 
 P > 1 runs one process per part (parallel/mesh.py): this process builds the
-graph and writes the partition artifacts once (host numpy only), then
-spawns P ranks. Rank r loads only part r, builds its own layout and runs the
+graph and writes the partition artifacts once (host numpy only; the
+streaming builder, one part resident, above STREAMING_MIN_EDGES edges or
+under --streaming-artifacts always), reads back only their meta.json and
+shared.npz, then spawns P ranks; with --n-nodes > 1 one such launcher runs
+per node and node 0's writes the artifacts and hands its seed and resume
+choice to the others (run_parts). Rank r loads only part r, builds its own
+layout (or loads it from --cache-dir) and runs the
 same loop, exchanging halos and all-reducing gradients with the others; rank
 0 prints the epoch lines, evaluates (the others wait at a barrier with a
 timeout of its own) and checks at the end that every rank holds rank 0's
@@ -52,9 +57,11 @@ import torch
 
 from bnsgcn_tpu_torch import buildlib
 from bnsgcn_tpu_torch import checkpoint as ckpt
-from bnsgcn_tpu_torch.config import Config, ConfigError
+from bnsgcn_tpu_torch.config import Config, ConfigError, node_ranks
 from bnsgcn_tpu_torch.data.artifacts import (PartitionArtifacts,
-                                             build_artifacts, load_artifacts,
+                                             build_artifacts,
+                                             build_artifacts_streaming,
+                                             load_artifacts, read_meta,
                                              save_artifacts)
 from bnsgcn_tpu_torch.data.datasets import load_data
 from bnsgcn_tpu_torch.data.graph import Graph, inductive_split
@@ -65,7 +72,7 @@ from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
 from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
                                             wire_bytes)
-from bnsgcn_tpu_torch.parallel.mesh import (Comm, RankContext,
+from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
                                             check_mesh_budget, launch,
                                             rank_device)
 from bnsgcn_tpu_torch.parallel.reducer import (assert_replicated,
@@ -83,6 +90,10 @@ from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
 WARMUP_EPOCHS = 5
 
 TRAIN_KEYS = ("feat", "label", "train_mask", "in_norm", "out_norm")
+
+# --streaming-artifacts auto builds through the streaming builder above this
+# many edges (bnsgcn_tpu/run.py prepare_partition)
+STREAMING_MIN_EDGES = 30_000_000
 
 
 def warm_mean(xs: list, start_epoch: int = 0) -> float:
@@ -183,6 +194,9 @@ def prepare_part(cfg: Config, art: PartitionArtifacts,
                          comm=comm, reuse=reuse, **spmm_kw)
     row = local_row(art, rank)
     n_edges = int((art.dst[row] < art.pad_inner).sum())
+    # the host-side layouts' build or --cache-dir load, within the layout
+    cached = ", ".join(f"{k} {how} {secs:.3f}s"
+                       for k, (how, secs) in fns.layout_times.items())
     kernels = (f"model=gat heads={cfg.heads} spmm={fns.spmm_kind} (the ELL "
                f"attention, layouts {fns.gat.build_seconds:.1f}s)"
                if fns.gat is not None else
@@ -192,6 +206,7 @@ def prepare_part(cfg: Config, art: PartitionArtifacts,
         + f"{int(art.n_inner[rank])} nodes, {n_edges} edges, "
         f"F={art.n_feat}, {art.n_class} classes | {cfg.dtype} {kernels} "
         f"layout {time.perf_counter() - t0:.1f}s"
+        + (f" ({cached})" if cached else "")
         + (f" | dense tiles carry {fns.dense_edges} edges "
            f"({fns.dense_edges / max(n_edges, 1):.1%})"
            if fns.spmm is not None and fns.spmm_kind == "hybrid" else ""))
@@ -216,9 +231,18 @@ def prepare_run(cfg: Config, g: Optional[Graph] = None,
     if g is None:
         g, _, _ = load_data(cfg)
     train_g, val_g, test_g = split_graphs(cfg, g)
-    art = (prepare_partition(cfg, train_g) if cfg.skip_partition else
-           build_artifacts(train_g, partition_graph(train_g, 1)))
-    return prepare_part(cfg, art, (val_g, test_g), device, log)
+    return prepare_part(cfg, p1_artifacts(cfg, train_g), (val_g, test_g),
+                        device, log)
+
+
+def p1_artifacts(cfg: Config, g: Graph) -> PartitionArtifacts:
+    """P=1: the artifacts of `g`, built in memory; through prepare_partition
+    (its directory, built or loaded) under --skip-partition or when the
+    streaming builder is selected, whose within-part edge order is not the
+    in-memory builder's (the JAX package builds every run's there)."""
+    if cfg.skip_partition or streams(cfg, g):
+        return prepare_partition(cfg, g)
+    return build_artifacts(g, partition_graph(g, 1))
 
 
 def init_training(pr: Prepared, model_init: Optional[dict] = None):
@@ -284,22 +308,39 @@ def mesh_eval_part(pr: Prepared, suffix: str, log=print):
     precomputes a copy). Inductive: the eval graph's own partition, '-val'
     (the train+val subgraph) or '-test' (the full graph), with its own
     layout; at P > 1 each rank loads its part of the artifacts the parent
-    wrote, at P=1 they are built in memory (loaded under
-    --skip-partition)."""
+    wrote (node 0's launcher), at P=1 p1_artifacts gives them."""
     cfg = pr.cfg
     if not cfg.inductive:
         return pr.fns, pr.blk, pr.art
     cfg_e = eval_cfg(cfg, suffix)
     if pr.comm is not None:
         art = load_artifacts(artifacts_dir(cfg_e), parts=[pr.rank])
-    elif cfg.skip_partition:
-        art = prepare_partition(cfg_e)
     else:
-        g = pr.val_g if suffix == "-val" else pr.test_g
-        art = build_artifacts(g, partition_graph(g, 1))
+        art = p1_artifacts(cfg_e, pr.val_g if suffix == "-val" else pr.test_g)
     pe = prepare_part(cfg_e, art, None, pr.device,
                       lambda m: log(f"[eval{suffix}] {m}"), pr.rank, pr.comm)
     return pe.fns, pe.blk, pe.art
+
+
+def lead_read(pr: Prepared, read: Callable):
+    """read() on rank 0 handed to every rank (P > 1; at P=1 just read()):
+    a rank on another node may not see rank 0's checkpoint directory, so
+    rank 0 reads the checkpoint and broadcasts its payload, as the JAX
+    package broadcasts the restored state (bnsgcn_tpu/run.py:744). A
+    failed read fails every rank."""
+    if pr.comm is None:
+        return read()
+    got = None
+    if pr.rank == 0:
+        try:
+            got = ("ok", read())
+        except Exception as e:
+            pr.comm.broadcast_object(("err", f"{type(e).__name__}: {e}"))
+            raise
+    kind, value = pr.comm.broadcast_object(got)
+    if kind == "err":
+        raise RuntimeError(f"rank 0 could not read the checkpoint: {value}")
+    return value
 
 
 def snapshot(model: GNN) -> dict:
@@ -434,7 +475,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     blk, model, opt = init_training(pr, model_init)
     seed, best_acc, best_state = cfg.seed, 0.0, None
     if resume_from is not None:
-        payload = ckpt.read_blob(resume_from)
+        payload = lead_read(pr, lambda: ckpt.read_blob(resume_from))
         model.load_state_dict(params_from_jax(payload["params"], spec))
         opt_state_from_jax(payload["opt_state"], opt, model)
         res.start_epoch = int(payload["epoch"]) + 1
@@ -442,8 +483,12 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         log(f"Resumed from {resume_from} at epoch {res.start_epoch}")
         # every rank holds the best parameters under mesh (the final test
         # eval is collective), rank 0 alone under host
-        final = (ckpt.final_best_payload(cfg, best_acc, log)
-                 if best_acc > 0 and (lead or mesh_eval) else None)
+        final = None
+        if best_acc > 0 and mesh_eval:
+            final = lead_read(pr, lambda: ckpt.final_best_payload(
+                cfg, best_acc, log))
+        elif best_acc > 0 and lead:
+            final = ckpt.final_best_payload(cfg, best_acc, log)
         if final is not None:
             best_state = params_from_jax(final["params"], spec)
         else:
@@ -575,9 +620,9 @@ def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
     same P=1 cfg; `rank_hook` (P > 1, a module-level function) runs in every
     rank on its prepared part before the epoch loop and the launch
     counters' reset, its result in the rank's report under 'hook'."""
-    cfg, resume_from = resume_point(cfg, log)
     if cfg.n_partitions > 1:
-        return run_parts(cfg, g, log, model_init, rank_hook, resume_from)
+        return run_parts(cfg, g, log, model_init, rank_hook)
+    cfg, resume_from = resume_point(cfg, log)
     pr = prepared if prepared is not None else prepare_run(cfg, g, log)
     return train_loop(pr, model_init, log, resume_from)[0]
 
@@ -591,16 +636,25 @@ def artifacts_dir(cfg: Config) -> str:
                         cfg.graph_name or cfg.derive_graph_name())
 
 
+def streams(cfg: Config, g: Graph) -> bool:
+    """Whether the artifacts of `g` go through the streaming builder:
+    --streaming-artifacts always, or auto above STREAMING_MIN_EDGES edges."""
+    return (cfg.streaming_artifacts == "always" or
+            (cfg.streaming_artifacts == "auto"
+             and g.n_edges > STREAMING_MIN_EDGES))
+
+
 def prepare_partition(cfg: Config, g: Optional[Graph] = None,
                       force: bool = False, load: bool = True
                       ) -> Optional[PartitionArtifacts]:
-    """Offline partitioning (bnsgcn_tpu/run.py prepare_partition, without
-    its streaming branch) of `g`, the train graph (or an eval graph under
-    its eval_cfg); without `g`, of the dataset's graph, or under
-    --inductive its train subgraph. The artifact directory is loaded when
-    it exists, as the reference's config-JSON check does, unless `force`;
-    under --skip-partition it must exist. `load=False` returns None where
-    the directory exists instead of loading it."""
+    """Offline partitioning (bnsgcn_tpu/run.py prepare_partition) of `g`,
+    the train graph (or an eval graph under its eval_cfg); without `g`, of
+    the dataset's graph, or under --inductive its train subgraph. The
+    artifact directory is loaded when it exists, as the reference's
+    config-JSON check does, unless `force`; under --skip-partition it must
+    exist. The streaming builder writes it when `streams` says so, with the
+    features stored as --feat-storage; else the in-memory builder. `load=
+    False` returns None instead of loading the directory."""
     path = artifacts_dir(cfg)
     exists = os.path.exists(os.path.join(path, "meta.json"))
     if not force and (exists or cfg.skip_partition):
@@ -616,9 +670,13 @@ def prepare_partition(cfg: Config, g: Optional[Graph] = None,
             g = g.subgraph(g.train_mask)
     pid = partition_graph(g, cfg.n_partitions, method=cfg.partition_method,
                           obj=cfg.partition_obj, seed=cfg.seed)
+    if streams(cfg, g):
+        build_artifacts_streaming(g, pid, path, feat_dtype=cfg.feat_storage,
+                                  log=print)
+        return load_artifacts(path) if load else None
     art = build_artifacts(g, pid)
     save_artifacts(art, path)
-    return art
+    return art if load else None
 
 
 def _prebuild(cfg: Config) -> None:
@@ -636,8 +694,9 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
                model_init: Optional[dict], eval_graphs: Optional[tuple],
                rank_hook: Optional[Callable[[Prepared], dict]],
                resume_from: Optional[str]) -> dict:
-    """One rank of a P > 1 run: load part r, train (from the same
-    checkpoint on every rank when resuming), check replication, report."""
+    """One rank of a P > 1 run: load part r, train (from rank 0's read of
+    the checkpoint on every rank when resuming), check replication,
+    report."""
     lead = ctx.rank == 0
     log = ctx.log if lead else (lambda m: None)
     art = load_artifacts(path, parts=[ctx.rank])
@@ -669,62 +728,110 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         "test_acc": res.test_acc, "eval_seconds": res.eval_seconds,
         "eval_spans": res.eval_spans, "drain_waits": res.drain_waits,
         "epoch_starts": res.epoch_starts, "loop_seconds": res.loop_seconds,
-        "hook": hook,
+        "layout_times": pr.fns.layout_times, "hook": hook,
     }
 
 
 def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
               model_init: Optional[dict] = None,
-              rank_hook: Optional[Callable[[Prepared], dict]] = None,
-              resume_from: Optional[str] = None) -> RunResult:
-    """P > 1: write (or, under --skip-partition, load) the artifacts here,
-    then train on P spawned ranks. Under --eval-device host rank 0 alone
-    gets the eval graphs; under mesh with --inductive the eval graphs'
-    artifacts ('-val', '-test') are written here too, before the ranks
-    start, and each rank loads its part."""
+              rank_hook: Optional[Callable[[Prepared], dict]] = None
+              ) -> RunResult:
+    """P > 1: this node's launcher. Node 0's (the only one by default)
+    picks the checkpoint to resume from, writes the artifacts unless
+    --skip-partition (under --eval-device mesh with --inductive the eval
+    graphs' '-val' and '-test' too) and builds the native libraries; with
+    --n-nodes > 1 it then hands its seed and resume choice, through the
+    NodeStore it serves, to the other nodes' launchers, which built their
+    libraries meanwhile and adopt both (the JAX package's
+    broadcast_one_to_all and sync_global_devices). A launcher
+    reads only the artifacts' meta.json and shared.npz, never a part: each
+    rank loads its own. Each then spawns its ranks (config.node_ranks) into
+    one world of P; under --eval-device host global rank 0 alone gets the
+    eval graphs. The result is this node's first rank's, with every local
+    rank's report in `ranks`."""
     require_device(cfg.device)
-    check_mesh_budget(cfg.n_partitions, cfg.dist_backend, cfg.device)
+    ranks = node_ranks(cfg)
+    check_mesh_budget(cfg.n_partitions, cfg.dist_backend, cfg.device,
+                      len(ranks))
     P = cfg.n_partitions
     mesh_eval = cfg.eval and cfg.eval_device == "mesh"
-    if g is None and ((cfg.eval and not mesh_eval)
-                      or not cfg.skip_partition):
-        g, _, _ = load_data(cfg)
-    train_g, val_g, test_g = (split_graphs(cfg, g) if g is not None
-                              else (None, None, None))
-    t0 = time.perf_counter()
-    art = prepare_partition(cfg, train_g)
     path = artifacts_dir(cfg)
-    if mesh_eval and cfg.inductive:
-        for suffix, sub in (("-val", val_g), ("-test", test_g)):
-            # built when missing (from the graph, which --skip-partition
-            # does not load: then they must be there, as the training's)
-            prepare_partition(eval_cfg(cfg, suffix), sub, load=False)
-    _prebuild(cfg)
-    hspec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
+    t0 = time.perf_counter()
+    nodes = (NodeStore(cfg.master_addr, cfg.port, cfg.n_nodes, cfg.node_rank)
+             if cfg.n_nodes > 1 else None)
+    val_g = test_g = resume_from = None
+    if cfg.node_rank == 0:
+        try:
+            cfg, resume_from = resume_point(cfg, log)
+            host_eval = cfg.eval and not mesh_eval
+            if g is None and (host_eval or not cfg.skip_partition):
+                g, _, _ = load_data(cfg)
+            if g is not None:
+                train_g, val_g, test_g = split_graphs(cfg, g)
+            else:
+                train_g = None
+            prepare_partition(cfg, train_g, load=False)
+            if mesh_eval and cfg.inductive:
+                for suffix, sub in (("-val", val_g), ("-test", test_g)):
+                    # built when missing (from the graph, which
+                    # --skip-partition does not load: then they must be
+                    # there, as the training's)
+                    prepare_partition(eval_cfg(cfg, suffix), sub, load=False)
+            if not host_eval:
+                val_g = test_g = None
+            del g, train_g          # no graph in the launcher while it trains
+            _prebuild(cfg)
+        except BaseException as e:
+            if nodes is not None:
+                nodes.publish("ready", {"error": f"{type(e).__name__}: {e}"})
+            raise
+        if nodes is not None:
+            nodes.publish("ready", {"seed": cfg.seed,
+                                    "resume_from": resume_from})
+    else:
+        _prebuild(cfg)
+        got = nodes.fetch("ready")
+        if "error" in got:
+            raise RuntimeError(f"node 0 failed before the launch: "
+                               f"{got['error']}")
+        cfg, resume_from = cfg.replace(seed=got["seed"]), got["resume_from"]
+        log(f"seed {cfg.seed} (node 0's)"
+            + (f"; resuming from {resume_from}" if resume_from else ""))
+    meta = read_meta(path)
+    hspec, _ = make_halo_spec(meta.n_b, meta.pad_inner, meta.pad_boundary,
                               cfg.sampling_rate, wire=cfg.halo_wire)
-    hfull, _ = full_rate_spec(art.n_b, art.pad_inner, art.pad_boundary)
+    hfull, _ = full_rate_spec(meta.n_b, meta.pad_inner, meta.pad_boundary)
     nb = 2 if cfg.dtype == "bfloat16" else 4     # the native wire's bytes
-    devs = [str(rank_device(cfg.device, cfg.dist_backend, r))
-            for r in range(P)]
+    devs = [str(rank_device(cfg.device, cfg.dist_backend, i))
+            for i in range(len(ranks))]
     staged = cfg.dist_backend == "gloo" and cfg.device == "cuda"
+    where = ("" if cfg.n_nodes == 1 else
+             f" | node {cfg.node_rank} of {cfg.n_nodes}: ranks "
+             f"{ranks.start}..{ranks.stop - 1}")
     log(f"Mesh: {P} ranks | {cfg.dist_backend}"
         + (" (collectives staged through host memory)" if staged else "")
-        + f" | devices {','.join(devs)} | pad_inner={art.pad_inner} "
-        f"pad_boundary={art.pad_boundary} pad_send={hspec.pad_send} "
-        f"edges/part={art.pad_edges} | {cfg.dtype} spmm={cfg.spmm} "
+        + f"{where} | devices {','.join(devs)} | pad_inner={meta.pad_inner} "
+        f"pad_boundary={meta.pad_boundary} pad_send={hspec.pad_send} "
+        f"edges/part={meta.pad_edges} | {cfg.dtype} spmm={cfg.spmm} "
         f"gather={cfg.spmm_gather} dense={cfg.spmm_dense} | halo "
         f"{hspec.strategy}/{hspec.wire} at sampling rate "
         f"{cfg.sampling_rate:g}: "
         f"{wire_bytes(hspec, cfg.n_hidden, nb) / 1e6:.2f} MB/exchange/rank "
         f"at hidden width {cfg.n_hidden} "
-        f"({wire_bytes(hfull, art.n_feat, nb) / 1e6:.2f} MB at feature width "
-        f"{art.n_feat}, the precompute's full-rate exchange) | artifacts "
-        f"{path} {time.perf_counter() - t0:.1f}s")
-    evals = (val_g, test_g) if cfg.eval and not mesh_eval else None
-    reports = launch(_rank_main, P,
-                     [(cfg, path, model_init, evals if r == 0 else None,
-                       rank_hook, resume_from) for r in range(P)],
-                     cfg.dist_backend, cfg.device, log=log)
+        f"({wire_bytes(hfull, meta.n_feat, nb) / 1e6:.2f} MB at feature "
+        f"width {meta.n_feat}, the precompute's full-rate exchange) | "
+        f"artifacts {path}"
+        + (f" ({meta.feat_dtype} features)"
+           if meta.feat_dtype != "float32" else "")
+        + f" {time.perf_counter() - t0:.1f}s")
+    evals = (val_g, test_g) if val_g is not None else None
+    reports = launch(
+        _rank_main, P,
+        [(cfg, path, model_init, evals if r == 0 else None, rank_hook,
+          resume_from) for r in ranks],
+        cfg.dist_backend, cfg.device, log=log, ranks=ranks,
+        addr=cfg.master_addr if cfg.n_nodes > 1 else "127.0.0.1",
+        port=cfg.port + 1 if cfg.n_nodes > 1 else None)
     lead = reports[0]
     return RunResult(
         losses=lead["losses"], epoch_times=lead["epoch_times"],

@@ -29,8 +29,11 @@ slots out of the softmax.
 
 from __future__ import annotations
 
+import hashlib
+import os
+import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -38,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from bnsgcn_tpu_torch.config import Config
-from bnsgcn_tpu_torch.data.artifacts import PartitionArtifacts
+from bnsgcn_tpu_torch.data.artifacts import PartitionArtifacts, feat_values
 from bnsgcn_tpu_torch.models.gnn import GNN, GraphEnv, ModelSpec, apply_model
 from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              cluster_order, dense_edge_count,
@@ -46,7 +49,8 @@ from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
                                              estimate_coverage)
 from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
 from bnsgcn_tpu_torch.ops.ell_attention import (GatAttention,
-                                                build_gat_attention)
+                                                build_gat_attention,
+                                                part_gat_layouts)
 from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
                                             halo_apply, make_halo_plan,
                                             make_halo_spec,
@@ -54,6 +58,8 @@ from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
 from bnsgcn_tpu_torch.utils import prng
+from bnsgcn_tpu_torch.utils.diskcache import (atomic_dump, sweep_stale_tmp,
+                                              try_load)
 from bnsgcn_tpu_torch.utils.msgpack_codec import Bfloat16Array
 
 # --spmm auto picks the dense-tile hybrid when at least this fraction of the
@@ -68,9 +74,13 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def ce_sum(logits, labels, mask):
-    """Cross-entropy summed over the masked rows (reference train.py:358)."""
+    """Cross-entropy summed over the masked rows (reference train.py:358).
+    Rows outside the mask may carry the label -1 (papers100M's unlabeled
+    nodes, data/disk_readers.py): the gather reads them at a clamped index
+    and the mask drops the value, as the JAX ce_sum's jnp.where does, so
+    neither the loss nor the gradient sees them."""
     logp = F.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(1, labels[:, None].long())[:, 0]
+    ll = logp.gather(1, labels[:, None].long().clamp(min=0))[:, 0]
     return -torch.where(mask, ll, torch.zeros((), device=ll.device)).sum()
 
 
@@ -87,7 +97,8 @@ def bce_sum(logits, labels, mask):
 def build_block_arrays(art: PartitionArtifacts, model: str,
                        dtype=np.float32) -> dict[str, np.ndarray]:
     """Stacked [P, ...] numpy arrays a train step reads (the JAX package's
-    build_block_arrays, array for array)."""
+    build_block_arrays, array for array; bf16 feature storage upcast
+    exactly)."""
     if model == "gcn":
         in_norm = np.sqrt(art.in_deg).astype(dtype)
         out_norm = np.sqrt(art.out_deg_ext).astype(dtype)
@@ -95,7 +106,7 @@ def build_block_arrays(art: PartitionArtifacts, model: str,
         in_norm = art.in_deg.astype(dtype)
         out_norm = np.ones_like(art.out_deg_ext, dtype=dtype)
     return {
-        "feat": art.feat.astype(dtype),
+        "feat": feat_values(art).astype(dtype),
         "label": art.label,
         "train_mask": art.train_mask,
         "inner_mask": art.inner_mask,
@@ -251,6 +262,93 @@ class StepFns:
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
     spmm_kind: str = "ell"             # 'ell' | 'hybrid' (--spmm resolved)
     gat: Optional[GatAttention] = None     # GAT's attention (spmm is None)
+    layout_times: dict = field(default_factory=dict)   # LayoutCache.times
+
+
+# ----------------------------------------------------------------------------
+# --cache-dir (bnsgcn_tpu/run.py:371-425)
+# ----------------------------------------------------------------------------
+
+def ell_layout_key(cfg: Config) -> str:
+    """The ELL layouts' cache key (bnsgcn_tpu/trainer.py ell_layout_key;
+    the port has no --overlap or --reorder, whose namespaces it adds)."""
+    return "ell"
+
+
+def hybrid_layout_key(cfg: Config) -> str:
+    """The hybrid layout's cache key under cfg's tiling knobs, with the
+    effective occupancy (bnsgcn_tpu/trainer.py hybrid_layout_key)."""
+    tile = cfg.block_tile
+    key = (f"hybrid:{effective_occupancy(cfg.block_occupancy, tile, tile)}:"
+           f"{cfg.block_tile_budget_mb}")
+    return key + (f":t{tile}" if tile != 512 else "")
+
+
+def gat_layout_key(cfg: Config) -> str:
+    """The GAT attention layouts' cache key (bnsgcn_tpu/trainer.py)."""
+    return "gat"
+
+
+def artifact_digest(art: PartitionArtifacts, row: int = 0) -> str:
+    """Content address of one part (bnsgcn_tpu/run.py artifact_digest over
+    a rank's own part): sha1 over (n_b, src, dst)."""
+    dg = hashlib.sha1()
+    for a in (art.n_b, art.src[row], art.dst[row]):
+        dg.update(np.ascontiguousarray(a))
+    return dg.hexdigest()[:12]
+
+
+class LayoutCache:
+    """One part's host-side layouts (the ELL tables, the hybrid's tiles and
+    residual, the GAT layouts: what the card packing starts from), kept in
+    `cache_dir` as versioned pickles named by the graph, the part's
+    artifact_digest and the layout key of the knobs that shape them. A
+    missing, stale or torn file is a miss and a failed write is logged: a
+    bad cache costs a rebuild, never the run. Without a directory it only
+    times the builds. `times` maps each key to ('built' | 'loaded',
+    seconds)."""
+
+    def __init__(self, cache_dir: str, graph_name: str,
+                 art: PartitionArtifacts, row: int, log=print):
+        self.dir, self.log = cache_dir or None, log
+        self.times: dict = {}
+        self._held: dict = {}
+        if self.dir:
+            os.makedirs(self.dir, exist_ok=True)
+            sweep_stale_tmp(self.dir, log)
+            self.prefix = f"layouts_{graph_name}_{artifact_digest(art, row)}"
+
+    def path(self, key: str) -> str:
+        return os.path.join(self.dir,
+                            f"{self.prefix}_{key.replace(':', '-')}.pkl")
+
+    def load(self, key: str):
+        """The layouts under `key` held or on disk, else None."""
+        if key not in self._held and self.dir:
+            t0 = time.perf_counter()
+            obj = try_load(self.path(key), self.log)
+            if obj is not None:
+                self._held[key] = obj
+                self.times[key] = ("loaded", time.perf_counter() - t0)
+        return self._held.get(key)
+
+    def get(self, key: str, build: Callable):
+        """The layouts under `key`: held, on disk, or built now by
+        build() and written."""
+        obj = self.load(key)
+        if obj is not None:
+            return obj
+        t0 = time.perf_counter()
+        obj = self._held[key] = build()
+        self.times[key] = ("built", time.perf_counter() - t0)
+        if self.dir:
+            try:
+                atomic_dump(obj, self.path(key))
+                self.log(f"  layout cache: wrote {self.path(key)}")
+            except OSError as e:
+                self.log(f"  layout cache: write failed at {self.path(key)} "
+                         f"({e}); continuing without it")
+        return obj
 
 
 def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
@@ -286,20 +384,27 @@ def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
 def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
                row: int = 0, comm: Optional[Comm] = None,
                reuse: Optional["StepFns"] = None,
-               row_cap: int = I8_ROW_CAP):
+               row_cap: int = I8_ROW_CAP,
+               cache: Optional[LayoutCache] = None):
     """(operator, numpy layout, resolved spmm kind) for cfg.spmm over the
     part in row `row` of `art`, with cfg's gather and dense dtypes (the
-    int8 dense modes picked at `row_cap`). Each part builds its own layout:
-    the ELL pads come from the artifacts' global geometry, the hybrid tiles
-    and residual from the part alone. `reuse`, the step functions of an
-    earlier build of the same part and tiling, lends its layout when the
-    resolved kind is its own (only the dtypes change), and a hybrid's
-    cluster order to the auto pick (cluster_order is deterministic, so it
-    is the order the pick would compute)."""
+    int8 dense modes picked at `row_cap`). Each part builds its own layout
+    (through `cache`, --cache-dir): the ELL pads come from the artifacts'
+    global geometry, the hybrid tiles and residual from the part alone.
+    `reuse`, the step functions of an earlier build of the same part and
+    tiling, lends its layout when the resolved kind is its own (only the
+    dtypes change); its hybrid's cluster order, or a cached hybrid's, goes
+    to the auto pick (cluster_order is deterministic, so it is the order
+    the pick would compute)."""
+    cache = cache or LayoutCache("", "", art, row, log)
     held = None
     if reuse is not None and reuse.spmm_kind == "hybrid":
-        held = (reuse.layout["blk_perm_inner"][0],
-                reuse.layout["blk_perm_ext"][0])
+        held = reuse.layout
+    elif cfg.spmm == "auto":
+        cached = cache.load(hybrid_layout_key(cfg))
+        held = cached[3] if cached is not None else None
+    if held is not None:
+        held = (held["blk_perm_inner"][0], held["blk_perm_ext"][0])
     kind, perms = resolve_spmm(cfg, art, row, comm, log, held)
     if reuse is not None and reuse.spmm_kind == kind:
         return (reuse.spmm.with_dtypes(cfg.spmm_gather, cfg.spmm_dense,
@@ -307,20 +412,27 @@ def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
     src, dst = art.src[row:row + 1], art.dst[row:row + 1]
     if kind == "hybrid":
         tile = cfg.block_tile
-        pi, pe = perms if perms is not None else cluster_order(
-            src[0], dst[0], art.pad_inner, art.n_ext, target=tile, log=log)
-        fwd, bwd, ell_pair, arrays = build_block_layouts(
-            src, dst, art.pad_inner, art.n_ext, pi[None], pe[None],
-            occupancy_min=effective_occupancy(cfg.block_occupancy, tile, tile),
-            tile_budget_bytes=cfg.block_tile_budget_mb << 20,
-            tile_r=tile, tile_c=tile)
+
+        def build():
+            pi, pe = perms if perms is not None else cluster_order(
+                src[0], dst[0], art.pad_inner, art.n_ext, target=tile,
+                log=log)
+            return build_block_layouts(
+                src, dst, art.pad_inner, art.n_ext, pi[None], pe[None],
+                occupancy_min=effective_occupancy(cfg.block_occupancy, tile,
+                                                  tile),
+                tile_budget_bytes=cfg.block_tile_budget_mb << 20,
+                tile_r=tile, tile_c=tile)
+
+        fwd, bwd, ell_pair, arrays = cache.get(hybrid_layout_key(cfg), build)
         return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device),
                          gather_dtype=cfg.spmm_gather,
                          dense_dtype=cfg.spmm_dense,
                          row_cap=row_cap), arrays, kind
     if kind == "ell":
-        fwd, bwd, arrays = build_layouts(src, dst, art.pad_inner, art.n_ext,
-                                         geometry=art.ell_geometry)
+        fwd, bwd, arrays = cache.get(ell_layout_key(cfg), lambda: (
+            build_layouts(src, dst, art.pad_inner, art.n_ext,
+                          geometry=art.ell_geometry)))
         return (EllSpmm(fwd, bwd, to_device(arrays, device),
                         gather_dtype=cfg.spmm_gather), arrays, kind)
     raise ValueError(f"--spmm {cfg.spmm} is not ported yet")
@@ -332,23 +444,28 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    reuse: Optional[StepFns] = None,
                    row_cap: int = I8_ROW_CAP) -> StepFns:
     """Rank `rank`'s step functions. Without `comm` the run is P=1. `reuse`
-    and `row_cap` go to build_spmm."""
+    and `row_cap` go to build_spmm; the layouts go through a LayoutCache
+    of cfg.cache_dir."""
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
+    cache = LayoutCache(cfg.cache_dir,
+                        cfg.graph_name or cfg.derive_graph_name(), art, row,
+                        log)
     gat = None
     if spec.model == "gat":
         # no SpMM: --spmm auto stays on ELL (bnsgcn_tpu/trainer.py:707)
         spmm, layout = None, {}
         kind = cfg.spmm if cfg.spmm in ("ell", "hybrid") else "ell"
-        gat = build_gat_attention(art, row, device)
+        gat = build_gat_attention(art, row, device, lambda: cache.get(
+            gat_layout_key(cfg), lambda: part_gat_layouts(art, row)))
         if cfg.spmm_gather != "native":
             log(f"spmm_gather={cfg.spmm_gather} has no effect for "
                 f"spmm={kind!r} / model='gat' (only the ell/hybrid GCN/"
                 f"GraphSAGE aggregation paths quantize gathers)")
     else:
         spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm,
-                                        reuse, row_cap)
+                                        reuse, row_cap, cache)
     n_train = max(art.n_train, 1)
     loss_sum = bce_sum if art.multilabel else ce_sum
     n_halo = art.n_ext - art.pad_inner
@@ -455,4 +572,5 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
                    forward=forward, precompute=precompute,
                    eval_forward=eval_forward, dense_edges=dense,
-                   halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat)
+                   halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat,
+                   layout_times=cache.times)

@@ -98,7 +98,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each rank's epoch and exchange share and the int8 wire's MB per
      exchange beside the f32 path's;
   5d. [gat]: the P=4 main path's command line with --model gat --heads 2
-     on its artifacts, 6 epochs, rank 0 evaluating every 2 (COO, the
+     on its artifacts, 4 epochs, rank 0 evaluating every 2 (COO, the
      segment softmax): each rank's presence masks for epochs 0 and 1 must
      be those of the plans [bns] checked, the loss finite and falling, no
      K1 or K2 launch, every rank ending with rank 0's parameters; it prints
@@ -109,11 +109,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-4 (relative);
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
-     over gloo, 12 epochs, an eval and a checkpoint every 4: it must exit 0,
-     print epoch, accuracy and Test Result lines, and leave 3 periodic
+     over gloo, 8 epochs, an eval and a checkpoint every 4: it must exit 0,
+     print epoch, accuracy and Test Result lines, and leave 2 periodic
      checkpoints, the final one and the results file; rerun with --resume
-     --skip-partition --n-epochs 16 it must start at epoch 12, and its
-     losses for epochs 12-15 must equal an uninterrupted 16-epoch run's to
+     --skip-partition --n-epochs 12 it must start at epoch 8, and its
+     losses for epochs 8-11 must equal an uninterrupted 12-epoch run's to
      1e-5 (relative); then with --eval-device mesh: partition_cli writes
      the train subgraph's artifacts and the eval graphs' ('-val', '-test'),
      and the script trains 8 epochs from them (--skip-partition), the
@@ -125,7 +125,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      50,000 nodes: Yelp's 716,847 cut), written in the GraphSAINT layout
      and read through --dataset yelp --data-path: each rank first holds K1
      and K2 to their plain versions at H=512 and F=300 on its own layout;
-     the BCE loss finite and falling over 40 epochs, the micro-F1 lines;
+     the BCE loss finite and falling over 20 epochs, the micro-F1 lines;
+  6c. [papers]: scripts/ogbn-papers100m_torch.sh's two steps (BASELINE
+     config 5: GCN 3x128, rate 0.01, bf16, fp8 wire, --eval-device mesh)
+     on an OGB binary directory at papers100M's widths, 1,000,000 nodes:
+     the script's streaming partition step with bf16 feature storage at
+     P=4 (wall time, peak RSS), then 4 epochs twice with one --cache-dir:
+     one launch of 4 ranks through run.run_training, cold (each rank first
+     holds K1 on bf16 rows to its plain version on its own ELL layout; K1
+     once per aggregation of training and of each mesh eval, K2 never),
+     and the script itself as two concurrent launches of 2 (--n-nodes 2),
+     warm: the losses equal to 1e-6 (relative), the RESULT lines equal;
+     each rank's epoch, exchange share, peak memory, the fp8 wire's MB per
+     exchange, the layouts' build seconds cold against the load warm;
   7. [anchor]: the JAX package's calibrated accuracy gate
      (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
      inside (0.93, 0.985); at P=4 and rate 0.1, the quantized stack of the
@@ -207,12 +219,12 @@ LAW_RTOL = 1e-4
 BNS_RATE = 0.1          # the flagship's sampling rate (scripts/reddit.sh)
 BNS_EPOCHS = (0, 1)     # epochs whose plans the [bns] phase checks
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# [cli]: the flagship's script with small overrides, 12 epochs then a
-# resume to 16 beside an uninterrupted 16-epoch run
+# [cli]: the flagship's script with small overrides, 8 epochs then a
+# resume to 12 beside an uninterrupted 12-epoch run
 CLI_SCRIPT = os.path.join("scripts", "reddit_torch.sh")
 CLI_FLAGS = ["--dataset", "synth-reddit:0.02", "--n-partitions", str(PARTS),
              "--dist-backend", "gloo", "--log-every", "4", "--fix-seed"]
-CLI_EPOCHS = (12, 16)
+CLI_EPOCHS = (8, 12)
 CLI_RTOL = 1e-5
 CLI_TIMEOUT_S = 300
 # the TPU recipe's own perf knobs, as scripts/reddit.sh's comment lists
@@ -234,17 +246,29 @@ CLI_MESH_EPOCHS = 8
 # [yelp]: scripts/yelp_torch.sh (the reference's Yelp model) on a
 # multilabel power-law graph at Yelp's widths, written in the GraphSAINT
 # layout; Yelp's 716,847 nodes and ~14M edges cut to YELP_NODES nodes of
-# mean degree YELP_DEGREE to keep the script near 720 s
+# mean degree YELP_DEGREE, and 20 epochs, to keep the script under ~950 s
 YELP_SCRIPT = os.path.join("scripts", "yelp_torch.sh")
 YELP_NODES, YELP_DEGREE = 50_000, 20
 YELP_FEAT, YELP_CLASSES = 300, 100
-YELP_EPOCHS, YELP_LOG_EVERY = 40, 10
+YELP_EPOCHS, YELP_LOG_EVERY = 20, 10
 # [gat]: the flagship's command line with --model gat --heads 2 on the P=4
 # main path's artifacts, an eval every GAT_LOG_EVERY epochs; the law at
 # [cli]'s scale, P=4 against P=1, rate 1.0, dropout 0
 GAT_HEADS = 2
-GAT_EPOCHS, GAT_LOG_EVERY = 6, 2
+GAT_EPOCHS, GAT_LOG_EVERY = 4, 2
 GAT_LAW_DATASET = CLI_FLAGS[1]
+# [papers]: scripts/ogbn-papers100m_torch.sh (BASELINE config 5: GCN 3x128,
+# rate 0.01, bf16, fp8 wire, mesh eval) on an OGB binary directory at
+# papers100M's widths (128 features, 172 classes, NaN labels outside the
+# splits, the splits' shares, mean degree ~14.5); 111,059,956 nodes cut to
+# PAPERS_NODES, P=64 to 4 ranks on the one card over gloo, 200 epochs to
+# PAPERS_EPOCHS; one launch of 4 against two launches of 2 (--n-nodes 2)
+PAPERS_SCRIPT = os.path.join("scripts", "ogbn-papers100m_torch.sh")
+PAPERS_NODES, PAPERS_DEGREE = 1_000_000, 14.5
+PAPERS_FEAT, PAPERS_CLASSES = 128, 172
+PAPERS_SPLIT = (0.011, 0.0011, 0.0019)      # train, valid, test shares
+PAPERS_EPOCHS, PAPERS_LOG_EVERY = 4, 2
+PAPERS_RTOL = 1e-6
 
 
 def log(msg):
@@ -1296,16 +1320,21 @@ def gat_phase(main4, g, base):
             "law_losses_p1": r1.losses, "law_max_rel": rel}
 
 
-def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None):
-    """Run `bash scripts/reddit_torch.sh argv` (or `cmd + argv`) from the
-    repo root in a session of its own; returns its stdout. A non-zero exit
+def start_cli(argv, cmd=None, env=None):
+    """Start `bash scripts/reddit_torch.sh argv` (or `cmd + argv`) from the
+    repo root in a session of its own, with `env` added to the
+    environment; its output (stderr too) in a pipe."""
+    env = dict(os.environ, PYTHON=sys.executable, **(env or {}))
+    return subprocess.Popen((cmd or ["bash", CLI_SCRIPT]) + argv, cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+
+def finish_cli(p, argv, timeout_s=CLI_TIMEOUT_S):
+    """Wait for start_cli's process; returns its output. A non-zero exit
     raises with the end of its output; past the timeout the whole session
     (the CLI and the ranks it spawned) is killed."""
-    env = dict(os.environ, PYTHON=sys.executable)
-    p = subprocess.Popen((cmd or ["bash", CLI_SCRIPT]) + argv, cwd=ROOT,
-                         env=env, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True,
-                         start_new_session=True)
     try:
         out, _ = p.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -1317,6 +1346,24 @@ def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None):
         raise AssertionError(f"[cli] {' '.join(argv)} exited "
                              f"{p.returncode}:\n{out[-3000:]}")
     return out
+
+
+def finish_clis(runs, timeout_s=CLI_TIMEOUT_S):
+    """finish_cli for each (process, argv) of runs started side by side;
+    when one fails, the sessions of the others are killed before its error
+    goes on."""
+    try:
+        return [finish_cli(p, argv, timeout_s) for p, argv in runs]
+    finally:
+        for p, _ in runs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+
+
+def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None, env=None):
+    """start_cli, then finish_cli."""
+    return finish_cli(start_cli(argv, cmd, env), argv, timeout_s)
 
 
 def cli_losses(out):
@@ -1331,11 +1378,11 @@ def cli_phase(work):
     epochs (epoch lines, inductive accuracy lines, Test Result, periodic
     and final checkpoints, the results file), resumes to CLI_EPOCHS[1]
     from the newest checkpoint, and an uninterrupted CLI_EPOCHS[1]-epoch run
-    beside it gives the resumed epochs' losses to CLI_RTOL (relative).
-    Returns the details."""
+    beside it, at the same time, gives the resumed epochs' losses to
+    CLI_RTOL (relative). Returns the details."""
     t0 = time.perf_counter()
     d = {k: os.path.join(work, "cli", k)
-         for k in ("parts", "results", "ckpt", "ckpt_whole")}
+         for k in ("parts", "results", "results_whole", "ckpt", "ckpt_whole")}
     paths = ["--part-path", d["parts"], "--results-path", d["results"]]
     first, last = CLI_EPOCHS
     out1 = run_cli(CLI_FLAGS + paths + ["--n-epochs", str(first),
@@ -1362,12 +1409,15 @@ def cli_phase(work):
         if f.read().splitlines() != evals:
             raise AssertionError("[cli] the results file is not the run's "
                                  "accuracy lines")
-    out2 = run_cli(CLI_FLAGS + paths + ["--n-epochs", str(last),
-                                        "--ckpt-path", d["ckpt"], "--resume",
-                                        "--skip-partition"])
-    out3 = run_cli(CLI_FLAGS + paths + ["--n-epochs", str(last),
-                                        "--ckpt-path", d["ckpt_whole"],
-                                        "--skip-partition"])
+    # the resumed and the uninterrupted run side by side (8 ranks on the
+    # card): each reads the artifacts only and writes its own files
+    argv2 = CLI_FLAGS + paths + ["--n-epochs", str(last), "--ckpt-path",
+                                 d["ckpt"], "--resume", "--skip-partition"]
+    argv3 = CLI_FLAGS + ["--part-path", d["parts"], "--results-path",
+                         d["results_whole"], "--n-epochs", str(last),
+                         "--ckpt-path", d["ckpt_whole"], "--skip-partition"]
+    out2, out3 = finish_clis([(start_cli(argv2), argv2),
+                              (start_cli(argv3), argv3)])
     start, resumed = cli_losses(out2)
     start3, whole = cli_losses(out3)
     if not (start == first and f"at epoch {first}" in out2
@@ -1536,6 +1586,320 @@ def yelp_phase(work, hook=None, extra=()):
             "rank_checks": [rep["hook"] for rep in res.ranks],
             "epoch_from_1_s": [mean_from_1(rep["epoch_times"])
                                for rep in res.ranks], "seconds": secs}
+
+
+def write_papers100m(root, n_nodes, seed=0):
+    """An OGB binary directory at papers100M's widths, the layout
+    load_ogb_disk reads: {root}/ogbn_papers100M/raw/data.npz (edge_index,
+    node_feat f32 [N, 128], num_nodes_list), raw/node-label.npz (float
+    labels over 172 classes, NaN outside the splits) and
+    split/time/{train,valid,test}.npz at papers100M's shares. Classes of
+    Zipf-like sizes, each node's features around its class's center;
+    N * 14.5 edges whose endpoints are drawn with a weight falling as
+    rank^-0.5 over a random order of the nodes (power-law degrees; rank
+    floor(N u^2) for a uniform u, the inverse of that weight's CDF), 70%
+    of them re-aimed at a node of the source's class. Everything from
+    `seed`. Returns the edge count."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "ogbn_papers100M")
+    sd = os.path.join(d, "split", "time")
+    os.makedirs(os.path.join(d, "raw"), exist_ok=True)
+    os.makedirs(sd, exist_ok=True)
+    n, c = n_nodes, PAPERS_CLASSES
+    e = int(n * PAPERS_DEGREE)
+    size = 1.0 / np.arange(1, c + 1) ** 0.8
+    lab = rng.choice(c, size=n, p=size / size.sum())
+    feat = rng.standard_normal((n, PAPERS_FEAT), dtype=np.float32)
+    feat += rng.standard_normal((c, PAPERS_FEAT), dtype=np.float32)[lab]
+    order = rng.permutation(n)
+    src, dst = (order[np.minimum((n * rng.random(e) ** 2).astype(np.int64),
+                                 n - 1)] for _ in range(2))
+    same = np.flatnonzero(rng.random(e) < 0.7)
+    by_class = np.argsort(lab, kind="stable")
+    start = np.concatenate([[0], np.cumsum(np.bincount(lab, minlength=c))])
+    k = lab[src[same]]
+    dst[same] = by_class[start[k] + (rng.random(len(same))
+                                     * (start[k + 1] - start[k])).astype(
+                                         np.int64)]
+    np.savez(os.path.join(d, "raw", "data.npz"),
+             edge_index=np.stack([src, dst]).astype(np.int64),
+             node_feat=feat, num_nodes_list=np.array([n]))
+    ids = rng.permutation(n)
+    cuts = np.cumsum([round(n * x) for x in PAPERS_SPLIT])
+    label = np.full(n, np.nan, dtype=np.float32)
+    label[ids[:cuts[-1]]] = lab[ids[:cuts[-1]]]
+    np.savez(os.path.join(d, "raw", "node-label.npz"),
+             node_label=label[:, None])
+    for name, part in zip(("train", "valid", "test"),
+                          np.split(ids[:cuts[-1]], cuts[:-1])):
+        np.savez(os.path.join(sd, f"{name}.npz"), ids=part)
+    return e
+
+
+def papers_hook(pr):
+    """[papers]' rank hook: K1 on bf16 rows against its plain version on
+    the rank's own ELL layout (the script's --spmm ell), both directions,
+    at H=n_hidden and the feature width, as the bf16 main path calls it
+    (no base, out bf16): within lowp_k1_bound, bitwise equal on a second
+    call, and the plain version minus each row's last term rejected."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
+    if pr.fns.spmm_kind != "ell":
+        raise AssertionError(f"[papers] rank {pr.rank}: spmm "
+                             f"{pr.fns.spmm_kind}, not ell")
+    gen = torch.Generator(device=pr.device).manual_seed(777 + pr.rank)
+    widths = (pr.cfg.n_hidden, pr.cfg.n_feat)
+    err = 0.0
+    for direction in ("fwd", "bwd"):
+        rows = pr.fns.spmm.rows[direction]
+        for hdim in widths:
+            h = torch.randn((rows.n_src, hdim), generator=gen,
+                            device=pr.device).to(torch.bfloat16)
+            got = ell_apply(rows, h, phase="check")
+            again = ell_apply(rows, h, phase="check")
+            ref = ell_apply_plain(rows, h)
+            if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+                raise AssertionError(f"[papers] K1 bf16 {direction} H={hdim}"
+                                     f": {got.dtype}, or two calls differ")
+            hf = h.float()
+            bound = lowp_k1_bound(rows, h, None, ell_apply_plain(rows, hf),
+                                  ref)
+            e, _ = check(f"[papers] K1 bf16 {direction} H={hdim}",
+                         got.float(), ref.float(), bound)
+            try:
+                check("control", ref.float() - last_terms(rows, hf),
+                      ref.float(), bound)
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError("[papers] K1 bf16: the bound admits "
+                                     "dropping each row's last term")
+            err = max(err, e)
+            del got, again, ref, h, hf, bound
+    torch.cuda.empty_cache()
+    return {"K1": err, "widths": widths}
+
+
+def papers_flags(extra):
+    """scripts/ogbn-papers100m_torch.sh's training flags without its node
+    flags (their values are the launch's: '$NODES', ...), then `extra`."""
+    flags, out = script_flags(PAPERS_SCRIPT), []
+    i = 0
+    while i < len(flags):
+        if i + 1 < len(flags) and flags[i + 1].startswith("$"):
+            i += 2
+            continue
+        out.append(flags[i])
+        i += 1
+    return out + list(extra)
+
+
+def free_port_pair():
+    """A free local port p with p + 1 free too (the launchers' store and
+    the ranks' rendezvous)."""
+    import socket
+    for _ in range(100):
+        with socket.socket() as a:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            with socket.socket() as b:
+                try:
+                    b.bind(("127.0.0.1", p + 1))
+                except OSError:
+                    continue
+        return p
+    raise AssertionError("no two adjacent free ports")
+
+
+def ckpt_param_bytes(path):
+    """{leaf path: bytes} of a checkpoint's parameters."""
+    import numpy as np
+    from bnsgcn_tpu_torch import checkpoint as ckpt
+    out = {}
+
+    def walk(prefix, x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(f"{prefix}/{k}", x[k])
+        else:
+            out[prefix] = np.asarray(getattr(x, "bits", x)).tobytes()
+    walk("", ckpt.read_blob(path)["params"])
+    return out
+
+
+def papers_phase(work, n_nodes=PAPERS_NODES, extra=()):
+    """[papers]: scripts/ogbn-papers100m_torch.sh's two steps on an OGB
+    directory at papers100M's widths (write_papers100m). The script's
+    partition step (PARTITION=1: partition_cli --streaming-artifacts always
+    --feat-storage bfloat16) at --n-partitions 4, its wall time and peak
+    RSS; then its training flags with --n-partitions 4, PAPERS_EPOCHS
+    epochs, --log-every PAPERS_LOG_EVERY, --fix-seed, --dist-backend gloo
+    (one card) and one --cache-dir, twice: one launch of 4 ranks through
+    run.run_training with a cold cache (each rank first holds K1 on bf16
+    rows to its plain version on its own layout, papers_hook; then K1 must
+    have launched once per aggregation of training and of each mesh eval,
+    K2 never), and two concurrent launches of the script itself (--n-nodes
+    2 --parts-per-node 2, node ranks 0 and 1) with the cache warm. The two
+    runs' losses must agree to PAPERS_RTOL (relative) and their RESULT
+    lines be equal, both nodes' too; every run ends with its ranks'
+    parameters replicated bitwise (run_training checks). Returns the
+    details."""
+    import numpy as np
+    from bnsgcn_tpu_torch.config import parse_config
+    from bnsgcn_tpu_torch.data.artifacts import read_meta
+    from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
+    from bnsgcn_tpu_torch.run import artifacts_dir, run_training
+    t_all = time.perf_counter()
+    d = {k: os.path.join(work, "papers", k) for k in (
+        "data", "parts", "cache", "ck1", "ck2", "res1", "res2")}
+    t0 = time.perf_counter()
+    n_edges = write_papers100m(d["data"], n_nodes)
+    data_s = time.perf_counter() - t0
+    # the partition step, in a wrapper that reads its children's peak RSS
+    wrap = ("import resource, subprocess, sys\n"
+            "r = subprocess.run(sys.argv[1:])\n"
+            "print('peak_rss_kib', resource.getrusage("
+            "resource.RUSAGE_CHILDREN).ru_maxrss)\n"
+            "sys.exit(r.returncode)\n")
+    t0 = time.perf_counter()
+    out = run_cli(["--data-path", d["data"], "--part-path", d["parts"],
+                   *extra], cmd=[sys.executable, "-c", wrap, "bash",
+                                 PAPERS_SCRIPT],
+                  env={"PARTITION": "1", "P": str(PARTS)}, timeout_s=600)
+    part_s = time.perf_counter() - t0
+    rss_gib = int(out.split("peak_rss_kib")[-1].split()[0]) / 2 ** 20
+    common = ["--n-partitions", str(PARTS), "--n-epochs", str(PAPERS_EPOCHS),
+              "--log-every", str(PAPERS_LOG_EVERY), "--fix-seed",
+              "--dist-backend", "gloo", "--data-path", d["data"],
+              "--part-path", d["parts"], "--cache-dir", d["cache"], *extra]
+    c = parse_config(papers_flags(common + [
+        "--n-nodes", "1", "--ckpt-path", d["ck1"], "--results-path",
+        d["res1"]]))
+    path = artifacts_dir(c)
+    meta = read_meta(path)
+    disk_mb = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path)) / 1e6
+    if meta.feat_dtype != "bfloat16" or meta.n_feat != PAPERS_FEAT:
+        raise AssertionError(f"[papers] the artifacts hold {meta.n_feat} "
+                             f"{meta.feat_dtype} features")
+    log(f"[papers] data: {n_nodes} nodes, {n_edges} edges, {PAPERS_FEAT} "
+        f"f32 features, {PAPERS_CLASSES} classes (NaN outside the splits, "
+        f"{PAPERS_SPLIT} of the nodes) written in {data_s:.1f} s; "
+        f"PARTITION=1 bash {PAPERS_SCRIPT} --n-partitions {PARTS}: "
+        f"{part_s:.1f} s wall, peak RSS {rss_gib:.2f} GiB; artifacts "
+        f"{disk_mb:.0f} MB on disk (bf16 features), pad_inner "
+        f"{meta.pad_inner}, pad_boundary {meta.pad_boundary}, edges/part "
+        f"{meta.pad_edges}")
+
+    # run 1: one launch of 4 ranks, the cache cold
+    tee = Tee()
+    t0 = time.perf_counter()
+    res = run_training(c, log=tee, rank_hook=papers_hook)
+    run1_s = time.perf_counter() - t0
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"[papers] non-finite loss {res.losses}")
+    n_evals = PAPERS_EPOCHS // PAPERS_LOG_EVERY + 1
+    passes = (c.n_layers - 1) * c.n_epochs
+    want = {"fwd": passes, "bwd": passes, "pre": 1,
+            "eval": c.n_layers * n_evals}
+    for rep in res.ranks:
+        if rep["launches"]["K1"] != want or rep["launches"]["K2"]:
+            raise AssertionError(f"[papers] rank {rep['rank']}: launched "
+                                 f"{rep['launches']}, not K1 {want}")
+        if rep["layout_times"].get("ell", ("",))[0] != "built":
+            raise AssertionError(f"[papers] rank {rep['rank']}: layouts "
+                                 f"{rep['layout_times']} with a cold cache")
+    evals = [ln for ln in tee.lines if ln.startswith("Epoch ")
+             and "| Validation Accuracy " in ln]
+    test = tee.having("Test Result | Accuracy")
+    if len(evals) != n_evals - 1 or not test:
+        raise AssertionError(f"[papers] eval lines {evals}, {test}")
+    result1 = "RESULT final_loss=%.9e best_val=%.6f test=%.6f" % (
+        res.losses[-1], res.best_val_acc, res.test_acc)
+
+    # run 2: the script on two nodes of 2 ranks, the cache warm
+    port = free_port_pair()
+    argv = common + ["--ckpt-path", d["ck2"], "--results-path", d["res2"]]
+    t0 = time.perf_counter()
+    outs = finish_clis([(start_cli(argv, cmd=["bash", PAPERS_SCRIPT], env={
+        "NODES": "2", "NODE_RANK": str(k), "MASTER": "127.0.0.1",
+        "PORT": str(port), "PPN": "2", "P": str(PARTS)}), argv)
+        for k in (0, 1)], timeout_s=600)
+    run2_s = time.perf_counter() - t0
+    losses2 = [cli_losses(o) for o in outs]
+    results2 = [[ln for ln in o.splitlines() if ln.startswith("RESULT")][-1]
+                for o in outs]
+    if losses2[0] != losses2[1] or results2[0] != results2[1]:
+        raise AssertionError(f"[papers] the nodes disagree: {losses2} "
+                             f"{results2}")
+    start2, l2 = losses2[0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l2, res.losses))
+    if start2 != 0 or len(l2) != len(res.losses) or not rel <= PAPERS_RTOL:
+        raise AssertionError(f"[papers] two nodes' losses {l2} against one "
+                             f"launch's {res.losses}: {rel:.3e}")
+    if results2[0] != result1:
+        raise AssertionError(f"[papers] {results2[0]} != {result1}")
+    bitwise = all("%.9e" % a == "%.9e" % b for a, b in zip(l2, res.losses))
+    warm = [ln for ln in outs[0].splitlines() if "Part 0 of " in ln]
+    if not warm or "ell loaded" not in warm[0] or "layout cache: wrote" in \
+            outs[0]:
+        raise AssertionError(f"[papers] the warm run did not load its "
+                             f"layouts: {warm}")
+    warm_s = float(warm[0].split("ell loaded ")[1].split("s")[0])
+    last = f"{c.graph_name or c.derive_graph_name()}_p" \
+           f"{c.sampling_rate:.2f}_{c.n_epochs - 1}.ckpt"
+    p1, p2 = (ckpt_param_bytes(os.path.join(d[k], last))
+              for k in ("ck1", "ck2"))
+    same_params = p1 == p2
+
+    spec, _ = make_halo_spec(meta.n_b, meta.pad_inner, meta.pad_boundary,
+                             c.sampling_rate, wire=c.halo_wire)
+    wire_mb = wire_bytes(spec, c.n_hidden) / 1e6
+    ranks = []
+    for rep in res.ranks:
+        ep, ex = (mean_from_1(rep[k]) for k in ("epoch_times", "comm_times"))
+        ranks.append({
+            "rank": rep["rank"], "epoch_s": ep, "exchange_s": ex,
+            "exchange_share": ex / max(ep, 1e-12),
+            "reduce_s": mean_from_1(rep["reduce_times"]),
+            "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
+            "layout_built_s": rep["layout_times"]["ell"][1],
+            "launches": rep["launches"], "kinds": rep["kinds"],
+            "n_edges": rep["n_edges"], "check": rep["hook"]})
+    for x in ranks:
+        log(f"[papers] rank {x['rank']} (4 ranks sharing one card over "
+            f"gloo, not a 4-card number), {x['n_edges']} edges: mean of "
+            f"epochs 1.. {x['epoch_s'] * 1e3:.1f} ms, exchange "
+            f"{x['exchange_s'] * 1e3:.1f} ms ({x['exchange_share']:.1%} of "
+            f"the epoch), all-reduce {x['reduce_s'] * 1e3:.1f} ms, peak "
+            f"memory {x['max_memory_gib']:.2f} GiB; ELL layouts built "
+            f"{x['layout_built_s']:.3f} s (cold cache); launches K1 "
+            f"{x['launches']['K1']} {x['kinds']['K1']}; K1 bf16 max abs err "
+            f"{x['check']['K1']:.3e} on its own layout at H="
+            f"{tuple(x['check']['widths'])} (within its bound, the control "
+            f"rejected)")
+    log(f"[papers] {' '.join(papers_flags([])[:4])} ... GCN 3x128 bf16, "
+        f"rate {c.sampling_rate}, fp8 wire {wire_mb:.3f} MB per exchange at "
+        f"H={c.n_hidden}, --eval-device mesh: one launch of {PARTS} "
+        f"({run1_s:.1f} s) and two launches of 2 (--n-nodes 2, "
+        f"{run2_s:.1f} s): losses " + " ".join(f"{v:.6f}" for v in l2)
+        + f", max relative difference {rel:.3e} <= {PAPERS_RTOL} ("
+        f"{'bitwise equal' if bitwise else 'not bitwise'}); RESULT lines "
+        f"equal ({result1}); the last checkpoints' parameters "
+        f"{'bitwise equal' if same_params else 'differ'}; mesh evals: "
+        + "; ".join(evals) + f"; {test[0]}; rank 0's ELL layouts built "
+        f"{ranks[0]['layout_built_s']:.3f} s cold, loaded {warm_s:.3f} s "
+        f"warm ({time.perf_counter() - t_all:.1f} s in all)")
+    return {"n_nodes": n_nodes, "n_edges": n_edges, "data_s": data_s,
+            "partition_s": part_s, "partition_rss_gib": rss_gib,
+            "artifacts_mb": disk_mb, "losses": res.losses,
+            "losses_two_nodes": l2, "max_rel": rel, "bitwise": bitwise,
+            "same_params": same_params, "result": result1, "evals": evals,
+            "test": test[0], "wire_mb": wire_mb, "warm_load_s": warm_s,
+            "run1_s": run1_s, "run2_s": run2_s, "ranks": ranks,
+            "launches": [rep["kinds"] for rep in res.ranks],
+            "seconds": time.perf_counter() - t_all}
 
 
 def small_agreement(base_cfg):
@@ -2117,6 +2481,8 @@ def main(argv=None) -> int:
                     help="synth-reddit scale of the P-rank phases")
     ap.add_argument("--parts-epochs", type=int, default=8,
                     help="epochs of the P=4 main-path run")
+    ap.add_argument("--papers-nodes", type=int, default=PAPERS_NODES,
+                    help="[papers]' node count (papers100M's 111M cut)")
     ap.add_argument("--out", default="",
                     help="also write the run's details to this JSON file")
     args = ap.parse_args(argv)
@@ -2340,6 +2706,10 @@ def main(argv=None) -> int:
     # 6b. the multilabel path at Yelp's widths
     yelp = yelp_phase(work)
 
+    # 6c. scripts/ogbn-papers100m_torch.sh: streaming bf16 artifacts, one
+    # launch against two nodes' launches, the layout cache
+    papers = papers_phase(work, args.papers_nodes)
+
     # 7. [anchor]: the calibrated accuracy gate, on the card
     anc = anchor_phase(work)
     shutil.rmtree(work, ignore_errors=True)
@@ -2352,7 +2722,8 @@ def main(argv=None) -> int:
                 + [x["launches"] for x in lowp.values()]
                 + [rec1["launches"]]
                 + [x["launches"] for x in parts["recipe"]["ranks"]]
-                + parts["meval"]["launches"] + yelp["launches"]):
+                + parts["meval"]["launches"] + yelp["launches"]
+                + papers["launches"]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
@@ -2372,10 +2743,14 @@ def main(argv=None) -> int:
     for name, k in (("ell_bucket_sum_bf16", "K1"), ("tile_matmul_bf16", "K2")):
         errs[name] = max([errs[name]] + [x["check"][k] for x in
                                           parts["recipe"]["ranks"]])
+    # and K1 on bf16 rows on every rank's ELL layout of [papers]
+    errs["ell_bucket_sum_bf16"] = max([errs["ell_bucket_sum_bf16"]]
+                                      + [x["check"]["K1"]
+                                         for x in papers["ranks"]])
 
     # 8. report
     out = {"card": smi, "p1": p1, "lowp": lowp, "recipe_p1": rec1,
-           "parts": parts, "cli": cli, "yelp": yelp,
+           "parts": parts, "cli": cli, "yelp": yelp, "papers": papers,
            "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:

@@ -123,7 +123,7 @@ def test_subcommands_exit_2_by_name(name, capsys):
     (["--norm", "batch"], "--norm batch"),
     (["--no-comm-trace", "--remat"], "--remat"),
     (["--serve-port", "9"], "--serve-port 9"),
-    (["--n-nodes", "2"], "--n-nodes 2"),
+    (["--elastic", "on"], "--elastic on"),
 ])
 def test_unported_flags_exit_2_naming_the_flag(argv, flag, capsys):
     assert t_main.main(BASE + argv) == 2

@@ -176,7 +176,7 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
      "shift"], ["--replicas", "2"], ["--edge-chunk", "1024"],
-    ["--spmm", "segment"], ["--feat-storage", "bfloat16"],
+    ["--spmm", "segment"], ["--tune", "auto"],
     ["--overlap", "split"], ["--reorder", "cluster"], ["--norm", "batch"],
     ["--halo-exchange", "auto"], ["--halo-exchange", "ragged"],
     ["--feat", "2"],
