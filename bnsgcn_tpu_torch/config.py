@@ -77,7 +77,8 @@ class Config:
     dtype: str = "float32"              # 'float32' | 'bfloat16': parameters,
                                         # Adam moments and activations
     spmm: str = "ell"                   # 'ell' | 'hybrid' | 'auto' (hybrid
-                                        # when enough edges densify)
+                                        # when enough edges densify) |
+                                        # 'segment' (COO index_add_)
     use_pallas: bool = False            # accepted for command-line parity: on
                                         # the card the hand-written kernels
                                         # always run
@@ -87,6 +88,16 @@ class Config:
                                         # tiles' slabs
     halo_wire: str = "native"           # 'native' | 'bf16' | 'int8' | 'fp8':
                                         # the training exchange's payload
+    halo_exchange: str = "padded"       # 'padded' | 'shift' | 'ragged' |
+                                        # 'auto' (the collective)
+    halo_refresh: int = 1               # K: exchange 1/K of each boundary
+                                        # list per epoch, the rest cached
+    halo_mode: str = "exchange"         # 'exchange' | 'grad-only' (no
+                                        # activation exchange)
+    overlap: str = "off"                # 'off' | 'split' (interior rows
+                                        # aggregate while the exchange flies)
+    edge_chunk: int = 0                 # --spmm segment: edges per chunk
+                                        # (0: a memory budget's)
     block_occupancy: int = 0            # hybrid: min edges for a dense tile
                                         # (0 = tile*tile/512)
     block_tile_budget_mb: int = 2048    # hybrid: int8 tile budget per direction
@@ -135,16 +146,10 @@ class Config:
 # collectives, a no-op here (--dist-backend picks the port's).
 _NOT_PORTED = (
     (("norm",), ("layer", "none"), "SyncBatchNorm"),
-    (("spmm",), ("ell", "hybrid", "auto"), "the segment SpMM"),
-    (("halo_exchange",), None, "the shift and ragged exchanges"),
-    (("halo_refresh",), None, "the halo cache"),
-    (("halo_mode",), None, "local-only aggregation"),
-    (("overlap",), None, "the split exchange overlap"),
     (("reorder",), None, "graph reordering"),
     (("replicas",), None, "the replica axis"),
     (("feat",), None, "the feat axis"),
     (("remat",), None, "rematerialization"),
-    (("edge_chunk",), None, "chunked evaluation edges"),
     (("profile_dir",), None, "profiler traces"),
     (("comm_trace",), (True, False), "traced comm columns"),
     (("strict_exec",), None, "the strict-execution guard"),
@@ -374,8 +379,12 @@ def config_from_args(args: argparse.Namespace) -> Config:
                 raise ConfigError(f"{flags[dest]}{shown} is not ported yet "
                                   f"({what})")
     rate = d.get("sampling_rate", 1.0)
-    if not 0.0 < rate <= 1.0:
-        raise ConfigError(f"--sampling-rate must be in (0, 1], got {rate}")
+    if not 0.0 <= rate <= 1.0:
+        # rate 0 is the paper's p=0 row: every pair sends only padding
+        raise ConfigError(f"--sampling-rate must be in [0, 1], got {rate}")
+    if d.get("halo_refresh", 1) < 1:
+        raise ConfigError(f"--halo-refresh must be >= 1, got "
+                          f"{d['halo_refresh']}")
     if d.get("norm") == "none":
         d["norm"] = None
     if (d.get("n_partitions", 1) > 1 and d.get("device") == "cpu"

@@ -23,8 +23,9 @@ Parameters live in nn.Linear / nn.LayerNorm modules and GATLayer's
 parameters (w, attn_l, attn_r, bias in the JAX package's layout), named as
 the JAX parameter tree is keyed (layer_i, layer_i.linear1, norm_i), so
 trainer.params_from_jax maps one onto the other. Aggregation is injected
-through GraphEnv.aggregate (the ELL or hybrid SpMM in training, COO
-index_add_ in eval) and GAT's through GraphEnv.attention (the ELL
+through GraphEnv.aggregate (the ELL, hybrid or segment SpMM in training,
+COO index_add_ in eval), or with the exchange through
+GraphEnv.agg_exchange (--overlap split), and GAT's through GraphEnv.attention (the ELL
 attention, ops/ell_attention.py) or, without it, the COO segment softmax
 over GraphEnv.src/dst. SyncBatchNorm waits for a later slice.
 """
@@ -95,6 +96,10 @@ class GraphEnv:
     attention: Optional[Callable] = None
     src: Optional[torch.Tensor] = None
     dst: Optional[torch.Tensor] = None
+    # agg_exchange(layer, h [n_dst, d], scale_out_norm) -> [n_dst, d]: the
+    # exchange and the sum-aggregation in one (--overlap split's interior /
+    # frontier layer body); None runs exchange, then aggregate
+    agg_exchange: Optional[Callable] = None
 
 
 class SageLayer(nn.Module):
@@ -211,7 +216,11 @@ def _matmul(h, w):
 
 
 def env_agg_exchange(env: GraphEnv, i: int, h, scale_out_norm: bool = False):
-    """One layer's exchange + sum-aggregation: h [n_dst, d] -> [n_dst, d]."""
+    """One layer's exchange + sum-aggregation: h [n_dst, d] -> [n_dst, d].
+    `scale_out_norm` divides the extended rows by env.out_norm before the
+    sum (GCN's symmetric norm); env.agg_exchange, when set, does both."""
+    if env.agg_exchange is not None:
+        return env.agg_exchange(i, h, scale_out_norm)
     h_ext = env.exchange(i, h)
     if scale_out_norm:
         h_ext = (h_ext / env.out_norm[:, None]).to(h_ext.dtype)

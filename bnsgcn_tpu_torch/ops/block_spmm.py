@@ -357,13 +357,74 @@ def build_block_layouts(src_all, dst_all, n_dst, n_src_ext, perm_inner,
     return fwd, bwd, (ell_fwd, ell_bwd), arrays
 
 
+def _compact_rank_perm(perm_full: np.ndarray, mask: np.ndarray,
+                       n_pad: int) -> np.ndarray:
+    """Cluster positions for a compact row subset
+    (bnsgcn_tpu/ops/block_spmm.py _compact_rank_perm): compact row c, the
+    c-th True of `mask`, takes the rank of its full cluster position among
+    the subset, so the split layouts keep the full build's locality; the
+    padded compact slots take the remaining positions."""
+    rows = np.nonzero(mask)[0]
+    vals = perm_full[rows]
+    order = np.argsort(vals, kind="stable")
+    rank = np.empty(len(rows), dtype=np.int64)
+    rank[order] = np.arange(len(rows))
+    out = np.empty(n_pad, dtype=np.int64)
+    out[:len(rows)] = rank
+    out[len(rows):] = np.arange(len(rows), n_pad)
+    return out
+
+
+def build_split_block_layouts(src_all, dst_all, n_dst, n_src_ext, perm_inner,
+                              perm_ext, occupancy_min=512,
+                              tile_budget_bytes=2 << 30,
+                              tile_r=TR, tile_c=TC):
+    """Interior/frontier row-partitioned hybrid layouts for --overlap split
+    (bnsgcn_tpu/ops/block_spmm.py build_split_block_layouts): the row split
+    of ops/ell.build_split_layouts as two complete hybrid builds, dense
+    tiles and ELL residual each, the compact rows ordered by their rank in
+    the full cluster order. The interior build gathers from the owned rows
+    (its columns in the inner cluster order), the frontier build from the
+    extended rows. Returns ((int_fwd, int_bwd, int_ell_pair), (fro_fwd,
+    fro_bwd, fro_ell_pair), arrays, n_int_pad, n_fro_pad); arrays holds
+    the two builds' tables under 'int_' / 'fro_' prefixes and 'merge_perm'
+    [P, n_dst] int32."""
+    from bnsgcn_tpu_torch.ops.spmm import split_row_partition
+    P = src_all.shape[0]
+    masks, merge_perm, (si, di, n_int_pad), (sf, df, n_fro_pad) = \
+        split_row_partition(src_all, dst_all, n_dst)
+    pi_int = np.stack([_compact_rank_perm(perm_inner[p], ~masks[p],
+                                          n_int_pad) for p in range(P)])
+    pi_fro = np.stack([_compact_rank_perm(perm_inner[p], masks[p],
+                                          n_fro_pad) for p in range(P)])
+    int_build, fro_build = run_parallel([
+        partial(build_block_layouts, si, di, n_int_pad, n_dst,
+                pi_int, perm_inner, occupancy_min=occupancy_min,
+                tile_budget_bytes=tile_budget_bytes,
+                tile_r=tile_r, tile_c=tile_c),
+        partial(build_block_layouts, sf, df, n_fro_pad, n_src_ext,
+                pi_fro, perm_ext, occupancy_min=occupancy_min,
+                tile_budget_bytes=tile_budget_bytes,
+                tile_r=tile_r, tile_c=tile_c)])
+    int_f, int_b, int_pair, int_arr = int_build
+    fro_f, fro_b, fro_pair, fro_arr = fro_build
+    arrays = {"merge_perm": merge_perm}
+    arrays.update({f"int_{k}": v for k, v in int_arr.items()})
+    arrays.update({f"fro_{k}": v for k, v in fro_arr.items()})
+    return ((int_f, int_b, int_pair), (fro_f, fro_b, fro_pair),
+            arrays, n_int_pad, n_fro_pad)
+
+
 def dense_edge_count(arrays, part: int = 0) -> int:
     """Diagnostic: number of edges carried by the dense tiles of one part
-    (0 for a layout without dense tiles)."""
-    tiles = arrays.get("blk_tiles_fwd")
-    if tiles is None:
-        return 0
-    return int(np.asarray(tiles[part]).sum(dtype=np.int64))
+    (0 for a layout without dense tiles); a split layout's two stacks
+    ('int_' and 'fro_') summed."""
+    total = 0
+    for key in ("blk_tiles_fwd", "int_blk_tiles_fwd", "fro_blk_tiles_fwd"):
+        tiles = arrays.get(key)
+        if tiles is not None:
+            total += int(np.asarray(tiles[part]).sum(dtype=np.int64))
+    return total
 
 
 def build_x_slabs(spec: BlockSpec, perm_src, h):

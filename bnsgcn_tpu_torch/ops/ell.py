@@ -341,6 +341,31 @@ def build_layouts(src_all: np.ndarray, dst_all: np.ndarray, n_dst: int,
     return fwd_spec, bwd_spec, arrays
 
 
+def build_split_layouts(src_all: np.ndarray, dst_all: np.ndarray, n_dst: int,
+                        n_src_ext: int, cap: int = ELL_SPLIT_CAP):
+    """Interior/frontier row-partitioned ELL layouts for --overlap split
+    (bnsgcn_tpu/ops/ell.py build_split_layouts): the rows of
+    ops/spmm.split_row_partition, each side a complete build_layouts pair.
+    The interior pair gathers from the owned rows (n_src = n_dst), so its
+    backward emits d_h; the frontier pair gathers from the extended rows
+    and its backward emits d_h_ext. Every output row's whole edge set lands
+    on one side, so concat(int_out, fro_out)[merge_perm] is the fused
+    aggregation row for row. Returns ((int_fwd, int_bwd), (fro_fwd,
+    fro_bwd), arrays, n_int_pad, n_fro_pad); arrays holds the two builds'
+    tables under 'int_' / 'fro_' prefixes and 'merge_perm' [P, n_dst]
+    int32."""
+    from bnsgcn_tpu_torch.ops.spmm import split_row_partition
+    _, merge_perm, (si, di, n_int_pad), (sf, df, n_fro_pad) = \
+        split_row_partition(src_all, dst_all, n_dst)
+    (int_f, int_b, int_arr), (fro_f, fro_b, fro_arr) = run_parallel([
+        partial(build_layouts, si, di, n_int_pad, n_dst, cap=cap),
+        partial(build_layouts, sf, df, n_fro_pad, n_src_ext, cap=cap)])
+    arrays = {"merge_perm": merge_perm}
+    arrays.update({f"int_{k}": v for k, v in int_arr.items()})
+    arrays.update({f"fro_{k}": v for k, v in fro_arr.items()})
+    return (int_f, int_b), (fro_f, fro_b), arrays, n_int_pad, n_fro_pad
+
+
 def _pow2_bucket(deg: np.ndarray) -> np.ndarray:
     """Ladder bucket index of each positive degree for widths (4, 8, 16, ...):
     deg in (0,4] -> 0, (4,8] -> 1, (2^j, 2^(j+1)] -> j-1 (matches

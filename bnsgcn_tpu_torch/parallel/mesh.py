@@ -19,16 +19,24 @@ collectives go through torch.distributed:
     the launchers meet at a `NodeStore` that node 0 serves at
     master_addr:port (the seed, the resume choice and the partition's
     readiness travel through it).
-  * `Comm` is one rank's handle on its group: the all-to-all of the halo
-    exchange and the all-reduce of the gradient reduce, each timed without
-    stalling the stream (CUDA events on a card, the host clock on the CPU),
-    and a barrier for the waits on work one rank does alone (set-up, rank
-    0's checkpoints and its final evaluation, and an evaluation that
-    outlasted its log_every epochs), which runs over a gloo group of its
-    own with the longer WAIT_TIMEOUT_S. Tensors go to the backend on their own device: nccl
-    moves CUDA tensors card to card; gloo takes CUDA tensors too and stages
-    them through host memory itself. The backend is whatever the caller
-    asked for, never switched.
+  * `Comm` is one rank's handle on its group: the halo exchange's
+    collectives (the tiled all-to-all, the split-size all-to-all of the
+    ragged strategy, the send/receive pairs of the shift strategy) and the
+    all-reduce of the gradient reduce, each timed without stalling the
+    stream (CUDA events on a card, the host clock on the CPU), and a
+    barrier for the waits on work one rank does alone (set-up, rank 0's
+    checkpoints and its final evaluation, and an evaluation that outlasted
+    its log_every epochs), which runs over a gloo group of its own with the
+    longer WAIT_TIMEOUT_S. A collective may be launched asynchronously: it
+    returns a `Pending`, whose wait() ends its span, so an async exchange is
+    timed from its launch to its wait's completion (the interior
+    aggregation of --overlap split runs inside that span). Tensors go to
+    the backend on their own device: nccl moves CUDA tensors card to card;
+    gloo takes CUDA tensors in its collectives and stages them through host
+    memory itself, but its point-to-point sends and receives take host
+    memory only, so `send_recv` stages a CUDA tensor through host buffers
+    itself, in the gloo branch. The backend is whatever the caller asked
+    for, never switched.
 """
 
 from __future__ import annotations
@@ -88,14 +96,41 @@ def rank_device(device: str, backend: str, local_rank: int) -> torch.device:
                         local_rank % max(torch.cuda.device_count(), 1))
 
 
+class Pending:
+    """A collective in flight: wait() waits for its works, runs `after` on
+    the result (a staged receive's copy back to the card, a dequantize),
+    closes its span (none for kind None: a collective awaited inside
+    another's span) and returns the result; a second wait() returns it
+    again. `keep` holds the buffers the backend still reads."""
+
+    def __init__(self, comm: "Comm", kind: str, works: list, start, result,
+                 after: "Callable | None" = None, keep=()):
+        self.comm, self.kind, self.works, self.start = comm, kind, works, start
+        self.result, self.after, self.keep = result, after, keep
+        self.done = False
+
+    def wait(self):
+        if not self.done:
+            for w in self.works:
+                w.wait()
+            if self.after is not None:
+                self.result = self.after(self.result)
+            if self.kind is not None:
+                self.comm._close(self.kind, self.start)
+            self.done, self.works, self.keep = True, [], ()
+        return self.result
+
+
 class Comm:
-    """One rank's collectives. Each all-to-all and all-reduce is timed by
-    kind ('exchange', 'reduce') without a device synchronization: between
-    two CUDA events on the current stream on a card (read by `seconds`,
-    once the stream has passed them), on the host clock on the CPU. A span
-    runs from the moment the rank's own inputs are ready to the moment the
-    result has landed, so it includes the wait for slower peers. The epoch
-    line reads the sums as Comm(s) and Reduce(s)."""
+    """One rank's collectives. Each all-to-all, send/receive batch and
+    all-reduce is timed by kind ('exchange', 'reduce') without a device
+    synchronization: between two CUDA events on the current stream on a
+    card (read by `seconds`, once the stream has passed them), on the host
+    clock on the CPU. A span runs from the moment the rank's own inputs are
+    ready (the launch) to the moment the result has landed (the wait), so
+    it includes the wait for slower peers, and for an asynchronous launch
+    whatever the rank ran before its wait. The epoch line reads the sums as
+    Comm(s) and Reduce(s)."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
                  wait_group=None):
@@ -122,28 +157,90 @@ class Comm:
             out[kind] = total
         return out
 
-    def _timed(self, kind: str, op: Callable[[], None]) -> None:
+    def _open(self):
+        """A span's start: a CUDA event recorded now on a card, else the
+        host clock."""
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
             start.record()
-            op()
+            return start
+        return time.perf_counter()
+
+    def _close(self, kind: str, start) -> None:
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
             end.record()
             self._spans[kind].append((start, end))
         else:
-            t0 = time.perf_counter()
-            op()
-            self._spans[kind].append(time.perf_counter() - t0)
+            self._spans[kind].append(time.perf_counter() - start)
 
-    def all_to_all(self, x: torch.Tensor, kind: str = "exchange"
-                   ) -> torch.Tensor:
-        """Tiled all-to-all over the leading axis: block j of `x` (rows
-        [j*n/P, (j+1)*n/P)) goes to rank j; block q of the result came from
-        rank q."""
+    def _timed(self, kind: str, op: Callable[[], None]) -> None:
+        start = self._open()
+        op()
+        self._close(kind, start)
+
+    def host_staged(self) -> bool:
+        """Whether point-to-point tensors must pass through host memory:
+        gloo on a card (its send and receive read host pointers only)."""
+        return (self.device.type == "cuda"
+                and dist.get_backend() == dist.Backend.GLOO)
+
+    def all_to_all(self, x: torch.Tensor,
+                   kind: "str | None" = "exchange") -> Pending:
+        """Tiled all-to-all over the leading axis, launched
+        asynchronously: block j of `x` (rows [j*n/P, (j+1)*n/P)) goes to
+        rank j; block q of the result came from rank q."""
         src = x.contiguous()
         out = torch.empty_like(src)
-        self._timed(kind, lambda: dist.all_to_all_single(out, src))
-        return out
+        start = self._open() if kind is not None else None
+        work = dist.all_to_all_single(out, src, async_op=True)
+        return Pending(self, kind, [work], start, out, keep=(src,))
+
+    def all_to_all_v(self, x: torch.Tensor, in_splits: list,
+                     out_splits: list, kind: str = "exchange") -> Pending:
+        """Split-size all-to-all, launched asynchronously: rows
+        [sum(in_splits[:j]), +in_splits[j]) of `x` go to rank j; the result
+        holds rank q's out_splits[q] rows in rank order."""
+        src = x.contiguous()
+        out = src.new_empty((int(sum(out_splits)),) + tuple(src.shape[1:]))
+        start = self._open()
+        work = dist.all_to_all_single(out, src, [int(v) for v in out_splits],
+                                      [int(v) for v in in_splits],
+                                      async_op=True)
+        return Pending(self, kind, [work], start, out, keep=(src,))
+
+    def send_recv(self, sends: list, recvs: list,
+                  kind: str = "exchange") -> Pending:
+        """One batch of point-to-point transfers, launched asynchronously:
+        `sends` [(peer, tensor)], `recvs` [(peer, tensor to fill)]; the
+        Pending's result is the list of received tensors. Under gloo on a
+        card the sends leave through host copies and the receives land in
+        pinned host buffers, copied to their tensors on the card when
+        waited."""
+        start = self._open()
+        stage = self.host_staged()
+        ops, keep, landing = [], [], []
+        for peer, t in sends:
+            src = t.contiguous()
+            if stage:
+                src = src.to("cpu")
+            keep.append(src)
+            ops.append(dist.P2POp(dist.isend, src, peer))
+        for peer, t in recvs:
+            dst = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                   if stage else t)
+            landing.append((t, dst))
+            ops.append(dist.P2POp(dist.irecv, dst, peer))
+        works = dist.batch_isend_irecv(ops) if ops else []
+
+        def after(_):
+            if stage:
+                for t, dst in landing:
+                    t.copy_(dst, non_blocking=True)
+            return [t for t, _ in landing]
+
+        return Pending(self, kind, list(works), start, None, after,
+                       keep=(keep, landing))
 
     def all_reduce_(self, x: torch.Tensor, kind: str = "reduce"
                     ) -> torch.Tensor:

@@ -5,8 +5,9 @@ Sender p and receiver j of a pair draw the same uniform without-replacement
 subset of p's boundary list toward j from one key, `pair_key(base, epoch,
 p, j)`, so no indices cross the wire: the draw is the JAX package's,
 bitwise (utils/prng.py is its threefry stream). At sampling rate 1.0 the
-'sample' is the identity. `chunk_sample` (--halo-refresh) and the replica
-fold come with their slices.
+'sample' is the identity. `chunk_sample` and `chunk_identity_sample` draw
+one residue class of a boundary list (--halo-refresh K). The replica fold
+comes with its slice.
 """
 
 from __future__ import annotations
@@ -63,3 +64,24 @@ def identity_sample(n_valid: torch.Tensor,
     pos = torch.arange(pad_s, device=n_valid.device)
     return (pos.expand(n_valid.shape[0], pad_s),
             pos[None] < n_valid[:, None])
+
+
+def chunk_sample(keys: torch.Tensor, n_valid: torch.Tensor,
+                 s_valid: torch.Tensor, chunk, stride: int, pad_b: int,
+                 pad_s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """`pair_sample` restricted to the boundary positions {k : k % stride
+    == chunk} (bnsgcn_tpu/parallel/sampling.py chunk_sample): the draw runs
+    in the chunk's own domain t = 0..n_valid-1 through the same keys and
+    maps back to the full positions chunk + stride * t, keeping the valid
+    rows a prefix (the ragged exchange ships prefixes)."""
+    pos, valid = pair_sample(keys, n_valid, s_valid, pad_b, pad_s)
+    return chunk + stride * pos, valid
+
+
+def chunk_identity_sample(n_valid: torch.Tensor, chunk, stride: int,
+                          pad_s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full-rate `chunk_sample`: positions chunk + stride * t for t <
+    n_valid, in order (bnsgcn_tpu/parallel/sampling.py
+    chunk_identity_sample)."""
+    pos, valid = identity_sample(n_valid, pad_s)
+    return chunk + stride * pos, valid

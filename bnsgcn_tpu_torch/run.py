@@ -71,7 +71,7 @@ from bnsgcn_tpu_torch.evaluate import (EvalGraph, evaluate_induc,
 from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
 from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
-                                            wire_bytes)
+                                            make_refresh_spec, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
                                             check_mesh_budget, launch,
                                             rank_device)
@@ -82,7 +82,9 @@ from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
                                       dropout_generator,
                                       local_row, make_tx, opt_state_from_jax,
                                       opt_state_to_jax, params_from_jax,
-                                      params_to_jax, to_device)
+                                      params_to_jax, resolve_halo_mode,
+                                      resolve_overlap, resolve_strategy,
+                                      to_device)
 
 # epochs excluded from the Time(s), Comm(s) and Reduce(s) means, as the JAX
 # package's EpochTimer(warmup=5) and the reference (train.py:415) exclude
@@ -507,6 +509,13 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
 
     clock = "P=1" if comm is None else (
         "events" if device.type == "cuda" else "host")
+    # --halo-refresh K > 1: the halo cache, held on the device by this
+    # process and never checkpointed. None runs the next step on the full
+    # exchange, which rebuilds it: at the run's start and after a resume
+    # (bnsgcn_tpu/run.py:1074-1080)
+    use_refresh = fns.train_step_full is not None
+    halo_cache = None
+    cache_reason = "resume" if res.start_epoch > 0 else "start"
     t_loop = time.perf_counter()
     try:
         for epoch in range(res.start_epoch, cfg.n_epochs):
@@ -516,7 +525,15 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                    if spec.dropout > 0 else None)
             t_ep = time.perf_counter()
             res.epoch_starts.append(t_ep)
-            loss = fns.train_step(model, opt, blk, epoch, gen)
+            refresh_full = use_refresh and halo_cache is None
+            if refresh_full:
+                loss, halo_cache = fns.train_step_full(model, opt, blk,
+                                                       epoch, gen)
+            elif use_refresh:
+                loss, halo_cache = fns.train_step_cached(
+                    model, opt, blk, epoch, gen, halo_cache)
+            else:
+                loss = fns.train_step(model, opt, blk, epoch, gen)
             loss_f = float(loss)                    # waits for the device
             dt = time.perf_counter() - t_ep
             secs = (comm.seconds() if comm else
@@ -525,6 +542,10 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             res.epoch_times.append(dt)
             res.comm_times.append(secs["exchange"])
             res.reduce_times.append(secs["reduce"])
+            if refresh_full:
+                log(f"  halo cache: full refresh at epoch {epoch} "
+                    f"({cache_reason}); next {fns.halo_refresh - 1}+ epochs "
+                    f"reuse cached blocks")
             if not np.isfinite(loss_f):
                 raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
             if (epoch + 1) % cfg.log_every != 0:
@@ -798,10 +819,24 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         log(f"seed {cfg.seed} (node 0's)"
             + (f"; resuming from {resume_from}" if resume_from else ""))
     meta = read_meta(path)
+    strategy, _ = resolve_strategy(cfg, meta.n_b, meta.pad_inner,
+                                   meta.pad_boundary, cfg.sampling_rate)
     hspec, _ = make_halo_spec(meta.n_b, meta.pad_inner, meta.pad_boundary,
-                              cfg.sampling_rate, wire=cfg.halo_wire)
+                              cfg.sampling_rate, strategy=strategy,
+                              wire=cfg.halo_wire)
     hfull, _ = full_rate_spec(meta.n_b, meta.pad_inner, meta.pad_boundary)
     nb = 2 if cfg.dtype == "bfloat16" else 4     # the native wire's bytes
+    # the halo label of the JAX package's Mesh line (bnsgcn_tpu/run.py:
+    # 447-517): the resolved strategy, +ovl, +go or +hrK; the ranks log the
+    # auto pick and the fallbacks
+    refresh_k, grad_only = resolve_halo_mode(cfg, log=lambda m: None)
+    overlap, _ = resolve_overlap(cfg, cfg.model, grad_only)
+    label = (f"auto->{strategy}" if cfg.halo_exchange == "auto"
+             else strategy)
+    label += "+ovl" if overlap == "split" else ""
+    label += ("+go" if grad_only else
+              f"+hr{refresh_k}" if refresh_k > 1 else "")
+    peak_mb = wire_bytes(hspec, cfg.n_hidden, nb) / 1e6
     devs = [str(rank_device(cfg.device, cfg.dist_backend, i))
             for i in range(len(ranks))]
     staged = cfg.dist_backend == "gloo" and cfg.device == "cuda"
@@ -814,16 +849,26 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         f"pad_boundary={meta.pad_boundary} pad_send={hspec.pad_send} "
         f"edges/part={meta.pad_edges} | {cfg.dtype} spmm={cfg.spmm} "
         f"gather={cfg.spmm_gather} dense={cfg.spmm_dense} | halo "
-        f"{hspec.strategy}/{hspec.wire} at sampling rate "
-        f"{cfg.sampling_rate:g}: "
-        f"{wire_bytes(hspec, cfg.n_hidden, nb) / 1e6:.2f} MB/exchange/rank "
-        f"at hidden width {cfg.n_hidden} "
+        f"{label}/{hspec.wire} at sampling rate {cfg.sampling_rate:g}: "
+        f"{peak_mb:.2f} MB/exchange/rank at hidden width {cfg.n_hidden} "
         f"({wire_bytes(hfull, meta.n_feat, nb) / 1e6:.2f} MB at feature "
         f"width {meta.n_feat}, the precompute's full-rate exchange) | "
         f"artifacts {path}"
         + (f" ({meta.feat_dtype} features)"
            if meta.feat_dtype != "float32" else "")
         + f" {time.perf_counter() - t0:.1f}s")
+    if grad_only:
+        log("  halo grad-only: 0.00 MB/exchange steady-state (no activation "
+            "exchange; the gradient all-reduce is the only collective)")
+    elif refresh_k > 1:
+        hspec_r, _ = make_refresh_spec(meta.n_b, meta.pad_inner,
+                                       meta.pad_boundary, cfg.sampling_rate,
+                                       refresh_k, strategy=strategy,
+                                       wire=cfg.halo_wire)
+        steady_mb = wire_bytes(hspec_r, cfg.n_hidden, nb) / 1e6
+        log(f"  halo refresh K={refresh_k}: peak {peak_mb:.2f} MB/exchange "
+            f"(full-refresh epochs), steady-state {steady_mb:.2f} MB "
+            f"({steady_mb / max(peak_mb, 1e-12):.0%} of peak)")
     evals = (val_g, test_g) if val_g is not None else None
     reports = launch(
         _rank_main, P,

@@ -25,6 +25,24 @@ package resolves it); it runs no SpMM. Its precompute is the full-rate
 exchange of the raw features alone (`feat0_ext`, training's layer-0 input),
 and each epoch's plan gives the presence mask that takes the unsampled halo
 slots out of the softmax.
+
+The exchange's variants, resolved here as the JAX package's build_step_fns
+resolves them (its log lines too):
+  * --halo-exchange padded | shift | ragged | auto (parallel/halo.py);
+  * --spmm segment: COO index_add_ in chunks of --edge-chunk edges
+    (ops/spmm.CooSpmm; no kernel, as in the JAX package);
+  * --overlap split: each GCN/GraphSAGE layer launches its exchange, sums
+    the interior rows (K1/K2 on their own layouts), waits, sums the
+    frontier rows and merges (`split_body`); the precompute and the eval
+    compose the two halves (ops/spmm.SplitSpmm). It falls back to off for
+    GAT, grad-only and more than one node, as the JAX package does;
+  * --halo-refresh K > 1: `train_step_full` runs the historical exchange
+    and records each layer's received halo block and the halo presence
+    (the cache, held by the run loop on the device); `train_step_cached`
+    exchanges chunk epoch % K through the refresh geometry and merges it
+    into the cache, the stale rows detached. K == 1 builds neither;
+  * --halo-mode grad-only: no activation exchange, a zero halo block that
+    presence masks out whole; the gradient all-reduce stays.
 """
 
 from __future__ import annotations
@@ -34,27 +52,36 @@ import os
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from bnsgcn_tpu_torch.config import Config
+from bnsgcn_tpu_torch.config import Config, ConfigError
 from bnsgcn_tpu_torch.data.artifacts import PartitionArtifacts, feat_values
 from bnsgcn_tpu_torch.models.gnn import GNN, GraphEnv, ModelSpec, apply_model
 from bnsgcn_tpu_torch.ops.block_spmm import (BlockSpmm, build_block_layouts,
+                                             build_split_block_layouts,
                                              cluster_order, dense_edge_count,
                                              I8_ROW_CAP, effective_occupancy,
                                              estimate_coverage)
-from bnsgcn_tpu_torch.ops.ell import EllSpmm, build_layouts
+from bnsgcn_tpu_torch.ops.ell import (EllSpmm, build_layouts,
+                                     build_split_layouts)
 from bnsgcn_tpu_torch.ops.ell_attention import (GatAttention,
                                                 build_gat_attention,
                                                 part_gat_layouts)
-from bnsgcn_tpu_torch.parallel.halo import (HaloSpec, full_rate_spec,
-                                            halo_apply, make_halo_plan,
-                                            make_halo_spec,
-                                            precompute_exchange, tables_to)
+from bnsgcn_tpu_torch.ops.spmm import CooSpmm, SplitSpmm, split_coo
+from bnsgcn_tpu_torch.parallel.halo import (HaloFlight, HaloSpec,
+                                            full_rate_spec, halo_apply,
+                                            make_halo_plan,
+                                            make_halo_plan_refresh,
+                                            make_halo_spec, make_refresh_spec,
+                                            precompute_exchange,
+                                            ragged_auto_eligible,
+                                            refresh_row_mask,
+                                            select_halo_strategy, tables_to)
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
 from bnsgcn_tpu_torch.utils import prng
@@ -250,8 +277,9 @@ def dropout_generator(seed: int, epoch: int, rank: int,
 
 @dataclass
 class StepFns:
-    spmm: Optional[Union[EllSpmm, BlockSpmm]]  # the training aggregation
-                                       # operator (None for GAT)
+    spmm: Optional[Union[EllSpmm, BlockSpmm, SplitSpmm, CooSpmm]]
+                                       # the training aggregation operator
+                                       # (None for GAT)
     layout: dict                       # its numpy layout arrays [1, ...]
     train_step: Callable               # (model, opt, blk, epoch, gen) -> loss
     forward: Callable                  # (model, blk, epoch, gen) -> logits
@@ -260,9 +288,22 @@ class StepFns:
     dense_edges: int = 0               # edges on dense tiles (hybrid)
     halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
-    spmm_kind: str = "ell"             # 'ell' | 'hybrid' (--spmm resolved)
+    spmm_kind: str = "ell"             # 'ell' | 'hybrid' | 'segment'
+                                       # (--spmm resolved)
     gat: Optional[GatAttention] = None     # GAT's attention (spmm is None)
     layout_times: dict = field(default_factory=dict)   # LayoutCache.times
+    overlap: str = "off"               # --overlap resolved ('off' where the
+                                       # JAX package falls back)
+    halo_strategy: str = "padded"      # --halo-exchange resolved
+    halo_refresh: int = 1              # --halo-refresh resolved (1 under
+                                       # grad-only)
+    halo_refresh_spec: Optional[HaloSpec] = None   # the cached step's
+    # --halo-refresh K > 1 only: the full-refresh step, which records every
+    # layer's received halo block, (model, opt, blk, epoch, gen) -> (loss,
+    # cache), and the cached step, (model, opt, blk, epoch, gen, cache) ->
+    # (loss, cache)
+    train_step_full: Optional[Callable] = None
+    train_step_cached: Optional[Callable] = None
 
 
 # ----------------------------------------------------------------------------
@@ -270,18 +311,22 @@ class StepFns:
 # ----------------------------------------------------------------------------
 
 def ell_layout_key(cfg: Config) -> str:
-    """The ELL layouts' cache key (bnsgcn_tpu/trainer.py ell_layout_key;
-    the port has no --overlap or --reorder, whose namespaces it adds)."""
-    return "ell"
+    """The ELL layouts' cache key (bnsgcn_tpu/trainer.py ell_layout_key):
+    'ell', or 'ell:ovl' for the --overlap split interior/frontier pair (cfg
+    with the resolved overlap); the port has no --reorder, whose namespace
+    it would add."""
+    return "ell:ovl" if cfg.overlap == "split" else "ell"
 
 
 def hybrid_layout_key(cfg: Config) -> str:
     """The hybrid layout's cache key under cfg's tiling knobs, with the
-    effective occupancy (bnsgcn_tpu/trainer.py hybrid_layout_key)."""
+    effective occupancy, and ':ovl' for the split pair
+    (bnsgcn_tpu/trainer.py hybrid_layout_key)."""
     tile = cfg.block_tile
     key = (f"hybrid:{effective_occupancy(cfg.block_occupancy, tile, tile)}:"
            f"{cfg.block_tile_budget_mb}")
-    return key + (f":t{tile}" if tile != 512 else "")
+    key += f":t{tile}" if tile != 512 else ""
+    return key + (":ovl" if cfg.overlap == "split" else "")
 
 
 def gat_layout_key(cfg: Config) -> str:
@@ -381,6 +426,65 @@ def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
     return kind, ((pi, pe) if kind == "hybrid" else None)
 
 
+def resolve_halo_mode(cfg: Config, log=print) -> tuple[int, bool]:
+    """(refresh period K, grad-only) as the JAX package's build_step_fns
+    resolves them: grad-only never exchanges activations, so it ignores
+    --halo-refresh, with the JAX package's line."""
+    k = int(cfg.halo_refresh or 1)
+    if k < 1:
+        raise ConfigError(f"--halo-refresh must be >= 1, got {k}")
+    if cfg.halo_mode not in ("exchange", "grad-only"):
+        raise ConfigError(f"--halo-mode must be 'exchange' or 'grad-only', "
+                          f"got {cfg.halo_mode!r}")
+    grad_only = cfg.halo_mode == "grad-only"
+    if grad_only and k > 1:
+        log("halo-mode=grad-only never exchanges activations; "
+            "--halo-refresh has no effect")
+        k = 1
+    return k, grad_only
+
+
+def resolve_overlap(cfg: Config, model: str,
+                    grad_only: bool) -> tuple[str, Optional[str]]:
+    """(overlap, why it fell back or None): --overlap split falls back to
+    off where the JAX package's build_step_fns does, for grad-only (no
+    exchange to overlap), GAT (its softmax consumes the whole halo block)
+    and more than one node."""
+    if cfg.overlap != "split":
+        return cfg.overlap, None
+    if grad_only:
+        return "off", ("halo-mode=grad-only skips the activation exchange "
+                       "entirely — there is no collective to overlap")
+    if model not in ("gcn", "graphsage"):
+        return "off", (f"model={model!r} aggregates through the masked "
+                       f"edge softmax, which consumes the whole halo block")
+    if cfg.n_nodes > 1:
+        return "off", ("multi-host partial loads cannot derive the global "
+                       "interior/frontier row split from local parts yet")
+    return "split", None
+
+
+def resolve_strategy(cfg: Config, n_b, pad_inner: int, pad_boundary: int,
+                     rate: float) -> tuple[str, Optional[str]]:
+    """(halo strategy, the auto pick's reason or None): --halo-exchange,
+    with 'auto' resolved by select_halo_strategy over the global n_b table,
+    as every rank and node resolves it alike."""
+    if cfg.halo_exchange != "auto":
+        return cfg.halo_exchange, None
+    return select_halo_strategy(n_b, pad_inner, pad_boundary, rate,
+                                wire=cfg.halo_wire,
+                                allow_ragged=ragged_auto_eligible())
+
+
+def _held_perms(held: dict):
+    """The full cluster order (perm_inner, perm_ext) a hybrid layout holds:
+    its own, or, for a split layout, the interior build's column order
+    (the inner one) and the frontier build's (the extended one)."""
+    if "blk_perm_inner" in held:
+        return held["blk_perm_inner"][0], held["blk_perm_ext"][0]
+    return held["int_blk_perm_ext"][0], held["fro_blk_perm_ext"][0]
+
+
 def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
                row: int = 0, comm: Optional[Comm] = None,
                reuse: Optional["StepFns"] = None,
@@ -388,54 +492,107 @@ def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
                cache: Optional[LayoutCache] = None):
     """(operator, numpy layout, resolved spmm kind) for cfg.spmm over the
     part in row `row` of `art`, with cfg's gather and dense dtypes (the
-    int8 dense modes picked at `row_cap`). Each part builds its own layout
-    (through `cache`, --cache-dir): the ELL pads come from the artifacts'
-    global geometry, the hybrid tiles and residual from the part alone.
-    `reuse`, the step functions of an earlier build of the same part and
-    tiling, lends its layout when the resolved kind is its own (only the
-    dtypes change); its hybrid's cluster order, or a cached hybrid's, goes
-    to the auto pick (cluster_order is deterministic, so it is the order
-    the pick would compute)."""
+    int8 dense modes picked at `row_cap`), under cfg.overlap (resolved: the
+    caller's cfg carries 'split' only where the split runs). Each part
+    builds its own layout (through `cache`, --cache-dir): the ELL pads come
+    from the artifacts' global geometry, the hybrid tiles and residual from
+    the part alone, a split pair's row spaces from the part alone. `reuse`,
+    the step functions of an earlier build of the same part and tiling,
+    lends its layout when the resolved kind and overlap are its own (only
+    the dtypes change); its hybrid's cluster order, or a cached hybrid's,
+    goes to the auto pick (cluster_order is deterministic, so it is the
+    order the pick would compute). --spmm segment runs `CooSpmm` over the
+    part's COO edges (split: `split_coo`'s two edge lists)."""
     cache = cache or LayoutCache("", "", art, row, log)
+    split = cfg.overlap == "split"
     held = None
     if reuse is not None and reuse.spmm_kind == "hybrid":
         held = reuse.layout
     elif cfg.spmm == "auto":
         cached = cache.load(hybrid_layout_key(cfg))
-        held = cached[3] if cached is not None else None
+        held = (None if cached is None else
+                cached[2] if split else cached[3])
     if held is not None:
-        held = (held["blk_perm_inner"][0], held["blk_perm_ext"][0])
+        held = _held_perms(held)
     kind, perms = resolve_spmm(cfg, art, row, comm, log, held)
-    if reuse is not None and reuse.spmm_kind == kind:
+    if (reuse is not None and reuse.spmm_kind == kind
+            and reuse.overlap == cfg.overlap):
         return (reuse.spmm.with_dtypes(cfg.spmm_gather, cfg.spmm_dense,
                                        row_cap), reuse.layout, kind)
     src, dst = art.src[row:row + 1], art.dst[row:row + 1]
+    ni, n_ext = art.pad_inner, art.n_ext
+    if kind == "segment":
+        if cfg.spmm_gather != "native":
+            log(f"spmm_gather={cfg.spmm_gather} has no effect for "
+                f"spmm='segment' / model={cfg.model!r} (only the ell/hybrid "
+                f"GCN/GraphSAGE aggregation paths quantize gathers)")
+
+        def coo(s, d):
+            return CooSpmm(torch.from_numpy(np.ascontiguousarray(s)).to(
+                device), torch.from_numpy(np.ascontiguousarray(d)).to(device),
+                ni, cfg.edge_chunk)
+
+        if not split:
+            return coo(src[0], dst[0]), {}, kind
+        arrays = split_coo(src, dst, ni)
+        return (SplitSpmm(coo(arrays["seg_int_src"][0],
+                              arrays["seg_int_dst"][0]),
+                          coo(arrays["seg_fro_src"][0],
+                              arrays["seg_fro_dst"][0]), None, ni),
+                arrays, kind)
     if kind == "hybrid":
         tile = cfg.block_tile
+        knobs = dict(occupancy_min=effective_occupancy(cfg.block_occupancy,
+                                                       tile, tile),
+                     tile_budget_bytes=cfg.block_tile_budget_mb << 20,
+                     tile_r=tile, tile_c=tile)
 
-        def build():
+        def cluster():
             pi, pe = perms if perms is not None else cluster_order(
-                src[0], dst[0], art.pad_inner, art.n_ext, target=tile,
-                log=log)
-            return build_block_layouts(
-                src, dst, art.pad_inner, art.n_ext, pi[None], pe[None],
-                occupancy_min=effective_occupancy(cfg.block_occupancy, tile,
-                                                  tile),
-                tile_budget_bytes=cfg.block_tile_budget_mb << 20,
-                tile_r=tile, tile_c=tile)
+                src[0], dst[0], ni, n_ext, target=tile, log=log)
+            return pi[None], pe[None]
 
-        fwd, bwd, ell_pair, arrays = cache.get(hybrid_layout_key(cfg), build)
-        return BlockSpmm(fwd, bwd, ell_pair, to_device(arrays, device),
-                         gather_dtype=cfg.spmm_gather,
-                         dense_dtype=cfg.spmm_dense,
-                         row_cap=row_cap), arrays, kind
+        def block_op(fwd, bwd, pair, arrays):
+            return BlockSpmm(fwd, bwd, pair, to_device(arrays, device),
+                             gather_dtype=cfg.spmm_gather,
+                             dense_dtype=cfg.spmm_dense, row_cap=row_cap)
+
+        if split:
+            (i_f, i_b, i_pair), (f_f, f_b, f_pair), arrays, _, _ = cache.get(
+                hybrid_layout_key(cfg), lambda: build_split_block_layouts(
+                    src, dst, ni, n_ext, *cluster(), **knobs))
+            return (SplitSpmm(block_op(i_f, i_b, i_pair, _sub(arrays, "int_")),
+                              block_op(f_f, f_b, f_pair, _sub(arrays, "fro_")),
+                              _merge_perm(arrays, device), ni), arrays, kind)
+        fwd, bwd, ell_pair, arrays = cache.get(hybrid_layout_key(cfg), lambda: (
+            build_block_layouts(src, dst, ni, n_ext, *cluster(), **knobs)))
+        return block_op(fwd, bwd, ell_pair, arrays), arrays, kind
     if kind == "ell":
+        if split:
+            (i_f, i_b), (f_f, f_b), arrays, _, _ = cache.get(
+                ell_layout_key(cfg), lambda: build_split_layouts(
+                    src, dst, ni, n_ext))
+            ell_op = partial(EllSpmm, gather_dtype=cfg.spmm_gather)
+            return (SplitSpmm(
+                ell_op(i_f, i_b, to_device(_sub(arrays, "int_"), device)),
+                ell_op(f_f, f_b, to_device(_sub(arrays, "fro_"), device)),
+                _merge_perm(arrays, device), ni), arrays, kind)
         fwd, bwd, arrays = cache.get(ell_layout_key(cfg), lambda: (
-            build_layouts(src, dst, art.pad_inner, art.n_ext,
-                          geometry=art.ell_geometry)))
+            build_layouts(src, dst, ni, n_ext, geometry=art.ell_geometry)))
         return (EllSpmm(fwd, bwd, to_device(arrays, device),
                         gather_dtype=cfg.spmm_gather), arrays, kind)
     raise ValueError(f"--spmm {cfg.spmm} is not ported yet")
+
+
+def _sub(arrays: dict, prefix: str) -> dict:
+    """The arrays under `prefix`, without it: one side of a split layout."""
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
+def _merge_perm(arrays: dict, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        arrays["merge_perm"][0])).to(device)
 
 
 def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
@@ -445,13 +602,25 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    row_cap: int = I8_ROW_CAP) -> StepFns:
     """Rank `rank`'s step functions. Without `comm` the run is P=1. `reuse`
     and `row_cap` go to build_spmm; the layouts go through a LayoutCache
-    of cfg.cache_dir."""
+    of cfg.cache_dir. Resolves, as the JAX package's build_step_fns does
+    and logging its lines: --halo-exchange auto, --halo-mode and
+    --halo-refresh, --overlap split's fallbacks."""
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
     cache = LayoutCache(cfg.cache_dir,
                         cfg.graph_name or cfg.derive_graph_name(), art, row,
                         log)
+    strategy, why = resolve_strategy(cfg, art.n_b, art.pad_inner,
+                                     art.pad_boundary, cfg.sampling_rate)
+    if why is not None:
+        log(f"halo-exchange=auto: {why} -> {strategy}")
+    refresh_k, grad_only = resolve_halo_mode(cfg, log)
+    overlap, reason = resolve_overlap(cfg, spec.model, grad_only)
+    if reason is not None:
+        log(f"overlap=split unavailable ({reason}); falling back to "
+            f"--overlap off")
+    cfg = cfg.replace(overlap=overlap)
     gat = None
     if spec.model == "gat":
         # no SpMM: --spmm auto stays on ELL (bnsgcn_tpu/trainer.py:707)
@@ -468,17 +637,22 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                                         reuse, row_cap, cache)
     n_train = max(art.n_train, 1)
     loss_sum = bce_sum if art.multilabel else ce_sum
-    n_halo = art.n_ext - art.pad_inner
-    hspec = hfull = None
+    ni = art.pad_inner
+    n_halo = art.n_ext - ni
+    hspec = hfull = hspec_r = None
     if comm is not None:
         bnd = torch.from_numpy(np.ascontiguousarray(art.bnd[row])).to(device)
-        hspec, tables = make_halo_spec(art.n_b, art.pad_inner,
-                                       art.pad_boundary, cfg.sampling_rate,
+        hspec, tables = make_halo_spec(art.n_b, ni, art.pad_boundary,
+                                       cfg.sampling_rate, strategy=strategy,
                                        wire=cfg.halo_wire)
-        hfull, tables_full = full_rate_spec(art.n_b, art.pad_inner,
-                                            art.pad_boundary)
+        hfull, tables_full = full_rate_spec(art.n_b, ni, art.pad_boundary)
         tables = tables_to(tables, device)
         tables_full = tables_to(tables_full, device)
+        if refresh_k > 1:
+            hspec_r, tables_r = make_refresh_spec(
+                art.n_b, ni, art.pad_boundary, cfg.sampling_rate, refresh_k,
+                strategy=strategy, wire=cfg.halo_wire)
+            tables_r = tables_to(tables_r, device)
         sample_key = prng.key(cfg.seed, device)
         # rate 1.0: the identity plan, the same every epoch
         fixed_plan = (make_halo_plan(hspec, tables, bnd, rank)
@@ -489,37 +663,134 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         return torch.cat([h, h.new_zeros((n_halo, h.shape[1]))])
 
     def local_presence():
-        return torch.arange(art.n_ext, device=device) < art.pad_inner
+        return torch.arange(art.n_ext, device=device) < ni
 
-    def exchange_for(epoch: int):
-        """(exchange, presence) of `epoch`'s plan."""
+    def split_body(blk, spec_h=None, plan=None, combine=None):
+        """--overlap split's layer body (bnsgcn_tpu/trainer.py
+        `_split_agg_for`): launch the exchange, aggregate the interior
+        rows, finish the exchange (merged into the cache by `combine` in a
+        refresh step), aggregate the frontier rows, merge. The interior
+        rows' aggregation does not read the halo block, so on a card it
+        runs while the collective is in flight (on nccl's stream, or in
+        gloo's thread), and its backward runs while the transposed
+        collective is (HaloFlight). At P=1 the halo block is zero."""
+        out_norm = blk["out_norm"]
+
+        def scale(x, norm):
+            # GCN's norm, piecewise: elementwise the fused path's division
+            return (x / norm[:, None]).to(x.dtype)
+
+        def agg(i, h, scale_out_norm):
+            flight = None
+            if comm is not None:
+                flight = HaloFlight(spec_h, plan, comm)
+                flight.start(h)
+            h_in = scale(h, out_norm[:ni]) if scale_out_norm else h
+            o_int = spmm.interior(h_in)
+            buf = (flight.finish() if flight is not None else
+                   h.new_zeros((n_halo, h.shape[1])))
+            if combine is not None:
+                buf = combine(i, buf)
+            h_halo = scale(buf, out_norm[ni:]) if scale_out_norm else buf
+            return spmm.merge(o_int, spmm.frontier(torch.cat([h_in,
+                                                              h_halo])))
+        return agg
+
+    def step_env(blk, epoch: int, mode: str = "step", cache=None):
+        """(exchange, presence, agg_exchange, cache out) of `epoch`'s step:
+        'step' the historical exchange; under --halo-refresh K > 1 'full'
+        the historical exchange recording each layer's halo block and the
+        halo presence, 'cached' chunk epoch % K through the refresh
+        geometry merged into `cache`, the stale rows detached (no gradient
+        flows through them, so the backward's collective runs on the
+        refresh geometry too); grad-only no exchange, a zero halo block
+        that presence masks out whole."""
+        split = overlap == "split"
         if comm is None:
-            return local_exchange, local_presence()
-        plan = (fixed_plan if fixed_plan is not None else
-                make_halo_plan(hspec, tables, bnd, rank, epoch, sample_key))
-        return (lambda i, h: halo_apply(hspec, plan, h, comm)), plan.presence
+            agg = split_body(blk) if split else None
+            out = {} if mode != "step" else None
+            return local_exchange, local_presence(), agg, out
+        if grad_only:
+            presence = torch.cat([torch.ones(ni, dtype=torch.bool,
+                                             device=device),
+                                  torch.zeros(n_halo, dtype=torch.bool,
+                                              device=device)])
+            return local_exchange, presence, None, None
+        if mode == "cached":
+            spec_h = hspec_r
+            plan = make_halo_plan_refresh(hspec_r, tables_r, bnd, rank,
+                                          epoch, sample_key, refresh_k)
+            mask = refresh_row_mask(hspec_r, refresh_k, epoch, device)
+            presence_h = torch.where(mask, plan.presence[ni:],
+                                     cache["presence"])
+        else:
+            spec_h = hspec
+            plan = (fixed_plan if fixed_plan is not None else
+                    make_halo_plan(hspec, tables, bnd, rank, epoch,
+                                   sample_key))
+            mask, presence_h = None, plan.presence[ni:]
+        presence = torch.cat([plan.presence[:ni], presence_h])
+        if mode == "step":
+            return ((lambda i, h: halo_apply(hspec, plan, h, comm)),
+                    presence, split_body(blk, hspec, plan) if split else None,
+                    None)
+        out = {"presence": presence_h}
+
+        def combine(i, fresh):
+            if mask is not None:
+                fresh = torch.where(mask[:, None], fresh,
+                                    cache[f"layer_{i}"].to(fresh.dtype))
+            out[f"layer_{i}"] = fresh.detach()
+            return fresh
+
+        def exchange(i, h):
+            h_ext = halo_apply(spec_h, plan, h, comm)
+            if mask is None:
+                out[f"layer_{i}"] = h_ext[ni:].detach()
+                return h_ext
+            return torch.cat([h_ext[:ni], combine(i, h_ext[ni:])])
+
+        return (exchange, presence,
+                split_body(blk, spec_h, plan, combine) if split else None,
+                out)
+
+    def run_forward(model: GNN, blk, epoch: int, generator=None,
+                    mode: str = "step", cache=None):
+        exchange, presence, agg, out = step_env(blk, epoch, mode, cache)
+        env = GraphEnv(n_dst=ni, in_norm=blk["in_norm"],
+                       out_norm=blk["out_norm"], exchange=exchange,
+                       aggregate=spmm, training=True, generator=generator,
+                       presence=presence, gat_feat0=blk.get("feat0_ext"),
+                       attention=gat, agg_exchange=agg)
+        return apply_model(model, blk["feat"], env), out
 
     def forward(model: GNN, blk, epoch: int, generator=None):
         """Training-mode forward at `epoch` (which keys the boundary
         sample): logits [pad_inner, n_class]."""
-        exchange, presence = exchange_for(epoch)
-        env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
-                       out_norm=blk["out_norm"], exchange=exchange,
-                       aggregate=spmm, training=True, generator=generator,
-                       presence=presence, gat_feat0=blk.get("feat0_ext"),
-                       attention=gat)
-        return apply_model(model, blk["feat"], env)
+        return run_forward(model, blk, epoch, generator)[0]
 
-    def train_step(model: GNN, opt, blk, epoch: int, generator=None):
-        """One step at `epoch`; returns the loss summed over the ranks."""
+    def step(model: GNN, opt, blk, epoch: int, generator=None,
+             mode: str = "step", cache=None):
         opt.zero_grad(set_to_none=True)
-        logits = forward(model, blk, epoch, generator)
+        logits, out = run_forward(model, blk, epoch, generator, mode, cache)
         loss = loss_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
         if comm is not None:
             loss = reduce_gradients(model.parameters(), comm, loss)
         opt.step()
-        return loss.detach()
+        return loss.detach(), out
+
+    def train_step(model: GNN, opt, blk, epoch: int, generator=None):
+        """One step at `epoch`; returns the loss summed over the ranks."""
+        return step(model, opt, blk, epoch, generator)[0]
+
+    refresh_steps = {}
+    if refresh_k > 1:
+        refresh_steps = dict(
+            train_step_full=lambda model, opt, blk, epoch, generator=None:
+            step(model, opt, blk, epoch, generator, "full"),
+            train_step_cached=lambda model, opt, blk, epoch, generator, cache:
+            step(model, opt, blk, epoch, generator, "cached", cache))
 
     @torch.no_grad()
     def precompute(blk):
@@ -529,8 +800,9 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         casts a bf16 run's result). The exchange (full-rate at any training
         rate, native wire: the JAX package's precompute exchange) and the
         aggregation (the same SpMM with native codecs, as the JAX package's
-        precompute operator) run at the raw feature width in its dtype.
-        GAT: the exchanged features themselves, feat0_ext."""
+        precompute operator; a split pair composed) run at the raw feature
+        width in its dtype. GAT: the exchanged features themselves,
+        feat0_ext."""
         feat_ext = (local_exchange(0, blk["feat"]) if comm is None else
                     precompute_exchange(hfull, tables_full, bnd, blk["feat"],
                                         rank, comm))
@@ -548,19 +820,19 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         """The full-rate eval forward of this part (the JAX trainer's
         local_embed/eval_forward): eval mode (no dropout; with use_pp, layer
         0 exchanges and aggregates the raw features), every halo row
-        present (the precompute's full-rate plan, native wire), the norms
-        of the artifacts' graph, and the training SpMM with the training
-        codecs (`_aggregate_for`), its K1 and K2 launches counted under
-        'eval'. blk['feat'] holds the raw f32 features. Logits
-        [pad_inner, n_class]; at P > 1 every rank calls it together.
-        GAT attends with the full-rate plan's presence."""
+        present (the precompute's full-rate plan, native wire, padded),
+        the norms of the artifacts' graph, and the training SpMM with the
+        training codecs (`_aggregate_for`; a split pair composed), its K1
+        and K2 launches counted under 'eval'. blk['feat'] holds the raw f32
+        features. Logits [pad_inner, n_class]; at P > 1 every rank calls it
+        together. GAT attends with the full-rate plan's presence."""
         if comm is None:
             exchange, presence = local_exchange, local_presence()
         else:
             plan = make_halo_plan(hfull, tables_full, bnd, rank)
             exchange = lambda i, h: halo_apply(hfull, plan, h, comm)
             presence = plan.presence
-        env = GraphEnv(n_dst=art.pad_inner, in_norm=blk["in_norm"],
+        env = GraphEnv(n_dst=ni, in_norm=blk["in_norm"],
                        out_norm=blk["out_norm"], exchange=exchange,
                        aggregate=(None if spmm is None else
                                   lambda h: spmm.apply_dir("fwd", h, "eval")),
@@ -573,4 +845,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    forward=forward, precompute=precompute,
                    eval_forward=eval_forward, dense_edges=dense,
                    halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat,
-                   layout_times=cache.times)
+                   layout_times=cache.times, overlap=overlap,
+                   halo_strategy=strategy, halo_refresh=refresh_k,
+                   halo_refresh_spec=hspec_r,
+                   **refresh_steps)

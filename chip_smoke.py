@@ -98,7 +98,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      each rank's epoch and exchange share and the int8 wire's MB per
      exchange beside the f32 path's;
   5d. [gat]: the P=4 main path's command line with --model gat --heads 2
-     on its artifacts, 4 epochs, rank 0 evaluating every 2 (COO, the
+     on its artifacts, 2 epochs, rank 0 evaluating every 2 (COO, the
      segment softmax): each rank's presence masks for epochs 0 and 1 must
      be those of the plans [bns] checked, the loss finite and falling, no
      K1 or K2 launch, every rank ending with rank 0's parameters; it prints
@@ -107,6 +107,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      forward and backward (CUDA events), the evals' seconds; then the GAT
      law at [cli]'s scale: P=4 == P=1 at rate 1.0, dropout 0, 3 epochs, to
      1e-4 (relative);
+  5e. [halo]: the exchange's variants on the P=4 main path's artifacts (its
+     command line: --inductive, rate 0.1), in one spawned group of 4 ranks
+     over gloo that loads its parts once, 3 epochs per variant from the
+     same parameters: on epoch 0's plan the shift and ragged exchanges'
+     outputs bitwise padded's (backward within 1e-6); auto's pick;
+     --halo-exchange shift and ragged, --overlap split on the hybrid and
+     on ELL (each side first holding K1 and K2 on its interior or frontier
+     layout to the plain versions), --halo-refresh 2 and 4, --halo-mode
+     grad-only and --sampling-rate 0.0, with the checks of `halo_phase`
+     (losses to 1e-5 relative: shift, ragged and split against padded,
+     ELL split against ELL, rate 0.0 against grad-only; one full-refresh
+     epoch; no exchange span under grad-only; K1 and K2 once per
+     aggregation, the split ones once per side); it prints each variant's
+     wire MB (peak, steady), Comm(s), epoch and peak memory, and for split
+     the interior, frontier and exchange ms (events) and the hidden ms;
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 8 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -255,7 +270,7 @@ YELP_EPOCHS, YELP_LOG_EVERY = 20, 10
 # main path's artifacts, an eval every GAT_LOG_EVERY epochs; the law at
 # [cli]'s scale, P=4 against P=1, rate 1.0, dropout 0
 GAT_HEADS = 2
-GAT_EPOCHS, GAT_LOG_EVERY = 4, 2
+GAT_EPOCHS, GAT_LOG_EVERY = 2, 2
 GAT_LAW_DATASET = CLI_FLAGS[1]
 # [papers]: scripts/ogbn-papers100m_torch.sh (BASELINE config 5: GCN 3x128,
 # rate 0.01, bf16, fp8 wire, mesh eval) on an OGB binary directory at
@@ -269,6 +284,20 @@ PAPERS_FEAT, PAPERS_CLASSES = 128, 172
 PAPERS_SPLIT = (0.011, 0.0011, 0.0019)      # train, valid, test shares
 PAPERS_EPOCHS, PAPERS_LOG_EVERY = 4, 2
 PAPERS_RTOL = 1e-6
+# [halo]: the exchange's variants on the P=4 main path's artifacts, each
+# (name, Config fields over that path's command line)
+HALO_EPOCHS = 3
+HALO_RTOL = 1e-5
+HALO_VARIANTS = (("padded", {}),
+                 ("shift", {"halo_exchange": "shift"}),
+                 ("ragged", {"halo_exchange": "ragged"}),
+                 ("split", {"overlap": "split"}),
+                 ("ell", {"spmm": "ell"}),
+                 ("ell+split", {"spmm": "ell", "overlap": "split"}),
+                 ("hr2", {"halo_refresh": 2}),
+                 ("hr4", {"halo_refresh": 4}),
+                 ("grad-only", {"halo_mode": "grad-only"}),
+                 ("rate0", {"sampling_rate": 0.0}))
 
 
 def log(msg):
@@ -536,7 +565,9 @@ def compare_k2(fns, widths, gen, reps, detail):
                            "tiles_per_row_block_mean":
                                float(per_rb.float().mean()),
                            "max_abs_err": e, "max_rel_err": rel})
-            if hdim == widths[0]:
+            # the control needs a nonzero tile (a split side may have
+            # none: its stack is one zero tile, which K2 sums to zeros)
+            if hdim == widths[0] and bool((tiles != 0).any()):
                 try:
                     check("control", tile_matmul_plain(
                         tiles, rowb, colb, tf32_round(x), nrb), ref, bound)
@@ -914,8 +945,9 @@ def parts_runs(cfg, args, part_path):
     meval = meval_phase(base, g, ckpt.final_path(main4))
     recipe = recipe_p4(main4, g)
     gat = gat_phase(main4, g, base)
+    halo = halo_phase(main4, args)
     return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
-            "gat": gat,
+            "gat": gat, "halo": halo,
             "overlap": overlap,
             "law_losses_p4": r4.losses,
             "law_losses_p1": r1.losses, "law_max_rel": rel,
@@ -2404,6 +2436,324 @@ def recipe_p4(main4, g):
             "wire_mb_f32": wire["native"], "ranks": ranks, "seconds": secs}
 
 
+def compare_k1_ell(op, widths, gen, detail):
+    """K1 against its plain version on an ELL operator's own row schedules
+    (no base: the ELL SpMM's call), both directions, at each width, within
+    k1_bound per element."""
+    import torch
+    from bnsgcn_tpu_torch.ops.bucket_sum import ell_apply, ell_apply_plain
+    max_err = max_rel = 0.0
+    for direction in ("fwd", "bwd"):
+        rows = op.rows[direction]
+        for hdim in widths:
+            h = torch.randn((rows.n_src, hdim), generator=gen, device="cuda")
+            got = ell_apply(rows, h, phase="check")
+            e, rel = check(f"K1 {direction} H={hdim}", got,
+                           ell_apply_plain(rows, h), k1_bound(rows, h))
+            max_err, max_rel = max(max_err, e), max(max_rel, rel)
+            detail.append({"kernel": "ell_bucket_sum", "dir": direction,
+                           "rows": rows.n_rows,
+                           "terms": int(rows.src.numel()), "H": hdim,
+                           "max_abs_err": e, "max_rel_err": rel})
+    return max_err, max_rel
+
+
+def split_kernel_check(pr, gen, widths):
+    """K1 and K2 against their plain versions on a --overlap split
+    operator's interior and frontier layouts (their own tiles, residuals
+    and row schedules), forward and backward, at `widths`, with the main
+    path's bounds. Returns ({'K1': (err, rel), 'K2': ...}, detail)."""
+    from types import SimpleNamespace
+    detail, errs = [], {"K1": (0.0, 0.0), "K2": (0.0, 0.0)}
+    for op in (pr.fns.spmm.interior, pr.fns.spmm.frontier):
+        if hasattr(op, "residual"):
+            ns = SimpleNamespace(spmm=op)
+            k1 = compare_k1(ns, widths, gen, 0, detail)[0]
+            k2 = compare_k2(ns, widths, gen, 0, detail)[0]
+        else:
+            k1, k2 = compare_k1_ell(op, widths, gen, detail), (0.0, 0.0)
+        errs = {"K1": max(errs["K1"], k1), "K2": max(errs["K2"], k2)}
+    return errs, detail
+
+
+class SideTimer:
+    """CUDA events around one split side's training passes (its
+    apply_dir, phases 'fwd' and 'bwd'; the precompute's 'pre' is left
+    out), in call order, read after one synchronization."""
+
+    def __init__(self, op):
+        self.spans, inner = [], op.apply_dir
+
+        def timed(direction, h, phase, *a, **k):
+            if phase not in ("fwd", "bwd"):
+                return inner(direction, h, phase, *a, **k)
+            import torch
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = inner(direction, h, phase, *a, **k)
+            ev[1].record()
+            self.spans.append(tuple(ev))
+            return out
+        op.apply_dir = timed
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.spans]
+
+
+def halo_rank(ctx, cfg, path, reps):
+    """[halo]'s rank body: this rank's part of the P=4 main path's
+    artifacts, loaded once. (a) One exchange of random rows at H=n_hidden
+    on epoch 0's plan under each strategy: forward bitwise padded's,
+    backward within 1e-6 of it (of the largest value), timed over `reps`
+    calls. (b) Each of HALO_VARIANTS for HALO_EPOCHS epochs through
+    run.train_loop from the same initial parameters, layouts lent between
+    variants of one SpMM; the split variants first hold K1 and K2 on their
+    interior and frontier layouts to the plain versions, then time each
+    side's passes by CUDA events. Launch counts are reset just before each
+    loop and read just after."""
+    import torch
+    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
+    from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+    from bnsgcn_tpu_torch.parallel import halo
+    from bnsgcn_tpu_torch.run import prepare_part, train_loop
+    from bnsgcn_tpu_torch.utils import prng
+    dev, me, comm = ctx.device, ctx.rank, ctx.comm
+    lines = []
+
+    def log(m):
+        if me == 0:
+            lines.append(str(m))
+            ctx.log(m)
+
+    t0 = time.perf_counter()
+    art = load_artifacts(path, parts=[me])
+    out = {"rank": me, "load_s": time.perf_counter() - t0, "exchange": {},
+           "variants": {}}
+    H = cfg.n_hidden
+    bnd = torch.from_numpy(art.bnd[0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(4321 + me)
+    h = torch.randn((art.pad_inner, H), generator=gen, device=dev)
+    cot = torch.randn((art.n_ext, H), generator=gen, device=dev)
+    ref = None
+    for strategy in ("padded", "shift", "ragged"):
+        spec, tables = halo.make_halo_spec(art.n_b, art.pad_inner,
+                                           art.pad_boundary,
+                                           cfg.sampling_rate, strategy)
+        plan = halo.make_halo_plan(spec, halo.tables_to(tables, dev), bnd,
+                                   me, 0, prng.key(cfg.seed, dev))
+        x = h.clone().requires_grad_(True)
+        y = halo.halo_apply(spec, plan, x, comm)
+        (y * cot).sum().backward()
+        got = (y.detach(), x.grad)
+        if ref is None:
+            ref, err = got, 0.0
+        else:
+            if not torch.equal(got[0], ref[0]):
+                raise AssertionError(f"[halo] rank {me}: the {strategy} "
+                                     f"exchange's output differs from "
+                                     f"padded's")
+            err = float((got[1] - ref[1]).abs().max()
+                        / ref[1].abs().max().clamp(min=1e-30))
+            if not err <= 1e-6:
+                raise AssertionError(f"[halo] rank {me}: the {strategy} "
+                                     f"exchange's backward is {err:.3e} "
+                                     f"(relative) from padded's")
+        out["exchange"][strategy] = {
+            "bwd_rel_err": err, "wire_mb": halo.wire_bytes(spec, H) / 1e6,
+            "ms": cuda_ms(lambda: halo.halo_apply(spec, plan, h, comm),
+                          reps)}
+    lent, widths = {}, (H, art.n_feat)
+    for name, flags in HALO_VARIANTS:
+        c = cfg.replace(**flags)
+        t0 = time.perf_counter()
+        pr = prepare_part(c, art, None, dev, log, me, comm,
+                          reuse=lent.get((c.spmm, c.overlap)))
+        lent.setdefault((c.spmm, c.overlap), pr.fns)
+        rec = {"setup_s": time.perf_counter() - t0,
+               "overlap": pr.fns.overlap, "strategy": pr.fns.halo_strategy,
+               "wire_mb": (0.0 if pr.fns.halo is None else
+                           halo.wire_bytes(pr.fns.halo, H) / 1e6),
+               "steady_mb": (0.0 if c.halo_mode == "grad-only" else
+                             halo.wire_bytes(pr.fns.halo_refresh_spec or
+                                             pr.fns.halo, H) / 1e6)}
+        timers = None
+        if pr.fns.overlap == "split":
+            rec["check"], rec["detail"] = split_kernel_check(pr, gen, widths)
+            # the part's real rows on the interior side (merge_perm below
+            # the interior row space's size)
+            op = pr.fns.spmm.interior
+            n_int = op.fwd.n_rows if hasattr(op, "fwd") else op.rows[
+                "fwd"].n_rows
+            n_real = int(art.n_inner[me])
+            rec["rows"] = (int((pr.fns.spmm.merge_perm[:n_real] < n_int)
+                               .sum()), n_real)
+            timers = {"interior": SideTimer(pr.fns.spmm.interior),
+                      "frontier": SideTimer(pr.fns.spmm.frontier)}
+        n = len(lines)
+        bucket_sum.launches.reset()
+        tile_matmul.launches.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, _ = train_loop(pr, None, log)
+        rec.update(
+            losses=res.losses, epoch_times=res.epoch_times,
+            comm_times=res.comm_times, reduce_times=res.reduce_times,
+            launches={"K1": dict(bucket_sum.launches.by_phase),
+                      "K2": dict(tile_matmul.launches.by_phase)},
+            kinds={"K1": dict(bucket_sum.launches.by_kind),
+                   "K2": dict(tile_matmul.launches.by_kind)},
+            max_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            lines=lines[n:])
+        if timers is not None:
+            rec["side_ms"] = {k: t.ms() for k, t in timers.items()}
+        out["variants"][name] = rec
+        del pr, res
+        torch.cuda.empty_cache()
+    lent.clear()
+    return out
+
+
+def _span(xs, fmt="{:.1f}"):
+    """min–max of per-rank values, as text."""
+    lo, hi = min(xs), max(xs)
+    return fmt.format(lo) if lo == hi else f"{fmt.format(lo)}–{fmt.format(hi)}"
+
+
+def halo_phase(main4, args):
+    """[halo]: the exchange's variants on the P=4 main path's artifacts
+    (the flagship's command line: --inductive, rate 0.1, GraphSAGE 4x256
+    with use_pp, f32, seed 0), in one spawned group of 4 ranks sharing the
+    card over gloo (halo_rank). Checks: shift and ragged move padded's
+    rows bitwise; their losses, and --overlap split's against off on the
+    hybrid and on ELL, agree to HALO_RTOL (relative); K1 and K2 on the
+    split layouts agree with their plain versions; each variant launches
+    K1 and K2 once per aggregation (the split ones once per side), and the
+    ELL ones no K2; --halo-refresh K logs one full-refresh epoch, at the
+    start, and ships fewer bytes steady; grad-only opens no exchange span
+    in its steps; rate 0.0 trains as grad-only does. Prints each
+    variant's wire MB (peak and steady), Comm(s), epoch and peak memory,
+    and for split the interior and frontier passes' ms beside the exchange
+    span's and how much of the exchange they hid."""
+    from bnsgcn_tpu_torch.data.artifacts import read_meta
+    from bnsgcn_tpu_torch.parallel.mesh import launch
+    from bnsgcn_tpu_torch.run import artifacts_dir
+    from bnsgcn_tpu_torch.trainer import resolve_strategy
+    t0 = time.perf_counter()
+    cfg = main4.replace(n_epochs=HALO_EPOCHS, log_every=10 ** 6, eval=False)
+    path = artifacts_dir(cfg)
+    meta = read_meta(path)
+    pick, why = resolve_strategy(cfg.replace(halo_exchange="auto"),
+                                 meta.n_b, meta.pad_inner,
+                                 meta.pad_boundary, cfg.sampling_rate)
+    log(f"[halo] --halo-exchange auto at rate {cfg.sampling_rate} on the "
+        f"main path's {PARTS} parts: {pick} ({why})")
+    ranks = launch(halo_rank, PARTS, [(cfg, path, args.reps)] * PARTS,
+                   cfg.dist_backend, cfg.device, log=log)
+    for s in ("shift", "ragged"):
+        x = [r["exchange"][s] for r in ranks]
+        p = [r["exchange"]["padded"] for r in ranks]
+        log(f"[halo] {s} on epoch 0's plan: every rank's output bitwise "
+            f"padded's, backward within "
+            f"{max(v['bwd_rel_err'] for v in x):.1e} (relative); one "
+            f"exchange at H={cfg.n_hidden} {_span([v['ms'] for v in x], '{:.2f}')}"
+            f" ms beside padded's {_span([v['ms'] for v in p], '{:.2f}')} "
+            f"(events, reps {args.reps}); wire {x[0]['wire_mb']:.2f} MB "
+            f"(padded {p[0]['wire_mb']:.2f})")
+    var = {name: [r["variants"][name] for r in ranks]
+           for name, _ in HALO_VARIANTS}
+    passes = (cfg.n_layers - 1) * cfg.n_epochs
+    for name, flags in HALO_VARIANTS:
+        recs = var[name]
+        losses = recs[0]["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[halo] {name}: non-finite loss {losses}")
+        sides = 2 if recs[0]["overlap"] == "split" else 1
+        k1 = {"fwd": sides * passes, "bwd": sides * passes, "pre": sides}
+        want = {"K1": k1, "K2": k1 if flags.get("spmm") != "ell" else {}}
+        for r in recs:
+            if r["launches"] != want:
+                raise AssertionError(f"[halo] {name}: launches "
+                                     f"{r['launches']}, not {want}")
+        ep = [mean_from_1(r["epoch_times"]) * 1e3 for r in recs]
+        ex = [mean_from_1(r["comm_times"]) * 1e3 for r in recs]
+        mem = [r["max_memory_gib"] for r in recs]
+        log(f"[halo] {name} ({recs[0]['strategy']}"
+            f"{'+ovl' if recs[0]['overlap'] == 'split' else ''}): wire "
+            f"{recs[0]['wire_mb']:.2f} MB per exchange at peak, "
+            f"{recs[0]['steady_mb']:.2f} steady; Comm(s) {_span(ex)} ms, "
+            f"epoch {_span(ep)} ms (means of epochs 1..), peak memory "
+            f"{_span(mem, '{:.2f}')} GiB (with the layouts held for later "
+            f"variants); losses "
+            + " ".join(f"{v:.6f}" for v in losses)
+            + f"; layout set-up {_span([r['setup_s'] for r in recs])} s")
+    checks = []
+    for name, base in (("shift", "padded"), ("ragged", "padded"),
+                       ("split", "padded"), ("ell+split", "ell"),
+                       ("rate0", "grad-only")):
+        a, b = var[name][0]["losses"], var[base][0]["losses"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        if not rel <= HALO_RTOL:
+            raise AssertionError(f"[halo] {name}'s losses {a} differ from "
+                                 f"{base}'s {b} by {rel:.3e} (relative)")
+        checks.append((name, base, rel))
+    log("[halo] losses agree (relative): " + ", ".join(
+        f"{a} vs {b} {rel:.1e}" for a, b, rel in checks)
+        + f" <= {HALO_RTOL}")
+    for r in var["grad-only"]:
+        if any(c != 0.0 for c in r["comm_times"]):
+            raise AssertionError(f"[halo] grad-only opened an exchange "
+                                 f"span: {r['comm_times']}")
+    for K in (2, 4):
+        lines = var[f"hr{K}"][0]["lines"]
+        full = [ln for ln in lines if "halo cache: full refresh" in ln]
+        if (full != [f"  halo cache: full refresh at epoch 0 (start); next "
+                     f"{K - 1}+ epochs reuse cached blocks"]
+                or not var[f"hr{K}"][0]["steady_mb"]
+                < var[f"hr{K}"][0]["wire_mb"]):
+            raise AssertionError(f"[halo] hr{K}: full-refresh lines {full}")
+    log("[halo] --halo-refresh 2 and 4: one full-refresh epoch (0, "
+        "'start'), the cached epochs after; grad-only: no exchange span in "
+        "its steps (Comm(s) 0)")
+    split = {}
+    for name, base in (("split", "padded"), ("ell+split", "ell")):
+        rows = []
+        for r, b in zip(var[name], var[base]):
+            ms = {k: v for k, v in r["side_ms"].items()}
+            n_agg = 2 * (cfg.n_layers - 1)          # passes per epoch
+            per = {k: sum(v[n_agg:]) / max(cfg.n_epochs - 1, 1)
+                   for k, v in ms.items()}
+            ex_s = mean_from_1(r["comm_times"]) * 1e3
+            ex_o = mean_from_1(b["comm_times"]) * 1e3
+            hidden = per["interior"] + ex_o - ex_s
+            rows.append({"interior_ms": per["interior"],
+                         "frontier_ms": per["frontier"],
+                         "exchange_ms": ex_s, "exchange_off_ms": ex_o,
+                         "hidden_ms": hidden, "check": r["check"],
+                         "interior_rows": r["rows"][0],
+                         "rows": r["rows"][1]})
+        split[name] = rows
+        share = [x["interior_rows"] / max(x["rows"], 1) for x in rows]
+        log(f"[halo] {name}, per epoch (means of epochs 1.., events, "
+            f"forward and backward): interior rows {_span(share, '{:.1%}')}"
+            f" of each part's; interior {_span([x['interior_ms'] for x in rows])}"
+            f" ms, frontier {_span([x['frontier_ms'] for x in rows])} ms, "
+            f"the exchange span {_span([x['exchange_ms'] for x in rows])} ms "
+            f"against {base}'s {_span([x['exchange_off_ms'] for x in rows])};"
+            f" hidden (interior + {base}'s exchange - this exchange) "
+            f"{_span([x['hidden_ms'] for x in rows])} ms; K1 and K2 on the "
+            f"interior and frontier layouts within their bounds (max abs err "
+            f"K1 {max(x['check']['K1'][0] for x in rows):.3e}, K2 "
+            f"{max(x['check']['K2'][0] for x in rows):.3e})")
+    log(f"[halo] done in {time.perf_counter() - t0:.1f} s")
+    return {"auto": [pick, why], "ranks": [
+        {k: v for k, v in r.items() if k != "variants"} for r in ranks],
+        "variants": {name: [{k: v for k, v in x.items()
+                             if k not in ("detail", "lines")} for x in recs]
+                     for name, recs in var.items()},
+        "split": split}
+
+
 def anchor_phase(work):
     """[anchor]: the JAX package's calibrated accuracy gate on the card
     (bnsgcn_tpu_torch/anchor.py; tests/test_accuracy_anchor.py's bands):
@@ -2723,13 +3073,17 @@ def main(argv=None) -> int:
                 + [rec1["launches"]]
                 + [x["launches"] for x in parts["recipe"]["ranks"]]
                 + parts["meval"]["launches"] + yelp["launches"]
-                + papers["launches"]):
+                + papers["launches"]
+                + [x["kinds"] for recs in parts["halo"]["variants"].values()
+                   for x in recs]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
     # the largest error of each kernel's checks, P=1's and every rank's
     hooks = ([rep["hook"] for rep in res4.ranks]
-             + yelp["rank_checks"])
+             + yelp["rank_checks"]
+             + [x["check"] for rows in parts["halo"]["split"].values()
+                for x in rows])
     errs = {"ell_bucket_sum": max([e1[0]] + [h["K1"][0] for h in hooks]),
             "tile_matmul": max([e2[0]] + [h["K2"][0] for h in hooks]),
             "bucket_reduce": e3, "copy_probe": 0.0}

@@ -119,7 +119,7 @@ def test_subcommands_exit_2_by_name(name, capsys):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--halo-mode", "grad-only"], "--halo-mode grad-only"),
+    (["--strict-exec"], "--strict-exec"),
     (["--norm", "batch"], "--norm batch"),
     (["--no-comm-trace", "--remat"], "--remat"),
     (["--serve-port", "9"], "--serve-port 9"),

@@ -973,3 +973,172 @@ def test_eval_devices_agree_on_the_card_at_p2(cuda, tmp_path, inductive):
     assert out["mesh"][0] == out["host"][0] and len(out["mesh"][0]) == 5
     assert out["mesh"][1] == out["host"][1]
     np.testing.assert_allclose(out["mesh"][2], out["host"][2], rtol=1e-6)
+
+
+SKEW = dict(n_nodes=120, avg_degree=7, n_feat=6, seed=41, power_law=True)
+SKEW_SIZES = (60, 30, 20, 10)
+
+
+def _skew_art():
+    g = synthetic_graph(**SKEW)
+    return build_artifacts(g, np.repeat(np.arange(4), SKEW_SIZES)
+                           .astype(np.int32))
+
+
+def _split_op(art, p, kind, device):
+    """The --overlap split operator of part p (ELL, or hybrid with 16-wide
+    tiles) on `device`."""
+    from bnsgcn_tpu_torch.ops.spmm import SplitSpmm
+    from bnsgcn_tpu_torch.trainer import _sub, to_device
+    src, dst = art.src[p:p + 1], art.dst[p:p + 1]
+    ni, n_ext = art.pad_inner, art.n_ext
+    if kind == "ell":
+        (i_f, i_b), (r_f, r_b), arrays, _, _ = t_ell.build_split_layouts(
+            src, dst, ni, n_ext)
+        ops = (t_ell.EllSpmm(i_f, i_b, to_device(_sub(arrays, "int_"),
+                                                 device)),
+               t_ell.EllSpmm(r_f, r_b, to_device(_sub(arrays, "fro_"),
+                                                 device)))
+    else:
+        pi, pe = block_spmm.cluster_order(src[0], dst[0], ni, n_ext,
+                                          target=16, log=lambda m: None)
+        ints, fros, arrays, _, _ = block_spmm.build_split_block_layouts(
+            src, dst, ni, n_ext, pi[None], pe[None], occupancy_min=2,
+            tile_r=16, tile_c=16)
+        ops = (block_spmm.BlockSpmm(*ints, to_device(_sub(arrays, "int_"),
+                                                     device)),
+               block_spmm.BlockSpmm(*fros, to_device(_sub(arrays, "fro_"),
+                                                     device)))
+    return SplitSpmm(*ops, torch.from_numpy(arrays["merge_perm"][0]).to(
+        device), ni)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ell", "hybrid"])
+def test_split_layouts_through_the_kernels(cuda, kind):
+    """K1 (and K2 on the hybrid) on the interior and frontier layouts of
+    every part of a skewed partition, forward and backward through the
+    split operator, against the same operator's plain versions on the
+    CPU; each side launches its kernels once per pass."""
+    art = _skew_art()
+    rng = np.random.default_rng(3)
+    for p in range(4):
+        h = rng.normal(size=(art.n_ext, 64)).astype(np.float32)
+        cot = rng.normal(size=(art.pad_inner, 64)).astype(np.float32)
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            op = _split_op(art, p, kind, dev)
+            k1_launches.reset()
+            k2_launches.reset()
+            x = torch.from_numpy(h).to(dev).requires_grad_(True)
+            y = op(x)
+            (y * torch.from_numpy(cot).to(dev)).sum().backward()
+            outs.append((y.detach().cpu().numpy(), x.grad.cpu().numpy()))
+            if dev.type == "cuda":
+                assert k1_launches.by_phase == {"fwd": 2, "bwd": 2}
+                assert k2_launches.by_phase == (
+                    {} if kind == "ell" else {"fwd": 2, "bwd": 2})
+        np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
+        np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)
+
+
+def _variants_job(ctx, path, h, cot):
+    """Every strategy x wire's exchange and VJP, synchronous (halo_apply)
+    and cut at the seam (HaloFlight), on this rank's part at rate 0.5."""
+    from bnsgcn_tpu_torch.parallel.halo import HaloFlight
+    art = load_artifacts(path, parts=[ctx.rank])
+    bnd = torch.from_numpy(art.bnd[0]).to(ctx.device)
+    out = {}
+    for strategy in ("padded", "shift", "ragged"):
+        for wire in ("native", "bf16", "int8", "fp8"):
+            spec, tables = make_halo_spec(art.n_b, art.pad_inner,
+                                          art.pad_boundary, 0.5, strategy,
+                                          wire)
+            plan = make_halo_plan(spec, tables, bnd, ctx.rank, 1,
+                                  prng.key(0, ctx.device))
+            x = torch.from_numpy(h[ctx.rank]).to(ctx.device)
+            c = torch.from_numpy(cot[ctx.rank]).to(ctx.device)
+            for seam in (False, True):
+                xg = x.clone().requires_grad_(True)
+                if seam:
+                    flight = HaloFlight(spec, plan, ctx.comm)
+                    flight.start(xg)
+                    y = torch.cat([xg, flight.finish()])
+                else:
+                    y = halo_apply(spec, plan, xg, ctx.comm)
+                (y * c).sum().backward()
+                out[strategy, wire, seam] = (y.detach().cpu().numpy(),
+                                             xg.grad.cpu().numpy())
+    return out
+
+
+def _within_code_step(got, want, wire, what):
+    """A quantized wire's exchange on the card against the CPU's: the
+    card's division by a scalar multiplies by its reciprocal, so a block's
+    scale may sit one f32 ulp off the CPU's and a value on a rounding tie
+    may take the neighbouring code: within one int8 step of the largest
+    value, or one e4m3 step (2^-3) of the value."""
+    amax = float(np.abs(want).max())
+    tol = (amax / 127 * 1.001 if wire == "int8" else
+           2.0 ** -3 * np.abs(want) + 1e-5 * amax)
+    assert (np.abs(got - want) <= tol).all(), what
+
+
+@pytest.mark.cuda
+def test_shift_and_ragged_exchanges_on_the_card(cuda, tmp_path):
+    """Four ranks sharing the card over gloo (shift's sends and receives
+    staged through host buffers, ragged's split-size all-to-all taken by
+    gloo itself), under every wire, synchronously and through the async
+    seam: on the card every strategy's forward is bitwise padded's and its
+    backward within 1e-6; against four CPU ranks the native and bf16
+    wires' forward is bitwise and their backward within 1e-6, the int8 and
+    fp8 wires' forward within one code step (_within_code_step)."""
+    art = _skew_art()
+    save_artifacts(art, str(tmp_path))
+    rng = np.random.default_rng(0)
+    h = rng.normal(size=(4, art.pad_inner, 8)).astype(np.float32)
+    cot = rng.normal(size=(4, art.n_ext, 8)).astype(np.float32)
+    args = [(str(tmp_path), h, cot)] * 4
+    on_card = launch(_variants_job, 4, args, "gloo", "cuda")
+    on_cpu = launch(_variants_job, 4, args, "gloo", "cpu")
+    for got, want in zip(on_card, on_cpu):
+        assert sorted(got) == sorted(want)
+        for k in got:
+            strategy, wire, seam = k
+            pad = got["padded", wire, seam]
+            np.testing.assert_array_equal(got[k][0], pad[0], err_msg=str(k))
+            np.testing.assert_allclose(got[k][1], pad[1], rtol=1e-6,
+                                       atol=1e-6, err_msg=str(k))
+            if wire in ("native", "bf16"):
+                np.testing.assert_array_equal(got[k][0], want[k][0],
+                                              err_msg=str(k))
+                np.testing.assert_allclose(got[k][1], want[k][1], rtol=1e-6,
+                                           atol=1e-6, err_msg=str(k))
+            else:
+                _within_code_step(got[k][0], want[k][0], wire, k)
+    assert np.abs(on_cpu[0]["shift", "native", True][0][
+        art.pad_inner:]).sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_chunk", [0, 512])
+def test_segment_spmm_on_the_card_within_tolerance(cuda, edge_chunk):
+    """--spmm segment (CooSpmm, plain index_add_, no kernel) on the card
+    against the CPU, forward and backward: the card adds with atomics, in
+    no fixed order, so the two agree within TOL, not bitwise."""
+    from bnsgcn_tpu_torch.ops.spmm import CooSpmm
+    art = _skew_art()
+    rng = np.random.default_rng(4)
+    h = rng.normal(size=(art.n_ext, 32)).astype(np.float32)
+    cot = rng.normal(size=(art.pad_inner, 32)).astype(np.float32)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        op = CooSpmm(torch.from_numpy(art.src[1]).to(dev),
+                     torch.from_numpy(art.dst[1]).to(dev), art.pad_inner,
+                     edge_chunk)
+        x = torch.from_numpy(h).to(dev).requires_grad_(True)
+        y = op(x)
+        (y * torch.from_numpy(cot).to(dev)).sum().backward()
+        outs.append((y.detach().cpu().numpy(), x.grad.cpu().numpy()))
+    np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)

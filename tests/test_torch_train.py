@@ -174,14 +174,14 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-exchange",
-     "shift"], ["--replicas", "2"], ["--edge-chunk", "1024"],
-    ["--spmm", "segment"], ["--tune", "auto"],
-    ["--overlap", "split"], ["--reorder", "cluster"], ["--norm", "batch"],
-    ["--halo-exchange", "auto"], ["--halo-exchange", "ragged"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--remat"],
+    ["--replicas", "2"], ["--strict-exec"],
+    ["--profile-dir", "d"], ["--tune", "auto"],
+    ["--elastic", "on"], ["--reorder", "cluster"], ["--norm", "batch"],
+    ["--inject", "nan@E5"], ["--obs-dir", "d"],
     ["--feat", "2"],
-    ["--n-partitions", "4", "--dist-backend", "gloo", "--halo-refresh",
-     "2"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--serve-port",
+     "18121"],
 ])
 def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
@@ -209,12 +209,12 @@ def test_reduced_precision_flags_train_on_cpu(flags, capsys, tmp_path):
     assert f"{'bfloat16' if '--dtype' in flags else 'float32'} spmm=" in out
 
 
-@pytest.mark.parametrize("rate", ["0", "1.5", "-0.1", "nan"])
+@pytest.mark.parametrize("rate", ["-0.000001", "1.5", "-0.1", "nan"])
 def test_sampling_rate_outside_0_1_exits_2(rate, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu", "--n-partitions",
                       "4", "--dist-backend", "gloo", "--sampling-rate", rate])
     assert rc == 2
-    assert "--sampling-rate must be in (0, 1]" in capsys.readouterr().err
+    assert "--sampling-rate must be in [0, 1]" in capsys.readouterr().err
 
 
 def test_entry_point_trains_on_cpu_when_asked(capsys, tmp_path):
