@@ -12,9 +12,10 @@ the port's own entry point, run.run_training, over P ranks at a BNS rate,
 on random partitions, and returns the full-rate eval-mode validation
 accuracy of the final parameters. The gates: exact (P=1, rate 1.0, f32,
 ELL) in EXACT_BAND; BNS or the quantized stack within QUANT_TOL of exact.
-The weights and the draws are the port's (torch's init and dropout, the
-port's threefry BNS stream), so the accuracies are the port's own, held to
-the JAX package's bands.
+The weights and the draws are the JAX package's own (its init and
+dropout draws and its BNS stream, through the port's threefry), so the
+accuracies are the port's own arithmetic on the JAX package's draws, held
+to its bands.
 
 Two mutations reproduce ways the BNS math can silently break (the JAX
 harness's): `biased_sampler`, a first-k "sample" of each boundary list (a

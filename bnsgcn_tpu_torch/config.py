@@ -48,7 +48,7 @@ class Config:
     n_layers: int = 2
     n_hidden: int = 16
     n_linear: int = 0
-    norm: Optional[str] = "layer"       # 'layer' | None
+    norm: Optional[str] = "layer"       # 'layer' | 'batch' | None
     dropout: float = 0.5
     use_pp: bool = False
 
@@ -102,6 +102,11 @@ class Config:
                                         # (0 = tile*tile/512)
     block_tile_budget_mb: int = 2048    # hybrid: int8 tile budget per direction
     block_tile: int = 512               # hybrid: square tile edge
+    reorder: str = "off"                # 'auto' | 'cluster' | 'off': each
+                                        # part's rows in tile-packed
+                                        # cluster order (data/reorder.py)
+    remat: bool = False                 # recompute each layer's
+                                        # activations in the backward
 
     # --- where it runs ---
     n_nodes: int = 1                    # launchers (one per node)
@@ -145,11 +150,8 @@ class Config:
 # what those values select, and --backend names the JAX package's
 # collectives, a no-op here (--dist-backend picks the port's).
 _NOT_PORTED = (
-    (("norm",), ("layer", "none"), "SyncBatchNorm"),
-    (("reorder",), None, "graph reordering"),
     (("replicas",), None, "the replica axis"),
     (("feat",), None, "the feat axis"),
-    (("remat",), None, "rematerialization"),
     (("profile_dir",), None, "profiler traces"),
     (("comm_trace",), (True, False), "traced comm columns"),
     (("strict_exec",), None, "the strict-execution guard"),

@@ -16,8 +16,24 @@ module/layer.py and module/model.py):
     edge-deterministic attention dropout, a bias, the mean over heads.
     use_pp is always on: training's layer 0 attends over the precompute's
     full-rate raw halo features (GraphEnv.gat_feat0);
-  * stack: dropout -> exchange -> layer -> LayerNorm -> ReLU, with an
-    optional dense tail of n_linear layers.
+  * stack: dropout -> exchange -> layer -> LayerNorm or SyncBatchNorm ->
+    ReLU, with an optional dense tail of n_linear layers. SyncBatchNorm
+    (the reference's module/sync_bn.py, the JAX package's
+    `_sync_batch_norm`) takes its moments over the real rows of every rank
+    (one all-reduce per layer, GraphEnv.bn_sum) over the global n_train;
+    its running mean and variance are f32 buffers of the norm module.
+
+The random draws are the JAX package's own (utils/prng.py, ops/dropout.py):
+`init_params` draws the JAX parameter tree of `init_params(key(seed))`
+element for element, and a training forward splits the step's key
+(GraphEnv.rng) into one key per layer, a GAT layer's into its three
+(feat dropout of the extended rows, of the dst rows, the attention
+dropout's hash seeds). Dropout runs kernel D1 on a card. With
+GraphEnv.remat each layer of a training forward runs under
+torch.utils.checkpoint (the JAX package's jax.checkpoint per layer): its
+activations are recomputed in the backward, its collectives rerun, its
+dropout masks redrawn from the same keys, and its new BN statistics leave
+as outputs of the forward.
 
 Parameters live in nn.Linear / nn.LayerNorm modules and GATLayer's
 parameters (w, attn_l, attn_r, bias in the JAX package's layout), named as
@@ -27,20 +43,24 @@ through GraphEnv.aggregate (the ELL, hybrid or segment SpMM in training,
 COO index_add_ in eval), or with the exchange through
 GraphEnv.agg_exchange (--overlap split), and GAT's through GraphEnv.attention (the ELL
 attention, ops/ell_attention.py) or, without it, the COO segment softmax
-over GraphEnv.src/dst. SyncBatchNorm waits for a later slice.
+over GraphEnv.src/dst.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bnsgcn_tpu_torch.config import Config
+from bnsgcn_tpu_torch.ops.dropout import dropout as _d1_dropout
 from bnsgcn_tpu_torch.ops.spmm import segment_softmax
+from bnsgcn_tpu_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -85,7 +105,9 @@ class GraphEnv:
     exchange: Callable[[int, torch.Tensor], torch.Tensor]
     aggregate: Optional[Callable[[torch.Tensor], torch.Tensor]]
     training: bool = True
-    generator: Optional[torch.Generator] = None   # dropout stream
+    # the step's dropout key (utils/prng.py words, an int64 tensor [2] on
+    # the host): fold_in(fold_in(key(seed + 1), epoch), rank)
+    rng: Optional[torch.Tensor] = None
     # GAT: the extended rows present this epoch (inner rows and the sampled
     # halo slots), [n_src_ext] bool, None = all; the precompute's raw
     # features with their full-rate halo rows (training's layer 0); the ELL
@@ -100,6 +122,11 @@ class GraphEnv:
     # exchange and the sum-aggregation in one (--overlap split's interior /
     # frontier layer body); None runs exchange, then aggregate
     agg_exchange: Optional[Callable] = None
+    # SyncBatchNorm: the real rows [n_dst] bool, and the sum of the stacked
+    # moments [2, d] over the ranks (None at P=1)
+    inner_mask: Optional[torch.Tensor] = None
+    bn_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    remat: bool = False                # per-layer checkpoint in training
 
 
 class SageLayer(nn.Module):
@@ -122,16 +149,40 @@ class GATLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros(heads * fout))
 
 
+class BatchNorm(nn.Module):
+    """SyncBatchNorm's parameters (weight = the JAX 'scale', bias) and its
+    running statistics, buffers `mean` and `var` that stay float32
+    whatever dtype the module is cast to (the JAX package's f32
+    `bn_state`)."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+        self.register_buffer("mean", torch.zeros(n))
+        self.register_buffer("var", torch.ones(n))
+
+    def _apply(self, fn, *args, **kw):
+        mean, var = self.mean, self.var
+        super()._apply(fn, *args, **kw)
+        # a device move, never a cast
+        self.mean = mean.to(self.weight.device)
+        self.var = var.to(self.weight.device)
+        return self
+
+
 class GNN(nn.Module):
     """Modules layer_{i} (nn.Linear, SageLayer or GATLayer) and norm_{i}
-    (LayerNorm)."""
+    (LayerNorm or BatchNorm), initialized from the JAX key of `seed` as
+    the JAX package's init_params(key(seed)) draws them, in `dtype`'s
+    draw."""
 
-    def __init__(self, spec: ModelSpec,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, spec: ModelSpec, seed: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if spec.model not in ("gcn", "graphsage", "gat"):
             raise ValueError(f"model {spec.model!r} is not ported yet")
-        if spec.norm not in ("layer", None):
+        if spec.norm not in ("layer", "batch", None):
             raise ValueError(f"norm {spec.norm!r} is not ported yet")
         self.spec = spec
         for i in range(spec.n_layers):
@@ -148,48 +199,70 @@ class GNN(nn.Module):
             self.add_module(f"layer_{i}", layer)
             if i < spec.n_layers - 1 and spec.norm == "layer":
                 self.add_module(f"norm_{i}", nn.LayerNorm(fout, eps=1e-5))
-        init_params(self, generator)
+            elif i < spec.n_layers - 1 and spec.norm == "batch":
+                self.add_module(f"norm_{i}", BatchNorm(fout))
+        init_params(self, prng.key(seed), dtype)
 
 
-def _xavier_normal(p: torch.Tensor, fan_in: int, fan_out: int, gain: float,
-                   generator):
+def _linear_init(lin: nn.Linear, key, dtype):
+    """The JAX package's `_linear_init`: kw, kb = split(key); W [fin, fout]
+    and b uniform on +-1/sqrt(fin), W transposed into nn.Linear."""
+    kw, kb = prng.split(key)
+    bound = 1.0 / lin.in_features ** 0.5
+    w = prng.uniform(kw, (lin.in_features, lin.out_features), -bound, bound,
+                     dtype)
+    lin.weight.copy_(w.T)
+    lin.bias.copy_(prng.uniform(kb, lin.out_features, -bound, bound, dtype))
+
+
+def _xavier_normal(p: torch.Tensor, key, fan_in: int, fan_out: int,
+                   gain: float, dtype):
     std = gain * (2.0 / (fan_in + fan_out)) ** 0.5
-    p.copy_(std * torch.randn(p.shape, generator=generator))
+    p.copy_(torch.tensor(std, dtype=dtype) * prng.normal(key, p.shape, dtype))
 
 
-def init_params(model: GNN, generator: Optional[torch.Generator] = None):
-    """uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every Linear's weight
-    and bias; a GAT layer's w, attn_l and attn_r Xavier-normal with gain
-    sqrt(2) and its bias 0; in layer order (the laws of the JAX package's
-    `_linear_init` and `_xavier_normal`; its threefry draws are not
-    reproduced). LayerNorm starts at (1, 0)."""
+def init_params(model: GNN, key: torch.Tensor,
+                dtype: torch.dtype = torch.float32):
+    """The JAX package's init_params(key, spec, dtype)
+    (bnsgcn_tpu/models/gnn.py:183-223), draw for draw: one key per layer
+    (split(key, n_layers)); a Linear uniform on +-1/sqrt(fan_in) (weight,
+    then bias, from split(layer key)); GraphSAGE's linear1 and linear2 from
+    split(layer key); a GAT layer's w, attn_l and attn_r Xavier-normal with
+    gain sqrt(2) from split(layer key, 3), its bias 0. The values are drawn
+    in `dtype` (a bf16 run draws bf16, as jax does) and stored in the
+    parameters' dtype. A norm starts at (1, 0), SyncBatchNorm's running
+    statistics at (0, 1)."""
+    spec = model.spec
+    keys = prng.split(key, spec.n_layers)
     with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, nn.Linear):
-                bound = 1.0 / mod.in_features ** 0.5
-                nn.init.uniform_(mod.weight, -bound, bound, generator=generator)
-                nn.init.uniform_(mod.bias, -bound, bound, generator=generator)
-            elif isinstance(mod, GATLayer):
+        for i in range(spec.n_layers):
+            layer = getattr(model, f"layer_{i}")
+            if isinstance(layer, nn.Linear):
+                _linear_init(layer, keys[i], dtype)
+            elif isinstance(layer, SageLayer):
+                k1, k2 = prng.split(keys[i])
+                _linear_init(layer.linear1, k1, dtype)
+                _linear_init(layer.linear2, k2, dtype)
+            else:
+                kf, kl, kr = prng.split(keys[i], 3)
                 g2 = 2.0 ** 0.5
-                _xavier_normal(mod.w, mod.fin, mod.heads * mod.fout, g2,
-                               generator)
-                for a in (mod.attn_l, mod.attn_r):
-                    _xavier_normal(a, mod.fout, 1, g2, generator)
-                mod.bias.zero_()
+                _xavier_normal(layer.w, kf, layer.fin,
+                               layer.heads * layer.fout, g2, dtype)
+                _xavier_normal(layer.attn_l, kl, layer.fout, 1, g2, dtype)
+                _xavier_normal(layer.attn_r, kr, layer.fout, 1, g2, dtype)
+                layer.bias.zero_()
 
 
 # ----------------------------------------------------------------------------
 # building blocks
 # ----------------------------------------------------------------------------
 
-def _dropout(h, rate, generator, training):
-    # in the activations' dtype, as the JAX package's `_dropout`
-    if not training or rate <= 0.0:
+def _dropout(h, rate, rng, training):
+    """The JAX package's `_dropout`: jax's bernoulli mask of `rng`, in the
+    activations' dtype (ops/dropout.py, D1 on a card)."""
+    if not training or rate <= 0.0 or rng is None:
         return h
-    keep = 1.0 - rate
-    mask = torch.empty_like(h).bernoulli_(keep, generator=generator).bool()
-    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
-                                                   device=h.device))
+    return _d1_dropout(h, rng, rate)
 
 
 def _layer_norm(p: nn.LayerNorm, h, eps=1e-5):
@@ -199,6 +272,43 @@ def _layer_norm(p: nn.LayerNorm, h, eps=1e-5):
     var = ((hf - mu) ** 2).mean(-1, keepdim=True)
     out = (hf - mu) / torch.sqrt(var + eps) * p.weight + p.bias
     return out.to(h.dtype)
+
+
+def _sync_batch_norm(p: BatchNorm, h, env: GraphEnv, whole_size: int,
+                     momentum: float = 0.1, eps: float = 1e-5):
+    """The JAX package's `_sync_batch_norm` (module/sync_bn.py:10-28):
+    (output, new (mean, var) or None). Training: the moments of the real
+    rows (env.inner_mask), summed over the ranks in one all-reduce of the
+    stacked [sum_x, sum_x2] (env.bn_sum), over whole_size = the global
+    n_train; the reference's variance estimate clamped at 0; new running
+    statistics (momentum 0.1) in f32, returned, never written here (a
+    rematerialized layer reruns this). Eval: the running statistics. Sums
+    in f32 rounded to h's dtype once, and the arithmetic in h's dtype, as
+    jnp computes them."""
+    dt = h.dtype
+    if env.training:
+        if whole_size <= 0:
+            raise ValueError("SyncBatchNorm requires train_size (global "
+                             "n_train) > 0")
+        hm = (h if env.inner_mask is None else
+              torch.where(env.inner_mask[:, None], h,
+                          torch.zeros((), dtype=dt, device=h.device)))
+        sums = torch.stack([hm.float().sum(0), (hm * hm).float().sum(0)])
+        sums = sums.to(dt)
+        if env.bn_sum is not None:
+            sums = env.bn_sum(sums)
+        sum_x, sum_x2 = sums[0], sums[1]
+        mean = sum_x / whole_size
+        var = torch.clamp((sum_x2 - mean * sum_x) / whole_size, min=0.0)
+        m = torch.tensor(momentum, dtype=dt, device=h.device)
+        keep = torch.tensor(1.0 - momentum, device=h.device)
+        new = (keep * p.mean + m * mean.detach(),
+               keep * p.var + m * var.detach())
+    else:
+        mean, var, new = p.mean, p.var, None
+    eps_t = torch.tensor(eps, dtype=var.dtype, device=h.device)
+    x_hat = (h - mean) / torch.sqrt(var + eps_t)
+    return x_hat * p.weight + p.bias, new
 
 
 def _linear(p: nn.Linear, h):
@@ -237,7 +347,7 @@ def _sage_layer(p: SageLayer, i, h, env: GraphEnv):
     return _linear(p.linear1, h[:env.n_dst]) + _linear(p.linear2, ah)
 
 
-def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv,
+def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
                dropout: float, training: bool, negative_slope: float = 0.2):
     """The GATConv equivalent over the extended (inner + halo) rows
     (the JAX package's `_gat_layer`, without the feat axis): [n_dst, H,
@@ -246,21 +356,23 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv,
     the same stream. In eval the dst projection is z's prefix (h_dst is
     h_ext's prefix, no dropout). The segment path's attention dropout is
     `_dropout` (the JAX package's `_dropout_heads` at the full head
-    width)."""
+    width). The three draws use r1, r2, r3 = split(rng, 3), the attention
+    hash the two words of r3."""
     heads, fout = p.heads, p.fout
-    gen = env.generator
-    h_ext = _dropout(h_ext, dropout, gen, training)            # feat_drop
+    r1 = r2 = r3 = None
+    if training and rng is not None:
+        r1, r2, r3 = prng.split(rng, 3)
+    h_ext = _dropout(h_ext, dropout, r1, training)             # feat_drop
     z = _matmul(h_ext, p.w).reshape(h_ext.shape[0], heads, fout)
     el = (z * p.attn_l.to(z.dtype)[None]).sum(-1)              # [n_ext, H]
-    if training:
-        h_d = _dropout(h_dst, dropout, gen, training)
+    if r2 is not None:
+        h_d = _dropout(h_dst, dropout, r2, training)
         zd = _matmul(h_d, p.w).reshape(h_dst.shape[0], heads, fout)
     else:
         zd = z[:h_dst.shape[0]]
     er = (zd * p.attn_r.to(z.dtype)[None]).sum(-1)             # [n_dst, H]
-    seeds = (torch.randint(0, 2 ** 32, (2,), generator=gen,
-                           dtype=torch.int64, device=z.device)
-             if training and dropout > 0.0 else None)
+    seeds = (r3.to(z.device) if r3 is not None and dropout > 0.0
+             else None)
     bias = p.bias.to(z.dtype)
     if env.attention is not None:
         out = env.attention(z, el, er, presence, seeds, dropout, training,
@@ -272,7 +384,7 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv,
     e = torch.where(e > 0, e, e * negative_slope)
     alpha = segment_softmax(e, dst, env.n_dst,
                             None if presence is None else presence[src])
-    alpha = _dropout(alpha, dropout, gen, training)             # attn_drop
+    alpha = _dropout(alpha, dropout, r3, training)              # attn_drop
     out = z.new_zeros((env.n_dst + 1, heads * fout))
     step = max(1, (1 << 28) // max(heads * fout, 1))
     for e0 in range(0, src.shape[0], step):
@@ -285,21 +397,40 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv,
 # full forward
 # ----------------------------------------------------------------------------
 
-def apply_model(model: GNN, feat, env: GraphEnv, return_hidden: bool = False):
+def apply_model(model: GNN, feat, env: GraphEnv, return_hidden: bool = False,
+                return_state: bool = False):
     """Forward pass: logits [n_dst, n_class]; with return_hidden, also the
-    final layer's input (the embedding-table seam) as (logits, hidden)."""
+    final layer's input (the embedding-table seam) as (logits, hidden);
+    with return_state, also SyncBatchNorm's new running statistics
+    {'norm_i': (mean, var)} of a training forward (empty otherwise) last.
+    A training forward splits env.rng into one key per layer; under
+    env.remat each layer runs under torch.utils.checkpoint."""
+    spec = model.spec
     h = feat
     hidden = None
-    for i in range(model.spec.n_layers):
-        if i == model.spec.n_layers - 1:
+    state = {}
+    rngs = [None] * spec.n_layers
+    if env.training and env.rng is not None:
+        rngs = list(prng.split(env.rng, spec.n_layers))
+    for i in range(spec.n_layers):
+        if i == spec.n_layers - 1:
             hidden = h
-        h = _layer_forward(model, i, h, env)
-    if return_hidden:
-        return h, hidden
-    return h
+        body = partial(_layer_forward, model, i, env=env, rng=rngs[i])
+        if env.remat and env.training:
+            out = checkpoint(body, h, use_reentrant=False)
+        else:
+            out = body(h)
+        h = out[0]
+        if len(out) > 1:
+            state[f"norm_{i}"] = out[1:]
+    ret = (h,) + ((hidden,) if return_hidden else ()) + (
+        (state,) if return_state else ())
+    return ret if len(ret) > 1 else h
 
 
-def _layer_forward(model: GNN, i: int, h, env: GraphEnv):
+def _layer_forward(model: GNN, i: int, h, env: GraphEnv, rng=None):
+    """One layer: (h,) or, after a training SyncBatchNorm, (h, new mean,
+    new var)."""
     spec = model.spec
     p = getattr(model, f"layer_{i}")
     if spec.model == "gat" and i < spec.n_graph_layers:
@@ -310,10 +441,10 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv):
             h_d = h[:env.n_dst]
         else:
             h_ext, h_d = env.exchange(i, h), h
-        h = _gat_layer(p, h_d, h_ext, env.presence, env, spec.dropout,
+        h = _gat_layer(p, h_d, h_ext, env.presence, env, rng, spec.dropout,
                        env.training).mean(1)                    # head mean
-        return _layer_tail(model, i, h)
-    h = _dropout(h, spec.dropout, env.generator, env.training)
+        return _layer_tail(model, i, h, env)
+    h = _dropout(h, spec.dropout, rng, env.training)
     if i >= spec.n_graph_layers:
         h = _linear(p, h)
     elif env.training and spec.use_pp and i == 0:
@@ -326,14 +457,20 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv):
         h = _linear(p, torch.cat([h[:env.n_dst], ah], 1))
     else:
         h = _sage_layer(p, i, h, env)
-    return _layer_tail(model, i, h)
+    return _layer_tail(model, i, h, env)
 
 
-def _layer_tail(model: GNN, i: int, h):
-    """LayerNorm and ReLU after every layer but the last."""
+def _layer_tail(model: GNN, i: int, h, env: GraphEnv):
+    """LayerNorm or SyncBatchNorm, and ReLU, after every layer but the
+    last."""
     spec = model.spec
-    if i < spec.n_layers - 1:
-        if spec.norm == "layer":
-            h = _layer_norm(getattr(model, f"norm_{i}"), h)
-        h = torch.relu(h)
-    return h
+    if i >= spec.n_layers - 1:
+        return (h,)
+    new = None
+    if spec.norm == "layer":
+        h = _layer_norm(getattr(model, f"norm_{i}"), h)
+    elif spec.norm == "batch":
+        h, new = _sync_batch_norm(getattr(model, f"norm_{i}"), h, env,
+                                  spec.train_size)
+    h = torch.relu(h)
+    return (h,) if new is None else (h,) + new

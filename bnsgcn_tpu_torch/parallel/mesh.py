@@ -126,7 +126,7 @@ class Comm:
     all-reduce is timed by kind ('exchange', 'reduce') without a device
     synchronization: between two CUDA events on the current stream on a
     card (read by `seconds`, once the stream has passed them), on the host
-    clock on the CPU. A span runs from the moment the rank's own inputs are
+    clock on the CPU; SyncBatchNorm's moment sums under 'bn'. A span runs from the moment the rank's own inputs are
     ready (the launch) to the moment the result has landed (the wait), so
     it includes the wait for slower peers, and for an asynchronous launch
     whatever the rank ran before its wait. The epoch line reads the sums as
@@ -139,7 +139,7 @@ class Comm:
         self.reset_seconds()
 
     def reset_seconds(self):
-        self._spans = {"exchange": [], "reduce": []}
+        self._spans = {"exchange": [], "reduce": [], "bn": []}
 
     def seconds(self) -> dict:
         """Seconds per kind since reset_seconds; on a card, waits for the
@@ -247,6 +247,23 @@ class Comm:
         """In-place SUM over the ranks."""
         self._timed(kind, lambda: dist.all_reduce(x))
         return x
+
+    def all_sum_ordered(self, x: torch.Tensor, kind: str = "bn"
+                        ) -> torch.Tensor:
+        """The SUM of x over the ranks, added in rank order 0, 1, ..., P-1
+        on every rank, so the result is bitwise the same everywhere and
+        whatever the backend's reduction order: one all-reduce of a [P,
+        ...] f32 buffer holding x in this rank's row and zeros elsewhere
+        (each element's sum is exact; bf16 rides in f32), then the rows,
+        in x's dtype, added in order."""
+        rows = torch.zeros((self.world,) + tuple(x.shape),
+                           dtype=torch.float32, device=x.device)
+        rows[self.rank] = x
+        rows = self.all_reduce_(rows, kind).to(x.dtype)
+        out = rows[0]
+        for q in range(1, self.world):
+            out = out + rows[q]
+        return out
 
     def broadcast_(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         dist.broadcast(x, src)

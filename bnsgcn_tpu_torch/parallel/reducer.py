@@ -7,6 +7,10 @@ one psum; here `reduce_gradients` runs it after loss.backward() as one
 all_reduce(SUM) over one flat buffer of every parameter's gradient, with the
 loss riding in the same buffer, so the printed loss is the all-reduced sum
 at no extra collective.
+
+`moments_sum` is SyncBatchNorm's collective (the JAX package's psum of
+[sum_x, sum_x2]): one all-reduce per layer forward, added in rank order,
+and the same sum of the cotangents backward (psum's transpose).
 """
 
 from __future__ import annotations
@@ -72,3 +76,20 @@ def assert_replicated(params, comm: Comm) -> str:
         raise AssertionError(f"the parameters of ranks {bad} differ from "
                              f"rank 0's after the run")
     return digest
+
+
+class _MomentsSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm: Comm):
+        ctx.comm = comm
+        return comm.all_sum_ordered(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_sum_ordered(g.contiguous()), None
+
+
+def moments_sum(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """x (the stacked [sum_x, sum_x2] of a layer) summed over the ranks in
+    rank order, the gradient likewise: bitwise the same on every rank."""
+    return _MomentsSum.apply(x, comm)

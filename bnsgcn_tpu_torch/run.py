@@ -36,9 +36,9 @@ eval line also goes to the results file. After the loop: the last drain,
 the best-validation parameters' final checkpoint and their `Test Result |
 Accuracy` line on the test mask of the full graph, only when an
 evaluation ran. --resume continues from the newest valid periodic
-checkpoint with its parameters, optimizer, seed and best accuracy; each
-epoch's dropout is keyed by (seed, epoch, rank), so the resumed epochs
-replay the uninterrupted run's. The resilience and coordination layers
+checkpoint with its parameters, optimizer, SyncBatchNorm state, seed and
+best accuracy; each epoch's dropout is jax's draw from the key of (seed,
+epoch, rank), so the resumed epochs replay the uninterrupted run's. The resilience and coordination layers
 wait for later slices.
 """
 
@@ -66,10 +66,11 @@ from bnsgcn_tpu_torch.data.artifacts import (PartitionArtifacts,
 from bnsgcn_tpu_torch.data.datasets import load_data
 from bnsgcn_tpu_torch.data.graph import Graph, inductive_split
 from bnsgcn_tpu_torch.data.partitioner import partition_graph
+from bnsgcn_tpu_torch.data.reorder import maybe_reorder
 from bnsgcn_tpu_torch.evaluate import (EvalGraph, evaluate_induc,
                                        evaluate_mesh, evaluate_trans)
 from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
-from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
                                             make_refresh_spec, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
@@ -78,20 +79,21 @@ from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
 from bnsgcn_tpu_torch.parallel.reducer import (assert_replicated,
                                                broadcast_parameters)
 from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
-                                      build_step_fns, compute_dtype,
-                                      dropout_generator,
+                                      bn_state_to_jax, build_step_fns,
+                                      compute_dtype, dropout_key,
                                       local_row, make_tx, opt_state_from_jax,
                                       opt_state_to_jax, params_from_jax,
                                       params_to_jax, resolve_halo_mode,
                                       resolve_overlap, resolve_strategy,
-                                      to_device)
+                                      to_device, with_bn_state)
 
 # epochs excluded from the Time(s), Comm(s) and Reduce(s) means, as the JAX
 # package's EpochTimer(warmup=5) and the reference (train.py:415) exclude
 # them: the epoch numbers 0-4, whether or not this run executed them
 WARMUP_EPOCHS = 5
 
-TRAIN_KEYS = ("feat", "label", "train_mask", "in_norm", "out_norm")
+TRAIN_KEYS = ("feat", "label", "train_mask", "inner_mask", "in_norm",
+              "out_norm")
 
 # --streaming-artifacts auto builds through the streaming builder above this
 # many edges (bnsgcn_tpu/run.py prepare_partition)
@@ -233,7 +235,8 @@ def prepare_run(cfg: Config, g: Optional[Graph] = None,
     if g is None:
         g, _, _ = load_data(cfg)
     train_g, val_g, test_g = split_graphs(cfg, g)
-    return prepare_part(cfg, p1_artifacts(cfg, train_g), (val_g, test_g),
+    art, resolved, _ = maybe_reorder(cfg, p1_artifacts(cfg, train_g), log)
+    return prepare_part(cfg.replace(reorder=resolved), art, (val_g, test_g),
                         device, log)
 
 
@@ -249,9 +252,10 @@ def p1_artifacts(cfg: Config, g: Graph) -> PartitionArtifacts:
 
 def init_training(pr: Prepared, model_init: Optional[dict] = None):
     """(block arrays with the use_pp precompute applied, model, optimizer)
-    for a prepared run. The model is initialized on the host from cfg.seed,
-    so the draw does not depend on the device; `model_init` (a state_dict)
-    replaces it. Under --dtype bfloat16 the parameters (and so Adam's
+    for a prepared run. The model is initialized on the host from cfg.seed
+    as the JAX package's init_params(key(seed), spec, dtype) draws it (in
+    bf16 under --dtype bfloat16, as jax draws), so the draw does not depend
+    on the device; `model_init` (a state_dict) replaces it. Under --dtype bfloat16 the parameters (and so Adam's
     moments) are bf16, and the features are cast to bf16 on the device
     before the precompute, whose result is cast to bf16 too
     (bnsgcn_tpu/run.py:429-438); GAT's goes to blk['feat0_ext']. Under P > 1 every rank then takes rank 0's
@@ -264,7 +268,7 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
         # at layer 0 (bnsgcn_tpu/run.py:439-440)
         blk["feat0_ext" if pr.spec.model == "gat" else "feat"] = (
             pr.fns.precompute(blk).to(dtype))
-    model = GNN(pr.spec, torch.Generator().manual_seed(pr.cfg.seed))
+    model = GNN(pr.spec, pr.cfg.seed, dtype)
     if model_init is not None:
         model.load_state_dict(model_init)
     model = model.to(device=pr.device, dtype=dtype)
@@ -319,6 +323,9 @@ def mesh_eval_part(pr: Prepared, suffix: str, log=print):
         art = load_artifacts(artifacts_dir(cfg_e), parts=[pr.rank])
     else:
         art = p1_artifacts(cfg_e, pr.val_g if suffix == "-val" else pr.test_g)
+    # the training's resolved --reorder: its own order for the eval graph's
+    # part (bnsgcn_tpu/run.py:615-618); the statistics are order-invariant
+    art, _, _ = maybe_reorder(cfg_e, art, log, pr.comm, pr.rank)
     pe = prepare_part(cfg_e, art, None, pr.device,
                       lambda m: log(f"[eval{suffix}] {m}"), pr.rank, pr.comm)
     return pe.fns, pe.blk, pe.art
@@ -478,7 +485,8 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     seed, best_acc, best_state = cfg.seed, 0.0, None
     if resume_from is not None:
         payload = lead_read(pr, lambda: ckpt.read_blob(resume_from))
-        model.load_state_dict(params_from_jax(payload["params"], spec))
+        model.load_state_dict(params_from_jax(payload["params"], spec,
+                                              payload.get("bn_state")))
         opt_state_from_jax(payload["opt_state"], opt, model)
         res.start_epoch = int(payload["epoch"]) + 1
         seed, best_acc = int(payload["seed"]), float(payload["best_acc"])
@@ -521,19 +529,18 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         for epoch in range(res.start_epoch, cfg.n_epochs):
             if comm is not None:
                 comm.reset_seconds()
-            gen = (dropout_generator(seed, epoch, pr.rank, device)
-                   if spec.dropout > 0 else None)
+            key = dropout_key(seed, epoch, pr.rank)
             t_ep = time.perf_counter()
             res.epoch_starts.append(t_ep)
             refresh_full = use_refresh and halo_cache is None
             if refresh_full:
                 loss, halo_cache = fns.train_step_full(model, opt, blk,
-                                                       epoch, gen)
+                                                       epoch, key)
             elif use_refresh:
                 loss, halo_cache = fns.train_step_cached(
-                    model, opt, blk, epoch, gen, halo_cache)
+                    model, opt, blk, epoch, key, halo_cache)
             else:
-                loss = fns.train_step(model, opt, blk, epoch, gen)
+                loss = fns.train_step(model, opt, blk, epoch, key)
             loss_f = float(loss)                    # waits for the device
             dt = time.perf_counter() - t_ep
             secs = (comm.seconds() if comm else
@@ -561,7 +568,9 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 ckpt.save_checkpoint(
                     ckpt.periodic_path(cfg, epoch),
                     params=params_to_jax(model.state_dict(), spec),
-                    opt_state=opt_state_to_jax(opt, model), epoch=epoch,
+                    opt_state=opt_state_to_jax(opt, model),
+                    bn_state=bn_state_to_jax(model.state_dict(), spec),
+                    epoch=epoch,
                     best_acc=best_acc, seed=seed, extra={"retry_nonce": 0})
                 ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
             if host is not None:
@@ -600,9 +609,12 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     res.epoch_time = mean(res.epoch_times)
     res.best_val_acc = res.val_acc = best_acc
     if cfg.eval and best_state is not None:
+        # the best parameters with the run's final SyncBatchNorm state
+        best_state = with_bn_state(best_state, model)
         if lead:
             ckpt.save_checkpoint(ckpt.final_path(cfg),
                                  params=params_to_jax(best_state, spec),
+                                 bn_state=bn_state_to_jax(best_state, spec),
                                  epoch=cfg.n_epochs - 1, best_acc=best_acc,
                                  seed=seed)
             log("model saved")
@@ -706,9 +718,21 @@ def _prebuild(cfg: Config) -> None:
     from bnsgcn_tpu_torch import native
     specs = [(native.LIB_NAME, "cxx", [native.SOURCE])]
     if cfg.device == "cuda":
-        specs += [(name, "cuda", [src]) for m in (bucket_sum, tile_matmul)
+        specs += [(name, "cuda", [src])
+                  for m in (bucket_sum, tile_matmul, dropout)
                   for name, src in m.BUILDS]
     buildlib.build_many(specs)
+
+
+def prepare_rank(ctx: RankContext, cfg: Config, path: str,
+                 eval_graphs: Optional[tuple], log) -> Prepared:
+    """Rank ctx.rank's part of the artifacts at `path`, loaded alone, with
+    the --reorder pass applied before its layouts and their digest
+    (bnsgcn_tpu/run.py:317-321), prepared (prepare_part)."""
+    art = load_artifacts(path, parts=[ctx.rank])
+    art, resolved, _ = maybe_reorder(cfg, art, log, ctx.comm, ctx.rank)
+    return prepare_part(cfg.replace(reorder=resolved), art, eval_graphs,
+                        ctx.device, log, ctx.rank, ctx.comm)
 
 
 def _rank_main(ctx: RankContext, cfg: Config, path: str,
@@ -720,13 +744,12 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
     report."""
     lead = ctx.rank == 0
     log = ctx.log if lead else (lambda m: None)
-    art = load_artifacts(path, parts=[ctx.rank])
-    pr = prepare_part(cfg, art, eval_graphs, ctx.device, log, ctx.rank,
-                      ctx.comm)
+    pr = prepare_rank(ctx, cfg, path, eval_graphs, log)
     hook = rank_hook(pr) if rank_hook is not None else None
     ctx.comm.barrier()          # the ranks build their layouts at own speeds
     bucket_sum.launches.reset()
     tile_matmul.launches.reset()
+    dropout.launches.reset()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
     res, model = train_loop(pr, model_init, log, resume_from)
@@ -742,6 +765,8 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
                      "K2": dict(tile_matmul.launches.by_phase)},
         "kinds": {"K1": dict(bucket_sum.launches.by_kind),
                   "K2": dict(tile_matmul.launches.by_kind)},
+        "d1": {"phases": dict(dropout.launches.by_phase),
+               "kinds": dict(dropout.launches.by_kind)},
         "max_memory_bytes": (torch.cuda.max_memory_allocated(ctx.device)
                              if ctx.device.type == "cuda" else None),
         "dense_edges": res.dense_edges, "n_edges": res.n_edges,

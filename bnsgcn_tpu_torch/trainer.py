@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import sys
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -83,7 +84,7 @@ from bnsgcn_tpu_torch.parallel.halo import (HaloFlight, HaloSpec,
                                             refresh_row_mask,
                                             select_halo_strategy, tables_to)
 from bnsgcn_tpu_torch.parallel.mesh import Comm
-from bnsgcn_tpu_torch.parallel.reducer import reduce_gradients
+from bnsgcn_tpu_torch.parallel.reducer import moments_sum, reduce_gradients
 from bnsgcn_tpu_torch.utils import prng
 from bnsgcn_tpu_torch.utils.diskcache import (atomic_dump, sweep_stale_tmp,
                                               try_load)
@@ -166,14 +167,17 @@ def make_tx(cfg: Config, params) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.weight_decay)
 
 
-def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
+def params_from_jax(params_np: dict, spec: ModelSpec,
+                    bn_state: Optional[dict] = None) -> "OrderedDict":
     """The JAX parameter tree (numpy leaves) -> the port's state_dict:
     {'w' [fin, fout], 'b'} -> nn.Linear weight [fout, fin] (transposed) and
     bias; a GAT layer's {'w', 'attn_l', 'attn_r', 'bias'} -> GATLayer's
     parameters of the same names and layout; {'scale', 'bias'} of norm_i ->
-    LayerNorm weight and bias. bf16
-    leaves (a checkpoint's Bfloat16Array) give bf16 tensors, any other
-    leaf f32."""
+    LayerNorm's or BatchNorm's weight and bias. Under --norm batch,
+    `bn_state` (the JAX state tree {'norm_i': {'mean', 'var'}}) gives
+    BatchNorm's f32 buffers; without one (or an empty one) they are the
+    initial (0, 1). bf16 leaves (a checkpoint's Bfloat16Array) give bf16
+    tensors, any other leaf f32."""
     sd = OrderedDict()
 
     def t(x):
@@ -198,7 +202,40 @@ def params_from_jax(params_np: dict, spec: ModelSpec) -> "OrderedDict":
         if f"norm_{i}" in params_np:
             sd[f"norm_{i}.weight"] = t(params_np[f"norm_{i}"]["scale"])
             sd[f"norm_{i}.bias"] = t(params_np[f"norm_{i}"]["bias"])
+            if spec.norm == "batch":
+                st = (bn_state or {}).get(f"norm_{i}")
+                n = sd[f"norm_{i}.bias"].numel()
+                sd[f"norm_{i}.mean"] = (torch.zeros(n) if st is None
+                                        else t(st["mean"]).float())
+                sd[f"norm_{i}.var"] = (torch.ones(n) if st is None
+                                       else t(st["var"]).float())
     return sd
+
+
+def bn_state_to_jax(state, spec: ModelSpec) -> dict:
+    """SyncBatchNorm's running statistics of a state_dict-shaped mapping
+    -> the JAX state tree {'norm_i': {'mean', 'var'}} with f32 numpy leaves
+    (the checkpoints' `bn_state`); {} without --norm batch, as the JAX
+    package's state is."""
+    if spec.norm != "batch":
+        return {}
+    return {f"norm_{i}": {k: np.ascontiguousarray(
+        state[f"norm_{i}.{k}"].detach().cpu().float().numpy())
+        for k in ("mean", "var")} for i in range(spec.n_layers - 1)}
+
+
+def with_bn_state(state: dict, model: GNN) -> dict:
+    """`state` (a parameter snapshot) with SyncBatchNorm's running
+    statistics replaced by the model's current ones: the JAX package scores
+    its best parameters with the run's final state and writes that state
+    into the final checkpoint (bnsgcn_tpu/run.py:1850-1874)."""
+    if model.spec.norm != "batch":
+        return state
+    out = dict(state)
+    for k, v in model.state_dict().items():
+        if k.endswith((".mean", ".var")):
+            out[k] = v.detach().clone()
+    return out
 
 
 def params_to_jax(state, spec: ModelSpec) -> dict:
@@ -264,15 +301,13 @@ def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN):
     opt.load_state_dict(sd)
 
 
-def dropout_generator(seed: int, epoch: int, rank: int,
-                      device) -> torch.Generator:
-    """Epoch `epoch`'s dropout stream on rank `rank`, keyed as the JAX step
-    folds its dropout key: fold_in(fold_in(key(seed + 1), epoch), rank), the
-    two words seeding a torch generator. A resumed run replays every
-    epoch's masks; the draws themselves are torch's, not jax's."""
-    k = prng.fold_in(prng.fold_in(prng.key(seed + 1), epoch), rank)
-    k0, k1 = (int(w) for w in k.tolist())
-    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)
+def dropout_key(seed: int, epoch: int, rank: int) -> torch.Tensor:
+    """Epoch `epoch`'s dropout key on rank `rank`, as the JAX step folds it
+    (bnsgcn_tpu/trainer.py local_loss): fold_in(fold_in(key(seed + 1),
+    epoch), rank), an int64 tensor [2] on the host. The model splits it per
+    layer and draws jax's masks from it, so a resumed run replays every
+    epoch's masks and a run equals the JAX package's draw for draw."""
+    return prng.fold_in(prng.fold_in(prng.key(seed + 1), epoch), rank)
 
 
 @dataclass
@@ -281,8 +316,8 @@ class StepFns:
                                        # the training aggregation operator
                                        # (None for GAT)
     layout: dict                       # its numpy layout arrays [1, ...]
-    train_step: Callable               # (model, opt, blk, epoch, gen) -> loss
-    forward: Callable                  # (model, blk, epoch, gen) -> logits
+    train_step: Callable               # (model, opt, blk, epoch, key) -> loss
+    forward: Callable                  # (model, blk, epoch, key) -> logits
     precompute: Callable               # (blk) -> layer-0 input features
     eval_forward: Callable             # (model, blk) -> eval logits
     dense_edges: int = 0               # edges on dense tiles (hybrid)
@@ -299,8 +334,8 @@ class StepFns:
                                        # grad-only)
     halo_refresh_spec: Optional[HaloSpec] = None   # the cached step's
     # --halo-refresh K > 1 only: the full-refresh step, which records every
-    # layer's received halo block, (model, opt, blk, epoch, gen) -> (loss,
-    # cache), and the cached step, (model, opt, blk, epoch, gen, cache) ->
+    # layer's received halo block, (model, opt, blk, epoch, key) -> (loss,
+    # cache), and the cached step, (model, opt, blk, epoch, key, cache) ->
     # (loss, cache)
     train_step_full: Optional[Callable] = None
     train_step_cached: Optional[Callable] = None
@@ -310,12 +345,21 @@ class StepFns:
 # --cache-dir (bnsgcn_tpu/run.py:371-425)
 # ----------------------------------------------------------------------------
 
+def reorder_active(cfg: Config) -> bool:
+    """Whether the artifacts a build sees are --reorder permuted (cfg with
+    the resolved mode, data/reorder.py maybe_reorder): their rows already
+    stand in tile-packed cluster order, so the hybrid takes identity
+    orders, and every layout key gains ':ro' (bnsgcn_tpu/trainer.py
+    reorder_active)."""
+    return (cfg.reorder or "off") != "off"
+
+
 def ell_layout_key(cfg: Config) -> str:
     """The ELL layouts' cache key (bnsgcn_tpu/trainer.py ell_layout_key):
     'ell', or 'ell:ovl' for the --overlap split interior/frontier pair (cfg
-    with the resolved overlap); the port has no --reorder, whose namespace
-    it would add."""
-    return "ell:ovl" if cfg.overlap == "split" else "ell"
+    with the resolved overlap), ':ro' under an applied --reorder."""
+    key = "ell:ovl" if cfg.overlap == "split" else "ell"
+    return key + (":ro" if reorder_active(cfg) else "")
 
 
 def hybrid_layout_key(cfg: Config) -> str:
@@ -326,12 +370,20 @@ def hybrid_layout_key(cfg: Config) -> str:
     key = (f"hybrid:{effective_occupancy(cfg.block_occupancy, tile, tile)}:"
            f"{cfg.block_tile_budget_mb}")
     key += f":t{tile}" if tile != 512 else ""
-    return key + (":ovl" if cfg.overlap == "split" else "")
+    key += ":ovl" if cfg.overlap == "split" else ""
+    return key + (":ro" if reorder_active(cfg) else "")
 
 
 def gat_layout_key(cfg: Config) -> str:
     """The GAT attention layouts' cache key (bnsgcn_tpu/trainer.py)."""
-    return "gat"
+    return "gat:ro" if reorder_active(cfg) else "gat"
+
+
+def identity_perms(art: PartitionArtifacts) -> tuple:
+    """The orders of an applied --reorder's rows: identity on the inner
+    and the extended row spaces."""
+    return (np.arange(art.pad_inner, dtype=np.int64),
+            np.arange(art.n_ext, dtype=np.int64))
 
 
 def artifact_digest(art: PartitionArtifacts, row: int = 0) -> str:
@@ -400,7 +452,8 @@ def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
                  comm: Optional[Comm] = None, log=print, perms=None):
     """(spmm kind, cluster perms or None): cfg.spmm, with 'auto' resolved as
     the JAX package's build_step_fns resolves it: the part's cluster order
-    (`perms` when the caller already holds it), then the fraction of edges
+    (`perms` when the caller already holds it; identity under an applied
+    --reorder, bnsgcn_tpu/trainer.py:485-488), then the fraction of edges
     that would densify onto tiles (estimate_coverage), summed over the
     ranks; hybrid at AUTO_HYBRID_MIN_COVERAGE or more (reusing the perms),
     else ELL. Rank 0 prints the same `spmm=auto: ...` line."""
@@ -408,6 +461,8 @@ def resolve_spmm(cfg: Config, art: PartitionArtifacts, row: int = 0,
         return cfg.spmm, None
     tile = cfg.block_tile
     src, dst = art.src[row], art.dst[row]
+    if reorder_active(cfg):
+        perms = identity_perms(art)
     pi, pe = perms if perms is not None else cluster_order(
         src, dst, art.pad_inner, art.n_ext, target=tile, log=log)
     real = dst < art.pad_inner
@@ -548,8 +603,9 @@ def build_spmm(cfg: Config, art: PartitionArtifacts, device, log=print,
                      tile_r=tile, tile_c=tile)
 
         def cluster():
-            pi, pe = perms if perms is not None else cluster_order(
-                src[0], dst[0], ni, n_ext, target=tile, log=log)
+            pi, pe = (identity_perms(art) if reorder_active(cfg) else
+                      perms if perms is not None else cluster_order(
+                          src[0], dst[0], ni, n_ext, target=tile, log=log))
             return pi[None], pe[None]
 
         def block_op(fwd, bwd, pair, arrays):
@@ -754,43 +810,69 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                 split_body(blk, spec_h, plan, combine) if split else None,
                 out)
 
-    def run_forward(model: GNN, blk, epoch: int, generator=None,
+    bn_sum = None
+    if comm is not None and spec.norm == "batch":
+        bn_sum = partial(moments_sum, comm=comm)
+    # the refresh steps record each layer's halo block from inside the
+    # forward, which a rematerialized layer would rerun: --remat is ignored
+    # for them, with the JAX package's note (bnsgcn_tpu/trainer.py:900-905)
+    remat = cfg.remat and refresh_k == 1
+    if cfg.remat and refresh_k > 1 and rank == 0:
+        print("halo-refresh>1: the refresh steps return per-layer halo "
+              "buffers as step outputs, which cannot escape a "
+              "jax.checkpoint region — --remat is ignored for them "
+              "(numerics unchanged; memory savings lost)", file=sys.stderr)
+
+    def run_forward(model: GNN, blk, epoch: int, key=None,
                     mode: str = "step", cache=None):
         exchange, presence, agg, out = step_env(blk, epoch, mode, cache)
         env = GraphEnv(n_dst=ni, in_norm=blk["in_norm"],
                        out_norm=blk["out_norm"], exchange=exchange,
-                       aggregate=spmm, training=True, generator=generator,
+                       aggregate=spmm, training=True, rng=key,
                        presence=presence, gat_feat0=blk.get("feat0_ext"),
-                       attention=gat, agg_exchange=agg)
-        return apply_model(model, blk["feat"], env), out
+                       attention=gat, agg_exchange=agg,
+                       inner_mask=blk.get("inner_mask"), bn_sum=bn_sum,
+                       remat=remat)
+        logits, state = apply_model(model, blk["feat"], env,
+                                    return_state=True)
+        return logits, out, state
 
-    def forward(model: GNN, blk, epoch: int, generator=None):
+    def forward(model: GNN, blk, epoch: int, key=None):
         """Training-mode forward at `epoch` (which keys the boundary
-        sample): logits [pad_inner, n_class]."""
-        return run_forward(model, blk, epoch, generator)[0]
+        sample) with the dropout key `key`: logits [pad_inner, n_class]."""
+        return run_forward(model, blk, epoch, key)[0]
 
-    def step(model: GNN, opt, blk, epoch: int, generator=None,
+    def step(model: GNN, opt, blk, epoch: int, key=None,
              mode: str = "step", cache=None):
         opt.zero_grad(set_to_none=True)
-        logits, out = run_forward(model, blk, epoch, generator, mode, cache)
+        logits, out, state = run_forward(model, blk, epoch, key, mode, cache)
         loss = loss_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
         if comm is not None:
             loss = reduce_gradients(model.parameters(), comm, loss)
         opt.step()
+        # SyncBatchNorm's new running statistics, outputs of the forward
+        # (the JAX step returns them as its new state): the model carries
+        # them to the next step and to the evals
+        with torch.no_grad():
+            for name, (mean, var) in state.items():
+                norm = getattr(model, name)
+                norm.mean.copy_(mean)
+                norm.var.copy_(var)
         return loss.detach(), out
 
-    def train_step(model: GNN, opt, blk, epoch: int, generator=None):
-        """One step at `epoch`; returns the loss summed over the ranks."""
-        return step(model, opt, blk, epoch, generator)[0]
+    def train_step(model: GNN, opt, blk, epoch: int, key=None):
+        """One step at `epoch` with the dropout key `key` (dropout_key);
+        returns the loss summed over the ranks."""
+        return step(model, opt, blk, epoch, key)[0]
 
     refresh_steps = {}
     if refresh_k > 1:
         refresh_steps = dict(
-            train_step_full=lambda model, opt, blk, epoch, generator=None:
-            step(model, opt, blk, epoch, generator, "full"),
-            train_step_cached=lambda model, opt, blk, epoch, generator, cache:
-            step(model, opt, blk, epoch, generator, "cached", cache))
+            train_step_full=lambda model, opt, blk, epoch, key=None:
+            step(model, opt, blk, epoch, key, "full"),
+            train_step_cached=lambda model, opt, blk, epoch, key, cache:
+            step(model, opt, blk, epoch, key, "cached", cache))
 
     @torch.no_grad()
     def precompute(blk):

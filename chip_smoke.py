@@ -7,8 +7,8 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-  1. build the CUDA kernels K1-K4 from csrc/ (one nvcc per source, in
-     parallel);
+  1. build the CUDA kernels K1-K4 and D1 from csrc/ (one nvcc per source,
+     in parallel);
   2. hold each kernel to its plain PyTorch version on the card, at the main
      path's own shapes: the ELL residual's one-launch SpMM (K1) with K2's
      output shape as its base, and the dense tile stack (K2), forward and
@@ -26,16 +26,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      path calls them (int8 bitwise equal to the plain version, bf16 and
      e4m3 within a stated per-element bound, each with a control the check
      must reject), timed beside their bounds, K2 also beside its design's
-     floor and a dense-equivalent GEMM;
-  3. a small-input agreement check: the same short training run on the card
-     and on the CPU (plain versions) must give the same losses;
+     floor and a dense-equivalent GEMM; then D1 (the dropout draw) at the
+     main path's dropout shapes, [232,965, 1204] and [232,965, 256], f32
+     and bf16: bitwise its plain version forward and backward, the next
+     epoch's key rejected, timed beside its bound (threefry's int32
+     operations) and torch.nn.functional.dropout;
+  3. a small-input agreement check: the same short training run at dropout
+     0.5 on the card and on the CPU (plain versions; the masks are jax's on
+     both) must give the same losses;
   4. drive the main path through the entry point a user calls
      (run.run_training): GraphSAGE 4x256, use_pp, LayerNorm, dropout 0.5,
      lr 0.01, --spmm hybrid on synth-reddit, with every kernel's launch
      count reset just before and read just after; the loss must stay finite
      and fall, K1 and K2 must each have launched once per aggregation (the
      3 layers after the precompute, forward and backward, every epoch,
-     plus the precompute's one); the run
+     plus the precompute's one), D1 once per layer forward and once per
+     layer backward but layer 0's; the run
      evaluates once, at its end, and ends with the best parameters' Test
      Result on the full graph, whose val and test accuracies must beat
      twice chance;
@@ -43,9 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sampling rate 1.0, 4 ranks sharing this one card over gloo (NCCL
      refuses two ranks on one card) and P=1, 3 epochs without dropout from
      the same parameters, transductive, must give the same losses to 1e-4
-     (relative); then the main path at P=4 with the flagship's command
-     line, --inductive (the train subgraph partitioned, rank 0 evaluating
-     on the train+val subgraph and, last, the full graph), boundary-node
+     (relative; the P=1 side runs later, beside [cli]); then the main
+     path at P=4 with the flagship's command line, --inductive (the train
+     subgraph partitioned, rank 0 evaluating on the train+val subgraph
+     and, last, the full graph), boundary-node
      sampling at rate 0.1 and dropout 0.5, through run.run_training, in
      which each rank first holds K1 and K2 to
      their plain versions on its own part's layout (its own hybrid tiles and
@@ -104,9 +111,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K1 or K2 launch, every rank ending with rank 0's parameters; it prints
      each rank's epoch, exchange and reduce seconds, peak memory, the GAT
      layouts' build seconds and the attention's device ms per layer
-     forward and backward (CUDA events), the evals' seconds; then the GAT
-     law at [cli]'s scale: P=4 == P=1 at rate 1.0, dropout 0, 3 epochs, to
-     1e-4 (relative);
+     forward and backward (CUDA events), the evals' seconds; the GAT law
+     at [cli]'s scale (P=4 == P=1 at rate 1.0, dropout 0, 3 epochs, to
+     1e-4 relative) runs later, beside [cli] (phase 6);
   5e. [halo]: the exchange's variants on the P=4 main path's artifacts (its
      command line: --inductive, rate 0.1), in one spawned group of 4 ranks
      over gloo that loads its parts once, 3 epochs per variant from the
@@ -122,6 +129,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      aggregation, the split ones once per side); it prints each variant's
      wire MB (peak, steady), Comm(s), epoch and peak memory, and for split
      the interior, frontier and exchange ms (events) and the hidden ms;
+  5f. [knobs], in [halo]'s group on the same artifacts and layouts: D1
+     bitwise its plain version on every rank's layer shapes (f32, bf16,
+     forward, backward, the next epoch's key rejected) and the card's
+     mask the CPU's; on the flagship at dropout 0.5 D1 once per layer
+     forward and backward but layer 0's; 3 epochs each of --norm batch
+     (its running statistics bitwise on every rank), --remat and --remat
+     --norm batch (losses and parameters against the twin without
+     --remat: bitwise, or within 1e-6 relative, said which; each run's
+     own peak memory), and --reorder cluster and auto on the hybrid and on
+     ELL at rate 1.0 without dropout (coverage before and after, the
+     order's ms, the layout set-up; losses against --reorder off: ELL to
+     1e-6 of max(|loss|, 1), the hybrid to 1e-4; auto's bitwise the
+     variant its verdict names);
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 8 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -129,12 +149,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checkpoints, the final one and the results file; rerun with --resume
      --skip-partition --n-epochs 12 it must start at epoch 8, and its
      losses for epochs 8-11 must equal an uninterrupted 12-epoch run's to
-     1e-5 (relative); then with --eval-device mesh: partition_cli writes
+     1e-5 (relative); meanwhile, with --eval-device mesh: partition_cli writes
      the train subgraph's artifacts and the eval graphs' ('-val', '-test'),
      and the script trains 8 epochs from them (--skip-partition), the
      ranks evaluating;
-  6b. [yelp]: the multilabel path, scripts/yelp_torch.sh's model
-     (GraphSAGE 4 layers, 2 of them linear, H=512, use_pp, dropout 0.1, lr
+  6b. [yelp] (beside [cli]): the multilabel path, scripts/yelp_torch.sh's
+     model (GraphSAGE 4 layers, 2 of them linear, H=512, use_pp, dropout 0.1, lr
      0.001, inductive, rate 0.1) with --spmm hybrid at P=4 over gloo on a
      multilabel power-law graph at Yelp's widths (300 features, 100 labels,
      50,000 nodes: Yelp's 716,847 cut), written in the GraphSAINT layout
@@ -153,14 +173,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      warm: the losses equal to 1e-6 (relative), the RESULT lines equal;
      each rank's epoch, exchange share, peak memory, the fp8 wire's MB per
      exchange, the layouts' build seconds cold against the load warm;
-  7. [anchor]: the JAX package's calibrated accuracy gate
+  7. [anchor] (beside [cli], [yelp] and the laws): the JAX package's
+     calibrated accuracy gate
      (bnsgcn_tpu_torch/anchor.py), 200 epochs: exact (P=1, rate 1.0, f32)
      inside (0.93, 0.985); at P=4 and rate 0.1, the quantized stack of the
      recipe's finer knobs and the recipe's own knobs (RECIPE_TPU; the line
      names what --spmm auto resolved to) each within 0.005 of it, the
      finer stack in bf16 recorded; the biased-sampler mutation below
      exact - 0.05;
-  8. print the card's name and power limit, one {"kernels": [...]} line
+  8. print every phase's seconds ([phases]), the card's name and power
+     limit, one {"kernels": [...]} line
      (every kernel variant) and, last, {"ok": true, "device": {...}}.
 
 Short runs report their own mean of epochs 1.. (labelled so), beside the
@@ -182,6 +204,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM (NVIDIA data sheet): device memory rate, f32 peak outside the
 # tensor cores. The least time a kernel could take is the larger of its
@@ -194,9 +217,22 @@ BF16_TC_FLOPS_PER_S = 989e12
 INT8_TC_OPS_PER_S = 1979e12
 U32 = 2.0 ** -24               # f32 unit roundoff
 
+# int32 operations outside the tensor cores: half the f32 lanes (64 a clock
+# on each of the 132 SMs, against 128 for f32) at the f32 peak's clock,
+# 67e12 / (2 * 128 * 132) = 1.98 GHz, and no fused pair (67e12 counts an FMA
+# as two)
+INT32_OPS_PER_S = 64 * 132 * 67e12 / (2 * 128 * 132)
+# D1's 32-bit integer operations per element, threefry2x32 as written:
+# two counter adds, 20 rounds of add, rotate and xor, 5 key injections of
+# two adds, the xor of the two output words
+D1_OPS_PER_ELEMENT = 2 + 20 * 3 + 5 * 2 + 1
+
 K1_SRC, K2_SRC, K2_MMA_SRC = ("bnsgcn_tpu_torch/csrc/bucket_sum.cu",
                               "bnsgcn_tpu_torch/csrc/tile_matmul.cu",
                               "bnsgcn_tpu_torch/csrc/tile_mma.cu")
+D1_SRC = "bnsgcn_tpu_torch/csrc/dropout.cu"
+# D1 replaces no Pallas kernel: the JAX package's `_dropout`, which XLA fuses
+D1_REPLACES = "bnsgcn_tpu/models/gnn.py:230"
 # every kernel variant of the kernels line: (source, the TPU kernel it
 # replaces, which launch count and variant it reads)
 KERNELS = {
@@ -217,6 +253,8 @@ KERNELS = {
                       "tools/pallas_spmm.py:104", None, None),
     "copy_probe": ("bnsgcn_tpu_torch/csrc/copy_probe.cu",
                    "tools/hw_session.py:102", None, None),
+    "dropout": (D1_SRC, D1_REPLACES, "D1", "f32"),
+    "dropout_bf16": (D1_SRC, D1_REPLACES, "D1", "bf16"),
 }
 LOWP_GUARD_EPOCHS = 2   # [lowp]'s run of the guard's route
 # K3 at the shapes it ran on the TPU (hw_logs/bench_tb3g.log:93,136), f32,
@@ -298,6 +336,34 @@ HALO_VARIANTS = (("padded", {}),
                  ("hr4", {"halo_refresh": 4}),
                  ("grad-only", {"halo_mode": "grad-only"}),
                  ("rate0", {"sampling_rate": 0.0}))
+# [knobs]: the main path's last knobs in [halo]'s group, on the same
+# artifacts, HALO_EPOCHS epochs each from the same parameters. The reorder
+# variants run at rate 1.0 without dropout, as the JAX package's reorder
+# tests do: both draws are keyed by row position, so under a permutation
+# they select other rows by design; each is held to its ro-base twin.
+KNOB_VARIANTS = (("bn", {"norm": "batch"}),
+                 ("remat", {"remat": True}),
+                 ("remat+bn", {"remat": True, "norm": "batch"}),
+                 ("ro-base", {"sampling_rate": 1.0, "dropout": 0.0}),
+                 ("ro-cluster", {"sampling_rate": 1.0, "dropout": 0.0,
+                                 "reorder": "cluster"}),
+                 ("ro-auto", {"sampling_rate": 1.0, "dropout": 0.0,
+                              "reorder": "auto"}),
+                 ("ell+ro-base", {"sampling_rate": 1.0, "dropout": 0.0,
+                                  "spmm": "ell"}),
+                 ("ell+ro-cluster", {"sampling_rate": 1.0, "dropout": 0.0,
+                                     "spmm": "ell", "reorder": "cluster"}),
+                 ("ell+ro-auto", {"sampling_rate": 1.0, "dropout": 0.0,
+                                  "spmm": "ell", "reorder": "auto"}))
+# each --remat variant against its twin without it: (twin, the relative
+# bound that applies when the two are not bitwise equal)
+REMAT_TWINS = {"remat": "padded", "remat+bn": "bn"}
+REMAT_RTOL = 1e-6
+# the reorder variants against their twins: ELL as the JAX package's
+# tests/test_reorder.py:126 holds it (1e-6 of max(|loss|, 1)), the hybrid
+# within 1e-4 relative (its dense/residual split moves with the order)
+REORDER_TWINS = {"ro-cluster": ("ro-base", 1e-4),
+                 "ell+ro-cluster": ("ell+ro-base", 1e-6)}
 
 
 def log(msg):
@@ -849,26 +915,25 @@ def parts_runs(cfg, args, part_path):
     base = cfg.replace(dataset=f"synth-reddit:{args.parts_scale}",
                        part_path=part_path, dist_backend="gloo",
                        n_partitions=1, inductive=False)
+    phases, t_sub = {}, [time.perf_counter()]
+
+    def sub_done(name):
+        now = time.perf_counter()
+        phases[name] = now - t_sub[0]
+        t_sub[0] = now
+
     t0 = time.perf_counter()
     g, _, _ = load_data(base)
     log(f"[parts] synth-reddit:{args.parts_scale}: {g.n_nodes} nodes, "
         f"{g.n_edges} edges ({time.perf_counter() - t0:.1f} s)")
 
-    # the law: P=4 (4 ranks sharing this card over gloo) == P=1
+    # the law: P=4 (4 ranks sharing this card over gloo) == P=1; the P=1
+    # side runs later, beside [cli] (law_p1_phase): it reads no time
     law = base.replace(dropout=0.0, n_epochs=LAW_EPOCHS, log_every=1,
                        eval=False)
-    t0 = time.perf_counter()
     r4 = run_training(law.replace(n_partitions=PARTS), g=g, log=log)
-    r1 = run_training(law, g=g, log=log)
     torch.cuda.empty_cache()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(r4.losses, r1.losses))
-    if not (len(r4.losses) == len(r1.losses) == LAW_EPOCHS
-            and rel <= LAW_RTOL):
-        raise AssertionError(f"P={PARTS} losses {r4.losses} differ from "
-                             f"P=1's {r1.losses} by {rel:.3e} (relative)")
-    log(f"[parts] law P={PARTS} == P=1, {LAW_EPOCHS} epochs, dropout 0: "
-        f"max relative loss difference {rel:.3e} <= {LAW_RTOL} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    sub_done("graph+law P=4")
 
     # the main path at P=4 with the flagship's command line (inductive, at
     # its sampling rate), through the user's entry point; each rank checks
@@ -940,18 +1005,23 @@ def parts_runs(cfg, args, part_path):
             f"epoch), gradient all-reduce {ranks[-1]['reduce_s'] * 1e3:.1f} "
             f"ms, peak memory {ranks[-1]['max_memory_gib']:.2f} GiB, "
             f"launches K1 {rep['launches']['K1']} K2 {rep['launches']['K2']}")
+    sub_done("main")
     bns = bns_phase(main4, r4, ranks, args.reps)
+    sub_done("bns")
     from bnsgcn_tpu_torch import checkpoint as ckpt
     meval = meval_phase(base, g, ckpt.final_path(main4))
+    sub_done("meval")
     recipe = recipe_p4(main4, g)
-    gat = gat_phase(main4, g, base)
+    sub_done("recipe")
+    gat = gat_phase(main4, g)
+    sub_done("gat")
     halo = halo_phase(main4, args)
+    sub_done("halo+knobs")
     return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
+            "phases": phases,
             "gat": gat, "halo": halo,
             "overlap": overlap,
-            "law_losses_p4": r4.losses,
-            "law_losses_p1": r1.losses, "law_max_rel": rel,
-            "law_p1_epoch_s": mean_from_1(r1.epoch_times),
+            "law_losses_p4": r4.losses, "law_p1": (law, g, r4.losses),
             "rate": BNS_RATE, "losses": res.losses, "val_acc": res.val_acc,
             "eval_seconds": res.eval_seconds,
             "test_acc": res.test_acc, "ranks": ranks, "bns": bns,
@@ -1226,7 +1296,7 @@ def gat_hook(pr):
             "presence": pres, "n_ext": art.n_ext}
 
 
-def gat_phase(main4, g, base):
+def gat_phase(main4, g):
     """[gat]: the P=4 main path's command line (the flagship's, --inductive,
     rate 0.1, dropout 0.5) with --model gat --heads GAT_HEADS on its
     artifacts (--skip-partition), GAT_EPOCHS epochs, rank 0 evaluating every
@@ -1238,13 +1308,10 @@ def gat_phase(main4, g, base):
     reduce seconds, peak memory, the layouts' build seconds and the
     attention's device ms per layer forward and backward (CUDA events,
     means of epochs 1..; 4 ranks share the card), the evals' seconds and
-    the losses. Then the law: GAT at GAT_LAW_DATASET, P=4 against P=1,
-    rate 1.0, dropout 0, LAW_EPOCHS epochs, losses within LAW_RTOL
-    (relative). Returns the details."""
+    the losses (its law is gat_law_phase). Returns the details."""
     import numpy as np
     import torch
     from bnsgcn_tpu_torch.data.artifacts import load_artifacts
-    from bnsgcn_tpu_torch.data.datasets import load_data
     from bnsgcn_tpu_torch.parallel.halo import (make_halo_plan,
                                                 make_halo_spec, plan_presence)
     from bnsgcn_tpu_torch.run import artifacts_dir, run_training
@@ -1326,14 +1393,49 @@ def gat_phase(main4, g, base):
         f"epochs {BNS_EPOCHS} equal the checked plans' ({sum(present)} "
         f"halo slots present); no K1/K2 launch; every rank ends with rank "
         f"0's parameters ({secs:.1f} s)")
-    # the law at [cli]'s scale
-    law = base.replace(dataset=GAT_LAW_DATASET, model="gat",
-                       heads=GAT_HEADS, dropout=0.0, n_epochs=LAW_EPOCHS,
-                       log_every=1, eval=False, sampling_rate=1.0,
-                       part_path=os.path.join(root, "gat", "parts"))
+    torch.cuda.empty_cache()
+    return {"losses": res.losses, "eval_seconds": res.eval_seconds,
+            "val_acc": res.val_acc, "test_acc": res.test_acc,
+            "ranks": ranks, "seconds": secs}
+
+
+def law_p1_phase(law, g, losses_p4):
+    """The P-rank law's P=1 side: `law` (the P=4 run's config at
+    n_partitions 1: rate 1.0, dropout 0, LAW_EPOCHS epochs, transductive)
+    on the same graph `g`; the P=4 run's losses within LAW_RTOL (relative)
+    of its. It reads no time, so it runs beside [cli] and [anchor].
+    Returns the details."""
+    import torch
+    from bnsgcn_tpu_torch.run import run_training
+    t0 = time.perf_counter()
+    r1 = run_training(law, g=g, log=lambda m: None)
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_p4, r1.losses))
+    if not (len(losses_p4) == len(r1.losses) == LAW_EPOCHS
+            and rel <= LAW_RTOL):
+        raise AssertionError(f"P={PARTS} losses {losses_p4} differ from "
+                             f"P=1's {r1.losses} by {rel:.3e} (relative)")
+    log(f"[parts] law P={PARTS} == P=1, {LAW_EPOCHS} epochs, dropout 0: "
+        f"max relative loss difference {rel:.3e} <= {LAW_RTOL} (the P=1 "
+        f"run {time.perf_counter() - t0:.1f} s)")
+    return {"law_losses_p1": r1.losses, "law_max_rel": rel,
+            "law_p1_epoch_s": mean_from_1(r1.epoch_times)}
+
+
+def gat_law_phase(cfg, work):
+    """[gat]'s law: GAT at GAT_LAW_DATASET (cfg's model otherwise: [cli]'s
+    scale), P=4 against P=1, rate 1.0, dropout 0, LAW_EPOCHS epochs, losses
+    within LAW_RTOL (relative). It reads no time, so it runs beside [cli]
+    and [anchor]. Returns the details."""
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.run import run_training
+    law = cfg.replace(dataset=GAT_LAW_DATASET, model="gat", heads=GAT_HEADS,
+                      dropout=0.0, n_epochs=LAW_EPOCHS, log_every=1,
+                      eval=False, sampling_rate=1.0, dist_backend="gloo",
+                      part_path=os.path.join(work, "gat_law", "parts"))
     t0 = time.perf_counter()
     g_law, _, _ = load_data(law)
-    quiet = lambda m: None
+    quiet = lambda m: None                                   # noqa: E731
     r4 = run_training(law.replace(n_partitions=PARTS), g=g_law, log=quiet)
     r1 = run_training(law, g=g_law, log=quiet)
     rel = max(abs(a - b) / abs(b) for a, b in zip(r4.losses, r1.losses))
@@ -1345,11 +1447,8 @@ def gat_phase(main4, g, base):
         f"nodes, {g_law.n_edges} edges), rate 1.0, dropout 0, {LAW_EPOCHS} "
         f"epochs: max relative loss difference {rel:.3e} <= {LAW_RTOL} "
         f"({time.perf_counter() - t0:.1f} s)")
-    torch.cuda.empty_cache()
-    return {"losses": res.losses, "eval_seconds": res.eval_seconds,
-            "val_acc": res.val_acc, "test_acc": res.test_acc,
-            "ranks": ranks, "seconds": secs, "law_losses_p4": r4.losses,
-            "law_losses_p1": r1.losses, "law_max_rel": rel}
+    return {"law_losses_p4": r4.losses, "law_losses_p1": r1.losses,
+            "law_max_rel": rel}
 
 
 def start_cli(argv, cmd=None, env=None):
@@ -1602,7 +1701,8 @@ def yelp_phase(work, hook=None, extra=()):
             f"{len(hk['detail'])} checks at H={tuple(hk['widths'])}; every "
             f"element within its bound; mean of epochs 1.. "
             f"{mean_from_1(rep['epoch_times']) * 1e3:.1f} ms (4 ranks "
-            f"sharing one card over gloo)")
+            f"sharing one card over gloo, beside [cli], [anchor] and the "
+            f"laws)")
     log(f"[yelp] {' '.join(script_flags(YELP_SCRIPT)[:2])} through "
         f"load_yelp_saint: {g.n_nodes} nodes, {g.n_edges} edges, "
         f"{YELP_FEAT} features, {YELP_CLASSES} labels (multi-hot, mean "
@@ -1935,12 +2035,13 @@ def papers_phase(work, n_nodes=PAPERS_NODES, extra=()):
 
 
 def small_agreement(base_cfg):
-    """The same short dropout-free hybrid run on the card (kernels) and on
-    the CPU (plain versions): the losses must agree to 1e-4 (f32 sums in
-    another order, over 4 epochs of Adam)."""
+    """The same short hybrid run at dropout 0.5 on the card (kernels, D1
+    among them) and on the CPU (plain versions): the losses must agree to
+    1e-4 (f32 sums in another order, over 4 epochs of Adam; the dropout
+    masks are jax's on both, bitwise)."""
     from bnsgcn_tpu_torch.run import run_training
     cfg = base_cfg.replace(dataset="sbm", n_layers=3, n_hidden=64,
-                           dropout=0.0, block_tile=64, block_occupancy=8,
+                           dropout=0.5, block_tile=64, block_occupancy=8,
                            n_epochs=4, log_every=1000, eval=False)
     quiet = lambda m: None
     gpu = run_training(cfg.replace(device="cuda"), log=quiet).losses
@@ -1949,7 +2050,8 @@ def small_agreement(base_cfg):
     if not diff <= 1e-4:
         raise AssertionError(f"card and CPU losses differ by {diff:.3e}: "
                              f"{gpu} vs {cpu}")
-    log(f"[agree] sbm 3x64 hybrid, 4 epochs: card {gpu[-1]:.6f} vs CPU "
+    log(f"[agree] sbm 3x64 hybrid, dropout 0.5, 4 epochs: card "
+        f"{gpu[-1]:.6f} vs CPU "
         f"{cpu[-1]:.6f}, max |diff| {diff:.2e} <= 1e-4")
 
 
@@ -2274,7 +2376,7 @@ def dtype_run(name, c, pr, want, **kw):
     launch counts by variant, reset just before the run and read just
     after, must be `want` (K1's, K2's), and the losses finite."""
     import torch
-    from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+    from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
     from bnsgcn_tpu_torch.run import prepare_part, run_training
     t0 = time.perf_counter()
     pl = prepare_part(c, pr.art, (pr.val_g, pr.test_g), pr.device, log,
@@ -2285,10 +2387,13 @@ def dtype_run(name, c, pr, want, **kw):
                              f"{pl.fns.spmm_kind}, not hybrid")
     bucket_sum.launches.reset()
     tile_matmul.launches.reset()
+    dropout.launches.reset()
     torch.cuda.reset_peak_memory_stats()
     res = run_training(c, log=log, prepared=pl)
     k1 = dict(bucket_sum.launches.by_kind)
     k2 = dict(tile_matmul.launches.by_kind)
+    d1 = {"phases": dict(dropout.launches.by_phase),
+          "kinds": dict(dropout.launches.by_kind)}
     if (k1, k2) != want:
         raise AssertionError(f"{name}: K1 launched {k1}, K2 {k2}; expected "
                              f"{want[0]} and {want[1]}")
@@ -2296,7 +2401,7 @@ def dtype_run(name, c, pr, want, **kw):
         raise AssertionError(f"{name}: non-finite loss {res.losses}")
     out = {"losses": res.losses, "epoch_times_s": res.epoch_times,
            "epoch_from_1_s": mean_from_1(res.epoch_times),
-           "launches": {"K1": k1, "K2": k2}, "setup_s": setup_s,
+           "launches": {"K1": k1, "K2": k2}, "d1": d1, "setup_s": setup_s,
            "modes": dict(pl.fns.spmm.mode),
            "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "val_acc": res.val_acc, "test_acc": res.test_acc}
@@ -2476,6 +2581,117 @@ def split_kernel_check(pr, gen, widths):
     return errs, detail
 
 
+def once_ms(fn):
+    """ms of one call of fn() between CUDA events, no warm-up (a plain
+    version too slow to repeat at full size)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _bits(x):
+    import torch
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def d1_check(x, g, key, control, tag):
+    """D1 on x against its plain version: forward bitwise, the backward
+    (the kernel on the incoming gradient g, through autograd) bitwise, and
+    the control, the draw of another key, rejected. Raises on a
+    mismatch."""
+    import torch
+    from bnsgcn_tpu_torch.ops import dropout as d1
+    ref = d1.dropout_plain(x, *key, 0.5)
+    if not torch.equal(_bits(d1.dropout_apply(x, *key, 0.5, "check")),
+                       _bits(ref)):
+        raise AssertionError(f"{tag}: D1's forward differs from its plain "
+                             f"version")
+    xr = x.clone().requires_grad_(True)
+    d1.dropout(xr, key, 0.5).backward(g)
+    if not torch.equal(_bits(xr.grad), _bits(d1.dropout_plain(g, *key,
+                                                               0.5))):
+        raise AssertionError(f"{tag}: D1's backward differs from its plain "
+                             f"version")
+    if torch.equal(_bits(d1.dropout_apply(x, *control, 0.5, "check")),
+                   _bits(ref)):
+        raise AssertionError(f"{tag}: the check did not reject the next "
+                             f"epoch's key")
+
+
+def compare_d1(n_rows, widths, reps, detail):
+    """D1 at the P=1 main path's dropout shapes ([n_rows, w] for the use_pp
+    input's and the hidden width), f32 and bf16, key (seed 0, epoch 3, rank
+    0): d1_check with the control of epoch 4's key; then kernel, plain
+    version (one call) and torch.nn.functional.dropout (Philox, not the
+    same function: a yardstick) timed by events. Bound: the larger of the
+    bytes (x read, out written) over HBM_BYTES_PER_S and threefry's
+    D1_OPS_PER_ELEMENT int32 operations per element over INT32_OPS_PER_S.
+    Returns {'f32'|'bf16': {width: times}}."""
+    import torch
+    import torch.nn.functional as F
+    from bnsgcn_tpu_torch.ops import dropout as d1
+    from bnsgcn_tpu_torch.trainer import dropout_key
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    key = d1.key_words(dropout_key(0, 3, 0))
+    control = d1.key_words(dropout_key(0, 4, 0))
+    out = {}
+    for dt, kind in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for w in widths:
+            x = torch.randn((n_rows, w), generator=gen, device="cuda").to(dt)
+            g = torch.randn((n_rows, w), generator=gen, device="cuda").to(dt)
+            d1_check(x, g, key, control, f"[check] D1 {kind} [{n_rows}, {w}]")
+            del g
+            nbytes = 2 * x.numel() * x.element_size()
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = D1_OPS_PER_ELEMENT * x.numel() / INT32_OPS_PER_S * 1e3
+            t = {"shape": [n_rows, w], "dtype": kind,
+                 "ms": cuda_ms(lambda: d1.dropout_apply(x, *key, 0.5,
+                                                        "check"), reps),
+                 "plain_ms": once_ms(lambda: d1.dropout_plain(x, *key, 0.5)),
+                 "library_ms": cuda_ms(lambda: F.dropout(x, 0.5), reps),
+                 "bound_ms": max(by_bytes, by_ops),
+                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                 "bytes_ms": by_bytes, "ops_ms": by_ops}
+            detail.append({"kernel": "D1", **t})
+            out.setdefault(kind, {})[w] = t
+            del x
+            torch.cuda.empty_cache()
+    return out
+
+
+def d1_rank_check(cfg, art, me, dev):
+    """[knobs]' D1 check on this rank's layer shapes ([pad_inner, 2F] for
+    the use_pp input, [pad_inner, H]), f32 and bf16, epoch 0's key of this
+    rank, the control epoch 1's; then the mask of (epoch 1, this rank) on
+    the card against the CPU's plain draw, bitwise, on the first rows."""
+    import torch
+    from bnsgcn_tpu_torch.ops import dropout as d1
+    from bnsgcn_tpu_torch.trainer import dropout_key
+    gen = torch.Generator(device=dev).manual_seed(55 + me)
+    key = d1.key_words(dropout_key(cfg.seed, 0, me))
+    control = d1.key_words(dropout_key(cfg.seed, 1, me))
+    shapes = [(art.pad_inner, 2 * art.n_feat), (art.pad_inner, cfg.n_hidden)]
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            g = torch.randn(shape, generator=gen, device=dev).to(dt)
+            d1_check(x, g, key, control, f"[knobs] rank {me} D1 {dt} {shape}")
+    rows = min(4096, art.pad_inner)
+    ones = torch.ones((art.pad_inner, cfg.n_hidden), device=dev)
+    k1 = d1.key_words(dropout_key(cfg.seed, 1, me))
+    card = d1.dropout_apply(ones, *k1, 0.5, "check")[:rows].cpu()
+    cpu = d1.dropout_plain(ones[:rows].cpu(), *k1, 0.5)
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"[knobs] rank {me}: the card's mask of epoch "
+                             f"1 differs from the CPU's")
+    return {"shapes": [list(x) for x in shapes], "cpu_rows": rows}
+
+
 class SideTimer:
     """CUDA events around one split side's training passes (its
     apply_dir, phases 'fwd' and 'bwd'; the precompute's 'pre' is left
@@ -2512,10 +2728,17 @@ def halo_rank(ctx, cfg, path, reps):
     variants of one SpMM; the split variants first hold K1 and K2 on their
     interior and frontier layouts to the plain versions, then time each
     side's passes by CUDA events. Launch counts are reset just before each
-    loop and read just after."""
+    loop and read just after. (c) [knobs]: d1_rank_check, then each of
+    KNOB_VARIANTS the same way (a reorder variant first applies
+    data/reorder.maybe_reorder to the part, the ranks agreeing on auto's
+    verdict), with each run's final parameters and SyncBatchNorm
+    statistics kept for the phase's comparisons."""
+    import hashlib
+
     import torch
     from bnsgcn_tpu_torch.data.artifacts import load_artifacts
-    from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+    from bnsgcn_tpu_torch.data.reorder import maybe_reorder
+    from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
     from bnsgcn_tpu_torch.parallel import halo
     from bnsgcn_tpu_torch.run import prepare_part, train_loop
     from bnsgcn_tpu_torch.utils import prng
@@ -2565,12 +2788,18 @@ def halo_rank(ctx, cfg, path, reps):
             "ms": cuda_ms(lambda: halo.halo_apply(spec, plan, h, comm),
                           reps)}
     lent, widths = {}, (H, art.n_feat)
+    finals = {}
+
+    def flat_params(model):
+        return torch.cat([p.detach().reshape(-1).float()
+                          for p in model.parameters()])
+
     for name, flags in HALO_VARIANTS:
         c = cfg.replace(**flags)
         t0 = time.perf_counter()
         pr = prepare_part(c, art, None, dev, log, me, comm,
-                          reuse=lent.get((c.spmm, c.overlap)))
-        lent.setdefault((c.spmm, c.overlap), pr.fns)
+                          reuse=lent.get((c.spmm, c.overlap, "off")))
+        lent.setdefault((c.spmm, c.overlap, "off"), pr.fns)
         rec = {"setup_s": time.perf_counter() - t0,
                "overlap": pr.fns.overlap, "strategy": pr.fns.halo_strategy,
                "wire_mb": (0.0 if pr.fns.halo is None else
@@ -2594,21 +2823,83 @@ def halo_rank(ctx, cfg, path, reps):
         n = len(lines)
         bucket_sum.launches.reset()
         tile_matmul.launches.reset()
+        dropout.launches.reset()
         torch.cuda.reset_peak_memory_stats(dev)
-        res, _ = train_loop(pr, None, log)
+        held = torch.cuda.memory_allocated(dev)
+        res, model = train_loop(pr, None, log)
         rec.update(
             losses=res.losses, epoch_times=res.epoch_times,
             comm_times=res.comm_times, reduce_times=res.reduce_times,
+            run_memory_gib=(torch.cuda.max_memory_allocated(dev) - held)
+            / 2 ** 30,
             launches={"K1": dict(bucket_sum.launches.by_phase),
                       "K2": dict(tile_matmul.launches.by_phase)},
             kinds={"K1": dict(bucket_sum.launches.by_kind),
                    "K2": dict(tile_matmul.launches.by_kind)},
+            d1={"phases": dict(dropout.launches.by_phase),
+                "kinds": dict(dropout.launches.by_kind)},
             max_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
             lines=lines[n:])
         if timers is not None:
             rec["side_ms"] = {k: t.ms() for k, t in timers.items()}
+        if name == "padded":
+            finals[name] = flat_params(model)
         out["variants"][name] = rec
-        del pr, res
+        del pr, res, model
+        torch.cuda.empty_cache()
+
+    # [knobs]
+    t0 = time.perf_counter()
+    out["d1"] = d1_rank_check(cfg, art, me, dev)
+    out["d1"]["seconds"] = time.perf_counter() - t0
+    out["knobs"] = {}
+    for name, flags in KNOB_VARIANTS:
+        c = cfg.replace(**flags)
+        t0 = time.perf_counter()
+        art_v, info = art, {}
+        if c.reorder != "off":
+            art_v, resolved, info = maybe_reorder(c, art, log, comm, me)
+            c = c.replace(reorder=resolved)
+        key = (c.spmm, c.overlap, c.reorder)
+        pr = prepare_part(c, art_v, None, dev, log, me, comm,
+                          reuse=lent.get(key))
+        lent.setdefault(key, pr.fns)
+        rec = {"setup_s": time.perf_counter() - t0, "reorder": info,
+               "resolved": c.reorder,
+               "layout_times": dict(pr.fns.layout_times)}
+        bucket_sum.launches.reset()
+        tile_matmul.launches.reset()
+        dropout.launches.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        res, model = train_loop(pr, None, log)
+        flat = flat_params(model)
+        rec.update(
+            losses=res.losses, epoch_times=res.epoch_times,
+            comm_times=res.comm_times,
+            run_memory_gib=(torch.cuda.max_memory_allocated(dev) - held)
+            / 2 ** 30,
+            launches={"K1": dict(bucket_sum.launches.by_phase),
+                      "K2": dict(tile_matmul.launches.by_phase)},
+            d1={"phases": dict(dropout.launches.by_phase),
+                "kinds": dict(dropout.launches.by_kind)},
+            max_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        if c.norm == "batch":
+            stats = torch.cat([torch.cat([m.mean, m.var]) for k, m in
+                               model.named_children()
+                               if k.startswith("norm_")]).cpu()
+            rec["bn_digest"] = hashlib.sha256(
+                stats.numpy().tobytes()).hexdigest()
+        twin = REMAT_TWINS.get(name)
+        if twin is not None:
+            ref = finals[twin]
+            rec["params_vs_twin"] = {
+                "bitwise": bool(torch.equal(flat, ref)),
+                "max_rel": float((flat - ref).abs().max()
+                                 / ref.abs().max().clamp(min=1e-30))}
+        finals[name] = flat
+        out["knobs"][name] = rec
+        del pr, res, model
         torch.cuda.empty_cache()
     lent.clear()
     return out
@@ -2745,13 +3036,129 @@ def halo_phase(main4, args):
             f"interior and frontier layouts within their bounds (max abs err "
             f"K1 {max(x['check']['K1'][0] for x in rows):.3e}, K2 "
             f"{max(x['check']['K2'][0] for x in rows):.3e})")
-    log(f"[halo] done in {time.perf_counter() - t0:.1f} s")
-    return {"auto": [pick, why], "ranks": [
-        {k: v for k, v in r.items() if k != "variants"} for r in ranks],
+    log(f"[halo] done in {time.perf_counter() - t0:.1f} s (with [knobs])")
+    knobs = knobs_report(cfg, ranks, var)
+    return {"auto": [pick, why], "knobs": knobs, "ranks": [
+        {k: v for k, v in r.items() if k not in ("variants", "knobs")}
+        for r in ranks],
         "variants": {name: [{k: v for k, v in x.items()
                              if k not in ("detail", "lines")} for x in recs]
                      for name, recs in var.items()},
         "split": split}
+
+
+def knobs_report(cfg, ranks, halo_var):
+    """[knobs]' checks and lines over the ranks' reports (halo_rank (c)):
+    D1 bitwise on every rank's layer shapes and against the CPU's mask; on
+    the flagship at dropout 0.5 (the padded variant) D1 launched once per
+    layer forward and once per layer backward but the first (whose input
+    needs no gradient) every epoch; every variant's losses finite, its
+    epoch, peak memory and set-up; SyncBatchNorm's statistics bitwise equal
+    on every rank; --remat's losses and parameters equal to its twin's
+    (bitwise, or within REMAT_RTOL, said which); the reorder variants'
+    coverage before and after, order build ms, layout set-up, and losses
+    against their twins (REORDER_TWINS), auto's against the variant its
+    verdict names, bitwise. Returns the details for the report."""
+    t0 = time.perf_counter()
+    var = {name: [r["knobs"][name] for r in ranks] for name, _ in
+           KNOB_VARIANTS}
+    log(f"[knobs] D1 bitwise its plain version on every rank's layer "
+        f"shapes {ranks[0]['d1']['shapes']} (and the others'), f32 and "
+        f"bf16, forward and backward, the next epoch's key rejected; the "
+        f"mask of (epoch 1, rank r) on the card bitwise the CPU's on "
+        f"{ranks[0]['d1']['cpu_rows']} rows of every rank "
+        f"({_span([r['d1']['seconds'] for r in ranks])} s)")
+    n_l, n_e = cfg.n_layers, cfg.n_epochs
+    want = {"fwd": n_l * n_e, "bwd": (n_l - 1) * n_e}
+    for r in halo_var["padded"]:
+        if r["d1"]["phases"] != want:
+            raise AssertionError(f"[knobs] the flagship at dropout "
+                                 f"{cfg.dropout}: D1 launched "
+                                 f"{r['d1']['phases']}, not {want}")
+    log(f"[knobs] the flagship at dropout {cfg.dropout} ([halo]'s padded "
+        f"run): D1 launched {want} on every rank (each layer's forward, "
+        f"each backward but layer 0's)")
+    for name, _ in KNOB_VARIANTS:
+        recs = var[name]
+        losses = recs[0]["losses"]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"[knobs] {name}: non-finite loss {losses}")
+        if not all(r["launches"]["K1"] for r in recs):
+            raise AssertionError(f"[knobs] {name}: K1 never launched")
+        ep = [mean_from_1(r["epoch_times"]) * 1e3 for r in recs]
+        mem = [r["run_memory_gib"] for r in recs]
+        log(f"[knobs] {name}: epoch {_span(ep)} ms (means of epochs 1..), "
+            f"the run's own peak memory {_span(mem, '{:.2f}')} GiB (above "
+            f"what the group held before it), D1 "
+            f"{recs[0]['d1']['phases']}, set-up "
+            f"{_span([r['setup_s'] for r in recs])} s; losses "
+            + " ".join(f"{v:.6f}" for v in losses))
+    for name in ("bn", "remat+bn"):
+        digests = {r["bn_digest"] for r in var[name]}
+        if len(digests) != 1:
+            raise AssertionError(f"[knobs] {name}: the ranks' SyncBatchNorm "
+                                 f"statistics differ")
+    log("[knobs] --norm batch: the running mean and variance bitwise equal "
+        "on every rank (bn, remat+bn)")
+    remat = {}
+    for name, twin in REMAT_TWINS.items():
+        a = var[name][0]["losses"]
+        b = (halo_var[twin] if twin in halo_var else var[twin])[0]["losses"]
+        bitwise = a == b and all(r["params_vs_twin"]["bitwise"]
+                                 for r in var[name])
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        p_rel = max(r["params_vs_twin"]["max_rel"] for r in var[name])
+        if not (loss_rel <= REMAT_RTOL and p_rel <= REMAT_RTOL):
+            raise AssertionError(f"[knobs] {name}: losses {a} vs {twin}'s "
+                                 f"{b} ({loss_rel:.3e}), parameters "
+                                 f"{p_rel:.3e} (relative)")
+        m_a = [r["run_memory_gib"] for r in var[name]]
+        m_b = [r["run_memory_gib"] for r in
+               (halo_var[twin] if twin in halo_var else var[twin])]
+        remat[name] = {"twin": twin, "bitwise": bitwise,
+                       "loss_rel": loss_rel, "params_rel": p_rel,
+                       "memory_gib": m_a, "twin_memory_gib": m_b}
+        log(f"[knobs] {name} against {twin}: losses and final parameters "
+            + ("bitwise equal" if bitwise else
+               f"within {max(loss_rel, p_rel):.1e} (relative; the "
+               f"recompute's kernels are not bitwise)")
+            + f"; the run's own peak memory per rank "
+            f"{_span(m_a, '{:.2f}')} GiB against {_span(m_b, '{:.2f}')}")
+    ro = {}
+    for name in ("ro-cluster", "ro-auto", "ell+ro-cluster", "ell+ro-auto"):
+        recs = var[name]
+        info = recs[0]["reorder"]
+        ro[name] = {"resolved": recs[0]["resolved"], "info": [
+            r["reorder"] for r in recs],
+            "setup_s": [r["setup_s"] for r in recs]}
+        log(f"[knobs] {name}: {info['mode']} -> {info['resolved']}, tile "
+            f"coverage {info['coverage_before']:.1%} -> "
+            f"{info['coverage_after']:.1%} (every rank's parts), the order "
+            f"built in {_span([r['reorder']['build_ms'] for r in recs])} ms "
+            f"per rank, layout set-up {_span(ro[name]['setup_s'])} s")
+    for name, (twin, tol) in REORDER_TWINS.items():
+        a, b = var[name][0]["losses"], var[twin][0]["losses"]
+        worst = max(abs(x - y) / max(abs(y), 1.0) for x, y in zip(a, b))
+        if not worst <= tol:
+            raise AssertionError(f"[knobs] {name}: losses {a} vs {twin}'s "
+                                 f"{b} differ by {worst:.3e}")
+        ro[name]["loss_diff"] = worst
+        log(f"[knobs] {name} against {twin}: losses within {worst:.1e} of "
+            f"max(|loss|, 1) <= {tol}")
+    for name, cl, base in (("ro-auto", "ro-cluster", "ro-base"),
+                           ("ell+ro-auto", "ell+ro-cluster", "ell+ro-base")):
+        twin = cl if var[name][0]["resolved"] == "cluster" else base
+        if var[name][0]["losses"] != var[twin][0]["losses"]:
+            raise AssertionError(f"[knobs] {name} resolved to "
+                                 f"{var[name][0]['resolved']} but its losses "
+                                 f"are not {twin}'s")
+        log(f"[knobs] {name}: auto -> {var[name][0]['resolved']}, losses "
+            f"bitwise {twin}'s")
+    log(f"[knobs] report {time.perf_counter() - t0:.1f} s")
+    return {"variants": {name: [{k: v for k, v in x.items()}
+                                for x in recs] for name, recs in var.items()},
+            "remat": remat, "reorder": ro,
+            "d1": [r["d1"] for r in ranks]}
 
 
 def anchor_phase(work):
@@ -2764,28 +3171,36 @@ def anchor_phase(work):
     anchor's random partitions is printed) each within QUANT_TOL of exact;
     the finer stack in bf16 recorded beside them, not gated; the
     biased-sampler mutation (each rank draws the first k of every boundary
-    list) below exact - 0.05."""
+    list) below exact - 0.05. The P=4 runs train two at a time, and the
+    phase runs beside [cli] (the seconds printed overlap)."""
     from bnsgcn_tpu_torch import anchor
     g = anchor.anchor_graph()
     quant = dict(spmm="hybrid", use_pallas=True, spmm_gather="int8",
                  spmm_dense="int8", halo_wire="int8")
-    out = {}
-    for name, P, rate, kw in (("exact", 1, 1.0, {}),
-                              ("quant", PARTS, BNS_RATE, quant),
-                              ("quant_bf16", PARTS, BNS_RATE,
-                               dict(quant, dtype="bfloat16")),
-                              ("recipe", PARTS, BNS_RATE, recipe_fields()),
-                              ("biased", PARTS, BNS_RATE,
-                               dict(biased_sampler=True))):
+    runs = (("exact", 1, 1.0, {}),
+            ("quant", PARTS, BNS_RATE, quant),
+            ("quant_bf16", PARTS, BNS_RATE, dict(quant, dtype="bfloat16")),
+            ("recipe", PARTS, BNS_RATE, recipe_fields()),
+            ("biased", PARTS, BNS_RATE, dict(biased_sampler=True)))
+
+    def one(run):
+        name, P, rate, kw = run
         t0 = time.perf_counter()
         lines = []
         acc = anchor.train_eval(g, P, rate, epochs=anchor.EPOCHS,
                                 device="cuda",
                                 work=os.path.join(work, "anchor", name),
                                 log=lines.append, **kw)
-        out[name] = {"val_acc": acc, "seconds": time.perf_counter() - t0,
-                     "auto": [ln for ln in lines
-                              if ln.startswith("spmm=auto:")]}
+        return name, {"val_acc": acc, "seconds": time.perf_counter() - t0,
+                      "auto": [ln for ln in lines
+                               if ln.startswith("spmm=auto:")]}
+
+    # the P=4 runs two at a time, each its own spawned group on the card:
+    # their epochs wait on gloo's host round trips more than on the card,
+    # and the gate reads accuracies, not times
+    out = dict([one(runs[0])])
+    with ThreadPoolExecutor(2) as pool:
+        out.update(pool.map(one, runs[1:]))
     e, q, b, r, m = (out[k]["val_acc"] for k in
                      ("exact", "quant", "quant_bf16", "recipe", "biased"))
     auto = out["recipe"]["auto"]
@@ -2845,7 +3260,7 @@ def main(argv=None) -> int:
         from bnsgcn_tpu_torch import buildlib
         from bnsgcn_tpu_torch.config import Config
         from bnsgcn_tpu_torch.ops import (bucket_reduce, bucket_sum,
-                                          copy_probe, tile_matmul)
+                                          copy_probe, dropout, tile_matmul)
         from bnsgcn_tpu_torch.run import prepare_run, run_training
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -2857,16 +3272,23 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     device_kind = torch.cuda.get_device_name(0)
     t_all = time.perf_counter()
+    phases, t_phase = {}, [t_all]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phases[name] = now - t_phase[0]
+        t_phase[0] = now
 
     # 1. build
     t0 = time.perf_counter()
-    kmods = (bucket_sum, tile_matmul, bucket_reduce, copy_probe)
+    kmods = (bucket_sum, tile_matmul, bucket_reduce, copy_probe, dropout)
     buildlib.build_many([(name, "cuda", [src]) for m in kmods
                          for name, src in m.BUILDS])
     for m in kmods:
         m.lib()
-    log(f"[build] K1-K4 built in {time.perf_counter() - t0:.1f} s "
+    log(f"[build] K1-K4 and D1 built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a)")
+    phase_done("build")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")   # checkpoints, results
     cfg = Config(dataset=f"synth-reddit:{args.scale}", n_partitions=1,
@@ -2879,10 +3301,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     pr = prepare_run(cfg, log=log)
     log(f"[setup] graph + artifacts + layout {time.perf_counter() - t0:.1f} s")
+    phase_done("setup")
 
     # 2. kernels against their plain versions at the main path's shapes
     gen = torch.Generator(device="cuda").manual_seed(1234)
     widths = (cfg.n_hidden, pr.cfg.n_feat)
+    p1_nfeat = pr.cfg.n_feat
     detail = []
     e1, t1 = compare_k1(pr.fns, widths, gen, args.reps, detail)
     e2, t2 = compare_k2(pr.fns, widths, gen, args.reps, detail)
@@ -2942,6 +3366,19 @@ def main(argv=None) -> int:
         f"time, the output's allocation {t4['alloc_host_us']:.2f} us and the "
         f"C call with its launch {t4['launch_host_us']:.2f} us")
 
+    d1t = compare_d1(pr.art.pad_inner, (2 * pr.cfg.n_feat, cfg.n_hidden),
+                     args.reps, detail)
+    for kind, by_w in d1t.items():
+        for w, t in by_w.items():
+            log(f"[check] D1 {kind} [{t['shape'][0]}, {w}]: bitwise equal to "
+                f"its plain version forward and backward, the next epoch's "
+                f"key rejected; kernel {t['ms']:.3f} ms, plain (one call) "
+                f"{t['plain_ms']:.3f}, F.dropout (Philox, a yardstick) "
+                f"{t['library_ms']:.3f}, bound {t['bound_ms']:.3f} "
+                f"({t['bound_by']}: bytes {t['bytes_ms']:.3f}, "
+                f"{D1_OPS_PER_ELEMENT} int32 operations per element "
+                f"{t['ops_ms']:.3f})")
+
     lk1 = compare_k1_lowp(pr.fns, widths, gen, args.reps, detail)
     lk2 = compare_k2_lowp(pr.fns, widths, gen, args.reps, detail)
     for name, res_k in (("K1", lk1), ("K2", lk2)):
@@ -2974,15 +3411,20 @@ def main(argv=None) -> int:
                 f"{t['plain_ms']:.3f}, library {lib}, bound "
                 f"{t['bound_ms']:.3f} ({t['bound_by']}){extra}")
 
+    phase_done("kernels")
     # 3. small-input agreement, card vs CPU
     small_agreement(cfg)
+    phase_done("agree")
 
     # 4. the main path, through the user's entry point
     bucket_sum.launches.reset()
     tile_matmul.launches.reset()
+    dropout.launches.reset()
     res = run_training(cfg, log=log, prepared=pr)
     k1 = dict(bucket_sum.launches.by_phase)
     k2 = dict(tile_matmul.launches.by_phase)
+    d1_p1 = {"phases": dict(dropout.launches.by_phase),
+             "kinds": dict(dropout.launches.by_kind)}
     p1_kinds = {"K1": dict(bucket_sum.launches.by_kind),
                 "K2": dict(tile_matmul.launches.by_kind)}
     log(f"[launches] K1 {k1} | K2 {k2}")
@@ -2997,6 +3439,13 @@ def main(argv=None) -> int:
         if c != want:
             raise AssertionError(f"{name} launched {c} on the main path, not "
                                  f"{want}")
+    # dropout before every layer; layer 0's input needs no gradient
+    want_d1 = {"fwd": cfg.n_layers * args.epochs,
+               "bwd": (cfg.n_layers - 1) * args.epochs}
+    if d1_p1["phases"] != want_d1:
+        raise AssertionError(f"D1 launched {d1_p1['phases']} on the main "
+                             f"path, not {want_d1}")
+    log(f"[launches] D1 {d1_p1['phases']}")
     if not all(math.isfinite(x) for x in res.losses):
         raise AssertionError(f"non-finite loss: {res.losses}")
     if not res.losses[-1] < res.losses[0]:
@@ -3011,6 +3460,7 @@ def main(argv=None) -> int:
         f"{mean_from_1(res.epoch_times) * 1e3:.1f} ms; the epoch line's "
         f"(epochs 5..) {res.epoch_time * 1e3:.1f} ms; val {val:.3f}, test "
         f"{test:.3f}")
+    phase_done("main")
     p1 = {"scale": args.scale, "epochs": args.epochs, "losses": res.losses,
           "epoch_times_s": res.epoch_times, "epoch_time_s": res.epoch_time,
           "epoch_from_1_s": mean_from_1(res.epoch_times),
@@ -3041,32 +3491,49 @@ def main(argv=None) -> int:
         f"{rec1['test_acc']:.3f}")
     del pr
     torch.cuda.empty_cache()
+    phase_done("lowp+recipe")
 
     # 5. the P-rank path
     t0 = time.perf_counter()
     parts, res4 = parts_runs(cfg, args, os.path.join(os.getcwd(),
                                                      "partition"))
     log(f"[parts] done in {time.perf_counter() - t0:.1f} s")
+    phases.update({f"parts:{k}": v for k, v in parts.pop("phases").items()})
+    t_phase[0] = time.perf_counter()
 
     # 6. the flagship's script: train, checkpoint, resume; then with the
     # evaluation on the ranks
-    cli = cli_phase(work)
-    cli["mesh"] = cli_mesh_phase(work)
+    # 7. [anchor], the calibrated accuracy gate, the laws' P=1 sides and
+    # 6b. [yelp], the multilabel path at Yelp's widths, beside [cli]'s
+    # runs of the script and its --eval-device mesh run: none of them
+    # reads a time it claims, each has its own directories and groups
+    law_p1 = parts.pop("law_p1")
+    with ThreadPoolExecutor(5) as pool:
+        mesh = pool.submit(cli_mesh_phase, work)
+        anc_f = pool.submit(anchor_phase, work)
+        law_f = pool.submit(gat_law_phase, cfg, work)
+        law1_f = pool.submit(law_p1_phase, *law_p1)
+        yelp_f = pool.submit(yelp_phase, work)
+        cli = cli_phase(work)
+        cli["mesh"] = mesh.result()
+        anc = anc_f.result()
+        parts["gat"].update(law_f.result())
+        parts.update(law1_f.result())
+        yelp = yelp_f.result()
+    del law_p1
+    phase_done("cli+anchor+laws+yelp")
 
-    # 6b. the multilabel path at Yelp's widths
-    yelp = yelp_phase(work)
 
     # 6c. scripts/ogbn-papers100m_torch.sh: streaming bf16 artifacts, one
     # launch against two nodes' launches, the layout cache
     papers = papers_phase(work, args.papers_nodes)
+    phase_done("papers")
 
-    # 7. [anchor]: the calibrated accuracy gate, on the card
-    anc = anchor_phase(work)
     shutil.rmtree(work, ignore_errors=True)
     # launches by variant on the main paths: the P=1 run, every rank of the
     # P=4 main path, [lowp]'s two runs, [recipe]'s at P=1 and P=4, and
     # every rank of [meval] (its evals included) and of [yelp]
-    counts = {"K1": {}, "K2": {}}
+    counts = {"K1": {}, "K2": {}, "D1": {}}
     for src in ([{"K1": p1_kinds["K1"], "K2": p1_kinds["K2"]}]
                 + [rep["kinds"] for rep in res4.ranks]
                 + [x["launches"] for x in lowp.values()]
@@ -3079,6 +3546,17 @@ def main(argv=None) -> int:
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
+    # D1 on the main paths at dropout > 0: the P=1 run, [lowp]'s and
+    # [recipe]'s at P=1 (bf16), every rank of the P=4 main path, and of
+    # [halo]'s and [knobs]' variants
+    for src in ([d1_p1] + [rep["d1"] for rep in res4.ranks]
+                + [x["d1"] for x in lowp.values()] + [rec1["d1"]]
+                + [x["d1"] for recs in parts["halo"]["variants"].values()
+                   for x in recs]
+                + [x["d1"] for recs in parts["halo"]["knobs"]["variants"]
+                   .values() for x in recs]):
+        for kind, n in src["kinds"].items():
+            counts["D1"][kind] = counts["D1"].get(kind, 0) + n
     # the largest error of each kernel's checks, P=1's and every rank's
     hooks = ([rep["hook"] for rep in res4.ranks]
              + yelp["rank_checks"]
@@ -3088,7 +3566,10 @@ def main(argv=None) -> int:
             "tile_matmul": max([e2[0]] + [h["K2"][0] for h in hooks]),
             "bucket_reduce": e3, "copy_probe": 0.0}
     times = {"ell_bucket_sum": t1, "tile_matmul": t2, "bucket_reduce": t3,
-             "copy_probe": t4}
+             "copy_probe": t4,
+             "dropout": d1t["f32"][2 * p1_nfeat],
+             "dropout_bf16": d1t["bf16"][2 * p1_nfeat]}
+    errs["dropout"] = errs["dropout_bf16"] = 0.0     # bitwise
     for prefix, res_k in (("ell_bucket_sum", lk1), ("tile_matmul", lk2)):
         for kind, (err, t) in res_k.items():
             name = f"{prefix}_{kind.replace('-', '_')}"
@@ -3104,6 +3585,8 @@ def main(argv=None) -> int:
 
     # 8. report
     out = {"card": smi, "p1": p1, "lowp": lowp, "recipe_p1": rec1,
+           "d1": {k: {str(w): t for w, t in v.items()} for k, v in
+                  d1t.items()}, "phases": phases,
            "parts": parts, "cli": cli, "yelp": yelp, "papers": papers,
            "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
@@ -3121,6 +3604,9 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    log("[phases] " + " | ".join(f"{k} {v:.1f} s" for k, v in
+                                  phases.items())
+        + f" | total {time.perf_counter() - t_all:.1f} s")
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

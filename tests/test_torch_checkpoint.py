@@ -44,8 +44,9 @@ from bnsgcn_tpu.trainer import make_tx as j_make_tx
 from bnsgcn_tpu_torch import checkpoint as ckpt
 from bnsgcn_tpu_torch.config import Config
 from bnsgcn_tpu_torch.models.gnn import GNN, spec_from_config
+from bnsgcn_tpu_torch.ops.dropout import dropout
 from bnsgcn_tpu_torch.run import run_training
-from bnsgcn_tpu_torch.trainer import (dropout_generator, make_tx,
+from bnsgcn_tpu_torch.trainer import (dropout_key, make_tx,
                                       opt_state_from_jax, opt_state_to_jax,
                                       params_from_jax, params_to_jax)
 from bnsgcn_tpu_torch.utils import msgpack_codec
@@ -139,7 +140,7 @@ def _trained_port(cfg, spec, steps=2):
     """The port's model and Adam after `steps` updates with random
     gradients: every optimizer leaf holds something."""
     torch.manual_seed(0)
-    model = GNN(spec, torch.Generator().manual_seed(4))
+    model = GNN(spec, 4)
     opt = make_tx(cfg, model.parameters())
     for _ in range(steps):
         for p in model.parameters():
@@ -346,8 +347,7 @@ def test_resume_adopts_the_checkpoint_seed(tmp_path):
 
 def test_dropout_is_keyed_by_seed_epoch_and_rank():
     def mask(seed, epoch, rank):
-        g = dropout_generator(seed, epoch, rank, "cpu")
-        return torch.empty(64).bernoulli_(0.5, generator=g)
+        return dropout(torch.ones(64), dropout_key(seed, epoch, rank), 0.5)
 
     assert torch.equal(mask(3, 5, 1), mask(3, 5, 1))
     others = [mask(4, 5, 1), mask(3, 6, 1), mask(3, 5, 2)]

@@ -120,8 +120,8 @@ def test_subcommands_exit_2_by_name(name, capsys):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--strict-exec"], "--strict-exec"),
-    (["--norm", "batch"], "--norm batch"),
-    (["--no-comm-trace", "--remat"], "--remat"),
+    (["--replicas", "2"], "--replicas 2"),
+    (["--no-comm-trace", "--feat", "2"], "--feat 2"),
     (["--serve-port", "9"], "--serve-port 9"),
     (["--elastic", "on"], "--elastic on"),
 ])

@@ -832,7 +832,7 @@ def test_checkpoint_from_card_tensors_reloads_bitwise(cuda, tmp_path):
     cfg = Config(model="graphsage", n_layers=3, n_hidden=32, use_pp=True,
                  n_feat=7, n_class=5, weight_decay=5e-4)
     spec = spec_from_config(cfg)
-    net = GNN(spec, torch.Generator().manual_seed(1)).to(cuda)
+    net = GNN(spec, 1).to(cuda)
     opt = make_tx(cfg, net.parameters())
     gen = torch.Generator(device=cuda).manual_seed(2)
     for _ in range(3):
@@ -926,7 +926,7 @@ def test_mesh_eval_on_the_card_matches_the_host_eval(cuda, model, use_pp):
                  dropout=0.0, spmm="hybrid", block_tile=64, n_partitions=1,
                  device="cuda", eval_device="mesh", seed=2)
     pr = prepare_run(cfg, g=g, log=lambda m: None)
-    net = GNN(pr.spec, torch.Generator().manual_seed(2)).to(cuda)
+    net = GNN(pr.spec, 2).to(cuda)
     k1, k2 = (dict(c.by_phase) for c in (k1_launches, k2_launches))
     got = pr.fns.eval_forward(net, pr.blk)
     for before, c in ((k1, k1_launches), (k2, k2_launches)):
@@ -1142,3 +1142,38 @@ def test_segment_spmm_on_the_card_within_tolerance(cuda, edge_chunk):
         outs.append((y.detach().cpu().numpy(), x.grad.cpu().numpy()))
     np.testing.assert_allclose(outs[0][0], outs[1][0], **TOL)
     np.testing.assert_allclose(outs[0][1], outs[1][1], **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 1), (1000, 37), (4099, 256),
+                                   (3, 1 << 20)])
+def test_dropout_kernel_is_its_plain_version(cuda, shape, dtype):
+    """D1 (csrc/dropout.cu) bitwise its plain version, forward and backward
+    (the kernel on the gradient), on odd sizes and a flat index past a
+    grid's worth of threads; another key's draw differs; the launches are
+    counted by phase."""
+    from bnsgcn_tpu_torch.ops import dropout as d1
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dt)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dt)
+    key = d1.key_words(prng.fold_in(prng.key(3), 2))
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    d1.launches.reset()
+    for rate in (0.5, 0.1):
+        ref = d1.dropout_plain(x, *key, 1.0 - rate)
+        got = d1.dropout_apply(x, *key, 1.0 - rate)
+        assert torch.equal(got.view(bits), ref.view(bits))
+        xr = x.clone().requires_grad_(True)
+        d1.dropout(xr, key, rate).backward(g)
+        assert torch.equal(xr.grad.view(bits),
+                           d1.dropout_plain(g, *key, 1.0 - rate).view(bits))
+        if x.numel() > 64:
+            other = d1.dropout_apply(x, key[0], key[1] ^ 1, 1.0 - rate)
+            assert not torch.equal(other.view(bits), ref.view(bits))
+    torch.cuda.synchronize()
+    assert d1.launches.by_phase["fwd"] >= 4 and d1.launches.by_phase[
+        "bwd"] == 2
+    with pytest.raises(ValueError):
+        d1.dropout_apply(x.to(torch.float16), *key, 0.5)

@@ -323,7 +323,7 @@ def test_gat_checkpoint_is_byte_equal_to_jax_both_ways(tmp_path):
     from tests.test_torch_checkpoint import _assert_tree_equal
     cfg, spec_j, spec_t = _specs(5, 3)
     torch.manual_seed(0)
-    net = GNN(spec_t, torch.Generator().manual_seed(4))
+    net = GNN(spec_t, 4)
     opt = make_tx(cfg, net.parameters())
     for _ in range(2):
         for p in net.parameters():

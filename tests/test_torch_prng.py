@@ -1,9 +1,11 @@
-"""The port's threefry stream (bnsgcn_tpu_torch/utils/prng.py) and its BNS
-draw (parallel/sampling.py) bitwise against the installed jax and the JAX
-package's sampling module, on the CPU.
+"""The port's threefry stream (bnsgcn_tpu_torch/utils/prng.py), its BNS
+draw (parallel/sampling.py) and its dropout draw (ops/dropout.py, D1's plain
+version) bitwise against the installed jax and the JAX package, on the CPU.
 
 Every comparison is array-equal: keys and random words are integers, the
-uniforms are bit patterns, the samples are indices.
+uniforms, the masks and the dropped-out values bit patterns, the samples
+indices; except jax.random.normal in f32, held to prng.NORMAL_ULP units in
+the last place (the port's log1p is not XLA's).
 """
 
 import jax
@@ -12,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from bnsgcn_tpu.models.gnn import _dropout as j_dropout
 from bnsgcn_tpu.parallel import sampling as j_sampling
+from bnsgcn_tpu_torch.ops import dropout as t_dropout
 from bnsgcn_tpu_torch.parallel import sampling as t_sampling
 from bnsgcn_tpu_torch.utils import prng
 
@@ -66,6 +70,111 @@ def test_uniform_batches_over_keys():
         want = jax.random.uniform(jax.random.fold_in(jax.random.key(3), r),
                                   (37,))
         np.testing.assert_array_equal(_bits(got[r].numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_is_jax_split(seed, n):
+    """Under jax_threefry_partitionable the new keys are threefry's two
+    output words over the counters 0..n-1 (not xored)."""
+    assert jax.config.jax_threefry_partitionable
+    got = prng.split(prng.fold_in(prng.key(seed), 7), n)
+    want = _words(jax.random.split(jax.random.fold_in(jax.random.key(seed),
+                                                      7), n))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bits16(x) -> np.ndarray:
+    return np.asarray(x).view(np.uint16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bounds", [(0.0, 1.0), (-0.3, 0.3),
+                                    (-1 / np.sqrt(1204), 1 / np.sqrt(1204)),
+                                    (-2.5, 7.0)])
+@pytest.mark.parametrize("shape", [(7,), (3, 5), (2, 3, 4), (257, 33)])
+def test_uniform_nd_is_jax_uniform(shape, bounds, dtype):
+    """An N-d shape counts its elements row-major; minval/maxval scale as
+    XLA's fused multiply-add (f32) or bf16's rounded steps."""
+    seed = sum(shape) + int(1e3 * bounds[1])
+    k = jax.random.fold_in(jax.random.key(seed), 2)
+    kt = prng.fold_in(prng.key(seed), 2)
+    got = prng.uniform(kt, shape, *bounds, dtype=getattr(torch, dtype))
+    want = jax.random.uniform(k, shape, getattr(jnp, dtype), *bounds)
+    assert tuple(got.shape) == shape
+    if dtype == "float32":
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+    else:
+        np.testing.assert_array_equal(
+            got.view(torch.int16).numpy().view(np.uint16), _bits16(want))
+
+
+@pytest.mark.parametrize("p", [0.5, 0.9, 0.1])
+def test_bernoulli_is_jax_bernoulli(p):
+    k = jax.random.key(11)
+    got = prng.bernoulli(prng.key(11), p, (64, 37))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax.random.bernoulli(
+                                      k, p, (64, 37))))
+
+
+def test_normal_is_jax_normal_within_its_ulp():
+    """f32: within NORMAL_ULP units in the last place over 600k draws
+    (the bound was measured over 2M; 99% bitwise), the tails included;
+    bf16 bitwise."""
+    worst = same = total = 0
+    for seed in range(3):
+        a = np.asarray(jax.random.normal(jax.random.key(seed), (200_000,)))
+        b = prng.normal(prng.key(seed), (200_000,)).numpy()
+        ulp = np.abs(a.view(np.int32).astype(np.int64)
+                     - b.view(np.int32).astype(np.int64))
+        worst = max(worst, int(ulp.max()))
+        same += int((ulp == 0).sum())
+        total += ulp.size
+    assert worst <= prng.NORMAL_ULP and same / total > 0.98
+    want = jax.random.normal(jax.random.key(3), (300, 64), jnp.bfloat16)
+    got = prng.normal(prng.key(3), (300, 64), torch.bfloat16)
+    np.testing.assert_array_equal(
+        got.view(torch.int16).numpy().view(np.uint16), _bits16(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.5, 0.1, 0.3])
+def test_dropout_is_jax_dropout(rate, dtype):
+    """The port's dropout (D1's plain version) against the JAX package's
+    `_dropout`: the kept values and the gradient bitwise, in f32 and bf16,
+    from the same key."""
+    rng = np.random.default_rng(int(rate * 10))
+    x = rng.standard_normal((37, 19)).astype(np.float32)
+    g = rng.standard_normal((37, 19)).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    k = jax.random.fold_in(jax.random.fold_in(jax.random.key(8), 3), 1)
+    want, vjp = jax.vjp(lambda h: j_dropout(h, rate, k, True),
+                        jnp.asarray(x, jdt))
+    want_g = vjp(jnp.asarray(g, jdt))[0]
+    xt = torch.tensor(x).to(tdt).requires_grad_(True)
+    got = t_dropout.dropout(xt, prng.fold_in(prng.fold_in(prng.key(8), 3),
+                                             1), rate)
+    got.backward(torch.tensor(g).to(tdt))
+
+    def bits(t, a):
+        return (t.detach().float().numpy().view(np.uint32),
+                np.asarray(a.astype(jnp.float32)).view(np.uint32))
+
+    np.testing.assert_array_equal(*bits(got, want))
+    np.testing.assert_array_equal(*bits(xt.grad, want_g))
+    assert got.dtype == tdt
+
+
+def test_dropout_plain_draws_in_chunks(monkeypatch):
+    """The plain version's chunks draw the flat index range in pieces:
+    the same values as one draw."""
+    x = torch.randn(50, 13)
+    whole = t_dropout.dropout_plain(x, 5, 6, 0.5)
+    monkeypatch.setattr(t_dropout, "PLAIN_CHUNK", 37)
+    np.testing.assert_array_equal(
+        t_dropout.dropout_plain(x, 5, 6, 0.5).numpy(), whole.numpy())
+    assert torch.equal(t_dropout.dropout(x, (5, 6), 0.0), x)
 
 
 @pytest.mark.parametrize("bad", [-1, 2 ** 32])

@@ -2,8 +2,9 @@
 the JAX package at P=1, on the CPU, plus the port's entry point.
 
 Both packages start from the same parameters (the JAX tree carried over by
-trainer.params_from_jax) on the same seeded graph, with dropout 0 so no
-random stream is involved. Tolerances: 1e-5 (rtol and atol) per op, since
+trainer.params_from_jax) on the same seeded graph, with dropout 0.5: both
+draw jax's masks from the step's key (seed 0's key(1) folded with the
+epoch and the rank, trainer.dropout_key). Tolerances: 1e-5 (rtol and atol) per op, since
 XLA:CPU and PyTorch sum in different orders; 1e-4 on the 10-epoch loss
 curve, where those differences pass through ten Adam steps.
 """
@@ -31,7 +32,8 @@ from bnsgcn_tpu_torch.data.graph import sbm_graph as t_sbm_graph
 from bnsgcn_tpu_torch.evaluate import full_graph_logits
 from bnsgcn_tpu_torch.models.gnn import GNN
 from bnsgcn_tpu_torch.run import prepare_run, run_training
-from bnsgcn_tpu_torch.trainer import ce_sum, make_tx, params_from_jax
+from bnsgcn_tpu_torch.trainer import (ce_sum, dropout_key, make_tx,
+                                      params_from_jax)
 
 OP_TOL = dict(rtol=1e-5, atol=1e-5)      # one op, f32, other sum order
 CURVE_TOL = dict(rtol=1e-4, atol=1e-4)   # ten Adam steps of the above
@@ -61,13 +63,13 @@ def pair(request):
     epochs and keeps every intermediate the tests compare."""
     spmm = request.param
     g_j = j_sbm_graph(**GRAPH)
-    common = dict(model="graphsage", n_layers=3, n_hidden=16, dropout=0.0,
+    common = dict(model="graphsage", n_layers=3, n_hidden=16, dropout=0.5,
                   use_pp=True, norm="layer", lr=0.01, weight_decay=5e-4,
                   spmm=spmm, block_tile=64, block_occupancy=4,
                   n_partitions=1, n_epochs=EPOCHS)
     cfg_j = JConfig(n_train=g_j.n_train, **common)
     spec_j = JModelSpec("graphsage", (8, 16, 16, 4), norm="layer",
-                        dropout=0.0, use_pp=True, train_size=g_j.n_train)
+                        dropout=0.5, use_pp=True, train_size=g_j.n_train)
     params0, state0 = j_init_params(jax.random.key(6), spec_j)
     params_np = jax.tree.map(np.asarray, params0)
     mesh = make_parts_mesh(1)
@@ -126,8 +128,9 @@ def _close_state(got: dict, want: dict, **tol):
 def test_precompute_and_train_logits_match(pair):
     _, pr, model, blk = _port(pair)
     np.testing.assert_allclose(blk["feat"].numpy(), pair["feat_pre"], **OP_TOL)
-    np.testing.assert_allclose(pr.fns.forward(model, blk, 0).detach().numpy(),
-                               pair["logits"], **OP_TOL)
+    np.testing.assert_allclose(
+        pr.fns.forward(model, blk, 0, dropout_key(0, 0, 0)).detach().numpy(),
+        pair["logits"], **OP_TOL)
 
 
 def test_eval_logits_match(pair):
@@ -139,7 +142,7 @@ def test_eval_logits_match(pair):
 
 def test_loss_grads_and_adam_step_match(pair):
     _, pr, model, blk = _port(pair)
-    logits = pr.fns.forward(model, blk, 0)
+    logits = pr.fns.forward(model, blk, 0, dropout_key(0, 0, 0))
     loss = ce_sum(logits, blk["label"], blk["train_mask"]) / pr.cfg.n_train
     assert abs(float(loss.detach()) - pair["loss"]) <= 1e-5
     loss.backward()
@@ -174,10 +177,10 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--n-partitions", "4", "--dist-backend", "gloo", "--remat"],
+    ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
     ["--replicas", "2"], ["--strict-exec"],
     ["--profile-dir", "d"], ["--tune", "auto"],
-    ["--elastic", "on"], ["--reorder", "cluster"], ["--norm", "batch"],
+    ["--elastic", "on"], ["--resil-retries", "2"], ["--coord-dir", "d"],
     ["--inject", "nan@E5"], ["--obs-dir", "d"],
     ["--feat", "2"],
     ["--n-partitions", "4", "--dist-backend", "gloo", "--serve-port",
