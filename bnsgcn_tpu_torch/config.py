@@ -119,6 +119,13 @@ class Config:
     dist_backend: str = "nccl"          # P > 1: 'nccl' (one card per rank)
                                         # | 'gloo' (ranks may share a card
                                         # or run on the CPU)
+    replicas: int = 1                   # R: full replicas of the
+                                        # partitioned graph, each with its
+                                        # own boundary sample; the gradient
+                                        # is their mean
+    feat: int = 1                       # T: hidden widths sharded T ways
+                                        # (R x P x T ranks;
+                                        # parallel/replicas.py, feat.py)
 
     # filled from the partition artifacts
     n_feat: int = 0
@@ -150,8 +157,6 @@ class Config:
 # what those values select, and --backend names the JAX package's
 # collectives, a no-op here (--dist-backend picks the port's).
 _NOT_PORTED = (
-    (("replicas",), None, "the replica axis"),
-    (("feat",), None, "the feat axis"),
     (("profile_dir",), None, "profiler traces"),
     (("comm_trace",), (True, False), "traced comm columns"),
     (("strict_exec",), None, "the strict-execution guard"),
@@ -339,11 +344,12 @@ def accepted_values(dest: str, parser: argparse.ArgumentParser):
 
 
 def node_ranks(cfg: Config) -> range:
-    """The global ranks this node's launcher starts: all P with one node;
-    with --n-nodes > 1, node k hosts [k * ppn, min((k + 1) * ppn, P)) for
-    ppn = --parts-per-node (the reference's processes per node). Raises a
-    named ConfigError for a node outside --n-nodes, too few slots for P,
-    and a node that hosts no rank."""
+    """The global ranks this node's launcher starts: all R x P x T with one
+    node; with --n-nodes > 1, node k hosts [k * ppn, min((k + 1) * ppn,
+    P)) for ppn = --parts-per-node (the reference's processes per node).
+    Raises a named ConfigError for a node outside --n-nodes, too few slots
+    for P, a node that hosts no rank, and --replicas or --feat above 1
+    across nodes (the JAX package's refusal, bnsgcn_tpu/run.py:259-263)."""
     P, n, k, ppn = (cfg.n_partitions, cfg.n_nodes, cfg.node_rank,
                     cfg.parts_per_node)
     if n < 1:
@@ -351,7 +357,12 @@ def node_ranks(cfg: Config) -> range:
     if not 0 <= k < n:
         raise ConfigError(f"--node-rank {k} is not a node of --n-nodes {n}")
     if n == 1:
-        return range(P)
+        return range(cfg.replicas * P * cfg.feat)
+    if cfg.replicas > 1 or cfg.feat > 1:
+        raise ConfigError(
+            "--replicas/--feat > 1 are single-host for now (multi-host "
+            "processes map to parts slots only); run with --replicas 1 "
+            "--feat 1 across hosts")
     if ppn < 1:
         raise ConfigError(f"--parts-per-node must be >= 1, got {ppn}")
     if n * ppn < P:
@@ -384,16 +395,21 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if not 0.0 <= rate <= 1.0:
         # rate 0 is the paper's p=0 row: every pair sends only padding
         raise ConfigError(f"--sampling-rate must be in [0, 1], got {rate}")
+    for flag in ("replicas", "feat"):
+        if d.get(flag, 1) < 1:
+            raise ConfigError(f"--{flag} must be >= 1, got {d[flag]}")
     if d.get("halo_refresh", 1) < 1:
         raise ConfigError(f"--halo-refresh must be >= 1, got "
                           f"{d['halo_refresh']}")
     if d.get("norm") == "none":
         d["norm"] = None
-    if (d.get("n_partitions", 1) > 1 and d.get("device") == "cpu"
+    ranks = (d.get("n_partitions", 1) * d.get("replicas", 1)
+             * d.get("feat", 1))
+    if (ranks > 1 and d.get("device") == "cpu"
             and d.get("dist_backend") != "gloo"):
-        raise ConfigError("--device cpu with --n-partitions > 1 needs "
-                          "--dist-backend gloo: NCCL runs on CUDA devices "
-                          "only")
+        raise ConfigError("--device cpu with --n-partitions, --replicas or "
+                          "--feat > 1 needs --dist-backend gloo: NCCL runs "
+                          "on CUDA devices only")
     valid = {f.name for f in dataclasses.fields(Config)}
     return Config(**{k: v for k, v in d.items() if k in valid})
 

@@ -13,12 +13,15 @@ by name, largest first; the same as one JSON line last. Device times come
 from the profiler's CUDA activity trace; the wall time is the host clock
 around epochs that end in a synchronize.
 
-With --n-partitions P > 1 (and the run's --dist-backend, gloo to share one
-card) the artifacts are written as a run writes them and P ranks are
-spawned through the port's launcher (parallel/mesh.launch); each rank
-loads its part (and applies --reorder) as a run's rank does, profiles its
-own process's train steps and prints its table; the last line is one JSON
-object with every rank's table under "ranks". On one shared card the
+With --n-partitions P > 1, or --replicas R / --feat T above 1 (and the
+run's --dist-backend, gloo to share one card) the artifacts are written as
+a run writes them and R x P x T ranks are spawned through the port's
+launcher (parallel/mesh.launch); each rank takes its place on the axes,
+loads its part (and applies --reorder) as a run's rank does
+(run.rank_axes, run.prepare_rank), profiles its own process's train steps
+with its dropout key and prints its table; the last line is one JSON
+object with every rank's table under "ranks", in global rank order (rank
+(r P + p) T + f). On one shared card the
 ranks' processes take turns on it: a rank's profile holds its own kernels
 only, while its wall time also covers the other ranks' work and its waits
 in their collectives, so its idle share is not the card's; the output says
@@ -40,7 +43,7 @@ from bnsgcn_tpu_torch.config import Config, ConfigError, parse_config
 from bnsgcn_tpu_torch.parallel.mesh import RankContext, launch
 from bnsgcn_tpu_torch.run import (_prebuild, artifacts_dir, init_training,
                                   prepare_partition, prepare_rank,
-                                  prepare_run, require_device)
+                                  prepare_run, rank_axes, require_device)
 from bnsgcn_tpu_torch.trainer import dropout_key
 
 
@@ -50,9 +53,11 @@ def profile_steps(pr, warmup: int, n: int, top: int) -> dict:
     kernels by device ms per epoch), 'device'}."""
     blk, model, opt = init_training(pr)
 
+    replica = pr.axes.replica if pr.axes is not None else None
+
     def step(epoch):
         pr.fns.train_step(model, opt, blk, epoch,
-                          dropout_key(pr.cfg.seed, epoch, pr.rank))
+                          dropout_key(pr.cfg.seed, epoch, pr.rank, replica))
 
     for epoch in range(warmup):
         step(epoch)
@@ -94,7 +99,8 @@ def _profile_rank(ctx: RankContext, cfg: Config, path: str, warmup: int,
     """One rank: its part, as a run's rank prepares it, then profile_steps;
     its table goes to the launcher's log."""
     pr = prepare_rank(ctx, cfg, path, None,
-                      ctx.log if ctx.rank == 0 else (lambda m: None))
+                      ctx.log if ctx.rank == 0 else (lambda m: None),
+                      rank_axes(ctx, cfg))
     ctx.comm.barrier()
     out = profile_steps(pr, warmup, n, top)
     ctx.comm.barrier()
@@ -114,7 +120,8 @@ def main(argv=None) -> int:
         if cfg.device != "cuda":
             raise ConfigError("epoch_profile: device time needs the GPU")
         require_device(cfg.device)
-        if cfg.n_partitions > 1:
+        n_ranks = cfg.replicas * cfg.n_partitions * cfg.feat
+        if n_ranks > 1:
             prepare_partition(cfg, load=False)
             _prebuild(cfg)
         else:
@@ -122,12 +129,12 @@ def main(argv=None) -> int:
     except ConfigError as e:
         print(f"[config] {e}", file=sys.stderr)
         return 2
-    if cfg.n_partitions == 1:
+    if n_ranks == 1:
         out = profile_steps(pr, args.warmup, n, args.top)
         print("\n".join(table(out, n)))
         print(json.dumps(out))
         return 0
-    P = cfg.n_partitions
+    P = n_ranks
     reports = launch(_profile_rank, P,
                      [(cfg, artifacts_dir(cfg), args.warmup, n, args.top)
                       for _ in range(P)],
@@ -138,7 +145,9 @@ def main(argv=None) -> int:
               f"time is its own kernels', while its wall time overlaps the "
               f"other ranks' work and its waits for them, so its idle share "
               f"is not the card's")
-    print(json.dumps({"n_partitions": P, "backend": cfg.dist_backend,
+    print(json.dumps({"n_partitions": cfg.n_partitions,
+                      "replicas": cfg.replicas, "feat": cfg.feat,
+                      "backend": cfg.dist_backend,
                       "shared_card": shared, "ranks": reports}))
     return 0
 

@@ -21,7 +21,12 @@ module/layer.py and module/model.py):
     (the reference's module/sync_bn.py, the JAX package's
     `_sync_batch_norm`) takes its moments over the real rows of every rank
     (one all-reduce per layer, GraphEnv.bn_sum) over the global n_train;
-    its running mean and variance are f32 buffers of the norm module.
+    its running mean and variance are f32 buffers of the norm module;
+  * the feat axis (GraphEnv.feat, parallel/feat.py): a layer that shards
+    slices its full-width input, already dropped out, to its H/T columns,
+    exchanges and aggregates the slice, multiplies by its weight shard and
+    sums over the feat group (`_feat_layer`); a sharded GAT layer attends
+    over its heads/T heads and sums the head sums over the group.
 
 The random draws are the JAX package's own (utils/prng.py, ops/dropout.py):
 `init_params` draws the JAX parameter tree of `init_params(key(seed))`
@@ -60,6 +65,8 @@ from torch.utils.checkpoint import checkpoint
 from bnsgcn_tpu_torch.config import Config
 from bnsgcn_tpu_torch.ops.dropout import dropout as _d1_dropout
 from bnsgcn_tpu_torch.ops.spmm import segment_softmax
+from bnsgcn_tpu_torch.parallel.feat import (FeatAxis, shard_tensor,
+                                            shardable_layers, torch_dims)
 from bnsgcn_tpu_torch.utils import prng
 
 
@@ -127,6 +134,12 @@ class GraphEnv:
     inner_mask: Optional[torch.Tensor] = None
     bn_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
     remat: bool = False                # per-layer checkpoint in training
+    # the feat axis (parallel/feat.py): its group and which layers shard;
+    # None runs every layer whole. bn_copies: how many ranks' moments each
+    # real row's enter bn_sum (R x T: every replica holds the whole graph,
+    # every feat shard the whole activations)
+    feat: Optional[FeatAxis] = None
+    bn_copies: int = 1
 
 
 class SageLayer(nn.Module):
@@ -253,6 +266,23 @@ def init_params(model: GNN, key: torch.Tensor,
                 layer.bias.zero_()
 
 
+def shard_model(model: GNN, T: int, f: int) -> GNN:
+    """`model`, holding full parameters, cut in place to feat shard f of T
+    (parallel/feat.py): every parameter of the partition table narrowed to
+    its shard, a sharded GAT layer's `heads` set to its heads/T. The
+    others stay whole."""
+    for name, dim in torch_dims(model.spec, T).items():
+        owner, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(owner)
+        setattr(mod, leaf, nn.Parameter(shard_tensor(
+            getattr(mod, leaf).detach(), dim, T, f)))
+    for i, ok in enumerate(shardable_layers(model.spec, T)):
+        layer = getattr(model, f"layer_{i}")
+        if ok and isinstance(layer, GATLayer):
+            layer.heads //= T
+    return model
+
+
 # ----------------------------------------------------------------------------
 # building blocks
 # ----------------------------------------------------------------------------
@@ -263,6 +293,21 @@ def _dropout(h, rate, rng, training):
     if not training or rate <= 0.0 or rng is None:
         return h
     return _d1_dropout(h, rng, rate)
+
+
+def _dropout_heads(a, rate, rng, training, n_total: int, off: int):
+    """The JAX package's `_dropout_heads`: dropout on the last (head) axis
+    with the mask drawn at the full head width `n_total` and sliced at
+    `off`, so a feat shard's heads keep the feat=1 run's masks; at off 0
+    and the full width it is `_dropout`. The draw runs on a zero-padded
+    full-width copy, whose dropout at columns off.. is the slice's."""
+    if not training or rate <= 0.0 or rng is None:
+        return a
+    if n_total == a.shape[-1]:
+        return _dropout(a, rate, rng, training)
+    full = a.new_zeros(a.shape[:-1] + (n_total,))
+    full[..., off:off + a.shape[-1]] = a
+    return _d1_dropout(full, rng, rate)[..., off:off + a.shape[-1]]
 
 
 def _layer_norm(p: nn.LayerNorm, h, eps=1e-5):
@@ -279,8 +324,9 @@ def _sync_batch_norm(p: BatchNorm, h, env: GraphEnv, whole_size: int,
     """The JAX package's `_sync_batch_norm` (module/sync_bn.py:10-28):
     (output, new (mean, var) or None). Training: the moments of the real
     rows (env.inner_mask), summed over the ranks in one all-reduce of the
-    stacked [sum_x, sum_x2] (env.bn_sum), over whole_size = the global
-    n_train; the reference's variance estimate clamped at 0; new running
+    stacked [sum_x, sum_x2] (env.bn_sum; every rank of an R x P x T run),
+    over whole_size = the global n_train times env.bn_copies (R x T); the
+    reference's variance estimate clamped at 0; new running
     statistics (momentum 0.1) in f32, returned, never written here (a
     rematerialized layer reruns this). Eval: the running statistics. Sums
     in f32 rounded to h's dtype once, and the arithmetic in h's dtype, as
@@ -298,6 +344,7 @@ def _sync_batch_norm(p: BatchNorm, h, env: GraphEnv, whole_size: int,
         if env.bn_sum is not None:
             sums = env.bn_sum(sums)
         sum_x, sum_x2 = sums[0], sums[1]
+        whole_size = whole_size * env.bn_copies
         mean = sum_x / whole_size
         var = torch.clamp((sum_x2 - mean * sum_x) / whole_size, min=0.0)
         m = torch.tensor(momentum, dtype=dt, device=h.device)
@@ -337,6 +384,42 @@ def env_agg_exchange(env: GraphEnv, i: int, h, scale_out_norm: bool = False):
     return env.aggregate(h_ext)
 
 
+def _linear_part(p: nn.Linear, h):
+    """h @ W of a sharded Linear, without its bias (added once, after the
+    sum over the feat group)."""
+    dt = torch.promote_types(h.dtype, p.weight.dtype)
+    return F.linear(h.to(dt), p.weight.to(dt))
+
+
+def _feat_layer(p, i, h, env: GraphEnv, spec: ModelSpec):
+    """One feat-sharded GCN / GraphSAGE / dense layer (the JAX package's
+    `_feat_layer`): h arrives full width, already dropped out; this shard's
+    H/T columns go through the exchange and the SpMM (the wire carries the
+    slice), its weight's row shard multiplies them, and the partial
+    products are summed over the feat group once, the biases added after.
+    The eval use_pp layer 0 aggregates the full width (its concat consumes
+    the whole mean) and shards only the product."""
+    fe = env.feat
+    is_graph = i < spec.n_graph_layers
+    if not is_graph or (env.training and spec.use_pp and i == 0):
+        out = fe.sum(_linear_part(p, fe.slice(h)))
+        return out + p.bias.to(out.dtype)
+    if spec.model == "gcn":
+        s = env_agg_exchange(env, i, fe.slice(h), scale_out_norm=True)
+        out = fe.sum(_linear_part(p, (s / env.in_norm[:, None]).to(h.dtype)))
+        return out + p.bias.to(out.dtype)
+    if (not env.training) and spec.use_pp and i == 0:
+        ah = env_agg_exchange(env, i, h) / env.in_norm[:, None]
+        out = fe.sum(_linear_part(p, fe.slice(torch.cat([h[:env.n_dst], ah],
+                                                        1))))
+        return out + p.bias.to(out.dtype)
+    hs = fe.slice(h)
+    ah = (env_agg_exchange(env, i, hs) / env.in_norm[:, None]).to(h.dtype)
+    out = fe.sum(_linear_part(p.linear1, hs[:env.n_dst])
+                 + _linear_part(p.linear2, ah))
+    return out + p.linear1.bias.to(out.dtype) + p.linear2.bias.to(out.dtype)
+
+
 def _gcn_layer(p, i, h, env: GraphEnv):
     s = env_agg_exchange(env, i, h, scale_out_norm=True)
     return _linear(p, (s / env.in_norm[:, None]).to(h.dtype))
@@ -348,17 +431,20 @@ def _sage_layer(p: SageLayer, i, h, env: GraphEnv):
 
 
 def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
-               dropout: float, training: bool, negative_slope: float = 0.2):
+               dropout: float, training: bool, negative_slope: float = 0.2,
+               total_heads: Optional[int] = None, head_off: int = 0):
     """The GATConv equivalent over the extended (inner + halo) rows
-    (the JAX package's `_gat_layer`, without the feat axis): [n_dst, H,
-    fout]. In training, feat dropout on h_ext and, separately, on h_dst for
-    the dst projection; then the attention dropout's two seed words from
-    the same stream. In eval the dst projection is z's prefix (h_dst is
-    h_ext's prefix, no dropout). The segment path's attention dropout is
-    `_dropout` (the JAX package's `_dropout_heads` at the full head
-    width). The three draws use r1, r2, r3 = split(rng, 3), the attention
-    hash the two words of r3."""
+    (the JAX package's `_gat_layer`): [n_dst, H, fout]. In training, feat
+    dropout on h_ext and, separately, on h_dst for the dst projection; then
+    the attention dropout's two seed words from the same stream. In eval
+    the dst projection is z's prefix (h_dst is h_ext's prefix, no dropout).
+    A feat shard holds heads/T heads (p.heads) from global head
+    `head_off` of `total_heads`: the attention dropout draws the feat=1
+    masks of those heads (the ELL hash by head id, the segment path's
+    `_dropout_heads`). The three draws use r1, r2, r3 = split(rng, 3), the
+    attention hash the two words of r3."""
     heads, fout = p.heads, p.fout
+    total_heads = heads if total_heads is None else total_heads
     r1 = r2 = r3 = None
     if training and rng is not None:
         r1, r2, r3 = prng.split(rng, 3)
@@ -376,7 +462,7 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
     bias = p.bias.to(z.dtype)
     if env.attention is not None:
         out = env.attention(z, el, er, presence, seeds, dropout, training,
-                            negative_slope)
+                            negative_slope, head_off)
         return out + bias.reshape(1, heads, fout)
     src, dst = env.src, env.dst
     er_pad = torch.cat([er, er.new_zeros((1, heads))])
@@ -384,7 +470,8 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
     e = torch.where(e > 0, e, e * negative_slope)
     alpha = segment_softmax(e, dst, env.n_dst,
                             None if presence is None else presence[src])
-    alpha = _dropout(alpha, dropout, r3, training)              # attn_drop
+    alpha = _dropout_heads(alpha, dropout, r3, training,         # attn_drop
+                           total_heads, head_off)
     out = z.new_zeros((env.n_dst + 1, heads * fout))
     step = max(1, (1 << 28) // max(heads * fout, 1))
     for e0 in range(0, src.shape[0], step):
@@ -433,7 +520,13 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv, rng=None):
     new var)."""
     spec = model.spec
     p = getattr(model, f"layer_{i}")
+    # a layer of the feat axis (parallel/feat.py); the others run whole
+    fshard = env.feat is not None and env.feat.shardable[i]
     if spec.model == "gat" and i < spec.n_graph_layers:
+        if fshard:
+            # this shard's heads; the exchange stays full width, and the
+            # input's gradient sums the shards' heads' parts
+            h = env.feat.enter(h)
         if env.training and i == 0:
             # the precompute's raw features, halo rows at the full rate;
             # this epoch's presence masks the unsampled slots
@@ -441,11 +534,17 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv, rng=None):
             h_d = h[:env.n_dst]
         else:
             h_ext, h_d = env.exchange(i, h), h
+        off = env.feat.f * p.heads if fshard else 0
         h = _gat_layer(p, h_d, h_ext, env.presence, env, rng, spec.dropout,
-                       env.training).mean(1)                    # head mean
+                       env.training, total_heads=spec.heads, head_off=off)
+        # the mean over heads; sharded: the sum of every shard's head sums
+        h = env.feat.sum(h.sum(1)) / spec.heads if fshard else h.mean(1)
         return _layer_tail(model, i, h, env)
+    # dropout fires on the full width, sharded or not: the feat=1 masks
     h = _dropout(h, spec.dropout, rng, env.training)
-    if i >= spec.n_graph_layers:
+    if fshard:
+        h = _feat_layer(p, i, h, env, spec)
+    elif i >= spec.n_graph_layers:
         h = _linear(p, h)
     elif env.training and spec.use_pp and i == 0:
         h = _linear(p, h)                      # precomputed layer 0

@@ -353,9 +353,11 @@ class GatAttention:
     seeds, ...) -> [n_dst, H, F] over one part's layout (device tensors
     keyed as build_gat_layouts names them, without the part axis);
     differentiable in z, el and er through the two-pass backward.
-    Counterpart of the JAX package's gat_ell_attention, without its feat
-    axis' head offset. `seeds`: the attention dropout's two uint32 words
-    (int64 [2]). `timer`, when set, is called around each forward and
+    Counterpart of the JAX package's gat_ell_attention. `seeds`: the
+    attention dropout's two uint32 words (int64 [2]); `head_off`, the
+    global id of z's first head (a feat shard's heads/T heads start at f
+    heads/T), shifts the dropout hash's head ids, forward and backward, so
+    a shard keeps the feat=1 run's masks of its heads. `timer`, when set, is called around each forward and
     backward (chip_smoke's CUDA events per layer)."""
 
     def __init__(self, spec: GatEllSpec, arrays: dict,
@@ -366,11 +368,11 @@ class GatAttention:
 
     def __call__(self, z, el, er, presence=None, seeds=None,
                  attn_dropout: float = 0.0, training: bool = False,
-                 negative_slope: float = 0.2):
+                 negative_slope: float = 0.2, head_off: int = 0):
         drop = attn_dropout if training else 0.0
         if seeds is None:
             seeds = torch.zeros(2, dtype=torch.int64, device=z.device)
-        hidx = torch.arange(z.shape[1], device=z.device)
+        hidx = torch.arange(z.shape[1], device=z.device) + int(head_off)
         pres = _pad_rows(presence, False) if presence is not None else None
         if self.timer is not None:
             self.timer.start("fwd")

@@ -284,14 +284,16 @@ def tables_to(tables: dict, device) -> dict:
 
 def make_halo_plan(spec: HaloSpec, tables: dict, bnd: torch.Tensor, me: int,
                    epoch: int = 0,
-                   base_key: Optional[torch.Tensor] = None) -> HaloPlan:
+                   base_key: Optional[torch.Tensor] = None,
+                   replica: Optional[int] = None) -> HaloPlan:
     """Rank `me`'s plan for `epoch` from its boundary lists `bnd` [P, B_pad]
     (its row of artifacts.bnd), on bnd's device (bnsgcn_tpu/parallel/
     halo.py make_halo_plan). At rate 1.0 it is the identity: the first n_b
     entries of each list in order, epoch and key unused. Below, the BNS
     draw: toward peer j I send the sample of pair_key(base, epoch, me, j);
     from peer q I receive the sample of pair_key(base, epoch, q, me), which
-    q draws alike, so no indices cross the wire. `tables` may be numpy or
+    q draws alike, so no indices cross the wire. `replica` (an R > 1 run)
+    is folded into the keys first (pair_key). `tables` may be numpy or
     tensors on bnd's device (tables_to); static shapes, no host sync."""
     P, Bp, Sp = spec.n_parts, spec.pad_boundary, spec.pad_send
     dev = bnd.device
@@ -304,7 +306,7 @@ def make_halo_plan(spec: HaloSpec, tables: dict, bnd: torch.Tensor, me: int,
     else:
         pos, valid, rpos, rvalid = _pair_draws(
             pair_sample, base_key, epoch, me, P, n_b, t["send_size"].long(),
-            Bp, Sp)
+            Bp, Sp, replica=replica)
     sel = bnd.long().gather(1, pos)
     weight = torch.where(valid, t["inv_ratio"][me][:, None], 0.0)
     slots = torch.where(rvalid, peers[:, None] * Bp + rpos, spec.n_halo)
@@ -313,18 +315,18 @@ def make_halo_plan(spec: HaloSpec, tables: dict, bnd: torch.Tensor, me: int,
 
 
 def _pair_draws(sample, base_key, epoch, me: int, P: int, n_b, send,
-                pad_b: int, pad_s: int, *extra):
+                pad_b: int, pad_s: int, *extra, replica=None):
     """The draws of rank `me`'s sends (rows 0..P-1: toward j) and receives
     (rows P..2P-1: from q), from the keys pair_key(base, epoch, sender,
-    receiver), through `sample` (pair_sample, or chunk_sample with its
-    chunk and stride in `extra`)."""
+    receiver, replica), through `sample` (pair_sample, or chunk_sample with
+    its chunk and stride in `extra`)."""
     if base_key is None:
         raise ValueError("a plan at sampling rate < 1 needs the base key")
     dev = n_b.device
     peers = torch.arange(P, device=dev)
     mine = torch.full_like(peers, me)
     keys = pair_key(base_key.to(dev), epoch, torch.cat([mine, peers]),
-                    torch.cat([peers, mine]))
+                    torch.cat([peers, mine]), replica)
     if extra:
         pos, valid = sample(keys, torch.cat([n_b[me], n_b[:, me]]),
                             torch.cat([send[me], send[:, me]]), *extra,
@@ -338,7 +340,8 @@ def _pair_draws(sample, base_key, epoch, me: int, P: int, n_b, send,
 def make_halo_plan_refresh(spec: HaloSpec, tables: dict, bnd: torch.Tensor,
                            me: int, epoch: int,
                            base_key: Optional[torch.Tensor],
-                           refresh: int) -> HaloPlan:
+                           refresh: int,
+                           replica: Optional[int] = None) -> HaloPlan:
     """Rank `me`'s partial plan for `epoch` under --halo-refresh K
     (bnsgcn_tpu/parallel/halo.py make_halo_plan_refresh): chunk c = epoch %
     K of every boundary list, drawn through the same pair keys as the full
@@ -346,7 +349,7 @@ def make_halo_plan_refresh(spec: HaloSpec, tables: dict, bnd: torch.Tensor,
     `tables` are make_refresh_spec's; slots and presence live in the full
     slot layout, presence covering the refreshed chunk only. Padding
     positions past B_pad are clamped: their weight is 0 and their slot the
-    trash row."""
+    trash row. `replica` folds as in make_halo_plan."""
     K = int(refresh)
     P, Bp, Sp = spec.n_parts, spec.pad_boundary, spec.pad_send
     c = int(epoch) % K
@@ -361,7 +364,7 @@ def make_halo_plan_refresh(spec: HaloSpec, tables: dict, bnd: torch.Tensor,
     else:
         pos, valid, rpos, rvalid = _pair_draws(
             chunk_sample, base_key, epoch, me, P, n_b_c, s_c,
-            (Bp + K - 1) // K, Sp, c, K)
+            (Bp + K - 1) // K, Sp, c, K, replica=replica)
     pos, rpos = pos.clamp(max=Bp - 1), rpos.clamp(max=Bp - 1)
     sel = bnd.long().gather(1, pos)
     weight = torch.where(valid, t["inv_ratio"][c][me][:, None], 0.0)

@@ -66,17 +66,38 @@ NODE_CONNECT_TIMEOUT_S = 120.0
 
 
 def check_mesh_budget(n_parts: int, backend: str, device: str,
-                      n_local: "int | None" = None) -> None:
-    """One named config error when this node's `n_local` ranks (all P by
-    default) do not fit its cards: nccl runs one rank per card and refuses
-    two ranks on one (counterpart of bnsgcn_tpu/run.py check_mesh_budget)."""
+                      n_local: "int | None" = None, replicas: int = 1,
+                      feat: int = 1) -> None:
+    """One named config error when this node's `n_local` ranks (all R x P
+    x T by default) do not fit its cards: nccl runs one rank per card and
+    refuses two ranks on one (counterpart of bnsgcn_tpu/run.py
+    check_mesh_budget, which names the axis to shrink)."""
     from bnsgcn_tpu_torch.config import ConfigError
-    n_local = n_parts if n_local is None else n_local
-    if n_parts <= 1 or device == "cpu" or backend != "nccl":
+    R, T = max(replicas, 1), max(feat, 1)
+    need = R * n_parts * T
+    n_local = need if n_local is None else n_local
+    if need <= 1 or device == "cpu" or backend != "nccl":
         return
     have = torch.cuda.device_count()
     if n_local <= have:
         return
+    if R > 1 or T > 1:
+        fixes = []
+        if T > 1 and R * n_parts <= have:
+            fixes.append(f"--feat to <= {have // (R * n_parts)}")
+        if R > 1 and n_parts * T <= have:
+            fixes.append(f"--replicas to <= {have // (n_parts * T)}")
+        if n_parts > have:
+            fixes.append(f"--n-partitions to <= {have} (re-partition the "
+                         f"graph)")
+        if not fixes:
+            fixes.append(f"some axis so replicas*parts*feat <= {have}")
+        raise ConfigError(
+            f"mesh does not fit: --replicas {R} x --n-partitions {n_parts} "
+            f"x --feat {T} with --dist-backend nccl needs {need} CUDA "
+            f"devices (one rank per card), have {have}; shrink "
+            + " or ".join(fixes) + ", or pass --dist-backend gloo to run "
+            "several ranks on one card")
     what, knob = ((f"--n-partitions {n_parts}", "--n-partitions")
                   if n_local == n_parts else
                   (f"{n_local} ranks on this node", "--parts-per-node"))
@@ -122,24 +143,47 @@ class Pending:
 
 
 class Comm:
-    """One rank's collectives. Each all-to-all, send/receive batch and
-    all-reduce is timed by kind ('exchange', 'reduce') without a device
-    synchronization: between two CUDA events on the current stream on a
-    card (read by `seconds`, once the stream has passed them), on the host
-    clock on the CPU; SyncBatchNorm's moment sums under 'bn'. A span runs from the moment the rank's own inputs are
-    ready (the launch) to the moment the result has landed (the wait), so
-    it includes the wait for slower peers, and for an asynchronous launch
-    whatever the rank ran before its wait. The epoch line reads the sums as
-    Comm(s) and Reduce(s)."""
+    """One rank's collectives over its group: the default group (every
+    rank), or a subgroup (`sub`: one axis of an R x P x T run,
+    parallel/replicas.py; `rank` and `world` are then the group's, and
+    peers and sources are named by group rank). Each all-to-all,
+    send/receive batch, all-reduce and all-gather is timed by kind
+    ('exchange', 'reduce'; SyncBatchNorm's moment sums 'bn', the feat
+    axis's sums and gathers 'feat') without a device synchronization:
+    between two CUDA events on the current stream on a card (read by
+    `seconds`, once the stream has passed them), on the host clock on the
+    CPU. A span runs from the moment the rank's own inputs are ready (the
+    launch) to the moment the result has landed (the wait), so it includes
+    the wait for slower peers, and for an asynchronous launch whatever the
+    rank ran before its wait. The epoch line reads the sums as Comm(s),
+    Reduce(s) and, with a feat axis, Feat(s). `barrier` and
+    `broadcast_object` run over the wait group where the Comm has one (the
+    world's), else over its own group."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
-                 wait_group=None):
+                 wait_group=None, group=None, members=None, spans=None):
         self.rank, self.world, self.device = rank, world, device
         self.wait_group = wait_group
-        self.reset_seconds()
+        # a subgroup's torch.distributed group and its global ranks in
+        # group-rank order (None: the default group, rank = global rank)
+        self.group, self.members = group, members
+        self._spans = spans if spans is not None else {
+            "exchange": [], "reduce": [], "bn": [], "feat": []}
+
+    def sub(self, members: list, group) -> "Comm":
+        """The Comm of a subgroup holding this rank (parallel/replicas.py's
+        axes): `members` its global ranks, in group-rank order. Its spans
+        add to this Comm's, so `seconds` reads every axis by kind."""
+        return Comm(members.index(self.global_rank(self.rank)), len(members),
+                    self.device, None, group, list(members), self._spans)
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of this group's rank `rank`."""
+        return rank if self.members is None else self.members[rank]
 
     def reset_seconds(self):
-        self._spans = {"exchange": [], "reduce": [], "bn": []}
+        for spans in self._spans.values():
+            spans.clear()
 
     def seconds(self) -> dict:
         """Seconds per kind since reset_seconds; on a card, waits for the
@@ -193,7 +237,8 @@ class Comm:
         src = x.contiguous()
         out = torch.empty_like(src)
         start = self._open() if kind is not None else None
-        work = dist.all_to_all_single(out, src, async_op=True)
+        work = dist.all_to_all_single(out, src, group=self.group,
+                                      async_op=True)
         return Pending(self, kind, [work], start, out, keep=(src,))
 
     def all_to_all_v(self, x: torch.Tensor, in_splits: list,
@@ -206,7 +251,7 @@ class Comm:
         start = self._open()
         work = dist.all_to_all_single(out, src, [int(v) for v in out_splits],
                                       [int(v) for v in in_splits],
-                                      async_op=True)
+                                      group=self.group, async_op=True)
         return Pending(self, kind, [work], start, out, keep=(src,))
 
     def send_recv(self, sends: list, recvs: list,
@@ -225,12 +270,14 @@ class Comm:
             if stage:
                 src = src.to("cpu")
             keep.append(src)
-            ops.append(dist.P2POp(dist.isend, src, peer))
+            ops.append(dist.P2POp(dist.isend, src, self.global_rank(peer),
+                                  self.group))
         for peer, t in recvs:
             dst = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                    if stage else t)
             landing.append((t, dst))
-            ops.append(dist.P2POp(dist.irecv, dst, peer))
+            ops.append(dist.P2POp(dist.irecv, dst, self.global_rank(peer),
+                                  self.group))
         works = dist.batch_isend_irecv(ops) if ops else []
 
         def after(_):
@@ -245,8 +292,18 @@ class Comm:
     def all_reduce_(self, x: torch.Tensor, kind: str = "reduce"
                     ) -> torch.Tensor:
         """In-place SUM over the ranks."""
-        self._timed(kind, lambda: dist.all_reduce(x))
+        self._timed(kind, lambda: dist.all_reduce(x, group=self.group))
         return x
+
+    def all_gather(self, x: torch.Tensor, kind: str = "feat"
+                   ) -> torch.Tensor:
+        """[world, *x.shape]: row q holds rank q's x."""
+        out = x.new_empty((self.world,) + tuple(x.shape))
+        src = x.contiguous()
+        # the list form: gloo has no all_gather_into_tensor
+        self._timed(kind, lambda: dist.all_gather(list(out.unbind(0)), src,
+                                                  group=self.group))
+        return out
 
     def all_sum_ordered(self, x: torch.Tensor, kind: str = "bn"
                         ) -> torch.Tensor:
@@ -266,25 +323,30 @@ class Comm:
         return out
 
     def broadcast_(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
-        dist.broadcast(x, src)
+        """Rank `src`'s x (in place) on every rank of the group."""
+        dist.broadcast(x, self.global_rank(src), group=self.group)
         return x
 
     def broadcast_object(self, obj, src: int = 0):
         """Rank `src`'s picklable object on every rank, over the wait group
         (its long timeout: the sender may first read a checkpoint)."""
         box = [obj]
-        dist.broadcast_object_list(box, src=src, group=self.wait_group)
+        dist.broadcast_object_list(box, src=self.global_rank(src),
+                                   group=self._waits())
         return box[0]
 
     def all_gather_object(self, obj) -> list:
         out = [None] * self.world
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
     def barrier(self) -> None:
         """Wait for every rank, under the wait group's timeout: where peers
         wait for work one rank does alone."""
-        dist.barrier(group=self.wait_group)
+        dist.barrier(group=self._waits())
+
+    def _waits(self):
+        return self.wait_group if self.wait_group is not None else self.group
 
 
 @dataclass
@@ -354,17 +416,23 @@ class NodeStore:
                 f"({e})") from e
 
 
-def _rank_entry(rank, local_rank, world, addr, port, backend, device,
-                timeout_s, wait_timeout_s, fn, args, q):
+def _rank_entry(rank, local_rank, n_local, world, addr, port, backend,
+                device, timeout_s, wait_timeout_s, fn, args, q):
     """A spawned rank: join the group (and the gloo group of Comm.barrier),
     run fn(ctx, *args), send the result (or the traceback) to the parent,
-    leave the group."""
+    leave the group. The ranks share the host's cores: each takes its
+    share for its intra-op threads (on the CPU the world's, as every rank
+    of a CPU world may run on this host; on a card this node's
+    `n_local`'s): on a card the default pool of every rank spanning every
+    core made the ranks' threads spin against each other in their host
+    work (the initialization's draws, staged copies)."""
     try:
         dev = rank_device(device, backend, local_rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        else:
-            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // (n_local if dev.type == "cuda"
+                                      else world)))
         if backend == "gloo" and _loopback(addr):
             # every rank of this world is on this host
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -437,9 +505,9 @@ def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
     procs = {r: ctx.Process(target=_rank_entry, daemon=True,
-                            args=(r, i, n_ranks, addr, port, backend, device,
-                                  timeout_s, wait_timeout_s, fn,
-                                  rank_args[i], q))
+                            args=(r, i, len(ranks), n_ranks, addr, port,
+                                  backend, device, timeout_s, wait_timeout_s,
+                                  fn, rank_args[i], q))
              for i, r in enumerate(ranks)}
     results: dict = {}
     try:

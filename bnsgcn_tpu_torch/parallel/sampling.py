@@ -6,8 +6,10 @@ subset of p's boundary list toward j from one key, `pair_key(base, epoch,
 p, j)`, so no indices cross the wire: the draw is the JAX package's,
 bitwise (utils/prng.py is its threefry stream). At sampling rate 1.0 the
 'sample' is the identity. `chunk_sample` and `chunk_identity_sample` draw
-one residue class of a boundary list (--halo-refresh K). The replica fold
-comes with its slice.
+one residue class of a boundary list (--halo-refresh K). Under a replica
+axis the replica index is folded in first, so each replica draws its own
+sample; the feat index is never folded: the shards of one (replica, part)
+draw the same one.
 """
 
 from __future__ import annotations
@@ -30,10 +32,15 @@ def _fold_guard(x, name: str):
     return x
 
 
-def pair_key(base_key: torch.Tensor, epoch, p, j) -> torch.Tensor:
+def pair_key(base_key: torch.Tensor, epoch, p, j,
+             replica=None) -> torch.Tensor:
     """The key sender p and receiver j share for one epoch: base folded
-    with epoch, then p, then j. p and j may be int64 tensors, which gives
-    one key per element: [..., 2]."""
+    with the replica index first (an R > 1 run, parallel/replicas.py; None
+    folds nothing, the R = 1 key), then epoch, then p, then j, so replica
+    r's key is the key of a run from base fold_in(base, r). p and j may be
+    int64 tensors, which gives one key per element: [..., 2]."""
+    if replica is not None:
+        base_key = prng.fold_in(base_key, _fold_guard(replica, "replica"))
     k = prng.fold_in(base_key, _fold_guard(epoch, "epoch"))
     k = prng.fold_in(k, _fold_guard(p, "p"))
     return prng.fold_in(k, _fold_guard(j, "j"))

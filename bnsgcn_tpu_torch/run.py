@@ -40,12 +40,22 @@ checkpoint with its parameters, optimizer, SyncBatchNorm state, seed and
 best accuracy; each epoch's dropout is jax's draw from the key of (seed,
 epoch, rank), so the resumed epochs replay the uninterrupted run's. The resilience and coordination layers
 wait for later slices.
+
+--replicas R --feat T (parallel/replicas.py) spawn R x P x T ranks; rank
+(r, p, f) loads part p, its exchange runs over its replica row's 'parts'
+group, and every rank takes part in the world's gradient reduce, barriers
+and broadcasts. Rank 0 is (0, 0, 0): its lines, checkpoints and evals are
+replica 0's. Checkpoints and the host evaluation hold full arrays, the feat
+shards gathered over rank 0's feat group at each log point, so a file
+resumes into any R and T; --eval-device mesh scores on the shards, each
+(replica, feat shard) row of parts alike, rank 0 reporting.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -69,8 +79,10 @@ from bnsgcn_tpu_torch.data.partitioner import partition_graph
 from bnsgcn_tpu_torch.data.reorder import maybe_reorder
 from bnsgcn_tpu_torch.evaluate import (EvalGraph, evaluate_induc,
                                        evaluate_mesh, evaluate_trans)
-from bnsgcn_tpu_torch.models.gnn import GNN, ModelSpec, spec_from_config
+from bnsgcn_tpu_torch.models.gnn import (GNN, ModelSpec, shard_model,
+                                        spec_from_config)
 from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
+from bnsgcn_tpu_torch.parallel.feat import shard_width, unshardable_note
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
                                             make_refresh_spec, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
@@ -78,6 +90,8 @@ from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
                                             rank_device)
 from bnsgcn_tpu_torch.parallel.reducer import (assert_replicated,
                                                broadcast_parameters)
+from bnsgcn_tpu_torch.parallel.replicas import (Axes, dedup_replica0,
+                                                make_axes, mesh_desc)
 from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
                                       bn_state_to_jax, build_step_fns,
                                       compute_dtype, dropout_key,
@@ -116,6 +130,7 @@ class RunResult:
     start_epoch: int = 0               # > 0 when resumed
     comm_times: list = field(default_factory=list)     # exchange s / epoch
     reduce_times: list = field(default_factory=list)   # all-reduce s / epoch
+    feat_times: list = field(default_factory=list)     # feat axis s / epoch
     eval_seconds: list = field(default_factory=list)  # rank 0's evals, the
                                        # final one last (host clock; each
                                        # ends in a copy to the host)
@@ -135,6 +150,7 @@ class RunResult:
     dense_edges: int = 0
     n_edges: int = 0
     ranks: list = field(default_factory=list)   # P > 1: each rank's report
+                                       # (R x P x T, in global rank order)
 
 
 def require_device(name: str) -> None:
@@ -175,27 +191,37 @@ class Prepared:
     blk: dict                          # this part's training arrays on device
     device: torch.device
     n_edges: int                       # this part's edges
-    rank: int = 0
-    comm: Optional[Comm] = None        # None at P=1
+    rank: int = 0                      # the part index
+    comm: Optional[Comm] = None        # the 'parts' group; None at P=1
     art: Optional[PartitionArtifacts] = None   # what the layout came from
+    axes: Optional[Axes] = None        # the replica and feat axes (R x P x
+                                       # T > P ranks), else None
+
+    @property
+    def world(self) -> Optional[Comm]:
+        """The Comm of every rank: the barriers, the checkpoint broadcast
+        and the timers."""
+        return self.axes.world if self.axes is not None else self.comm
 
 
 def prepare_part(cfg: Config, art: PartitionArtifacts,
                  eval_graphs: Optional[tuple], device, log, rank: int = 0,
                  comm: Optional[Comm] = None,
-                 reuse: Optional[StepFns] = None, **spmm_kw) -> Prepared:
+                 reuse: Optional[StepFns] = None,
+                 axes: Optional[Axes] = None, **spmm_kw) -> Prepared:
     """Artifacts -> this part's SpMM layout (on the device) -> block arrays.
     `eval_graphs` is (val graph, test graph) where eval runs, else None. The
     use_pp precompute is the first step of the loop. `reuse` and `spmm_kw`
     (row_cap) go to trainer.build_step_fns: another dtype configuration of
-    an earlier prepared run reuses its layout."""
+    an earlier prepared run reuses its layout. `rank` is the part, `comm`
+    its 'parts' group, `axes` the replica and feat axes."""
     set_float32_math()
     cfg = cfg.replace(n_feat=art.n_feat, n_class=art.n_class,
                       n_train=art.n_train)
     spec = spec_from_config(cfg)
     t0 = time.perf_counter()
     fns = build_step_fns(cfg, spec, art, device, log=log, rank=rank,
-                         comm=comm, reuse=reuse, **spmm_kw)
+                         comm=comm, reuse=reuse, axes=axes, **spmm_kw)
     row = local_row(art, rank)
     n_edges = int((art.dst[row] < art.pad_inner).sum())
     # the host-side layouts' build or --cache-dir load, within the layout
@@ -206,7 +232,8 @@ def prepare_part(cfg: Config, art: PartitionArtifacts,
                if fns.gat is not None else
                f"spmm={fns.spmm_kind} gather={cfg.spmm_gather} "
                f"dense={cfg.spmm_dense}")
-    log(("Graph: " if comm is None else f"Part {rank} of {art.n_parts}: ")
+    log(("Graph: " if comm is None and axes is None else
+         f"Part {rank} of {art.n_parts}: ")
         + f"{int(art.n_inner[rank])} nodes, {n_edges} edges, "
         f"F={art.n_feat}, {art.n_class} classes | {cfg.dtype} {kernels} "
         f"layout {time.perf_counter() - t0:.1f}s"
@@ -218,7 +245,7 @@ def prepare_part(cfg: Config, art: PartitionArtifacts,
         art, spec.model).items() if k in TRAIN_KEYS}, device, row)
     val_g, test_g = eval_graphs if eval_graphs is not None else (None, None)
     return Prepared(cfg, spec, val_g, test_g, fns, blk, device, n_edges,
-                    rank, comm, art)
+                    rank, comm, art, axes)
 
 
 def split_graphs(cfg: Config, g: Graph) -> tuple[Graph, Graph, Graph]:
@@ -258,8 +285,10 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
     on the device; `model_init` (a state_dict) replaces it. Under --dtype bfloat16 the parameters (and so Adam's
     moments) are bf16, and the features are cast to bf16 on the device
     before the precompute, whose result is cast to bf16 too
-    (bnsgcn_tpu/run.py:429-438); GAT's goes to blk['feat0_ext']. Under P > 1 every rank then takes rank 0's
-    parameters."""
+    (bnsgcn_tpu/run.py:429-438); GAT's goes to blk['feat0_ext']. Under a
+    feat axis the model then holds this rank's shard (models/gnn.py
+    shard_model). Under P > 1 every rank then takes part 0's parameters
+    (its replica row's, of its shard)."""
     dtype = compute_dtype(pr.cfg)
     blk = dict(pr.blk)
     blk["feat"] = blk["feat"].to(dtype)
@@ -271,6 +300,8 @@ def init_training(pr: Prepared, model_init: Optional[dict] = None):
     model = GNN(pr.spec, pr.cfg.seed, dtype)
     if model_init is not None:
         model.load_state_dict(model_init)
+    if pr.fns.feat_dims:
+        shard_model(model, pr.axes.T, pr.axes.f)
     model = model.to(device=pr.device, dtype=dtype)
     if pr.comm is not None:
         broadcast_parameters(model.parameters(), pr.comm)
@@ -319,7 +350,7 @@ def mesh_eval_part(pr: Prepared, suffix: str, log=print):
     if not cfg.inductive:
         return pr.fns, pr.blk, pr.art
     cfg_e = eval_cfg(cfg, suffix)
-    if pr.comm is not None:
+    if pr.world is not None:
         art = load_artifacts(artifacts_dir(cfg_e), parts=[pr.rank])
     else:
         art = p1_artifacts(cfg_e, pr.val_g if suffix == "-val" else pr.test_g)
@@ -327,7 +358,8 @@ def mesh_eval_part(pr: Prepared, suffix: str, log=print):
     # part (bnsgcn_tpu/run.py:615-618); the statistics are order-invariant
     art, _, _ = maybe_reorder(cfg_e, art, log, pr.comm, pr.rank)
     pe = prepare_part(cfg_e, art, None, pr.device,
-                      lambda m: log(f"[eval{suffix}] {m}"), pr.rank, pr.comm)
+                      lambda m: log(f"[eval{suffix}] {m}"), pr.rank, pr.comm,
+                      axes=pr.axes)
     return pe.fns, pe.blk, pe.art
 
 
@@ -337,16 +369,17 @@ def lead_read(pr: Prepared, read: Callable):
     rank 0 reads the checkpoint and broadcasts its payload, as the JAX
     package broadcasts the restored state (bnsgcn_tpu/run.py:744). A
     failed read fails every rank."""
-    if pr.comm is None:
+    world = pr.world
+    if world is None:
         return read()
     got = None
-    if pr.rank == 0:
+    if world.rank == 0:
         try:
             got = ("ok", read())
         except Exception as e:
-            pr.comm.broadcast_object(("err", f"{type(e).__name__}: {e}"))
+            world.broadcast_object(("err", f"{type(e).__name__}: {e}"))
             raise
-    kind, value = pr.comm.broadcast_object(got)
+    kind, value = world.broadcast_object(got)
     if kind == "err":
         raise RuntimeError(f"rank 0 could not read the checkpoint: {value}")
     return value
@@ -355,7 +388,20 @@ def lead_read(pr: Prepared, read: Callable):
 def snapshot(model: GNN) -> dict:
     """A copy of the parameters on the current stream: Adam updates the
     model's in place."""
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return copy_state(model.state_dict())
+
+
+def copy_state(state: dict) -> dict:
+    return {k: v.detach().clone() for k, v in state.items()}
+
+
+def full_model(pr: Prepared, model: GNN) -> GNN:
+    """A module that holds full parameters, for a full state: a copy of
+    `model`, or under a feat axis a whole model of its spec and dtype."""
+    if not pr.fns.feat_dims:
+        return copy.deepcopy(model)
+    dt = next(model.parameters()).dtype
+    return GNN(pr.spec, pr.cfg.seed, dt).to(device=pr.device, dtype=dt)
 
 
 def _eval_job(e: int, thunk):
@@ -405,12 +451,14 @@ class HostEval:
         self.pool = ThreadPoolExecutor(max_workers=1)
         self.stream = (torch.cuda.Stream(pr.device)
                        if pr.device.type == "cuda" else None)
-        self.model = copy.deepcopy(model)
+        self.model = full_model(pr, model)
         self.val = EvalGraph(pr.val_g, pr.spec.model, pr.device)
         self.pending = None
 
-    def submit(self, epoch: int, model: GNN) -> None:
-        snap = snapshot(model)
+    def submit(self, epoch: int, state: dict) -> None:
+        """Score a copy of `state` (the full parameters: the model's
+        state_dict, or under a feat axis the gathered shards)."""
+        snap = copy_state(state)
         ready = None
         if self.stream is not None:
             ready = torch.cuda.Event()
@@ -478,16 +526,21 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     float(loss). Returns the trained model, which every rank holds
     alike."""
     cfg, spec, fns, device, comm = pr.cfg, pr.spec, pr.fns, pr.device, pr.comm
-    lead = pr.rank == 0
+    world, axes = pr.world, pr.axes
+    lead = world is None or world.rank == 0
+    # under a feat axis rank 0's feat group gathers the full parameters and
+    # moments for its checkpoints and host evals (a collective of the group)
+    gathers = lead or (bool(fns.feat_dims) and axes.r == 0 and axes.p == 0)
+    replica = axes.replica if axes is not None else None
     mesh_eval = cfg.eval and cfg.eval_device == "mesh"
     res = RunResult(dense_edges=fns.dense_edges, n_edges=pr.n_edges)
     blk, model, opt = init_training(pr, model_init)
     seed, best_acc, best_state = cfg.seed, 0.0, None
     if resume_from is not None:
         payload = lead_read(pr, lambda: ckpt.read_blob(resume_from))
-        model.load_state_dict(params_from_jax(payload["params"], spec,
-                                              payload.get("bn_state")))
-        opt_state_from_jax(payload["opt_state"], opt, model)
+        model.load_state_dict(fns.shard_state(params_from_jax(
+            payload["params"], spec, payload.get("bn_state"))))
+        opt_state_from_jax(payload["opt_state"], opt, model, fns.shard_state)
         res.start_epoch = int(payload["epoch"]) + 1
         seed, best_acc = int(payload["seed"]), float(payload["best_acc"])
         log(f"Resumed from {resume_from} at epoch {res.start_epoch}")
@@ -500,7 +553,10 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         elif best_acc > 0 and lead:
             final = ckpt.final_best_payload(cfg, best_acc, log)
         if final is not None:
+            # full on rank 0 under host eval, each rank's shard under mesh
             best_state = params_from_jax(final["params"], spec)
+            if mesh_eval:
+                best_state = fns.shard_state(best_state)
         else:
             best_acc = 0.0      # no matching best parameters: restart
     result_file = None
@@ -515,7 +571,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     def mean(xs):
         return warm_mean(xs, res.start_epoch)
 
-    clock = "P=1" if comm is None else (
+    clock = "P=1" if world is None else (
         "events" if device.type == "cuda" else "host")
     # --halo-refresh K > 1: the halo cache, held on the device by this
     # process and never checkpointed. None runs the next step on the full
@@ -527,9 +583,9 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     t_loop = time.perf_counter()
     try:
         for epoch in range(res.start_epoch, cfg.n_epochs):
-            if comm is not None:
-                comm.reset_seconds()
-            key = dropout_key(seed, epoch, pr.rank)
+            if world is not None:
+                world.reset_seconds()
+            key = dropout_key(seed, epoch, pr.rank, replica)
             t_ep = time.perf_counter()
             res.epoch_starts.append(t_ep)
             refresh_full = use_refresh and halo_cache is None
@@ -543,12 +599,13 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 loss = fns.train_step(model, opt, blk, epoch, key)
             loss_f = float(loss)                    # waits for the device
             dt = time.perf_counter() - t_ep
-            secs = (comm.seconds() if comm else
-                    {"exchange": 0.0, "reduce": 0.0})
+            secs = (world.seconds() if world else
+                    {"exchange": 0.0, "reduce": 0.0, "feat": 0.0})
             res.losses.append(loss_f)
             res.epoch_times.append(dt)
             res.comm_times.append(secs["exchange"])
             res.reduce_times.append(secs["reduce"])
+            res.feat_times.append(secs["feat"])
             if refresh_full:
                 log(f"  halo cache: full refresh at epoch {epoch} "
                     f"({cache_reason}); next {fns.halo_refresh - 1}+ epochs "
@@ -557,19 +614,25 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
             if (epoch + 1) % cfg.log_every != 0:
                 continue
+            full = opt_j = None
+            if gathers:
+                full = fns.full_state(model.state_dict())
+                opt_j = opt_state_to_jax(opt, model, fns.full_state)
             if lead:
+                feat_s = ("" if not fns.feat_dims else
+                          " | Feat(s) {:.4f}".format(mean(res.feat_times)))
                 log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
-                    "{:.4f} [{}] | Reduce(s) {:.4f} | Loss {:.4f}".format(
+                    "{:.4f} [{}] | Reduce(s) {:.4f}{} | Loss {:.4f}".format(
                         epoch, mean(res.epoch_times), mean(res.comm_times),
-                        clock, mean(res.reduce_times), loss_f))
+                        clock, mean(res.reduce_times), feat_s, loss_f))
                 # periodic checkpoint whether or not eval runs, before this
                 # log point's eval: it holds the best of the evals drained
                 # so far
                 ckpt.save_checkpoint(
                     ckpt.periodic_path(cfg, epoch),
-                    params=params_to_jax(model.state_dict(), spec),
-                    opt_state=opt_state_to_jax(opt, model),
-                    bn_state=bn_state_to_jax(model.state_dict(), spec),
+                    params=params_to_jax(full, spec),
+                    opt_state=opt_j,
+                    bn_state=bn_state_to_jax(full, spec),
                     epoch=epoch,
                     best_acc=best_acc, seed=seed, extra={"retry_nonce": 0})
                 ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
@@ -577,15 +640,15 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 done = host.drain(res, epoch)
                 if done is not None and done[1] > best_acc:
                     best_acc, best_state = done[1], done[0]
-            if comm is not None:
+            if world is not None:
                 # the peers wait here, under the wait group's long timeout
                 # rather than in the next step's collectives (60 s), for
                 # rank 0's checkpoint write and for a previous eval that
                 # outlasted these log_every epochs; the eval submitted
                 # below runs on while they train
-                comm.barrier()
+                world.barrier()
             if host is not None:
-                host.submit(epoch, model)
+                host.submit(epoch, full)
             elif mesh_eval:
                 t_ev = time.perf_counter()
                 accs = evaluate_mesh("Epoch %05d" % epoch,
@@ -609,17 +672,20 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     res.epoch_time = mean(res.epoch_times)
     res.best_val_acc = res.val_acc = best_acc
     if cfg.eval and best_state is not None:
-        # the best parameters with the run's final SyncBatchNorm state
+        # the best parameters with the run's final SyncBatchNorm state;
+        # under mesh eval every rank's shard, gathered for the file
         best_state = with_bn_state(best_state, model)
+        best_full = (fns.full_state(best_state) if mesh_eval and gathers
+                     else best_state)
         if lead:
             ckpt.save_checkpoint(ckpt.final_path(cfg),
-                                 params=params_to_jax(best_state, spec),
-                                 bn_state=bn_state_to_jax(best_state, spec),
+                                 params=params_to_jax(best_full, spec),
+                                 bn_state=bn_state_to_jax(best_full, spec),
                                  epoch=cfg.n_epochs - 1, best_acc=best_acc,
                                  seed=seed)
             log("model saved")
             log("Max Validation Accuracy {:.2%}".format(best_acc))
-        best = copy.deepcopy(model)
+        best = copy.deepcopy(model) if mesh_eval else full_model(pr, model)
         best.load_state_dict(best_state)
         t_ev = time.perf_counter()
         if mesh_eval:
@@ -646,14 +712,15 @@ def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
                  prepared: Optional[Prepared] = None,
                  rank_hook: Optional[Callable[[Prepared], dict]] = None
                  ) -> RunResult:
-    """Train cfg: in this process at P=1, on P spawned ranks otherwise.
+    """Train cfg: in this process at P=1, on R x P x T spawned ranks
+    otherwise.
     `g` is the full graph (loaded from cfg when None); `model_init` (a
     state_dict) replaces the seeded initialization (the parity tests carry
     JAX parameters over); `prepared` reuses an earlier prepare_run of the
     same P=1 cfg; `rank_hook` (P > 1, a module-level function) runs in every
     rank on its prepared part before the epoch loop and the launch
     counters' reset, its result in the rank's report under 'hook'."""
-    if cfg.n_partitions > 1:
+    if cfg.n_partitions > 1 or cfg.replicas > 1 or cfg.feat > 1:
         return run_parts(cfg, g, log, model_init, rank_hook)
     cfg, resume_from = resume_point(cfg, log)
     pr = prepared if prepared is not None else prepare_run(cfg, g, log)
@@ -724,27 +791,40 @@ def _prebuild(cfg: Config) -> None:
     buildlib.build_many(specs)
 
 
+def rank_axes(ctx: RankContext, cfg: Config) -> Optional[Axes]:
+    """The rank's replica and feat axes (every rank creates every group),
+    or None at R = T = 1."""
+    return make_axes(ctx.comm, cfg.replicas, cfg.n_partitions, cfg.feat)
+
+
 def prepare_rank(ctx: RankContext, cfg: Config, path: str,
-                 eval_graphs: Optional[tuple], log) -> Prepared:
-    """Rank ctx.rank's part of the artifacts at `path`, loaded alone, with
-    the --reorder pass applied before its layouts and their digest
-    (bnsgcn_tpu/run.py:317-321), prepared (prepare_part)."""
-    art = load_artifacts(path, parts=[ctx.rank])
-    art, resolved, _ = maybe_reorder(cfg, art, log, ctx.comm, ctx.rank)
+                 eval_graphs: Optional[tuple], log,
+                 axes: Optional[Axes] = None) -> Prepared:
+    """The rank's part of the artifacts at `path`, loaded alone, with the
+    --reorder pass applied before its layouts and their digest
+    (bnsgcn_tpu/run.py:317-321), prepared (prepare_part). The part is
+    ctx.rank, or with `axes` (rank_axes) axes.p, over its 'parts' group
+    (none at P = 1)."""
+    part, comm = ctx.rank, ctx.comm
+    if axes is not None:
+        part, comm = axes.p, (axes.parts if axes.P > 1 else None)
+    art = load_artifacts(path, parts=[part])
+    art, resolved, _ = maybe_reorder(cfg, art, log, comm, part)
     return prepare_part(cfg.replace(reorder=resolved), art, eval_graphs,
-                        ctx.device, log, ctx.rank, ctx.comm)
+                        ctx.device, log, part, comm, axes=axes)
 
 
 def _rank_main(ctx: RankContext, cfg: Config, path: str,
                model_init: Optional[dict], eval_graphs: Optional[tuple],
                rank_hook: Optional[Callable[[Prepared], dict]],
                resume_from: Optional[str]) -> dict:
-    """One rank of a P > 1 run: load part r, train (from rank 0's read of
-    the checkpoint on every rank when resuming), check replication,
-    report."""
+    """One rank of an R x P x T > 1 run: load its part, train (from rank
+    0's read of the checkpoint on every rank when resuming), check
+    replication, report."""
     lead = ctx.rank == 0
     log = ctx.log if lead else (lambda m: None)
-    pr = prepare_rank(ctx, cfg, path, eval_graphs, log)
+    axes = rank_axes(ctx, cfg)
+    pr = prepare_rank(ctx, cfg, path, eval_graphs, log, axes)
     hook = rank_hook(pr) if rank_hook is not None else None
     ctx.comm.barrier()          # the ranks build their layouts at own speeds
     bucket_sum.launches.reset()
@@ -755,12 +835,18 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
     res, model = train_loop(pr, model_init, log, resume_from)
     if cfg.eval:
         ctx.comm.barrier()          # rank 0's final checkpoint and eval
-    assert_replicated(model.parameters(), ctx.comm)
+    assert_replicated(model.parameters(), ctx.comm,
+                      [pr.fns.feat_dims.get(n) for n, _ in
+                       model.named_parameters()],
+                      axes.f if axes is not None else 0)
     return {
         "rank": ctx.rank, "device": str(ctx.device),
+        "replica": axes.r if axes is not None else 0, "part": pr.rank,
+        "feat": axes.f if axes is not None else 0,
         "losses": res.losses, "epoch_times": res.epoch_times,
         "epoch_time": res.epoch_time, "start_epoch": res.start_epoch,
         "comm_times": res.comm_times, "reduce_times": res.reduce_times,
+        "feat_times": res.feat_times,
         "launches": {"K1": dict(bucket_sum.launches.by_phase),
                      "K2": dict(tile_matmul.launches.by_phase)},
         "kinds": {"K1": dict(bucket_sum.launches.by_kind),
@@ -782,7 +868,8 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
               model_init: Optional[dict] = None,
               rank_hook: Optional[Callable[[Prepared], dict]] = None
               ) -> RunResult:
-    """P > 1: this node's launcher. Node 0's (the only one by default)
+    """R x P x T > 1: this node's launcher. Node 0's (the only one by
+    default)
     picks the checkpoint to resume from, writes the artifacts unless
     --skip-partition (under --eval-device mesh with --inductive the eval
     graphs' '-val' and '-test' too) and builds the native libraries; with
@@ -792,14 +879,14 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
     broadcast_one_to_all and sync_global_devices). A launcher
     reads only the artifacts' meta.json and shared.npz, never a part: each
     rank loads its own. Each then spawns its ranks (config.node_ranks) into
-    one world of P; under --eval-device host global rank 0 alone gets the
+    one world of R x P x T; under --eval-device host global rank 0 alone
+    gets the
     eval graphs. The result is this node's first rank's, with every local
     rank's report in `ranks`."""
     require_device(cfg.device)
     ranks = node_ranks(cfg)
-    check_mesh_budget(cfg.n_partitions, cfg.dist_backend, cfg.device,
-                      len(ranks))
-    P = cfg.n_partitions
+    R, P, T = cfg.replicas, cfg.n_partitions, cfg.feat
+    check_mesh_budget(P, cfg.dist_backend, cfg.device, len(ranks), R, T)
     mesh_eval = cfg.eval and cfg.eval_device == "mesh"
     path = artifacts_dir(cfg)
     t0 = time.perf_counter()
@@ -861,27 +948,46 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
     label += "+ovl" if overlap == "split" else ""
     label += ("+go" if grad_only else
               f"+hr{refresh_k}" if refresh_k > 1 else "")
-    peak_mb = wire_bytes(hspec, cfg.n_hidden, nb) / 1e6
+    # the replica and feat axes (bnsgcn_tpu/run.py:455-483): each replica
+    # row runs its own exchange, so the wire MB are per replica; a feat
+    # shard's GCN / GraphSAGE exchange carries its H/T slice (GAT's stays
+    # full width: it shards heads)
+    label += f"+rep{R}" if R > 1 else ""
+    label += f"+feat{T}" if T > 1 else ""
+    hid_w = shard_width(cfg.n_hidden, T, cfg.model in ("gcn", "graphsage"))
+    peak_mb = wire_bytes(hspec, hid_w, nb) / 1e6
     devs = [str(rank_device(cfg.device, cfg.dist_backend, i))
             for i in range(len(ranks))]
     staged = cfg.dist_backend == "gloo" and cfg.device == "cuda"
     where = ("" if cfg.n_nodes == 1 else
              f" | node {cfg.node_rank} of {cfg.n_nodes}: ranks "
              f"{ranks.start}..{ranks.stop - 1}")
-    log(f"Mesh: {P} ranks | {cfg.dist_backend}"
+    shape = (f"{P} ranks" if R * T == 1 else
+             f"{mesh_desc(R, P, T)} = {R * P * T} ranks")
+    per_rep = "/replica" if R > 1 else ""
+    feat_note = (f" (H/T={hid_w} of {cfg.n_hidden} on the parts wire: "
+                 f"~{cfg.n_hidden // max(hid_w, 1)}x less than feat=1)"
+                 if hid_w != cfg.n_hidden else "")
+    log(f"Mesh: {shape} | {cfg.dist_backend}"
         + (" (collectives staged through host memory)" if staged else "")
         + f"{where} | devices {','.join(devs)} | pad_inner={meta.pad_inner} "
         f"pad_boundary={meta.pad_boundary} pad_send={hspec.pad_send} "
         f"edges/part={meta.pad_edges} | {cfg.dtype} spmm={cfg.spmm} "
         f"gather={cfg.spmm_gather} dense={cfg.spmm_dense} | halo "
         f"{label}/{hspec.wire} at sampling rate {cfg.sampling_rate:g}: "
-        f"{peak_mb:.2f} MB/exchange/rank at hidden width {cfg.n_hidden} "
+        f"{peak_mb:.2f} MB/exchange/rank{per_rep} at hidden width "
+        f"{cfg.n_hidden}{feat_note} "
         f"({wire_bytes(hfull, meta.n_feat, nb) / 1e6:.2f} MB at feature "
         f"width {meta.n_feat}, the precompute's full-rate exchange) | "
         f"artifacts {path}"
         + (f" ({meta.feat_dtype} features)"
            if meta.feat_dtype != "float32" else "")
         + f" {time.perf_counter() - t0:.1f}s")
+    note = unshardable_note(spec_from_config(cfg.replace(
+        n_feat=meta.n_feat, n_class=meta.n_class)), T)
+    if note is not None:
+        # the JAX package's stderr line (bnsgcn_tpu/trainer.py:447-461)
+        print(note, file=sys.stderr)
     if grad_only:
         log("  halo grad-only: 0.00 MB/exchange steady-state (no activation "
             "exchange; the gradient all-reduce is the only collective)")
@@ -890,27 +996,30 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
                                        meta.pad_boundary, cfg.sampling_rate,
                                        refresh_k, strategy=strategy,
                                        wire=cfg.halo_wire)
-        steady_mb = wire_bytes(hspec_r, cfg.n_hidden, nb) / 1e6
+        steady_mb = wire_bytes(hspec_r, hid_w, nb) / 1e6
         log(f"  halo refresh K={refresh_k}: peak {peak_mb:.2f} MB/exchange "
             f"(full-refresh epochs), steady-state {steady_mb:.2f} MB "
             f"({steady_mb / max(peak_mb, 1e-12):.0%} of peak)")
     evals = (val_g, test_g) if val_g is not None else None
     reports = launch(
-        _rank_main, P,
+        _rank_main, R * P * T,
         [(cfg, path, model_init, evals if r == 0 else None, rank_hook,
           resume_from) for r in ranks],
         cfg.dist_backend, cfg.device, log=log, ranks=ranks,
         addr=cfg.master_addr if cfg.n_nodes > 1 else "127.0.0.1",
         port=cfg.port + 1 if cfg.n_nodes > 1 else None)
     lead = reports[0]
+    # one copy of each part: replica 0's, feat shard 0's
+    parts = reports if R * T == 1 else dedup_replica0(reports, R, P, T)
     return RunResult(
         losses=lead["losses"], epoch_times=lead["epoch_times"],
         epoch_time=lead["epoch_time"], start_epoch=lead["start_epoch"],
         comm_times=lead["comm_times"], reduce_times=lead["reduce_times"],
+        feat_times=lead["feat_times"],
         best_val_acc=lead["best_val_acc"], val_acc=lead["val_acc"],
         test_acc=lead["test_acc"], eval_seconds=lead["eval_seconds"],
         eval_spans=lead["eval_spans"], drain_waits=lead["drain_waits"],
         epoch_starts=lead["epoch_starts"],
         loop_seconds=lead["loop_seconds"],
-        dense_edges=sum(r["dense_edges"] for r in reports),
-        n_edges=sum(r["n_edges"] for r in reports), ranks=reports)
+        dense_edges=sum(r["dense_edges"] for r in parts),
+        n_edges=sum(r["n_edges"] for r in parts), ranks=reports)

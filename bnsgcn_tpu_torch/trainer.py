@@ -43,6 +43,18 @@ resolves them (its log lines too):
     into the cache, the stale rows detached. K == 1 builds neither;
   * --halo-mode grad-only: no activation exchange, a zero halo block that
     presence masks out whole; the gradient all-reduce stays.
+
+On an R x P x T run (--replicas R, --feat T; parallel/replicas.py) a rank
+is (replica r, part p, feat shard f) and gets its Axes: the exchange runs
+over its 'parts' group as above; the plans and the dropout key fold r
+first (never f, so a part's shards draw alike); the loss is over n_train x
+R, so the one gradient all-reduce, over the world, gives the mean over the
+replicas (shard 0 alone brings the leaves a shard holds whole,
+parallel/reducer.py); SyncBatchNorm's moments are summed over the world
+over n_train x R x T; the model holds shard f of each weight that shards,
+and its layers slice, exchange, aggregate and sum over the 'feat' group
+(models/gnn.py, parallel/feat.py). R = T = 1 builds no group and runs the
+path above unchanged.
 """
 
 from __future__ import annotations
@@ -83,8 +95,12 @@ from bnsgcn_tpu_torch.parallel.halo import (HaloFlight, HaloSpec,
                                             ragged_auto_eligible,
                                             refresh_row_mask,
                                             select_halo_strategy, tables_to)
+from bnsgcn_tpu_torch.parallel.feat import (FeatAxis, gather_state,
+                                            shard_state, shardable_layers,
+                                            torch_dims)
 from bnsgcn_tpu_torch.parallel.mesh import Comm
 from bnsgcn_tpu_torch.parallel.reducer import moments_sum, reduce_gradients
+from bnsgcn_tpu_torch.parallel.replicas import Axes
 from bnsgcn_tpu_torch.utils import prng
 from bnsgcn_tpu_torch.utils.diskcache import (atomic_dump, sweep_stale_tmp,
                                               try_load)
@@ -270,16 +286,21 @@ def params_to_jax(state, spec: ModelSpec) -> dict:
     return tree
 
 
-def opt_state_to_jax(opt: torch.optim.Adam, model: GNN) -> dict:
+def opt_state_to_jax(opt: torch.optim.Adam, model: GNN,
+                     full: Optional[Callable] = None) -> dict:
     """torch Adam's state -> the JAX package's optax chain state
     (bnsgcn_tpu/trainer.py make_tx: add_decayed_weights or identity, then
     scale_by_adam and scale_by_learning_rate), as its checkpoints hold it:
     {'0': {}, '1': {'0': {'count', 'mu', 'nu'}, '1': {}}}; count is Adam's
-    step (int32), mu and nu its exp_avg and exp_avg_sq."""
+    step (int32), mu and nu its exp_avg and exp_avg_sq. `full` (a feat
+    shard's: StepFns.full_state) turns a shard's moments into the full
+    ones first; every rank of the feat group calls it then."""
     st = {n: opt.state[p] for n, p in model.named_parameters()}
+    full = full or (lambda x: x)
 
     def moments(key):
-        return params_to_jax({n: s[key] for n, s in st.items()}, model.spec)
+        return params_to_jax(full({n: s[key] for n, s in st.items()}),
+                             model.spec)
 
     count = int(next(iter(st.values()))["step"])
     return {"0": {}, "1": {"0": {"count": np.asarray(count, np.int32),
@@ -287,12 +308,15 @@ def opt_state_to_jax(opt: torch.optim.Adam, model: GNN) -> dict:
                                  "nu": moments("exp_avg_sq")}, "1": {}}}
 
 
-def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN):
+def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN,
+                       cut: Optional[Callable] = None):
     """Load an optax chain state (opt_state_to_jax's layout, as the JAX
-    package's checkpoints hold it) into torch Adam."""
+    package's checkpoints hold it) into torch Adam; `cut` (a feat shard's:
+    StepFns.shard_state) cuts the full moments to the model's shard."""
     adam = tree["1"]["0"]
-    mu = params_from_jax(adam["mu"], model.spec)
-    nu = params_from_jax(adam["nu"], model.spec)
+    cut = cut or (lambda x: x)
+    mu = cut(params_from_jax(adam["mu"], model.spec))
+    nu = cut(params_from_jax(adam["nu"], model.spec))
     step = torch.tensor(float(int(adam["count"])))
     sd = opt.state_dict()
     sd["state"] = {i: {"step": step.clone(), "exp_avg": mu[n],
@@ -301,13 +325,20 @@ def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN):
     opt.load_state_dict(sd)
 
 
-def dropout_key(seed: int, epoch: int, rank: int) -> torch.Tensor:
-    """Epoch `epoch`'s dropout key on rank `rank`, as the JAX step folds it
-    (bnsgcn_tpu/trainer.py local_loss): fold_in(fold_in(key(seed + 1),
-    epoch), rank), an int64 tensor [2] on the host. The model splits it per
-    layer and draws jax's masks from it, so a resumed run replays every
-    epoch's masks and a run equals the JAX package's draw for draw."""
-    return prng.fold_in(prng.fold_in(prng.key(seed + 1), epoch), rank)
+def dropout_key(seed: int, epoch: int, part: int,
+                replica: Optional[int] = None) -> torch.Tensor:
+    """Epoch `epoch`'s dropout key on part `part`, as the JAX step folds it
+    (bnsgcn_tpu/trainer.py local_loss, :817 _replica_fold):
+    fold_in(fold_in(k, epoch), part) with k = fold_in(key(seed + 1),
+    replica) under a replica axis, key(seed + 1) without one (replica
+    None); an int64 tensor [2] on the host. The feat index is never folded.
+    The model splits it per layer and draws jax's masks from it, so a
+    resumed run replays every epoch's masks and a run equals the JAX
+    package's draw for draw."""
+    k = prng.key(seed + 1)
+    if replica is not None:
+        k = prng.fold_in(k, replica)
+    return prng.fold_in(prng.fold_in(k, epoch), part)
 
 
 @dataclass
@@ -339,6 +370,25 @@ class StepFns:
     # (loss, cache)
     train_step_full: Optional[Callable] = None
     train_step_cached: Optional[Callable] = None
+    # the replica and feat axes (None: R = T = 1); feat_dims: the sharded
+    # parameters' dimensions (parallel/feat.torch_dims; {} at T = 1)
+    axes: Optional[Axes] = None
+    feat_dims: dict = field(default_factory=dict)
+
+    def full_state(self, state: dict) -> dict:
+        """A state_dict-shaped mapping of this rank's shards made full (one
+        all-gather over the feat group, which every rank of it calls); as
+        it is at T = 1."""
+        if not self.feat_dims:
+            return state
+        return gather_state(state, self.feat_dims, self.axes.feat)
+
+    def shard_state(self, state: dict) -> dict:
+        """A full state_dict-shaped mapping cut to this rank's shard; as it
+        is at T = 1."""
+        if not self.feat_dims:
+            return state
+        return shard_state(state, self.feat_dims, self.axes.T, self.axes.f)
 
 
 # ----------------------------------------------------------------------------
@@ -655,12 +705,14 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    device, log=print, rank: int = 0,
                    comm: Optional[Comm] = None,
                    reuse: Optional[StepFns] = None,
-                   row_cap: int = I8_ROW_CAP) -> StepFns:
-    """Rank `rank`'s step functions. Without `comm` the run is P=1. `reuse`
-    and `row_cap` go to build_spmm; the layouts go through a LayoutCache
-    of cfg.cache_dir. Resolves, as the JAX package's build_step_fns does
-    and logging its lines: --halo-exchange auto, --halo-mode and
-    --halo-refresh, --overlap split's fallbacks."""
+                   row_cap: int = I8_ROW_CAP,
+                   axes: Optional[Axes] = None) -> StepFns:
+    """Part `rank`'s step functions. Without `comm` (its 'parts' group) the
+    run is P=1. `axes`: the replica and feat axes of an R x P x T run
+    (None at R = T = 1). `reuse` and `row_cap` go to build_spmm; the
+    layouts go through a LayoutCache of cfg.cache_dir. Resolves, as the JAX
+    package's build_step_fns does and logging its lines: --halo-exchange
+    auto, --halo-mode and --halo-refresh, --overlap split's fallbacks."""
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
@@ -691,7 +743,16 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
     else:
         spmm, layout, kind = build_spmm(cfg, art, device, log, row, comm,
                                         reuse, row_cap, cache)
-    n_train = max(art.n_train, 1)
+    # the replica and feat axes: the replica fold of the keys, the reduce
+    # and SyncBatchNorm over the world, the feat group's layers
+    R = axes.R if axes is not None else 1
+    replica = axes.replica if axes is not None else None
+    red_comm = axes.world if axes is not None else comm
+    feat, feat_dims = None, {}
+    if axes is not None and axes.T > 1:
+        feat = FeatAxis(axes.feat, shardable_layers(spec, axes.T))
+        feat_dims = torch_dims(spec, axes.T)
+    n_train = max(art.n_train, 1) * R
     loss_sum = bce_sum if art.multilabel else ce_sum
     ni = art.pad_inner
     n_halo = art.n_ext - ni
@@ -775,7 +836,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         if mode == "cached":
             spec_h = hspec_r
             plan = make_halo_plan_refresh(hspec_r, tables_r, bnd, rank,
-                                          epoch, sample_key, refresh_k)
+                                          epoch, sample_key, refresh_k,
+                                          replica)
             mask = refresh_row_mask(hspec_r, refresh_k, epoch, device)
             presence_h = torch.where(mask, plan.presence[ni:],
                                      cache["presence"])
@@ -783,7 +845,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
             spec_h = hspec
             plan = (fixed_plan if fixed_plan is not None else
                     make_halo_plan(hspec, tables, bnd, rank, epoch,
-                                   sample_key))
+                                   sample_key, replica))
             mask, presence_h = None, plan.presence[ni:]
         presence = torch.cat([plan.presence[:ni], presence_h])
         if mode == "step":
@@ -811,8 +873,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                 out)
 
     bn_sum = None
-    if comm is not None and spec.norm == "batch":
-        bn_sum = partial(moments_sum, comm=comm)
+    if red_comm is not None and spec.norm == "batch":
+        bn_sum = partial(moments_sum, comm=red_comm)
     # the refresh steps record each layer's halo block from inside the
     # forward, which a rematerialized layer would rerun: --remat is ignored
     # for them, with the JAX package's note (bnsgcn_tpu/trainer.py:900-905)
@@ -832,7 +894,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                        presence=presence, gat_feat0=blk.get("feat0_ext"),
                        attention=gat, agg_exchange=agg,
                        inner_mask=blk.get("inner_mask"), bn_sum=bn_sum,
-                       remat=remat)
+                       remat=remat, feat=feat,
+                       bn_copies=R * (axes.T if axes is not None else 1))
         logits, state = apply_model(model, blk["feat"], env,
                                     return_state=True)
         return logits, out, state
@@ -848,8 +911,12 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         logits, out, state = run_forward(model, blk, epoch, key, mode, cache)
         loss = loss_sum(logits, blk["label"], blk["train_mask"]) / n_train
         loss.backward()
-        if comm is not None:
-            loss = reduce_gradients(model.parameters(), comm, loss)
+        if red_comm is not None:
+            loss = reduce_gradients(
+                model.parameters(), red_comm, loss,
+                [feat_dims.get(n) for n, _ in model.named_parameters()],
+                feat.T if feat is not None else 1,
+                feat.f if feat is not None else 0)
         opt.step()
         # SyncBatchNorm's new running statistics, outputs of the forward
         # (the JAX step returns them as its new state): the model carries
@@ -918,7 +985,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                        out_norm=blk["out_norm"], exchange=exchange,
                        aggregate=(None if spmm is None else
                                   lambda h: spmm.apply_dir("fwd", h, "eval")),
-                       training=False, presence=presence, attention=gat)
+                       training=False, presence=presence, attention=gat,
+                       feat=feat)
         return apply_model(model, blk["feat"], env)
 
     dense = (dense_edge_count(layout)
@@ -929,5 +997,5 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat,
                    layout_times=cache.times, overlap=overlap,
                    halo_strategy=strategy, halo_refresh=refresh_k,
-                   halo_refresh_spec=hspec_r,
-                   **refresh_steps)
+                   halo_refresh_spec=hspec_r, axes=axes,
+                   feat_dims=feat_dims, **refresh_steps)

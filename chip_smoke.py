@@ -45,7 +45,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      evaluates once, at its end, and ends with the best parameters' Test
      Result on the full graph, whose val and test accuracies must beat
      twice chance;
-  5. the P-rank path on synth-reddit at --parts-scale, the same model: at
+  5. the P-rank path on synth-reddit at --parts-scale, the same model (its
+     P=4 artifacts written by a child process while phases 1-4 run: host
+     work beside the card's, the directories its launchers then load): at
      sampling rate 1.0, 4 ranks sharing this one card over gloo (NCCL
      refuses two ranks on one card) and P=1, 3 epochs without dropout from
      the same parameters, transductive, must give the same losses to 1e-4
@@ -142,6 +144,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      order's ms, the layout set-up; losses against --reorder off: ELL to
      1e-6 of max(|loss|, 1), the hybrid to 1e-4; auto's bitwise the
      variant its verdict names);
+  5g. [axes]: --replicas 2 and --feat 2 in one spawned group of 8 ranks
+     sharing the card over gloo, on the P=4 law's and main path's
+     artifacts, each rank on both of the port's rank maps (2 replicas x 4
+     parts, 4 parts x 2 feat shards): (a) R=2 and (b) T=2 at rate 1.0
+     without dropout, 3 epochs from the seed's parameters, must give the
+     P=4 law's losses, and (c) T=2 on the flagship's command line
+     (--inductive, rate 0.1, dropout 0.5), 2 epochs, the P=4 main path's
+     first two, all to 1e-4 (relative); each feat rank first holds K1 and
+     K2 to their plain versions on its own layout at H/T=128 and the raw
+     feature width; (d) R=2 on the flagship's command line, 2 epochs:
+     every rank ends with the same parameters, bitwise, each rank's epoch-0
+     plan on the card is the CPU's for its replica's fold, and replica 1's
+     plans differ from replica 0's; K1 and K2 once per aggregation and D1
+     once per layer forward and backward but layer 0's (at dropout) on
+     every rank; it prints each run's epoch (mean of epochs 1..), Comm(s)
+     split into exchange, feat and reduce, the wire MB per exchange per
+     replica beside --replicas 1 --feat 1's, and each run's set-up and
+     loop seconds;
   6. [cli]: the flagship's command line as a user types it,
      scripts/reddit_torch.sh, in a subprocess on synth-reddit:0.02 at P=4
      over gloo, 8 epochs, an eval and a checkpoint every 4: it must exit 0,
@@ -364,6 +384,18 @@ REMAT_RTOL = 1e-6
 # within 1e-4 relative (its dense/residual split moves with the order)
 REORDER_TWINS = {"ro-cluster": ("ro-base", 1e-4),
                  "ell+ro-cluster": ("ell+ro-base", 1e-6)}
+# [axes]: --replicas 2 and --feat 2 on the P=4 artifacts, in one spawned
+# group of AXES_RANKS ranks: (name, which artifacts, R, T, epochs). The law
+# runs (rate 1.0, no dropout) against the P=4 law's losses, the flagship's
+# T=2 run (--inductive, rate 0.1, dropout 0.5) against the P=4 main path's
+# first epochs, all to LAW_RTOL (relative); the flagship's R=2 run, whose
+# replicas draw their own samples and masks, is held to its replication
+AXES_R, AXES_T = 2, 2
+AXES_RANKS = AXES_R * PARTS
+AXES_RUNS = (("law R=2", "law", AXES_R, 1, LAW_EPOCHS),
+             ("law T=2", "law", 1, AXES_T, LAW_EPOCHS),
+             ("main T=2", "main", 1, AXES_T, 2),
+             ("main R=2", "main", AXES_R, 1, 2))
 
 
 def log(msg):
@@ -906,15 +938,55 @@ def plan_agreement(spec, tables, plans, bnd, gnid):
     return rows
 
 
-def parts_runs(cfg, args, part_path):
-    """The P-rank path at --parts-scale: the P=4 == P=1 law, then the main
-    path at P=4. Returns the details for the report."""
-    import torch
-    from bnsgcn_tpu_torch.data.datasets import load_data
-    from bnsgcn_tpu_torch.run import run_training
+def parts_cfgs(cfg, args, part_path):
+    """The P-rank path's configs at --parts-scale: (base, the law at P=1,
+    the main path at P=4)."""
     base = cfg.replace(dataset=f"synth-reddit:{args.parts_scale}",
                        part_path=part_path, dist_backend="gloo",
                        n_partitions=1, inductive=False)
+    law = base.replace(dropout=0.0, n_epochs=LAW_EPOCHS, log_every=1,
+                       eval=False)
+    main4 = base.replace(n_partitions=PARTS, n_epochs=args.parts_epochs,
+                         log_every=max(args.parts_epochs // 4, 1),
+                         sampling_rate=BNS_RATE, inductive=True)
+    return base, law, main4
+
+
+def write_parts(law4, main4):
+    """A child process's job: the P=4 law's and main path's artifact
+    directories, written as their launchers would write them (run.py
+    prepare_partition: the train graph, streamed above its edge
+    threshold), while the P=1 phases keep the card busy; the launchers
+    then find and load them."""
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.run import prepare_partition, split_graphs
+    t0 = time.perf_counter()
+    g, _, _ = load_data(law4)
+    prepare_partition(law4, g, load=False)
+    prepare_partition(main4, split_graphs(main4, g)[0], load=False)
+    log(f"[parts] the P=4 artifacts written beside the P=1 phases in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def start_write_parts(cfg, args, part_path):
+    """write_parts in a spawned child process, started now."""
+    import multiprocessing
+    _, law, main4 = parts_cfgs(cfg, args, part_path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=write_parts, args=(law.replace(n_partitions=PARTS), main4),
+        daemon=True)
+    proc.start()
+    return proc
+
+
+def parts_runs(cfg, args, part_path, writer):
+    """The P-rank path at --parts-scale: the P=4 == P=1 law, then the main
+    path at P=4, on the artifacts `writer` (start_write_parts) wrote.
+    Returns the details for the report."""
+    import torch
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.run import run_training
+    base, law, main4 = parts_cfgs(cfg, args, part_path)
     phases, t_sub = {}, [time.perf_counter()]
 
     def sub_done(name):
@@ -927,10 +999,12 @@ def parts_runs(cfg, args, part_path):
     log(f"[parts] synth-reddit:{args.parts_scale}: {g.n_nodes} nodes, "
         f"{g.n_edges} edges ({time.perf_counter() - t0:.1f} s)")
 
+    writer.join()
+    if writer.exitcode != 0:
+        raise RuntimeError(f"[parts] writing the P=4 artifacts failed (exit "
+                           f"code {writer.exitcode})")
     # the law: P=4 (4 ranks sharing this card over gloo) == P=1; the P=1
     # side runs later, beside [cli] (law_p1_phase): it reads no time
-    law = base.replace(dropout=0.0, n_epochs=LAW_EPOCHS, log_every=1,
-                       eval=False)
     r4 = run_training(law.replace(n_partitions=PARTS), g=g, log=log)
     torch.cuda.empty_cache()
     sub_done("graph+law P=4")
@@ -941,9 +1015,6 @@ def parts_runs(cfg, args, part_path):
     # epoch loop and hands them back
     # an eval every quarter of the run: each after the first (which holds
     # the epoch beside it) overlaps the epochs that follow it
-    main4 = base.replace(n_partitions=PARTS, n_epochs=args.parts_epochs,
-                         log_every=max(args.parts_epochs // 4, 1),
-                         sampling_rate=BNS_RATE, inductive=True)
     tee = Tee()
     res = run_training(main4, g=g, log=tee, rank_hook=rank_kernel_check)
     for rep in res.ranks:
@@ -1017,9 +1088,11 @@ def parts_runs(cfg, args, part_path):
     sub_done("gat")
     halo = halo_phase(main4, args)
     sub_done("halo+knobs")
+    axes = axes_phase(law, main4, r4.losses, res.losses)
+    sub_done("axes")
     return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
             "phases": phases,
-            "gat": gat, "halo": halo,
+            "gat": gat, "halo": halo, "axes": axes,
             "overlap": overlap,
             "law_losses_p4": r4.losses, "law_p1": (law, g, r4.losses),
             "rate": BNS_RATE, "losses": res.losses, "val_acc": res.val_acc,
@@ -3161,6 +3234,235 @@ def knobs_report(cfg, ranks, halo_var):
             "d1": [r["d1"] for r in ranks]}
 
 
+def axes_rank(ctx, cfgs):
+    """[axes]' rank body: global rank g of AXES_RANKS, on both rank maps of
+    the port (parallel/replicas.py): R=2 x P=4 (g = r P + p) and P=4 x T=2
+    (g = p T + f), each map's groups made once, every rank in one order.
+    Each of AXES_RUNS through run.train_loop from the seed's parameters (the
+    P=4 law's), launch counts reset just before and read just after; the
+    flagship's T=2 run first holds K1 and K2 to their plain versions on
+    this feat rank's layout at H/T and the raw feature width; the
+    flagship's R=2 run first builds its epoch-0 plan on the card and on
+    the CPU for its replica's fold. Hands back each run's losses, epoch,
+    exchange, feat and reduce seconds, wire MB, launches and a digest of
+    its parameters."""
+    import hashlib
+
+    import torch
+    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
+    from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
+    from bnsgcn_tpu_torch.parallel import halo
+    from bnsgcn_tpu_torch.parallel.feat import shard_width
+    from bnsgcn_tpu_torch.parallel.replicas import make_axes
+    from bnsgcn_tpu_torch.run import artifacts_dir, prepare_part, train_loop
+    from bnsgcn_tpu_torch.utils import prng
+    dev, g = ctx.device, ctx.rank
+
+    def log(m):
+        if g == 0:
+            ctx.log(m)
+
+    t_rank = time.perf_counter()
+    maps = {(AXES_R, 1): make_axes(ctx.comm, AXES_R, PARTS, 1),
+            (1, AXES_T): make_axes(ctx.comm, 1, PARTS, AXES_T)}
+    out = {"rank": g, "runs": {}, "groups_s": time.perf_counter() - t_rank,
+           "load_s": 0.0}
+    arts = {}
+
+    def art(which, p):
+        if (which, p) not in arts:
+            t0 = time.perf_counter()
+            arts[which, p] = load_artifacts(artifacts_dir(cfgs[which]),
+                                            parts=[p])
+            out["load_s"] += time.perf_counter() - t0
+        return arts[which, p]
+
+    for name, which, R, T, epochs in AXES_RUNS:
+        ax = maps[R, T]
+        cfg = cfgs[which].replace(replicas=R, feat=T, n_epochs=epochs,
+                                  log_every=10 ** 6, eval=False)
+        a = art(which, ax.p)
+        t0 = time.perf_counter()
+        pr = prepare_part(cfg, a, None, dev, log, ax.p, ax.parts, axes=ax)
+        rec = {"coords": (ax.r, ax.p, ax.f), "setup_s":
+               time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        H = shard_width(cfg.n_hidden, T)
+        if T > 1 and which == "main":
+            gen = torch.Generator(device=dev).manual_seed(777 + g)
+            widths, detail = (H, a.n_feat), []
+            rec["check"] = {"K1": compare_k1(pr.fns, widths, gen, 0,
+                                             detail)[0],
+                            "K2": compare_k2(pr.fns, widths, gen, 0,
+                                             detail)[0],
+                            "widths": widths, "n": len(detail)}
+        if R > 1 and which == "main":
+            bnd = torch.from_numpy(a.bnd[0])
+            spec, tables = halo.make_halo_spec(a.n_b, a.pad_inner,
+                                               a.pad_boundary,
+                                               cfg.sampling_rate)
+            card = halo.make_halo_plan(spec, halo.tables_to(tables, dev),
+                                       bnd.to(dev), ax.p, 0,
+                                       prng.key(cfg.seed, dev), ax.r)
+            cpu = halo.make_halo_plan(spec, tables, bnd, ax.p, 0,
+                                      prng.key(cfg.seed), ax.r)
+            same = all(torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+                       for k in ("sel", "weight", "slots", "presence"))
+            rec["plan"] = {"card_is_cpu": same, "digest": hashlib.sha256(
+                torch.cat([cpu.sel.reshape(-1), cpu.slots.reshape(-1)])
+                .numpy().tobytes()).hexdigest()}
+        rec["check_s"] = time.perf_counter() - t0
+        bucket_sum.launches.reset()
+        tile_matmul.launches.reset()
+        dropout.launches.reset()
+        t0 = time.perf_counter()
+        res, model = train_loop(pr, None, log)
+        rec["loop_s"] = time.perf_counter() - t0
+        flat = torch.cat([p.detach().reshape(-1).float()
+                          for p in model.parameters()]).cpu()
+        rec.update(
+            losses=res.losses, epoch_times=res.epoch_times,
+            comm_times=res.comm_times, feat_times=res.feat_times,
+            reduce_times=res.reduce_times,
+            wire_mb=halo.wire_bytes(pr.fns.halo, H) / 1e6,
+            launches={"K1": dict(bucket_sum.launches.by_phase),
+                      "K2": dict(tile_matmul.launches.by_phase)},
+            kinds={"K1": dict(bucket_sum.launches.by_kind),
+                   "K2": dict(tile_matmul.launches.by_kind)},
+            d1={"phases": dict(dropout.launches.by_phase),
+                "kinds": dict(dropout.launches.by_kind)},
+            digest=hashlib.sha256(flat.numpy().tobytes()).hexdigest())
+        out["runs"][name] = rec
+        del pr, res, model
+        torch.cuda.empty_cache()
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def axes_phase(law, main4, law_losses, main_losses):
+    """[axes]: --replicas 2 and --feat 2 in one spawned group of AXES_RANKS
+    ranks sharing the card over gloo (axes_rank), on the P=4 law's and the
+    P=4 main path's artifacts. Checks: (a) R=2 and (b) T=2 at rate 1.0
+    without dropout, 3 epochs, give the P=4 law's losses; (c) T=2 on the
+    flagship's command line gives the P=4 main path's first 2 epochs' (the
+    keys fold no feat index, D1 draws at full width); (d) R=2 on it: every
+    rank ends with the same parameters, bitwise, each rank's epoch-0 plan
+    on the card is the CPU's for its replica's fold, and replica 1's
+    differ from replica 0's; all to LAW_RTOL (relative). Every feat rank
+    first holds K1 and K2 to their plain versions at H/T and the raw
+    feature width; every run launches K1 and K2 once per aggregation and
+    D1 once per layer forward and once per layer backward but layer 0's at
+    dropout. Prints each run's epoch (mean of epochs 1..), Comm(s) split
+    into exchange, feat and reduce, and the wire MB per exchange per
+    replica beside the --replicas 1 --feat 1 run's at H."""
+    from bnsgcn_tpu_torch.data.artifacts import read_meta
+    from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
+    from bnsgcn_tpu_torch.parallel.mesh import launch
+    from bnsgcn_tpu_torch.run import artifacts_dir
+    t0 = time.perf_counter()
+    cfgs = {"law": law.replace(n_partitions=PARTS), "main": main4}
+    wire = {}
+    for which, c in cfgs.items():
+        meta = read_meta(artifacts_dir(c))
+        spec, _ = make_halo_spec(meta.n_b, meta.pad_inner, meta.pad_boundary,
+                                 c.sampling_rate)
+        wire[which] = wire_bytes(spec, c.n_hidden) / 1e6
+    ranks = launch(axes_rank, AXES_RANKS, [(cfgs,)] * AXES_RANKS,
+                   law.dist_backend, law.device, log=log)
+    runs = {name: [r["runs"][name] for r in ranks] for name, *_ in AXES_RUNS}
+    refs = {"law": law_losses, "main": main_losses}
+    checks = []
+    for name, which, R, T, epochs in AXES_RUNS:
+        recs = runs[name]
+        cfg = cfgs[which]
+        want_k = {"fwd": (cfg.n_layers - 1) * epochs,
+                  "bwd": (cfg.n_layers - 1) * epochs, "pre": 1}
+        want_d1 = ({} if cfg.dropout == 0 else
+                   {"fwd": cfg.n_layers * epochs,
+                    "bwd": (cfg.n_layers - 1) * epochs})
+        for r in recs:
+            if not all(math.isfinite(v) for v in r["losses"]):
+                raise AssertionError(f"[axes] {name}: non-finite loss "
+                                     f"{r['losses']}")
+            if r["launches"] != {"K1": want_k, "K2": want_k}:
+                raise AssertionError(f"[axes] {name}: rank {r['coords']} "
+                                     f"launched {r['launches']}, not "
+                                     f"{want_k} each")
+            if r["d1"]["phases"] != want_d1:
+                raise AssertionError(f"[axes] {name}: D1 launched "
+                                     f"{r['d1']['phases']}, not {want_d1}")
+            if r["losses"] != recs[0]["losses"]:
+                raise AssertionError(f"[axes] {name}: ranks report different "
+                                     f"losses")
+        got, ref = recs[0]["losses"], refs[which][:epochs]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(got, ref))
+        held = not (which == "main" and R > 1)
+        if held and not rel <= LAW_RTOL:
+            raise AssertionError(f"[axes] {name}: losses {got} against "
+                                 f"{ref} ({'the P=4 law' if which == 'law' else 'the P=4 main path'}) "
+                                 f"differ by {rel:.3e} (relative)")
+        if held:
+            checks.append((name, rel))
+        ep = [mean_from_1(r["epoch_times"]) * 1e3 for r in recs]
+        ex = [mean_from_1(r["comm_times"]) * 1e3 for r in recs]
+        ft = [mean_from_1(r["feat_times"]) * 1e3 for r in recs]
+        rd = [mean_from_1(r["reduce_times"]) * 1e3 for r in recs]
+        share = [f / max(e, 1e-9) for f, e in zip(ft, ep)]
+        log(f"[axes] {name} ({'--replicas' if R > 1 else '--feat'} 2, "
+            f"{AXES_RANKS} ranks sharing one card over gloo): losses "
+            + " ".join(f"{v:.6f}" for v in got)
+            + f", {rel:.1e} (relative) from "
+            f"{'the P=4 law' if which == 'law' else 'the P=4 main path'}'s"
+            f"{'' if held else ' (its own draws: not held to them)'}; "
+            f"epoch {_span(ep)} ms (mean of epochs 1..); Comm(s): exchange "
+            f"{_span(ex)}, feat {_span(ft)} ({_span(share, '{:.1%}')} of the"
+            f" epoch), reduce {_span(rd)} ms; wire "
+            f"{recs[0]['wire_mb']:.2f} MB per exchange per replica (--replicas 1"
+            f" --feat 1: {wire[which]:.2f}); set-up "
+            f"{_span([r['setup_s'] for r in recs])} s, checks "
+            f"{_span([r['check_s'] for r in recs])} s, the loop (the "
+            f"precompute, the epochs) {_span([r['loop_s'] for r in recs])}"
+            f" s")
+    d = runs["main R=2"]
+    if len({r["digest"] for r in d}) != 1:
+        raise AssertionError("[axes] main R=2: the ranks' parameters differ")
+    plans = {}
+    for r in d:
+        rr, p, _ = r["coords"]
+        if not r["plan"]["card_is_cpu"]:
+            raise AssertionError(f"[axes] main R=2: rank {r['coords']}'s "
+                                 f"epoch-0 plan on the card is not the "
+                                 f"CPU's")
+        plans[rr, p] = r["plan"]["digest"]
+    same = [p for p in range(PARTS) if plans[0, p] == plans[1, p]]
+    if same:
+        raise AssertionError(f"[axes] main R=2: replicas 0 and 1 drew the "
+                             f"same plans for parts {same}")
+    for name in ("law T=2", "main T=2"):
+        by_f = {}
+        for r in runs[name]:
+            by_f.setdefault(r["coords"][2], set()).add(r["digest"])
+        if any(len(v) != 1 for v in by_f.values()):
+            raise AssertionError(f"[axes] {name}: the shards' holders' "
+                                 f"parameters differ")
+    chk = [r["check"] for r in runs["main T=2"]]
+    log(f"[axes] every feat rank's own layout at H={tuple(chk[0]['widths'])}"
+        f": K1 max abs err {max(c['K1'][0] for c in chk):.3e}, K2 "
+        f"{max(c['K2'][0] for c in chk):.3e} over {chk[0]['n']} checks each, "
+        f"every element within its bound; main R=2: every rank's "
+        f"parameters bitwise equal, each epoch-0 plan on the card the "
+        f"CPU's for its fold, replica 1's plans differ from replica 0's on "
+        f"every part; done in {time.perf_counter() - t0:.1f} s (a rank: "
+        f"groups {_span([r['groups_s'] for r in ranks])} s, loads "
+        f"{_span([r['load_s'] for r in ranks])} s, its whole body "
+        f"{_span([r['rank_s'] for r in ranks])} s)")
+    return {"checks": checks, "wire_mb_r1": wire, "ranks": [
+        {"rank": r["rank"], "runs": {k: {x: y for x, y in v.items()
+                                         if x != "plan"}
+                                     for k, v in r["runs"].items()}}
+        for r in ranks]}
+
+
 def anchor_phase(work):
     """[anchor]: the JAX package's calibrated accuracy gate on the card
     (bnsgcn_tpu_torch/anchor.py; tests/test_accuracy_anchor.py's bands):
@@ -3298,6 +3600,10 @@ def main(argv=None) -> int:
                  log_every=args.epochs, eval=True, seed=0, device="cuda",
                  ckpt_path=os.path.join(work, "checkpoint"),
                  results_path=os.path.join(work, "results"))
+    # the P-rank phases' artifacts: host work, written by a child process
+    # while the P=1 phases run
+    part_path = os.path.join(os.getcwd(), "partition")
+    writer = start_write_parts(cfg, args, part_path)
     t0 = time.perf_counter()
     pr = prepare_run(cfg, log=log)
     log(f"[setup] graph + artifacts + layout {time.perf_counter() - t0:.1f} s")
@@ -3495,8 +3801,7 @@ def main(argv=None) -> int:
 
     # 5. the P-rank path
     t0 = time.perf_counter()
-    parts, res4 = parts_runs(cfg, args, os.path.join(os.getcwd(),
-                                                     "partition"))
+    parts, res4 = parts_runs(cfg, args, part_path, writer)
     log(f"[parts] done in {time.perf_counter() - t0:.1f} s")
     phases.update({f"parts:{k}": v for k, v in parts.pop("phases").items()})
     t_phase[0] = time.perf_counter()
@@ -3532,7 +3837,8 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     # launches by variant on the main paths: the P=1 run, every rank of the
     # P=4 main path, [lowp]'s two runs, [recipe]'s at P=1 and P=4, and
-    # every rank of [meval] (its evals included) and of [yelp]
+    # every rank of [meval] (its evals included), of [yelp], of [papers],
+    # of [halo]'s variants and of [axes]' runs
     counts = {"K1": {}, "K2": {}, "D1": {}}
     for src in ([{"K1": p1_kinds["K1"], "K2": p1_kinds["K2"]}]
                 + [rep["kinds"] for rep in res4.ranks]
@@ -3542,26 +3848,32 @@ def main(argv=None) -> int:
                 + parts["meval"]["launches"] + yelp["launches"]
                 + papers["launches"]
                 + [x["kinds"] for recs in parts["halo"]["variants"].values()
-                   for x in recs]):
+                   for x in recs]
+                + [x["kinds"] for r in parts["axes"]["ranks"]
+                   for x in r["runs"].values()]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
     # D1 on the main paths at dropout > 0: the P=1 run, [lowp]'s and
     # [recipe]'s at P=1 (bf16), every rank of the P=4 main path, and of
-    # [halo]'s and [knobs]' variants
+    # [halo]'s and [knobs]' variants and [axes]' flagship runs
     for src in ([d1_p1] + [rep["d1"] for rep in res4.ranks]
                 + [x["d1"] for x in lowp.values()] + [rec1["d1"]]
                 + [x["d1"] for recs in parts["halo"]["variants"].values()
                    for x in recs]
                 + [x["d1"] for recs in parts["halo"]["knobs"]["variants"]
-                   .values() for x in recs]):
+                   .values() for x in recs]
+                + [x["d1"] for r in parts["axes"]["ranks"]
+                   for x in r["runs"].values()]):
         for kind, n in src["kinds"].items():
             counts["D1"][kind] = counts["D1"].get(kind, 0) + n
     # the largest error of each kernel's checks, P=1's and every rank's
     hooks = ([rep["hook"] for rep in res4.ranks]
              + yelp["rank_checks"]
              + [x["check"] for rows in parts["halo"]["split"].values()
-                for x in rows])
+                for x in rows]
+             + [r["runs"]["main T=2"]["check"]
+                for r in parts["axes"]["ranks"]])
     errs = {"ell_bucket_sum": max([e1[0]] + [h["K1"][0] for h in hooks]),
             "tile_matmul": max([e2[0]] + [h["K2"][0] for h in hooks]),
             "bucket_reduce": e3, "copy_probe": 0.0}

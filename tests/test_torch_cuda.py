@@ -1177,3 +1177,59 @@ def test_dropout_kernel_is_its_plain_version(cuda, shape, dtype):
         "bwd"] == 2
     with pytest.raises(ValueError):
         d1.dropout_apply(x.to(torch.float16), *key, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_kernels_at_a_feat_shard_width(cuda, direction):
+    """K1 (with a base) and K2 at H = 128 f32, the width a feat shard's
+    exchange and SpMM carry at --feat 2 on the flagship's 256-wide hidden
+    layers, against their plain versions."""
+    op = _ell_rows(cuda)
+    rows = op.rows[direction]
+    gen = torch.Generator(device=cuda).manual_seed(128)
+    h = torch.randn(rows.n_src, 128, generator=gen, device=cuda)
+    base = torch.randn(rows.n_rows + 3, 128, generator=gen, device=cuda)
+    base_row = torch.randperm(rows.n_rows + 3, generator=gen,
+                              device=cuda)[:rows.n_rows].to(torch.int32)
+    _k1_matches_plain(rows, h, base, base_row)
+    _k1_matches_plain(rows, h, None, None)
+    art, (fwd, bwd, _, arrays) = _layout(64)
+    spec = fwd if direction == "fwd" else bwd
+    a = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(cuda)
+         for k, v in arrays.items()}
+    perm = a["blk_perm_ext" if direction == "fwd" else "blk_perm_inner"]
+    x = block_spmm.build_x_slabs(spec, perm, torch.randn(
+        spec.n_src, 128, generator=gen, device=cuda))
+    _k2_matches_plain(a[f"blk_tiles_{direction}"], a[f"blk_rowb_{direction}"],
+                      a[f"blk_colb_{direction}"], x, spec.n_row_blocks)
+
+
+@pytest.mark.cuda
+def test_dropout_kernel_on_a_feat_rank_s_full_width(cuda):
+    """D1 draws a feat shard's masks at the full width, before the slice:
+    on a rank's [rows, 256] hidden block each shard's columns are the
+    plain version's columns (the feat=1 masks), and GAT's head dropout,
+    drawn at the full head count and sliced at the shard's offset, is the
+    CPU's draw."""
+    from bnsgcn_tpu_torch.models.gnn import _dropout_heads
+    from bnsgcn_tpu_torch.ops import dropout as d1
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(4099, 256, generator=gen, device=cuda)
+    key = prng.fold_in(prng.fold_in(prng.key(1), 0), 3)
+    words = d1.key_words(key)
+    full = d1.dropout_apply(x, *words, 0.5)
+    ref = d1.dropout_plain(x, *words, 0.5)
+    for f in range(2):
+        cols = slice(128 * f, 128 * (f + 1))
+        assert torch.equal(full[:, cols].view(torch.int32),
+                           ref[:, cols].view(torch.int32))
+    a = torch.rand(5000, 2, generator=gen, device=cuda)
+    d1.launches.reset()
+    for off in (0, 2):
+        got = _dropout_heads(a, 0.5, key, True, 4, off)
+        want = _dropout_heads(a.cpu(), 0.5, key, True, 4, off)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+    torch.cuda.synchronize()
+    assert d1.launches.by_phase["fwd"] == 2

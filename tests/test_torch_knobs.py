@@ -18,7 +18,9 @@ Without ranks:
     (also with --norm batch --remat) and GAT: every epoch's loss within
     1e-4, the last periodic checkpoint's parameters within 5e-4 (PERF.md
     §2's bounds; absolute under --norm batch, PARAM_TOL_BN), its bn_state
-    within the same.
+    within the same; and at P=2 --replicas 2, --feat 2 and both against the
+    JAX CLI's --replicas 2 or its run without them, with the `Mesh:`
+    line's shape.
 
 One module fixture spawns 4 gloo ranks once over the skewed 60/30/20/10
 partition of tests/test_torch_halo_variants.py, 3 steps per case from the
@@ -505,6 +507,7 @@ def _cli_pair(tmp_path, monkeypatch, extra, port_extra):
     for x, y in zip(jax.tree.leaves(b["bn_state"]),
                     jax.tree.leaves(a["bn_state"])):
         np.testing.assert_allclose(np.asarray(x), np.asarray(y), **tol)
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("extra", [[], ["--norm", "batch", "--remat"]],
@@ -512,6 +515,25 @@ def _cli_pair(tmp_path, monkeypatch, extra, port_extra):
 def test_cli_p1_at_dropout_half_is_the_jax_cli(tmp_path, monkeypatch, extra):
     _cli_pair(tmp_path, monkeypatch, ["--n-partitions", "1"] + extra,
               ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("axes,port_axes,mesh", [
+    (["--replicas", "2"], [], "Mesh: 2x2 replicas x parts = 4 ranks"),
+    ([], ["--feat", "2"], "Mesh: 2x2 parts x feat = 4 ranks"),
+    (["--replicas", "2"], ["--feat", "2"],
+     "Mesh: 2x2x2 replicas x parts x feat = 8 ranks")],
+    ids=["replicas2", "feat2", "replicas2-feat2"])
+def test_cli_p2_axes_are_the_jax_cli(tmp_path, monkeypatch, axes, port_axes,
+                                     mesh):
+    """--replicas 2 against the JAX CLI's --replicas 2; --feat 2 against
+    the JAX CLI without it (its feat=2 step is refused by this jax): the
+    keys fold no feat index and dropout draws at full width, so the runs
+    agree within the bounds above; every checkpoint holds full arrays."""
+    out = _cli_pair(tmp_path, monkeypatch,
+                    ["--n-partitions", "2", "--sampling-rate", "0.5"] + axes,
+                    ["--device", "cpu", "--dist-backend", "gloo"]
+                    + port_axes)
+    assert mesh in out
 
 
 @pytest.mark.slow

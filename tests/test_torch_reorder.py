@@ -1,6 +1,6 @@
 """--reorder in the port (bnsgcn_tpu_torch/data/reorder.py) against the JAX
 package's data/reorder.py, on the CPU, mirroring tests/test_reorder.py's
-laws (its replicas x parts x feat case aside: the port has neither axis).
+laws (its replicas x parts x feat case aside).
 
   * the orders, every permuted artifact array, the coverage before (the
     hybrid's per-build cluster order) and after, and maybe_reorder's

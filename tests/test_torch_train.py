@@ -178,11 +178,11 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
-    ["--replicas", "2"], ["--strict-exec"],
+    ["--obs-log", "f"], ["--strict-exec"],
     ["--profile-dir", "d"], ["--tune", "auto"],
     ["--elastic", "on"], ["--resil-retries", "2"], ["--coord-dir", "d"],
     ["--inject", "nan@E5"], ["--obs-dir", "d"],
-    ["--feat", "2"],
+    ["--serve-dir", "d"],
     ["--n-partitions", "4", "--dist-backend", "gloo", "--serve-port",
      "18121"],
 ])
