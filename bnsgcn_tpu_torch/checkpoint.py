@@ -154,18 +154,45 @@ def prune_checkpoints(cfg, keep: int):
             pass                    # already gone
 
 
-def latest_valid_checkpoint(cfg, log=None) -> Optional[tuple[str, dict]]:
+def latest_checkpoint(cfg) -> Optional[str]:
+    """The newest periodic checkpoint's path, unverified (what
+    `--inject ckpt-corrupt` tears); latest_valid_checkpoint for a file that
+    will be loaded."""
+    found = _periodic_ckpts(cfg)
+    return os.path.join(cfg.ckpt_path, found[-1][1]) if found else None
+
+
+def latest_valid_checkpoint(cfg, log=None, before_epoch: Optional[int] = None
+                            ) -> Optional[tuple[str, dict]]:
     """(path, payload) of the newest periodic checkpoint that verifies,
-    walking past corrupt, torn and zero-byte files; None when there is
-    none."""
-    for _, fn in reversed(_periodic_ckpts(cfg)):
+    walking past corrupt, torn, zero-byte and unreadable files; None when
+    there is none. `before_epoch` keeps only checkpoints of earlier epochs
+    (a divergence rollback never restores a file a previous run left
+    ahead of it)."""
+    for ep, fn in reversed(_periodic_ckpts(cfg)):
+        if before_epoch is not None and ep >= before_epoch:
+            continue
         path = os.path.join(cfg.ckpt_path, fn)
-        payload, err = load_or_error(path)
-        if payload is not None:
-            return path, payload
-        if log:
-            log(f"[resilience] skipping corrupt checkpoint: {err}")
+        try:
+            return path, read_blob(path)
+        except CheckpointCorrupt as ex:
+            if log:
+                log(f"[resilience] skipping corrupt checkpoint: {ex}")
+        except OSError as ex:
+            if log:
+                log(f"[resilience] skipping unreadable checkpoint "
+                    f"{fn}: {ex}")
     return None
+
+
+def resilience_extra(payload: dict) -> dict[str, int]:
+    """The resilience counters a checkpoint's `extra` carries, 0 for a file
+    without them: {"retry_nonce", "resize_nonce"} (the JAX package's
+    elastic resizes; the port never resizes, so it writes retry_nonce
+    alone, as the JAX package does without --elastic)."""
+    extra = payload.get("extra") or {}
+    return {"retry_nonce": int(extra.get("retry_nonce", 0)),
+            "resize_nonce": int(extra.get("resize_nonce", 0))}
 
 
 def final_best_payload(cfg, best_acc: float, log) -> Optional[dict]:

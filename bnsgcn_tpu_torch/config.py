@@ -127,6 +127,15 @@ class Config:
                                         # (R x P x T ranks;
                                         # parallel/replicas.py, feat.py)
 
+    # --- fault tolerance (resilience.py) ---
+    resilience: str = "on"              # 'on': divergence rollback,
+                                        # preemption exit 75, the hung-step
+                                        # watchdog | 'off': the plain loop
+    inject: str = ""                    # fault injection, e.g.
+                                        # 'nan@E5,sigterm@E9:r1' (the env
+                                        # $BNSGCN_FAULT is the default)
+    resil_retries: int = 3              # rollbacks before exit 76
+
     # filled from the partition artifacts
     n_feat: int = 0
     n_class: int = 0
@@ -152,18 +161,17 @@ class Config:
 # Flags of the JAX CLI whose feature the port lacks, for some or all of
 # their values: (dests, the values the port accepts (None: the flag's
 # default only), what a refused value would select). An accepted value other
-# than the default is one the port honours as it stands: it runs without
-# resilience, rank coordination, telemetry or traced comm columns, which is
-# what those values select, and --backend names the JAX package's
-# collectives, a no-op here (--dist-backend picks the port's).
+# than the default is one the port honours as it stands: --coord auto and
+# off select no rank coordinator (the port's ranks agree over their own
+# process group, resilience.py), --obs on and off and --no-comm-trace no
+# telemetry or traced comm columns (the port has neither), and --backend
+# names the JAX package's collectives, a no-op here (--dist-backend picks
+# the port's).
 _NOT_PORTED = (
     (("profile_dir",), None, "profiler traces"),
     (("comm_trace",), (True, False), "traced comm columns"),
     (("strict_exec",), None, "the strict-execution guard"),
     (("tune", "tune_schedule", "tune_prior"), None, "the comm auto-tuner"),
-    (("resilience",), ("on", "off"), "resilience"),
-    (("inject",), ("",), "fault injection"),
-    (("resil_retries",), None, "divergence rollback"),
     (("elastic", "elastic_min_world"), None, "elastic world size"),
     (("coord",), ("auto", "off"), "rank coordination"),
     (("coord_addr", "coord_port", "coord_dir", "coord_rank", "coord_world"),

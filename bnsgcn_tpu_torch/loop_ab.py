@@ -6,6 +6,7 @@ an eval every --log-every epochs.
 
     PYTHONPATH=<tree> python3 bnsgcn_tpu_torch/loop_ab.py NAME \\
         [--scale 0.5] [--epochs 16] [--log-every 4] [--backend gloo] \\
+        [--resilience on|off] \\
         [--part-path DIR] [--out chiprun_out/loop_ab.jsonl]
 
 Run as a file, it times the package <tree> holds: this checkout (`.`) or
@@ -14,8 +15,15 @@ bnsgcn_tpu_torch | tar -x -C <dir>`), in turns in one call, with one
 --part-path so that the runs share the artifacts. It appends one JSON line
 per run: rank 0's epoch times and eval seconds, and, where the tree
 records them (the overlapped loop), each eval's span, the drain waits, the
-epoch starts and every rank's loop wall time. `--backend nccl` puts one
-rank on each card (4 cards). Exits 2 without a GPU.
+epoch starts and every rank's loop wall time, and two means: the epoch
+time of epochs 1.. (the step, ending in float(loss)) and the steady
+interval, the mean time from one epoch's start to the next's over the
+epochs that are no log point (the step plus what the loop does around it:
+resilience.py's agreement all-reduce, the beats), and under --resilience
+on rank 0's mean agreement all-reduce (host clock). `--resilience on|off`
+sets the run's --resilience (a tree from before fault tolerance was ported
+takes no such flag: leave it out there). `--backend nccl` puts one rank on
+each card (4 cards). Exits 2 without a GPU.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 
@@ -34,6 +43,7 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=16)
     ap.add_argument("--log-every", type=int, default=4)
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    ap.add_argument("--resilience", choices=["on", "off"], default=None)
     ap.add_argument("--part-path", default="partition")
     ap.add_argument("--out", default=os.path.join("chiprun_out",
                                                   "loop_ab.jsonl"))
@@ -54,8 +64,11 @@ def main(argv=None) -> int:
                  log_every=args.log_every, seed=0, device="cuda",
                  dist_backend=args.backend, sampling_rate=0.1,
                  inductive=True, part_path=args.part_path,
-                 ckpt_path=os.path.join("/tmp", work, "ckpt"),
-                 results_path=os.path.join("/tmp", work, "results"))
+                 ckpt_path=os.path.join(tempfile.gettempdir(), work, "ckpt"),
+                 results_path=os.path.join(tempfile.gettempdir(), work,
+                                           "results"))
+    if args.resilience is not None:
+        cfg = cfg.replace(resilience=args.resilience)
     g, _, _ = load_data(cfg)
     t0 = time.perf_counter()
     res = run_training(cfg, g=g, log=lambda m: None)
@@ -63,7 +76,15 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(bnsgcn_tpu_torch.__file__))),
         "backend": args.backend, "run_s": time.perf_counter() - t0,
         "epoch_times": res.epoch_times, "eval_seconds": res.eval_seconds,
-        "losses": res.losses}
+        "losses": res.losses, "resilience": args.resilience}
+    starts = res.epoch_starts
+    steady = [b - a for i, (a, b) in enumerate(zip(starts, starts[1:]))
+              if i >= 1 and (i + 1) % args.log_every != 0]
+    rec["epoch_ms_from_1"] = 1e3 * sum(res.epoch_times[1:]) / max(
+        len(res.epoch_times) - 1, 1)
+    rec["steady_interval_ms"] = 1e3 * sum(steady) / max(len(steady), 1)
+    agree = getattr(res, "agree_times", None) or []
+    rec["agree_ms"] = 1e3 * sum(agree) / len(agree) if agree else None
     for k in ("eval_spans", "drain_waits", "epoch_starts", "loop_seconds"):
         rec[k] = getattr(res, k, None)
     rec["ranks_loop_seconds"] = [r.get("loop_seconds") for r in res.ranks]

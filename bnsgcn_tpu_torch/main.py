@@ -30,10 +30,20 @@ JAX process other than 0 does, since rank 0 alone evaluates.
 The last two lines are machine-readable: the JAX CLI's `RESULT final_loss=
 ... best_val=... test=...`, then `LOSSES from_epoch=E l_E,l_E+1,...`, every
 epoch's loss this run trained.
+
+Exit codes (resilience.py, the JAX CLI's): 0 done; 2 a named config error;
+75 preempted (SIGTERM/SIGINT to the launcher or a rank; a resumable
+checkpoint is on disk, relaunch with --resume); 76 divergence that no
+rollback cured (the report on stderr and beside the checkpoints); 77 a
+hung step (a rank's watchdog fired, or a step collective timed out on a
+hung peer; a `[watchdog]` line names the rank whose step-boundary beat is
+oldest); 1 anything else.
 """
 
 from __future__ import annotations
 
+import gc
+import os
 import random
 import sys
 
@@ -41,10 +51,14 @@ from bnsgcn_tpu_torch.config import (SUBCOMMANDS, ConfigError,
                                      config_from_args, create_parser,
                                      node_ranks)
 from bnsgcn_tpu_torch.parallel.mesh import NodeUnreachable
+from bnsgcn_tpu_torch.resilience import (EXIT_DIVERGED, EXIT_PREEMPTED,
+                                         EXIT_WATCHDOG, DivergenceError,
+                                         PreemptedError, StepHung)
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    code = None
     try:
         if argv and argv[0] in SUBCOMMANDS:
             raise ConfigError(f"{argv[0]} is not ported yet")
@@ -64,6 +78,25 @@ def main(argv=None) -> int:
     except NodeUnreachable as e:
         print(f"[launch] {e}", file=sys.stderr)
         return 1
+    except PreemptedError as e:
+        print(f"[resilience] {e}")
+        code = EXIT_PREEMPTED
+    except DivergenceError as e:
+        print(f"[resilience] {e}", file=sys.stderr)
+        return EXIT_DIVERGED
+    except StepHung as e:
+        print(f"[watchdog] {e}", file=sys.stderr)
+        code = EXIT_WATCHDOG
+    if code is not None:
+        # os._exit, not a return: interpreter shutdown would join an
+        # in-flight host eval's thread (or a hung one) and could overrun
+        # the platform's grace window; the resumable checkpoint is already
+        # fsync'd. Collected first, the launcher's queue frees its
+        # semaphores.
+        gc.collect()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
     final = res.losses[-1] if res.losses else float("nan")
     print("RESULT final_loss=%.9e best_val=%.6f test=%.6f"
           % (final, res.best_val_acc, res.test_acc))
@@ -73,4 +106,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    # a long run's lines reach a pipe (a scheduler's log, a wrapper waiting
+    # for an epoch line) as they are printed
+    sys.stdout.reconfigure(line_buffering=True)
     sys.exit(main())

@@ -37,6 +37,16 @@ collectives go through torch.distributed:
     memory only, so `send_recv` stages a CUDA tensor through host buffers
     itself, in the gloo branch. The backend is whatever the caller asked
     for, never switched.
+  * Fault tolerance (resilience.py): with `forward_signals` the launcher
+    hands its first SIGTERM/SIGINT to its ranks (a shared flag each reads
+    at its step boundary, not a second signal: a signal sent to the whole
+    process group reaches every rank once already) and kills them at the
+    second; each rank writes its step-boundary beats into arrays the
+    launcher shares with it, and `launch` maps
+    the ranks' exits to one outcome: any 77 (a watchdog, or a step
+    collective that timed out on a hung peer) raises RankExit 77 naming the
+    rank whose beat is oldest, else any 76 RankExit 76, else 75 from every
+    rank RankExit 75; anything else RankFailed.
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ import datetime
 import json
 import os
 import queue as queue_mod
+import signal
 import socket
+import sys
+import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -53,6 +66,9 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+
+from bnsgcn_tpu_torch.resilience import (EXIT_DIVERGED, EXIT_PREEMPTED,
+                                         EXIT_WATCHDOG)
 
 # a step's collectives: every rank runs the same work between two of them
 PG_TIMEOUT_S = 60.0
@@ -63,6 +79,11 @@ PG_TIMEOUT_S = 60.0
 WAIT_TIMEOUT_S = 1800.0
 # a launcher's wait to reach node 0's NodeStore
 NODE_CONNECT_TIMEOUT_S = 120.0
+# how long the launcher waits for the other ranks once one failed: a
+# traceback's peers (1 s: they fail in its wake), a resumable or
+# divergence exit's peers (they exit at the same step boundary)
+FAIL_SETTLE_S = 1.0
+EXIT_SETTLE_S = 60.0
 
 
 def check_mesh_budget(n_parts: int, backend: str, device: str,
@@ -340,6 +361,14 @@ class Comm:
         dist.all_gather_object(out, obj, group=self.group)
         return out
 
+    def agree_max(self, values: list) -> list:
+        """The element-wise MAX of small ints over the ranks, over the wait
+        group (host tensors, off the device's stream): every rank's verdict
+        at one step boundary."""
+        t = torch.tensor(values, dtype=torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._waits())
+        return t.tolist()
+
     def barrier(self) -> None:
         """Wait for every rank, under the wait group's timeout: where peers
         wait for work one rank does alone."""
@@ -352,15 +381,30 @@ class Comm:
 @dataclass
 class RankContext:
     """What a rank's job receives: its rank, its device, its Comm and a log
-    function whose lines the parent prints."""
+    function whose lines the parent prints; `beat(epoch)` reports the
+    rank's step-boundary beat to the launcher, `forwarded()` names a signal
+    the launcher forwarded (None before one)."""
     rank: int
     device: torch.device
     comm: Comm
     log: Callable[[str], None]
+    beat: Callable[[int], None] = lambda epoch: None
+    forwarded: Callable[[], "str | None"] = lambda: None
 
 
 class RankFailed(RuntimeError):
-    """A rank raised or died; the message carries its traceback."""
+    """A rank raised or died; the message carries its traceback and its
+    exit code."""
+
+
+class RankExit(RankFailed):
+    """The ranks ended on one of resilience.py's exit codes (`code`): 75,
+    76 or 77. `exc` is the exception a rank raised for it (PreemptedError,
+    DivergenceError, StepHung), None when a rank's watchdog ended it."""
+
+    def __init__(self, code: int, message: str, exc=None):
+        super().__init__(message)
+        self.code, self.exc = code, exc
 
 
 class NodeUnreachable(RuntimeError):
@@ -417,7 +461,8 @@ class NodeStore:
 
 
 def _rank_entry(rank, local_rank, n_local, world, addr, port, backend,
-                device, timeout_s, wait_timeout_s, fn, args, q):
+                device, timeout_s, wait_timeout_s, fn, args, q, flag=None,
+                beats=None):
     """A spawned rank: join the group (and the gloo group of Comm.barrier),
     run fn(ctx, *args), send the result (or the traceback) to the parent,
     leave the group. The ranks share the host's cores: each takes its
@@ -449,40 +494,144 @@ def _rank_entry(rank, local_rank, n_local, world, addr, port, backend,
             wait_group = dist.new_group(
                 backend="gloo",
                 timeout=datetime.timedelta(seconds=wait_timeout_s))
-            ctx = RankContext(rank, dev, Comm(rank, world, dev, wait_group),
-                              lambda m: q.put(("log", rank, str(m))))
+            ctx = RankContext(
+                rank, dev, Comm(rank, world, dev, wait_group),
+                lambda m: q.put(("log", rank, str(m))),
+                (lambda epoch: _beat(beats, local_rank, epoch))
+                if beats is not None else (lambda epoch: None),
+                lambda: (signal.Signals(flag.value).name
+                         if flag is not None and flag.value else None))
             result = fn(ctx, *args)
         finally:
             dist.destroy_process_group()
         q.put(("ok", rank, result))
-    except BaseException:
+    except BaseException as e:
+        code = getattr(e, "exit_code", None)
+        if isinstance(code, int):
+            # a resilience exit (resilience.py): the exception itself
+            q.put(("exit", rank, (code, e)))
+            raise SystemExit(code)
         q.put(("err", rank, traceback.format_exc()))
         raise SystemExit(1)
 
 
-def _failures(q, rank: int, tb: str, n_ranks: int,
-              grace_s: float = 1.0) -> str:
-    """The first failure's report plus those of ranks that fail within
-    `grace_s` after it: a rank's error often breaks its peers' collectives
-    at once, and whichever report lands first need not be the cause."""
-    reports = [(rank, tb)]
-    end = time.monotonic() + grace_s
-    while time.monotonic() < end:
-        try:
-            kind, r, payload = q.get(timeout=max(end - time.monotonic(), 0.01))
-        except queue_mod.Empty:
-            break
+def _beat(beats, i: int, epoch: int) -> None:
+    """A rank's step-boundary beat, written straight into the launcher's
+    shared arrays (no queue: a rank that dies next must not lose it); the
+    monotonic clock is the host's, the same in every process."""
+    times, epochs = beats
+    times[i] = time.monotonic()
+    epochs[i] = epoch
+
+
+class _Forward:
+    """The launcher's SIGTERM/SIGINT handlers while its ranks run: the first
+    signal sets `flag` (the ranks read it at their step boundary), a second
+    kills the ranks and re-raises the signal in the launcher."""
+
+    def __init__(self, flag, procs: dict):
+        self.flag, self.procs = flag, procs
+        self.old = {}
+
+    def install(self):
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self.old[sig] = signal.signal(sig, self._on_signal)
+        return self
+
+    def restore(self):
+        for sig, old in self.old.items():
+            signal.signal(sig, old)
+        self.old.clear()
+
+    def _on_signal(self, signum, frame):
+        name = signal.Signals(signum).name
+        if self.flag.value:
+            for p in self.procs.values():
+                if p.is_alive():
+                    p.kill()
+            self.restore()
+            signal.signal(signum, signal.SIG_DFL)
+            signal.raise_signal(signum)
+            return
+        self.flag.value = int(signum)
+        sys.stderr.write(
+            f"\n[resilience] {name} received by the launcher: forwarded to "
+            f"its {len(self.procs)} rank(s), which checkpoint and exit "
+            f"{EXIT_PREEMPTED} at their next step boundary (send again to "
+            f"kill immediately)\n")
+
+
+def _stall_line(beats: dict, ranks) -> str:
+    """Which rank stalled a hung step: the one whose step-boundary beat
+    (sent as it enters a step) is oldest, by epoch, then by age, with every
+    rank's."""
+    now = time.monotonic()
+
+    def age(r):
+        return now - beats[r][1] if r in beats else float("inf")
+
+    oldest = min(ranks, key=lambda r: (beats[r][0], -age(r)) if r in beats
+                 else (-1, 0.0))
+    every = "; ".join(
+        f"rank {r}: " + (f"epoch {beats[r][0]}, {age(r):.1f} s ago"
+                         if r in beats else "no beat") for r in ranks)
+    what = (f"epoch {beats[oldest][0]}, {age(oldest):.1f} s ago"
+            if oldest in beats else "no beat yet")
+    return (f"rank {oldest} stalled the step: its step-boundary beat is "
+            f"the oldest ({what}; {every})")
+
+
+def _verdict(outcomes: dict, results: dict, procs: dict, ranks,
+             n_ranks: int, beats: dict):
+    """The exception for the ranks' outcomes ({rank: ('exit', (code, exc))
+    | ('err', traceback) | ('died', exit code)}): RankExit 77, 76 or 75 by
+    resilience.py's rules, else RankFailed with every failure's report."""
+    codes = {}
+    for r, (kind, payload) in outcomes.items():
+        if kind == "exit":
+            codes[r] = payload
+        elif kind == "died":
+            codes[r] = (payload, None)
+    hung = sorted(r for r, (c, _) in codes.items() if c == EXIT_WATCHDOG)
+    if hung:
+        exc = next((codes[r][1] for r in hung if codes[r][1] is not None),
+                   None)
+        how = "; ".join(f"rank {r}: " + (str(codes[r][1])
+                                          if codes[r][1] is not None else
+                                          "its watchdog fired")
+                        for r in hung)
+        return RankExit(EXIT_WATCHDOG, f"hung step ({how}); "
+                        + _stall_line(beats, ranks), exc)
+    for code in (EXIT_DIVERGED, EXIT_PREEMPTED):
+        got = sorted(r for r, (c, e) in codes.items()
+                     if c == code and e is not None)
+        if got and (code == EXIT_DIVERGED or len(got) == len(ranks)):
+            exc = codes[got[0]][1]
+            return RankExit(code, str(exc), exc)
+    reports = []
+    for r in sorted(outcomes):
+        kind, payload = outcomes[r]
+        code = procs[r].exitcode
+        tag = f" (exit code {code})" if code is not None else ""
         if kind == "err":
-            reports.append((r, payload))
-    return "\n".join(f"rank {r} of {n_ranks} failed:\n{t}"
-                     for r, t in sorted(reports))
+            reports.append(f"rank {r} of {n_ranks} failed{tag}:\n{payload}")
+        elif kind == "died":
+            reports.append(f"rank {r} of {n_ranks} died with exit code "
+                           f"{payload} and no report")
+        else:
+            reports.append(f"rank {r} of {n_ranks} exited {payload[0]}: "
+                           f"{payload[1]}")
+    reports += [f"rank {r} of {n_ranks}: no outcome by then (torn down)"
+                for r in ranks if r not in outcomes and r not in results]
+    return RankFailed("\n".join(reports))
 
 
 def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
            log=print, timeout_s: float = PG_TIMEOUT_S,
            wait_timeout_s: float = WAIT_TIMEOUT_S,
            ranks: "range | None" = None, addr: str = "127.0.0.1",
-           port: "int | None" = None) -> list:
+           port: "int | None" = None, forward_signals: bool = False) -> list:
     """Run fn(RankContext, *rank_args[i]) on spawned processes, one for
     each global rank in `ranks` (all n_ranks by default), in a world of
     n_ranks that meets at tcp://addr:port (a free local port by default;
@@ -490,9 +639,13 @@ def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
     uses), and return their results in `ranks` order. `timeout_s` bounds
     the rendezvous and each collective, `wait_timeout_s` each
     Comm.barrier. `fn` and the arguments are pickled (fn by import path).
-    Log lines a rank sends come out through `log` as they arrive. Raises
-    RankFailed, after terminating every other rank it started, when a rank
-    raises or dies."""
+    Log lines a rank sends come out through `log` as they arrive.
+    `forward_signals` (the main thread only) hands the launcher's first
+    SIGTERM/SIGINT to the ranks (RankContext.forwarded) and kills them at
+    the second. When a rank raises or dies, `launch` waits for the others
+    a little (FAIL_SETTLE_S; EXIT_SETTLE_S for a resilience exit), then
+    terminates every rank it started and raises RankExit (resilience.py's
+    codes: any 77, else any 76, else 75 from every rank) or RankFailed."""
     ranks = range(n_ranks) if ranks is None else ranks
     if len(rank_args) != len(ranks):
         raise ValueError(f"{len(rank_args)} argument tuples for "
@@ -504,39 +657,75 @@ def launch(fn, n_ranks: int, rank_args: list, backend: str, device: str,
         port = _free_port()
     ctx = torch.multiprocessing.get_context("spawn")
     q = ctx.Queue()
+    flag = beats = None
+    if forward_signals:
+        flag = ctx.Value("i", 0, lock=False)
+        beats = (ctx.RawArray("d", len(ranks)),
+                 ctx.RawArray("q", [-1] * len(ranks)))
     procs = {r: ctx.Process(target=_rank_entry, daemon=True,
                             args=(r, i, len(ranks), n_ranks, addr, port,
                                   backend, device, timeout_s, wait_timeout_s,
-                                  fn, rank_args[i], q))
+                                  fn, rank_args[i], q, flag, beats))
              for i, r in enumerate(ranks)}
     results: dict = {}
+    outcomes: dict = {}
+    settle = None
+
+    def take(kind, rank, payload):
+        if kind == "log":
+            log(payload)
+        elif kind == "ok":
+            results[rank] = payload
+        else:
+            # a report replaces a 'died' seen before it arrived
+            outcomes[rank] = (kind, payload)
+
+    fwd = _Forward(flag, procs).install() if forward_signals else None
     try:
         for p in procs.values():
             p.start()
-        while len(results) < len(ranks):
+        while len(results) + len(outcomes) < len(ranks):
+            if settle is not None and time.monotonic() > settle:
+                break
             try:
-                kind, rank, payload = q.get(timeout=0.5)
+                take(*q.get(timeout=0.25))
             except queue_mod.Empty:
                 for r, p in procs.items():
-                    if r not in results and p.exitcode not in (None, 0):
-                        raise RankFailed(f"rank {r} died with exit code "
-                                         f"{p.exitcode} and no report")
-                continue
-            if kind == "log":
-                log(payload)
-            elif kind == "ok":
-                results[rank] = payload
-            else:
-                raise RankFailed(_failures(q, rank, payload, n_ranks))
+                    if (r not in results and r not in outcomes
+                            and p.exitcode not in (None, 0)):
+                        outcomes[r] = ("died", p.exitcode)
+            if outcomes and settle is None:
+                # the peers of a 75 or a 76 end at the same step boundary
+                together = any(k == "exit" and v[0] != EXIT_WATCHDOG
+                               for k, v in outcomes.values())
+                settle = time.monotonic() + (
+                    EXIT_SETTLE_S if together else FAIL_SETTLE_S)
+        if outcomes or len(results) < len(ranks):
+            while True:             # what the ranks sent before they ended
+                try:
+                    take(*q.get_nowait())
+                except queue_mod.Empty:
+                    break
+            for r, p in procs.items():
+                if r not in results and r not in outcomes:
+                    p.join(timeout=0.1)
+            seen = ({r: (beats[1][i], beats[0][i])
+                     for i, r in enumerate(ranks) if beats[1][i] >= 0}
+                    if beats is not None else {})
+            raise _verdict(outcomes, results, procs, ranks, n_ranks, seen)
         for p in procs.values():
             p.join(timeout=timeout_s)
         return [results[r] for r in ranks]
     finally:
+        if fwd is not None:
+            fwd.restore()
+        alive = [p for p in procs.values() if p.is_alive()]
+        for p in alive:
+            p.terminate()
+        end = time.monotonic() + 5.0
+        for p in alive:
+            p.join(timeout=max(end - time.monotonic(), 0.01))
         for p in procs.values():
-            if p.is_alive():
-                p.terminate()
-        for p in procs.values():
-            p.join(timeout=10)
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)

@@ -38,8 +38,16 @@ Accuracy` line on the test mask of the full graph, only when an
 evaluation ran. --resume continues from the newest valid periodic
 checkpoint with its parameters, optimizer, SyncBatchNorm state, seed and
 best accuracy; each epoch's dropout is jax's draw from the key of (seed,
-epoch, rank), so the resumed epochs replay the uninterrupted run's. The resilience and coordination layers
-wait for later slices.
+epoch, rank), so the resumed epochs replay the uninterrupted run's.
+
+Fault tolerance (resilience.py; --resilience on, the default) runs in
+every rank: a non-finite loss rolls every rank back to the newest valid
+checkpoint (rank 0's read, broadcast) with the retry nonce folded into the
+sampling and dropout keys (exit 76 once --resil-retries are spent); a
+SIGTERM/SIGINT (the launcher forwards its own to its ranks) is agreed at a
+step boundary, rank 0 writes a resumable checkpoint and the run exits 75;
+a hung step exits 77; --inject fires faults at step boundaries. The JAX
+package's rank coordinator and elastic world size are not ported.
 
 --replicas R --feat T (parallel/replicas.py) spawn R x P x T ranks; rank
 (r, p, f) loads part p, its exchange runs over its replica row's 'parts'
@@ -60,6 +68,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
@@ -86,20 +95,24 @@ from bnsgcn_tpu_torch.parallel.feat import shard_width, unshardable_note
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
                                             make_refresh_spec, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
-                                            check_mesh_budget, launch,
-                                            rank_device)
+                                            RankExit, check_mesh_budget,
+                                            launch, rank_device)
 from bnsgcn_tpu_torch.parallel.reducer import (assert_replicated,
                                                broadcast_parameters)
 from bnsgcn_tpu_torch.parallel.replicas import (Axes, dedup_replica0,
                                                 make_axes, mesh_desc)
+from bnsgcn_tpu_torch.resilience import (PreemptedError, ResilienceManager,
+                                         StepHung, check_inject,
+                                         collective_timed_out)
 from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
                                       bn_state_to_jax, build_step_fns,
                                       compute_dtype, dropout_key,
-                                      local_row, make_tx, opt_state_from_jax,
-                                      opt_state_to_jax, params_from_jax,
+                                      local_row, make_tx, opt_state_to_jax,
+                                      param_global_norm, params_from_jax,
                                       params_to_jax, resolve_halo_mode,
                                       resolve_overlap, resolve_strategy,
-                                      to_device, with_bn_state)
+                                      restore_payload, to_device,
+                                      with_bn_state)
 
 # epochs excluded from the Time(s), Comm(s) and Reduce(s) means, as the JAX
 # package's EpochTimer(warmup=5) and the reference (train.py:415) exclude
@@ -151,6 +164,11 @@ class RunResult:
     n_edges: int = 0
     ranks: list = field(default_factory=list)   # P > 1: each rank's report
                                        # (R x P x T, in global rank order)
+    rollbacks: list = field(default_factory=list)   # resilience.py's
+                                       # rollback records, oldest first
+    agree_times: list = field(default_factory=list)  # P > 1, resilience
+                                       # on: each step's agreement
+                                       # all-reduce, s (host clock)
 
 
 def require_device(name: str) -> None:
@@ -320,6 +338,11 @@ def resume_point(cfg: Config, log=print) -> tuple[Config, Optional[str]]:
     if found is None:
         return cfg, None
     path, payload = found
+    if ckpt.resilience_extra(payload)["resize_nonce"]:
+        raise ConfigError(f"--resume from {path}, a checkpoint of an "
+                          f"elastic resize (resize_nonce "
+                          f"{ckpt.resilience_extra(payload)['resize_nonce']}"
+                          f"), is not ported yet (elastic world size)")
     return cfg.replace(seed=int(payload.get("seed", cfg.seed))), path
 
 
@@ -508,12 +531,13 @@ class HostEval:
 
 
 def train_loop(pr: Prepared, model_init: Optional[dict] = None,
-               log=print, resume_from: Optional[str] = None
+               log=print, resume_from: Optional[str] = None,
+               ctx: Optional[RankContext] = None
                ) -> tuple[RunResult, GNN]:
     """The epoch loop of one process (P=1) or one rank, from epoch 0 or,
-    with `resume_from` (a periodic checkpoint), from the epoch after it.
-    Every `log_every` epochs, in the JAX package's order
-    (bnsgcn_tpu/run.py:1693-1745): rank 0 logs and writes a periodic
+    with `resume_from` (a periodic checkpoint), from the epoch after it
+    with its retry nonce. Every `log_every` epochs, in the JAX package's
+    order (bnsgcn_tpu/run.py:1693-1745): rank 0 logs and writes a periodic
     checkpoint, pruned to cfg.keep_ckpt; with cfg.eval, under
     --eval-device host rank 0 drains the previous evaluation and submits
     this epoch's to its thread (HostEval), under --eval-device mesh every
@@ -524,7 +548,23 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     the full graph's test mask (on a copy; on the ranks under mesh). The
     epoch time is taken after the step's gradient all-reduce and ends in
     float(loss). Returns the trained model, which every rank holds
-    alike."""
+    alike.
+
+    Under --resilience on (resilience.py; the JAX package's hooks,
+    bnsgcn_tpu/run.py:1247-1262, 1353-1362, 1500-1525, 1755-1777) the loop
+    is a `while` that a rollback moves back: at each step boundary the
+    watchdog's beat and the injected faults, then `ctx.beat` (the
+    launcher's view of this rank entering the step); after the step the
+    loss check, at log points the parameter-norm probe, and at P > 1 one
+    MAX all-reduce of [preemption, divergence] over the wait group, so
+    every rank acts on the same verdict at the same boundary. Divergence
+    rolls back (model, Adam, SyncBatchNorm, the restart epoch, the keys'
+    nonce; the losses from the restart on are dropped, the halo cache
+    too); preemption, after the epoch's periodic work, has rank 0 write
+    the epoch's checkpoint (unless the log point just did) and every rank
+    raise PreemptedError. A collective that times out on a peer raises
+    StepHung. The watchdog's clock is held through the log points' work
+    (checkpoint, drain, barrier, eval)."""
     cfg, spec, fns, device, comm = pr.cfg, pr.spec, pr.fns, pr.device, pr.comm
     world, axes = pr.world, pr.axes
     lead = world is None or world.rank == 0
@@ -535,14 +575,13 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     mesh_eval = cfg.eval and cfg.eval_device == "mesh"
     res = RunResult(dense_edges=fns.dense_edges, n_edges=pr.n_edges)
     blk, model, opt = init_training(pr, model_init)
-    seed, best_acc, best_state = cfg.seed, 0.0, None
+    seed, best_acc, best_state, nonce = cfg.seed, 0.0, None, 0
     if resume_from is not None:
         payload = lead_read(pr, lambda: ckpt.read_blob(resume_from))
-        model.load_state_dict(fns.shard_state(params_from_jax(
-            payload["params"], spec, payload.get("bn_state"))))
-        opt_state_from_jax(payload["opt_state"], opt, model, fns.shard_state)
+        restore_payload(payload, model, opt, fns.shard_state)
         res.start_epoch = int(payload["epoch"]) + 1
         seed, best_acc = int(payload["seed"]), float(payload["best_acc"])
+        nonce = ckpt.resilience_extra(payload)["retry_nonce"]
         log(f"Resumed from {resume_from} at epoch {res.start_epoch}")
         # every rank holds the best parameters under mesh (the final test
         # eval is collective), rank 0 alone under host
@@ -559,6 +598,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 best_state = fns.shard_state(best_state)
         else:
             best_acc = 0.0      # no matching best parameters: restart
+    fns.set_nonce(nonce)
     result_file = None
     if lead and cfg.eval:
         os.makedirs(cfg.results_path, exist_ok=True)
@@ -575,94 +615,163 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
         "events" if device.type == "cuda" else "host")
     # --halo-refresh K > 1: the halo cache, held on the device by this
     # process and never checkpointed. None runs the next step on the full
-    # exchange, which rebuilds it: at the run's start and after a resume
-    # (bnsgcn_tpu/run.py:1074-1080)
+    # exchange, which rebuilds it: at the run's start, after a resume and
+    # after a rollback (bnsgcn_tpu/run.py:1074-1080)
     use_refresh = fns.train_step_full is not None
     halo_cache = None
     cache_reason = "resume" if res.start_epoch > 0 else "start"
+    resil = None
+    if cfg.resilience == "on":
+        resil = ResilienceManager(
+            cfg, log, start_epoch=res.start_epoch, retry_nonce=nonce,
+            rank=world.rank if world is not None else 0,
+            world=world.world if world is not None else 1, lead=lead,
+            find_ckpt=(partial(_lead_find, pr) if world is not None
+                       else None),
+            forwarded=ctx.forwarded if ctx is not None else None)
+        # the rollback source before the first checkpoint: this rank's
+        # fresh (or resumed) state, its shard under a feat axis
+        resil.set_initial_snapshot(model, opt)
+        if device.type == "cuda":
+            # a cold build directory's nvcc runs can outlast the watchdog's
+            # grace: every kernel is built before it starts
+            _prebuild(cfg)
+        resil.start()
+    elif cfg.inject or os.environ.get("BNSGCN_FAULT"):
+        log("[resilience] WARNING: --inject is armed but the resilience "
+            "loop is disabled here — no fault will fire")
+    held = resil.watchdog.held if resil is not None else nullcontext
+    # $BNSGCN_EPOCH_THROTTLE_S: a least wall time per epoch, slept before
+    # the timed region (the JAX package's test knob: a run slow enough for a
+    # signal to land mid-run)
+    throttle = float(os.environ.get("BNSGCN_EPOCH_THROTTLE_S", 0) or 0)
+    per_epoch = (res.losses, res.epoch_times, res.comm_times,
+                 res.reduce_times, res.feat_times)
+    loss_base = epoch = res.start_epoch     # res.losses[0]'s epoch
     t_loop = time.perf_counter()
     try:
-        for epoch in range(res.start_epoch, cfg.n_epochs):
+        while epoch < cfg.n_epochs:
+            if throttle > 0:
+                time.sleep(throttle)
+            if resil is not None:
+                resil.watchdog.beat(epoch)
+                # 'nan' poisons the parameters, so the divergence shows up
+                # through the real loss
+                if resil.fire_injections(epoch)["nan"]:
+                    with torch.no_grad():
+                        for p in model.parameters():
+                            p.mul_(float("nan"))
+                if ctx is not None:
+                    ctx.beat(epoch)
             if world is not None:
                 world.reset_seconds()
-            key = dropout_key(seed, epoch, pr.rank, replica)
+            key = dropout_key(seed, epoch, pr.rank, replica, nonce)
             t_ep = time.perf_counter()
             res.epoch_starts.append(t_ep)
             refresh_full = use_refresh and halo_cache is None
+            log_point = (epoch + 1) % cfg.log_every == 0
+            try:
+                if refresh_full:
+                    loss, halo_cache = fns.train_step_full(model, opt, blk,
+                                                           epoch, key)
+                elif use_refresh:
+                    loss, halo_cache = fns.train_step_cached(
+                        model, opt, blk, epoch, key, halo_cache)
+                else:
+                    loss = fns.train_step(model, opt, blk, epoch, key)
+                loss_f = float(loss)                # waits for the device
+                dt = time.perf_counter() - t_ep
+                secs = (world.seconds() if world else
+                        {"exchange": 0.0, "reduce": 0.0, "feat": 0.0})
+                bad = preempt = False
+                if resil is not None:
+                    # the loss is all-reduced: the check is every rank's
+                    bad = not np.isfinite(loss_f)
+                    if not bad and log_point:
+                        bad = not np.isfinite(param_global_norm(model))
+                    asked = resil.preempt_requested is not None
+                    preempt = asked
+                    if world is not None:
+                        # the probe's verdict (a feat shard's own) and the
+                        # preemption flag, the world's at this boundary
+                        t_ag = time.perf_counter()
+                        pre_rank, bad_any = world.agree_max(
+                            [world.rank + 1 if asked else 0, int(bad)])
+                        res.agree_times.append(time.perf_counter() - t_ag)
+                        preempt, bad = pre_rank > 0, bad_any > 0
+            except RuntimeError as e:
+                if resil is not None and collective_timed_out(e):
+                    raise StepHung(f"rank {world.rank if world else 0}: a "
+                                   f"collective of epoch {epoch}'s step "
+                                   f"timed out ({e})") from e
+                raise
             if refresh_full:
-                loss, halo_cache = fns.train_step_full(model, opt, blk,
-                                                       epoch, key)
-            elif use_refresh:
-                loss, halo_cache = fns.train_step_cached(
-                    model, opt, blk, epoch, key, halo_cache)
-            else:
-                loss = fns.train_step(model, opt, blk, epoch, key)
-            loss_f = float(loss)                    # waits for the device
-            dt = time.perf_counter() - t_ep
-            secs = (world.seconds() if world else
-                    {"exchange": 0.0, "reduce": 0.0, "feat": 0.0})
+                log(f"  halo cache: full refresh at epoch {epoch} "
+                    f"({cache_reason}); next {fns.halo_refresh - 1}+ epochs "
+                    f"reuse cached blocks")
+            if bad:
+                # before the checkpoint below: a non-finite state never
+                # becomes the last good one
+                restart, nonce = resil.rollback(epoch, loss_f, model, opt,
+                                                fns.shard_state)
+                fns.set_nonce(nonce)
+                # the retried epochs are recorded again on the healthy pass
+                if restart < loss_base:
+                    for xs in per_epoch:
+                        xs.clear()
+                    loss_base = res.start_epoch = restart
+                else:
+                    for xs in per_epoch:
+                        del xs[restart - loss_base:]
+                halo_cache, cache_reason = None, "rollback"
+                resil.watchdog.touch()
+                epoch = restart
+                continue
+            if not np.isfinite(loss_f) and resil is None:
+                raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
             res.losses.append(loss_f)
             res.epoch_times.append(dt)
             res.comm_times.append(secs["exchange"])
             res.reduce_times.append(secs["reduce"])
             res.feat_times.append(secs["feat"])
-            if refresh_full:
-                log(f"  halo cache: full refresh at epoch {epoch} "
-                    f"({cache_reason}); next {fns.halo_refresh - 1}+ epochs "
-                    f"reuse cached blocks")
-            if not np.isfinite(loss_f):
-                raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
-            if (epoch + 1) % cfg.log_every != 0:
+            if not (log_point or preempt):
+                epoch += 1
                 continue
             full = opt_j = None
-            if gathers:
-                full = fns.full_state(model.state_dict())
-                opt_j = opt_state_to_jax(opt, model, fns.full_state)
-            if lead:
-                feat_s = ("" if not fns.feat_dims else
-                          " | Feat(s) {:.4f}".format(mean(res.feat_times)))
-                log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
-                    "{:.4f} [{}] | Reduce(s) {:.4f}{} | Loss {:.4f}".format(
-                        epoch, mean(res.epoch_times), mean(res.comm_times),
-                        clock, mean(res.reduce_times), feat_s, loss_f))
-                # periodic checkpoint whether or not eval runs, before this
-                # log point's eval: it holds the best of the evals drained
-                # so far
-                ckpt.save_checkpoint(
-                    ckpt.periodic_path(cfg, epoch),
-                    params=params_to_jax(full, spec),
-                    opt_state=opt_j,
-                    bn_state=bn_state_to_jax(full, spec),
-                    epoch=epoch,
-                    best_acc=best_acc, seed=seed, extra={"retry_nonce": 0})
-                ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
-            if host is not None:
-                done = host.drain(res, epoch)
-                if done is not None and done[1] > best_acc:
-                    best_acc, best_state = done[1], done[0]
-            if world is not None:
-                # the peers wait here, under the wait group's long timeout
-                # rather than in the next step's collectives (60 s), for
-                # rank 0's checkpoint write and for a previous eval that
-                # outlasted these log_every epochs; the eval submitted
-                # below runs on while they train
-                world.barrier()
-            if host is not None:
-                host.submit(epoch, full)
-            elif mesh_eval:
-                t_ev = time.perf_counter()
-                accs = evaluate_mesh("Epoch %05d" % epoch,
-                                     ev_val[0].eval_forward, model,
-                                     ev_val[1], ev_val[2], modes,
-                                     result_file, comm, log)
-                res.eval_spans.append((epoch, t_ev, time.perf_counter()))
-                res.eval_seconds.append(time.perf_counter() - t_ev)
-                if accs["val"] > best_acc:
-                    best_acc, best_state = accs["val"], snapshot(model)
+            with held():
+                if gathers:
+                    full = fns.full_state(model.state_dict())
+                    opt_j = opt_state_to_jax(opt, model, fns.full_state)
+                if log_point:
+                    best_acc, best_state = _log_point(
+                        pr, model, res, epoch, loss_f, full, opt_j, seed,
+                        nonce, best_acc, best_state, host, ev_val, modes,
+                        result_file, mean, clock, log)
+            if log_point and resil is not None:
+                resil.note_progress(epoch)
+            if preempt:
+                ppath = ckpt.periodic_path(cfg, epoch)
+                with held():
+                    if lead and not log_point:
+                        _save_periodic(pr, epoch, full, opt_j, best_acc,
+                                       seed, nonce)
+                    who = (f"{resil.preempt_requested}" if world is None
+                           else f"agreed preemption (requested on rank "
+                                f"{pre_rank - 1})")
+                    log(f"[resilience] {who} honored at the epoch-{epoch} "
+                        f"step boundary: resumable checkpoint at {ppath}")
+                    if world is not None:
+                        world.barrier()     # rank 0's file is on disk
+                raise PreemptedError(epoch, ppath)
+            epoch += 1
     except BaseException:
         if host is not None:
             host.close(wait=False)
         raise
+    finally:
+        if resil is not None:
+            res.rollbacks = list(resil.rollbacks)
+            resil.close()
     if host is not None:
         done = host.drain(res, cfg.n_epochs)
         if done is not None and done[1] > best_acc:
@@ -707,6 +816,70 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     return res, model
 
 
+def _lead_find(pr: Prepared, cfg: Config, log=None,
+               before_epoch: Optional[int] = None):
+    """The rollback's checkpoint at P > 1: rank 0's pick and read, handed
+    to every rank, so that no two ranks restore different files."""
+    return lead_read(pr, lambda: ckpt.latest_valid_checkpoint(
+        cfg, log=log, before_epoch=before_epoch))
+
+
+def _save_periodic(pr: Prepared, epoch: int, full: dict, opt_j: dict,
+                   best_acc: float, seed: int, nonce: int) -> None:
+    """Rank 0's periodic (or preemption) checkpoint of `epoch`, pruned to
+    cfg.keep_ckpt; `extra` carries the retry nonce, as the JAX package's
+    (without --elastic) does."""
+    cfg, spec = pr.cfg, pr.spec
+    ckpt.save_checkpoint(
+        ckpt.periodic_path(cfg, epoch), params=params_to_jax(full, spec),
+        opt_state=opt_j, bn_state=bn_state_to_jax(full, spec), epoch=epoch,
+        best_acc=best_acc, seed=seed, extra={"retry_nonce": nonce})
+    ckpt.prune_checkpoints(cfg, cfg.keep_ckpt)
+
+
+def _log_point(pr: Prepared, model: GNN, res: RunResult, epoch: int,
+               loss_f: float, full, opt_j, seed: int, nonce: int,
+               best_acc: float, best_state, host, ev_val, modes,
+               result_file, mean, clock: str, log):
+    """A log point's work, in the JAX package's order: rank 0's epoch line
+    and periodic checkpoint (before this point's eval: it holds the best of
+    the evals drained so far), the previous host eval's drain, the barrier,
+    then this point's eval (submitted to the thread, or on the ranks).
+    Returns the best (accuracy, parameters)."""
+    world, fns = pr.world, pr.fns
+    if world is None or world.rank == 0:
+        feat_s = ("" if not fns.feat_dims else
+                  " | Feat(s) {:.4f}".format(mean(res.feat_times)))
+        log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
+            "{:.4f} [{}] | Reduce(s) {:.4f}{} | Loss {:.4f}".format(
+                epoch, mean(res.epoch_times), mean(res.comm_times),
+                clock, mean(res.reduce_times), feat_s, loss_f))
+        _save_periodic(pr, epoch, full, opt_j, best_acc, seed, nonce)
+    if host is not None:
+        done = host.drain(res, epoch)
+        if done is not None and done[1] > best_acc:
+            best_acc, best_state = done[1], done[0]
+    if world is not None:
+        # the peers wait here, under the wait group's long timeout rather
+        # than in the next step's collectives (60 s), for rank 0's
+        # checkpoint write and for a previous eval that outlasted these
+        # log_every epochs; the eval submitted below runs on while they
+        # train
+        world.barrier()
+    if host is not None:
+        host.submit(epoch, full)
+    elif ev_val is not None:
+        t_ev = time.perf_counter()
+        accs = evaluate_mesh("Epoch %05d" % epoch, ev_val[0].eval_forward,
+                             model, ev_val[1], ev_val[2], modes,
+                             result_file, pr.comm, log)
+        res.eval_spans.append((epoch, t_ev, time.perf_counter()))
+        res.eval_seconds.append(time.perf_counter() - t_ev)
+        if accs["val"] > best_acc:
+            best_acc, best_state = accs["val"], snapshot(model)
+    return best_acc, best_state
+
+
 def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
                  model_init: Optional[dict] = None,
                  prepared: Optional[Prepared] = None,
@@ -720,6 +893,9 @@ def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
     same P=1 cfg; `rank_hook` (P > 1, a module-level function) runs in every
     rank on its prepared part before the epoch loop and the launch
     counters' reset, its result in the rank's report under 'hook'."""
+    # a malformed or unported term exits 2 before any rank starts, under
+    # --resilience off too (where no fault fires)
+    check_inject(cfg.inject or os.environ.get("BNSGCN_FAULT", ""))
     if cfg.n_partitions > 1 or cfg.replicas > 1 or cfg.feat > 1:
         return run_parts(cfg, g, log, model_init, rank_hook)
     cfg, resume_from = resume_point(cfg, log)
@@ -832,7 +1008,7 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
     dropout.launches.reset()
     if ctx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(ctx.device)
-    res, model = train_loop(pr, model_init, log, resume_from)
+    res, model = train_loop(pr, model_init, log, resume_from, ctx)
     if cfg.eval:
         ctx.comm.barrier()          # rank 0's final checkpoint and eval
     assert_replicated(model.parameters(), ctx.comm,
@@ -861,6 +1037,7 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         "eval_spans": res.eval_spans, "drain_waits": res.drain_waits,
         "epoch_starts": res.epoch_starts, "loop_seconds": res.loop_seconds,
         "layout_times": pr.fns.layout_times, "hook": hook,
+        "rollbacks": res.rollbacks, "agree_times": res.agree_times,
     }
 
 
@@ -1001,13 +1178,20 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
             f"(full-refresh epochs), steady-state {steady_mb:.2f} MB "
             f"({steady_mb / max(peak_mb, 1e-12):.0%} of peak)")
     evals = (val_g, test_g) if val_g is not None else None
-    reports = launch(
-        _rank_main, R * P * T,
-        [(cfg, path, model_init, evals if r == 0 else None, rank_hook,
-          resume_from) for r in ranks],
-        cfg.dist_backend, cfg.device, log=log, ranks=ranks,
-        addr=cfg.master_addr if cfg.n_nodes > 1 else "127.0.0.1",
-        port=cfg.port + 1 if cfg.n_nodes > 1 else None)
+    try:
+        reports = launch(
+            _rank_main, R * P * T,
+            [(cfg, path, model_init, evals if r == 0 else None, rank_hook,
+              resume_from) for r in ranks],
+            cfg.dist_backend, cfg.device, log=log, ranks=ranks,
+            addr=cfg.master_addr if cfg.n_nodes > 1 else "127.0.0.1",
+            port=cfg.port + 1 if cfg.n_nodes > 1 else None,
+            forward_signals=cfg.resilience == "on")
+    except RankExit as e:
+        # the ranks' PreemptedError (75), DivergenceError (76) or StepHung
+        # (77), as a P=1 run raises them
+        raise (e.exc if e.exc is not None and e.code != 77
+               else StepHung(str(e))) from None
     lead = reports[0]
     # one copy of each part: replica 0's, feat shard 0's
     parts = reports if R * T == 1 else dedup_replica0(reports, R, P, T)
@@ -1022,4 +1206,5 @@ def run_parts(cfg: Config, g: Optional[Graph] = None, log=print,
         epoch_starts=lead["epoch_starts"],
         loop_seconds=lead["loop_seconds"],
         dense_edges=sum(r["dense_edges"] for r in parts),
-        n_edges=sum(r["n_edges"] for r in parts), ranks=reports)
+        n_edges=sum(r["n_edges"] for r in parts), ranks=reports,
+        rollbacks=lead["rollbacks"], agree_times=lead["agree_times"])

@@ -59,6 +59,7 @@ path above unchanged.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import os
 import sys
@@ -326,19 +327,69 @@ def opt_state_from_jax(tree: dict, opt: torch.optim.Adam, model: GNN,
 
 
 def dropout_key(seed: int, epoch: int, part: int,
-                replica: Optional[int] = None) -> torch.Tensor:
+                replica: Optional[int] = None, nonce: int = 0
+                ) -> torch.Tensor:
     """Epoch `epoch`'s dropout key on part `part`, as the JAX step folds it
-    (bnsgcn_tpu/trainer.py local_loss, :817 _replica_fold):
-    fold_in(fold_in(k, epoch), part) with k = fold_in(key(seed + 1),
-    replica) under a replica axis, key(seed + 1) without one (replica
-    None); an int64 tensor [2] on the host. The feat index is never folded.
-    The model splits it per layer and draws jax's masks from it, so a
-    resumed run replays every epoch's masks and a run equals the JAX
-    package's draw for draw."""
+    (bnsgcn_tpu/trainer.py local_loss, :817 _replica_fold; the retry fold
+    of bnsgcn_tpu/run.py:904 `_fold_keys`): fold_in(fold_in(k, epoch),
+    part) with k = key(seed + 1), folded with the retry nonce when it is
+    not 0 (after a divergence rollback), then with the replica under a
+    replica axis (replica None: none); an int64 tensor [2] on the host.
+    The feat index is never folded. The model splits it per layer and draws
+    jax's masks from it, so a resumed run replays every epoch's masks and a
+    run equals the JAX package's draw for draw."""
     k = prng.key(seed + 1)
+    if nonce:
+        k = prng.fold_in(k, nonce)
     if replica is not None:
         k = prng.fold_in(k, replica)
     return prng.fold_in(prng.fold_in(k, epoch), part)
+
+
+def param_global_norm(model) -> float:
+    """The global L2 norm of the model's parameters (f32 sums; this rank's
+    shards under a feat axis), the divergence guard's probe every
+    `log_every` epochs (bnsgcn_tpu/trainer.py:1195): non-finite when any
+    parameter went NaN/Inf, even while the masked loss reads finite."""
+    with torch.no_grad():
+        sq = [p.detach().float().square().sum() for p in model.parameters()]
+        return float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+
+
+def restore_payload(payload: dict, model, opt: torch.optim.Adam,
+                    cut: Optional[Callable] = None) -> None:
+    """A checkpoint payload (the JAX package's trees) into the model's
+    parameters and SyncBatchNorm statistics and into Adam, in place; `cut`
+    (a feat shard's: StepFns.shard_state) cuts the full arrays to the
+    model's shard."""
+    cut = cut or (lambda x: x)
+    model.load_state_dict(cut(params_from_jax(
+        payload["params"], model.spec, payload.get("bn_state"))))
+    opt_state_from_jax(payload["opt_state"], opt, model, cut)
+
+
+def _to_host(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_host(v) for v in x)
+    return copy.deepcopy(x)
+
+
+def host_state(model, opt: torch.optim.Adam) -> tuple[dict, dict]:
+    """Host copies of the model's state_dict and Adam's (empty before the
+    first step): what load_host_state puts back, bitwise."""
+    return _to_host(model.state_dict()), _to_host(opt.state_dict())
+
+
+def load_host_state(snap: tuple[dict, dict], model,
+                    opt: torch.optim.Adam) -> None:
+    """host_state's copies back into the model and Adam. Adam gets a copy:
+    on the CPU its state would keep the snapshot's tensors and step them."""
+    model.load_state_dict(snap[0])
+    opt.load_state_dict(_to_host(snap[1]))
 
 
 @dataclass
@@ -374,6 +425,10 @@ class StepFns:
     # parameters' dimensions (parallel/feat.torch_dims; {} at T = 1)
     axes: Optional[Axes] = None
     feat_dims: dict = field(default_factory=dict)
+    # (nonce) -> None: the retry nonce folded into the boundary sample's
+    # base key from now on (a divergence rollback, a resume); 0 is the
+    # unfolded key (no-op at P = 1, which samples nothing)
+    set_nonce: Callable = lambda nonce: None
 
     def full_state(self, state: dict) -> dict:
         """A state_dict-shaped mapping of this rank's shards made full (one
@@ -753,6 +808,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         feat = FeatAxis(axes.feat, shardable_layers(spec, axes.T))
         feat_dims = torch_dims(spec, axes.T)
     n_train = max(art.n_train, 1) * R
+    keys = {}           # the boundary sample's key (P > 1), set_nonce's
     loss_sum = bce_sum if art.multilabel else ce_sum
     ni = art.pad_inner
     n_halo = art.n_ext - ni
@@ -770,7 +826,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                 art.n_b, ni, art.pad_boundary, cfg.sampling_rate, refresh_k,
                 strategy=strategy, wire=cfg.halo_wire)
             tables_r = tables_to(tables_r, device)
-        sample_key = prng.key(cfg.seed, device)
+        base_key = prng.key(cfg.seed, device)
+        keys["sample"] = base_key
         # rate 1.0: the identity plan, the same every epoch
         fixed_plan = (make_halo_plan(hspec, tables, bnd, rank)
                       if hspec.exact else None)
@@ -836,7 +893,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         if mode == "cached":
             spec_h = hspec_r
             plan = make_halo_plan_refresh(hspec_r, tables_r, bnd, rank,
-                                          epoch, sample_key, refresh_k,
+                                          epoch, keys["sample"], refresh_k,
                                           replica)
             mask = refresh_row_mask(hspec_r, refresh_k, epoch, device)
             presence_h = torch.where(mask, plan.presence[ni:],
@@ -845,7 +902,7 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
             spec_h = hspec
             plan = (fixed_plan if fixed_plan is not None else
                     make_halo_plan(hspec, tables, bnd, rank, epoch,
-                                   sample_key, replica))
+                                   keys["sample"], replica))
             mask, presence_h = None, plan.presence[ni:]
         presence = torch.cat([plan.presence[:ni], presence_h])
         if mode == "step":
@@ -989,6 +1046,13 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                        feat=feat)
         return apply_model(model, blk["feat"], env)
 
+    def set_nonce(nonce: int) -> None:
+        # bnsgcn_tpu/run.py:904 `_fold_keys`: the nonce folds the base key,
+        # before the epoch, replica and pair folds of the draw
+        if "sample" in keys:
+            keys["sample"] = (prng.fold_in(base_key, nonce) if nonce
+                              else base_key)
+
     dense = (dense_edge_count(layout)
              if spmm is not None and kind == "hybrid" else 0)
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
@@ -998,4 +1062,5 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    layout_times=cache.times, overlap=overlap,
                    halo_strategy=strategy, halo_refresh=refresh_k,
                    halo_refresh_spec=hspec_r, axes=axes,
-                   feat_dims=feat_dims, **refresh_steps)
+                   feat_dims=feat_dims, set_nonce=set_nonce,
+                   **refresh_steps)

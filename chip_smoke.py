@@ -173,6 +173,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the train subgraph's artifacts and the eval graphs' ('-val', '-test'),
      and the script trains 8 epochs from them (--skip-partition), the
      ranks evaluating;
+     [resil] rides these runs: the 8-epoch and the uninterrupted 12-epoch
+     run carry --inject nan@E5:r1 and must log the rollback to _3.ckpt;
+     the resume to 12 (an eval and a checkpoint every 2) gets a real
+     SIGTERM to its launcher after its epoch-9 line and must exit 75; a
+     second --resume must then give the uninterrupted run's losses to
+     1e-5 (the retry nonce rides the files); beside [anchor], once the
+     --eval-device mesh run is done, a 2-epoch --inject hang@E1:r3 launch
+     with the watchdog shrunk must exit 77, naming rank 3;
   6b. [yelp] (beside [cli]): the multilabel path, scripts/yelp_torch.sh's
      model (GraphSAGE 4 layers, 2 of them linear, H=512, use_pp, dropout 0.1, lr
      0.001, inductive, rate 0.1) with --spmm hybrid at P=4 over gloo on a
@@ -218,6 +226,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -300,6 +309,18 @@ CLI_FLAGS = ["--dataset", "synth-reddit:0.02", "--n-partitions", str(PARTS),
 CLI_EPOCHS = (8, 12)
 CLI_RTOL = 1e-5
 CLI_TIMEOUT_S = 300
+# [resil]: the fault injected into [cli]'s 8- and 12-epoch runs, the
+# preempted resume's log cadence, the epoch line after which its launcher
+# gets the SIGTERM and its least seconds an epoch (so that the signal lands
+# mid-run); the hung launch's fault and its shrunk watchdog
+RESIL_INJECT = "nan@E5:r1"
+RESIL_LOG_EVERY = 2
+RESIL_SIGTERM_AFTER = 9
+RESIL_THROTTLE_S = "1.0"
+RESIL_HANG = "hang@E1:r3"
+RESIL_HANG_ENV = {"BNSGCN_WATCHDOG_GRACE_S": "240",
+                  "BNSGCN_WATCHDOG_FACTOR": "3",
+                  "BNSGCN_WATCHDOG_MIN_S": "10"}
 # the TPU recipe's own perf knobs, as scripts/reddit.sh's comment lists
 # them ("append --dtype bfloat16 ..."): K1 on bf16 rows and K2 on bf16
 # slabs on every aggregation. The int8 gathers and tiles of [lowp] are its
@@ -419,7 +440,6 @@ class Tee:
 def script_flags(script):
     """The flags a scripts/*_torch.sh passes to the port's main, as a list
     (each `${VAR:-default}` at its default)."""
-    import re
     with open(os.path.join(ROOT, script)) as f:
         lines = f.read().splitlines()
     at = next(i for i, ln in enumerate(lines) if "bnsgcn_tpu_torch.main" in ln)
@@ -1535,10 +1555,10 @@ def start_cli(argv, cmd=None, env=None):
                             start_new_session=True)
 
 
-def finish_cli(p, argv, timeout_s=CLI_TIMEOUT_S):
-    """Wait for start_cli's process; returns its output. A non-zero exit
-    raises with the end of its output; past the timeout the whole session
-    (the CLI and the ranks it spawned) is killed."""
+def finish_cli(p, argv, timeout_s=CLI_TIMEOUT_S, rc=0):
+    """Wait for start_cli's process; returns its output. An exit other than
+    `rc` raises with the end of its output; past the timeout the whole
+    session (the CLI and the ranks it spawned) is killed."""
     try:
         out, _ = p.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
@@ -1546,10 +1566,42 @@ def finish_cli(p, argv, timeout_s=CLI_TIMEOUT_S):
         p.communicate()
         raise AssertionError(f"[cli] {' '.join(argv)}: no exit within "
                              f"{timeout_s} s")
-    if p.returncode != 0:
+    if p.returncode != rc:
         raise AssertionError(f"[cli] {' '.join(argv)} exited "
-                             f"{p.returncode}:\n{out[-3000:]}")
+                             f"{p.returncode}, not {rc}:\n{out[-3000:]}")
     return out
+
+
+def read_until(p, marker):
+    """Read start_cli's output up to and with the first line starting with
+    `marker` (or to its end); returns what was read."""
+    out = []
+    for line in p.stdout:
+        out.append(line)
+        if line.startswith(marker):
+            break
+    return "".join(out)
+
+
+def wait_for_file(path, suffix, timeout_s=CLI_TIMEOUT_S):
+    """The name of the first file in `path` ending with `suffix`, once one
+    is there (a checkpoint appears whole: it is written under a temporary
+    name and renamed)."""
+    end = time.monotonic() + timeout_s
+    while time.monotonic() < end:
+        got = [fn for fn in os.listdir(path) if fn.endswith(suffix)]
+        if got:
+            return got[0]
+        time.sleep(0.1)
+    raise AssertionError(f"[cli] no *{suffix} in {path} within {timeout_s} s")
+
+
+def sigterm_launcher(p):
+    """SIGTERM to start_cli's launcher: the script's python child, as a
+    user's kill or a scheduler's would reach it."""
+    with open(f"/proc/{p.pid}/task/{p.pid}/children") as f:
+        kids = [int(x) for x in f.read().split()]
+    os.kill(kids[0] if kids else p.pid, signal.SIGTERM)
 
 
 def finish_clis(runs, timeout_s=CLI_TIMEOUT_S):
@@ -1565,9 +1617,9 @@ def finish_clis(runs, timeout_s=CLI_TIMEOUT_S):
                 p.communicate()
 
 
-def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None, env=None):
+def run_cli(argv, timeout_s=CLI_TIMEOUT_S, cmd=None, env=None, rc=0):
     """start_cli, then finish_cli."""
-    return finish_cli(start_cli(argv, cmd, env), argv, timeout_s)
+    return finish_cli(start_cli(argv, cmd, env), argv, timeout_s, rc)
 
 
 def cli_losses(out):
@@ -1580,17 +1632,65 @@ def cli_losses(out):
 def cli_phase(work):
     """[cli]: scripts/reddit_torch.sh with CLI_FLAGS trains CLI_EPOCHS[0]
     epochs (epoch lines, inductive accuracy lines, Test Result, periodic
-    and final checkpoints, the results file), resumes to CLI_EPOCHS[1]
-    from the newest checkpoint, and an uninterrupted CLI_EPOCHS[1]-epoch run
-    beside it, at the same time, gives the resumed epochs' losses to
-    CLI_RTOL (relative). Returns the details."""
+    and final checkpoints, the results file) and resumes to CLI_EPOCHS[1]
+    from the newest checkpoint (a copy of the periodic ones, taken while
+    the first run ends), preempted by a SIGTERM and resumed again
+    ([resil]); an uninterrupted CLI_EPOCHS[1]-epoch run beside the
+    resumes gives the last resume's losses to CLI_RTOL (relative). Returns
+    the details."""
     t0 = time.perf_counter()
     d = {k: os.path.join(work, "cli", k)
-         for k in ("parts", "results", "results_whole", "ckpt", "ckpt_whole")}
+         for k in ("parts", "results", "results_whole", "ckpt", "ckpt_whole",
+                   "ckpt_resume")}
     paths = ["--part-path", d["parts"], "--results-path", d["results"]]
     first, last = CLI_EPOCHS
-    out1 = run_cli(CLI_FLAGS + paths + ["--n-epochs", str(first),
-                                        "--ckpt-path", d["ckpt"]])
+    inject = ["--inject", RESIL_INJECT]
+    argv1 = CLI_FLAGS + paths + ["--n-epochs", str(first), "--ckpt-path",
+                                 d["ckpt"]] + inject
+    argv3 = CLI_FLAGS + ["--part-path", d["parts"], "--results-path",
+                         d["results_whole"], "--n-epochs", str(last),
+                         "--ckpt-path", d["ckpt_whole"], "--skip-partition",
+                         "--no-eval"] + inject
+    procs = []
+    try:
+        return cli_runs(d, paths, argv1, argv3, procs, t0)
+    finally:
+        # a failed check leaves no run behind
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+
+
+def cli_runs(d, paths, argv1, argv3, procs, t0):
+    """cli_phase's runs and checks; every process it starts goes to
+    `procs`."""
+    first, last = CLI_EPOCHS
+    no_backoff = {"BNSGCN_RETRY_BACKOFF_S": "0"}
+
+    def spawn(argv, env):
+        procs.append(start_cli(argv, env=env))
+        return procs[-1]
+
+    p1 = spawn(argv1, no_backoff)
+    # the resume starts from a copy of the run's periodic checkpoints once
+    # its last one is on disk, while the run evaluates and ends
+    head = read_until(p1, f"Process 000 | Epoch {first - 1:05d}")
+    wait_for_file(d["ckpt"], f"_{first - 1}.ckpt")
+    os.makedirs(d["ckpt_resume"])
+    for fn in os.listdir(d["ckpt"]):
+        if fn.endswith(".ckpt") and not fn.endswith("_final.ckpt"):
+            shutil.copy(os.path.join(d["ckpt"], fn), d["ckpt_resume"])
+    t2 = t3 = time.perf_counter()
+    resume = CLI_FLAGS + paths + ["--n-epochs", str(last), "--ckpt-path",
+                                  d["ckpt_resume"], "--resume",
+                                  "--skip-partition"]
+    argv2 = resume + ["--log-every", str(RESIL_LOG_EVERY)]
+    p3 = spawn(argv3, no_backoff)
+    p2 = spawn(argv2, {"BNSGCN_EPOCH_THROTTLE_S": RESIL_THROTTLE_S})
+    out1 = head + finish_cli(p1, argv1)
+    secs = {"run": time.perf_counter() - t0}
+    rollback = resil_rollback(out1, "8-epoch")
     lines = out1.splitlines()
     evals = [ln for ln in lines if ln.startswith("Epoch ")
              and " | Accuracy " in ln]
@@ -1613,37 +1713,117 @@ def cli_phase(work):
         if f.read().splitlines() != evals:
             raise AssertionError("[cli] the results file is not the run's "
                                  "accuracy lines")
-    # the resumed and the uninterrupted run side by side (8 ranks on the
-    # card): each reads the artifacts only and writes its own files
-    argv2 = CLI_FLAGS + paths + ["--n-epochs", str(last), "--ckpt-path",
-                                 d["ckpt"], "--resume", "--skip-partition"]
-    argv3 = CLI_FLAGS + ["--part-path", d["parts"], "--results-path",
-                         d["results_whole"], "--n-epochs", str(last),
-                         "--ckpt-path", d["ckpt_whole"], "--skip-partition"]
-    out2, out3 = finish_clis([(start_cli(argv2), argv2),
-                              (start_cli(argv3), argv3)])
-    start, resumed = cli_losses(out2)
+    # the resume and the uninterrupted run run side by side (8 ranks on
+    # the card): each reads the artifacts only and writes its own files.
+    # The resume ([resil]) evaluates and checkpoints every RESIL_LOG_EVERY
+    # epochs, and its launcher gets a SIGTERM after its
+    # epoch-RESIL_SIGTERM_AFTER line: it must exit 75 with a resumable
+    # checkpoint; the second resume then runs beside the uninterrupted run
+    # (neither evaluates: only their losses are compared)
+    head = read_until(p2, f"Process 000 | Epoch {RESIL_SIGTERM_AFTER:05d}")
+    sigterm_launcher(p2)
+    out2 = head + finish_cli(p2, argv2, rc=75)
+    secs["resume"] = time.perf_counter() - t2
+    t4 = time.perf_counter()
+    out4 = finish_cli(spawn(resume + ["--no-eval"], None), resume)
+    secs["second resume"] = time.perf_counter() - t4
+    out3 = finish_cli(p3, argv3)
+    secs["uninterrupted"] = time.perf_counter() - t3
+    pre = re.search(r"preempted at epoch (\d+); resumable checkpoint at "
+                    r"(\S+)", out2)
+    if not (pre and "Resumed from " in out2 and f"at epoch {first}" in out2
+            and "SIGTERM received by the launcher" in out2
+            and RESIL_SIGTERM_AFTER < int(pre.group(1)) < last - 1):
+        raise AssertionError(f"[resil] the resume to {last} was not "
+                             f"preempted after epoch {RESIL_SIGTERM_AFTER} "
+                             f"and before {last - 1}:\n{out2[-3000:]}")
+    stop = int(pre.group(1))
+    rollback_whole = resil_rollback(out3, f"{last}-epoch")
+    # the second resume ran from the preemption's checkpoint (its retry
+    # nonce 1, carried from the 8-epoch run's files) to the end
+    start, resumed = cli_losses(out4)
     start3, whole = cli_losses(out3)
-    if not (start == first and f"at epoch {first}" in out2
+    if not (start == stop + 1 and f"at epoch {stop + 1}" in out4
             and start3 == 0 and len(whole) == last
-            and len(resumed) == last - first):
-        raise AssertionError(f"[cli] the resumed run started at epoch {start} "
-                             f"with {len(resumed)} losses, the whole run at "
-                             f"{start3} with {len(whole)}")
-    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[first:]))
+            and len(resumed) == last - stop - 1):
+        raise AssertionError(f"[cli] the second resume started at epoch "
+                             f"{start} with {len(resumed)} losses, the whole "
+                             f"run at {start3} with {len(whole)}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[start:]))
     if not rel <= CLI_RTOL:
         raise AssertionError(f"[cli] resumed losses {resumed} differ from the "
-                             f"uninterrupted run's {whole[first:]} by "
+                             f"uninterrupted run's {whole[start:]} by "
                              f"{rel:.3e} (relative)")
-    secs = time.perf_counter() - t0
+    total = time.perf_counter() - t0
     log(f"[cli] bash {CLI_SCRIPT} {' '.join(CLI_FLAGS)}: {first} epochs with "
         f"{len(evals)} inductive evals ({evals[-1]}), {len(periodic)} "
         f"periodic checkpoints + the final, the results file; --resume "
-        f"--n-epochs {last} started at epoch {first}, its losses equal the "
-        f"uninterrupted run's to {rel:.3e} (relative, <= {CLI_RTOL}) "
-        f"({secs:.1f} s for the three runs)")
+        f"--n-epochs {last} started at epoch {first}, preempted, a second "
+        f"--resume at epoch {start}: its losses equal the uninterrupted "
+        f"run's to {rel:.3e} (relative, <= {CLI_RTOL}) ({total:.1f} s for "
+        f"the four runs: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    log(f"[resil] --inject {RESIL_INJECT}: the {first}- and the {last}-epoch "
+        f"run rolled back to {rollback['source']} (restart "
+        f"{rollback['restart']}, retry-nonce {rollback['nonce']}; the same "
+        f"in both: {rollback == rollback_whole}); SIGTERM to the resume's "
+        f"launcher after its epoch-{RESIL_SIGTERM_AFTER} line: exit 75 at "
+        f"epoch {stop}, {os.path.basename(pre.group(2))}; the second "
+        f"--resume from it equals the uninterrupted run to {rel:.3e}")
     return {"losses_resumed": resumed, "losses_whole": whole, "max_rel": rel,
-            "evals": evals, "checkpoints": ckpts, "seconds": secs}
+            "evals": evals, "checkpoints": ckpts, "seconds": total,
+            "run_seconds": secs,
+            "resil": {"rollback": rollback, "preempted_at": stop,
+                      "second_resume_from": start}}
+
+
+def resil_rollback(out, what):
+    """[resil]: the rollback line of a run carrying RESIL_INJECT: to
+    _3.ckpt, restarting at 4 with retry-nonce 1 (the JAX package's
+    record)."""
+    m = re.search(r"\[resilience\] non-finite training state at epoch (\d+) "
+                  r"\(loss=\S+\): rolled back to (\S+), restarting at epoch "
+                  r"(\d+) with retry-nonce (\d+)", out)
+    got = (m and {"epoch": int(m.group(1)), "source": m.group(2),
+                  "restart": int(m.group(3)), "nonce": int(m.group(4))})
+    if not (got and got["epoch"] == 5 and got["source"].endswith("_3.ckpt")
+            and got["restart"] == 4 and got["nonce"] == 1):
+        raise AssertionError(f"[resil] the {what} run with --inject "
+                             f"{RESIL_INJECT} logged no rollback to _3.ckpt "
+                             f"at epoch 5:\n{out[-3000:]}")
+    return got
+
+
+def resil_hang_phase(work, after=None):
+    """[resil] beside [anchor]: the script at CLI_FLAGS' scale, 2 epochs,
+    --inject RESIL_HANG with the watchdog shrunk (RESIL_HANG_ENV) must exit
+    77 with the watchdog's dump and name rank 3 as the rank that stalled
+    the step. It starts once `after` (a future) is done, on [cli]'s
+    artifacts, without an eval. Returns the details."""
+    if after is not None:
+        after.result()
+    t0 = time.perf_counter()
+    d = os.path.join(work, "resil_hang")
+    argv = CLI_FLAGS + ["--part-path", os.path.join(work, "cli", "parts"),
+                        "--skip-partition", "--no-eval",
+                        "--results-path", os.path.join(d, "results"),
+                        "--ckpt-path", os.path.join(d, "ckpt"),
+                        "--n-epochs", "2", "--inject", RESIL_HANG]
+    out = run_cli(argv, env=RESIL_HANG_ENV, rc=77)
+    stalled = re.search(r"rank (\d+) stalled the step", out)
+    want = ("[watchdog] step hung", "live arrays", "Thread 0x")
+    missing = [w for w in want if w not in out]
+    if missing or not stalled or stalled.group(1) != "3":
+        raise AssertionError(f"[resil] --inject {RESIL_HANG} exited 77 "
+                             f"without {missing or 'naming rank 3'}:\n"
+                             f"{out[-3000:]}")
+    line = next(ln for ln in out.splitlines() if "stalled the step" in ln)
+    secs = time.perf_counter() - t0
+    log(f"[resil] --inject {RESIL_HANG} "
+        f"({', '.join(f'{k}={v}' for k, v in RESIL_HANG_ENV.items())}): "
+        f"exit 77 with the stacks and the live arrays; {line.strip()} "
+        f"({secs:.1f} s)")
+    return {"line": line.strip(), "seconds": secs}
 
 
 def cli_mesh_phase(work):
@@ -3813,14 +3993,17 @@ def main(argv=None) -> int:
     # runs of the script and its --eval-device mesh run: none of them
     # reads a time it claims, each has its own directories and groups
     law_p1 = parts.pop("law_p1")
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         mesh = pool.submit(cli_mesh_phase, work)
         anc_f = pool.submit(anchor_phase, work)
+        # after the --eval-device mesh run: fewer processes share the card
+        hang_f = pool.submit(resil_hang_phase, work, mesh)
         law_f = pool.submit(gat_law_phase, cfg, work)
         law1_f = pool.submit(law_p1_phase, *law_p1)
         yelp_f = pool.submit(yelp_phase, work)
         cli = cli_phase(work)
         cli["mesh"] = mesh.result()
+        cli["resil"]["hang"] = hang_f.result()
         anc = anc_f.result()
         parts["gat"].update(law_f.result())
         parts.update(law1_f.result())

@@ -1,0 +1,10 @@
+#!/bin/bash
+# Sweep P x sampling_rate through the PyTorch port (scripts/yelp_full.sh's
+# grid, the reference's), teeing into results/.
+mkdir -p results
+for P in 3 6 10; do
+  for RATE in 0.1 0.01 0.0; do
+    P=$P bash scripts/yelp_torch.sh --sampling-rate $RATE --no-eval \
+      | tee results/yelp_n${P}_p${RATE}.log
+  done
+done

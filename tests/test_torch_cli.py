@@ -120,7 +120,7 @@ def test_subcommands_exit_2_by_name(name, capsys):
 
 @pytest.mark.parametrize("argv,flag", [
     (["--strict-exec"], "--strict-exec"),
-    (["--resil-retries", "2"], "--resil-retries 2"),
+    (["--inject", "ranklost@E3:r1"], "--inject ranklost@E3:r1"),
     (["--no-comm-trace", "--serve-dir", "d"], "--serve-dir d"),
     (["--serve-port", "9"], "--serve-port 9"),
     (["--elastic", "on"], "--elastic on"),

@@ -13,7 +13,10 @@ tests/test_multihost.py pins for the JAX package's two processes):
   * every named config error exits 2, and a node that cannot reach node 0
     exits 1 with a [launch] line;
   * a launcher reads only meta.json and shared.npz of the artifacts, never
-    a part file: the ranks load their own parts.
+    a part file: the ranks load their own parts;
+  * `--inject sigterm@E3:r2` (a rank of node 1) makes both launchers exit
+    75: the ranks agree on the preemption over the world, rank 0 (node 0)
+    writes the epoch-3 checkpoint.
 """
 
 import os
@@ -72,8 +75,9 @@ def _one(tmp, *extra):
     return r.stdout
 
 
-def _two(tmp, *extra):
-    """Two concurrent launchers, node 0 and node 1; their stdouts."""
+def _two(tmp, *extra, rc=0):
+    """Two concurrent launchers, node 0 and node 1, each exiting `rc`;
+    their stdouts."""
     port = _ports()
     node = ["--n-nodes", "2", "--parts-per-node", "2", "--master-addr",
             "127.0.0.1", "--port", str(port)]
@@ -85,7 +89,7 @@ def _two(tmp, *extra):
     try:
         for p in procs:
             out, err = p.communicate(timeout=TIMEOUT_S)
-            assert p.returncode == 0, out[-3000:] + err[-3000:]
+            assert p.returncode == rc, out[-3000:] + err[-3000:]
             outs.append(out)
     finally:
         for p in procs:
@@ -215,3 +219,13 @@ def test_launcher_reads_only_the_meta(tmp_path, monkeypatch, capsys):
     assert t_main.main(flags + ["--skip-partition"]) == 0
     assert opened == ["shared.npz"]
     assert "LOSSES from_epoch=0" in capsys.readouterr().out
+
+
+def test_sigterm_on_a_rank_of_node_1_makes_both_launchers_exit_75(tmp_path):
+    outs = _two(tmp_path, "--n-epochs", "8", "--fix-seed", "--ckpt-path",
+                str(tmp_path / "ck"), "--inject", "sigterm@E3:r2", rc=75)
+    path = os.path.join(tmp_path, "ck",
+                        "sbm-4-metis-vol-trans_p0.50_3.ckpt")
+    for out in outs:
+        assert f"resumable checkpoint at {path}" in out
+    assert ckpt.read_blob(path)["epoch"] == 3

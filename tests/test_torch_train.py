@@ -180,8 +180,8 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
     ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
     ["--obs-log", "f"], ["--strict-exec"],
     ["--profile-dir", "d"], ["--tune", "auto"],
-    ["--elastic", "on"], ["--resil-retries", "2"], ["--coord-dir", "d"],
-    ["--inject", "nan@E5"], ["--obs-dir", "d"],
+    ["--elastic", "on"], ["--tune", "schedule"], ["--coord-dir", "d"],
+    ["--n-partitions", "1", "--inject", "ranklost@E3:r1"], ["--obs-dir", "d"],
     ["--serve-dir", "d"],
     ["--n-partitions", "4", "--dist-backend", "gloo", "--serve-port",
      "18121"],
