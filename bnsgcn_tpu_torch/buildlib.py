@@ -31,6 +31,15 @@ CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# called with a library's name each time one is built or loaded into this
+# process (strict.py's build listener: a load inside an armed step is a
+# steady-state recompile)
+_load_listeners: list = []
+
+
+def add_load_listener(fn) -> None:
+    if fn not in _load_listeners:
+        _load_listeners.append(fn)
 
 
 def find_nvcc() -> str:
@@ -132,6 +141,8 @@ def load(name: str, kind: str, sources, declare=None) -> ctypes.CDLL:
             if declare is not None:
                 declare(lib)
             _loaded[name] = lib
+            for fn in _load_listeners:
+                fn(name)
         return lib
 
 

@@ -158,6 +158,15 @@ class Config:
                                         # PATH.r<r>)
     obs_dir: str = ""                   # post-mortem files (default
                                         # {ckpt_path}/postmortem)
+    # --- the comm auto-tuner, strict execution, the profiler window
+    # (tune.py, strict.py, utils/traceparse.py) ---
+    tune: str = "off"                   # 'off' | 'schedule' | 'auto'
+    tune_schedule: str = ""             # 'K=4@0,K=2@30,...' (--tune schedule)
+    tune_prior: str = "ladder"          # 'ladder' ('model' is refused)
+    strict_exec: bool = False           # guard every step (strict.py)
+    profile_dir: str = ""               # the trace window's directory
+    comm_trace: bool = True             # trace a window for the [traced]
+                                        # Comm column (one launch only)
 
     # filled from the partition artifacts
     n_feat: int = 0
@@ -184,15 +193,12 @@ class Config:
 # Flags of the JAX CLI whose feature the port lacks, for some or all of
 # their values: (dests, the values the port accepts (None: the flag's
 # default only), what a refused value would select). An accepted value other
-# than the default is one the port honours as it stands: --no-comm-trace
-# selects no traced comm columns (the port has none), and --backend names
+# than the default is one the port honours as it stands: --backend names
 # the JAX package's collectives, a no-op here (--dist-backend picks the
-# port's).
+# port's). --tune-prior model needs the JAX package's roofline model of
+# the partition (its analysis tier), which the port does not have.
 _NOT_PORTED = (
-    (("profile_dir",), None, "profiler traces"),
-    (("comm_trace",), (True, False), "traced comm columns"),
-    (("strict_exec",), None, "the strict-execution guard"),
-    (("tune", "tune_schedule", "tune_prior"), None, "the comm auto-tuner"),
+    (("tune_prior",), None, "the comm auto-tuner's model prior"),
     (("backend",), ("xla", "gloo", "mpi"),
      "collectives other than --dist-backend's"),
     (("serve_port", "serve_addr", "serve_dir", "serve_max_batch",

@@ -347,13 +347,15 @@ def _sync_batch_norm(p: BatchNorm, h, env: GraphEnv, whole_size: int,
         whole_size = whole_size * env.bn_copies
         mean = sum_x / whole_size
         var = torch.clamp((sum_x2 - mean * sum_x) / whole_size, min=0.0)
-        m = torch.tensor(momentum, dtype=dt, device=h.device)
-        keep = torch.tensor(1.0 - momentum, device=h.device)
+        # filled on the device: no copy from the host inside a step
+        m = torch.full((), momentum, dtype=dt, device=h.device)
+        keep = torch.full((), 1.0 - momentum, dtype=torch.float32,
+                          device=h.device)
         new = (keep * p.mean + m * mean.detach(),
                keep * p.var + m * var.detach())
     else:
         mean, var, new = p.mean, p.var, None
-    eps_t = torch.tensor(eps, dtype=var.dtype, device=h.device)
+    eps_t = torch.full((), eps, dtype=var.dtype, device=h.device)
     x_hat = (h - mean) / torch.sqrt(var + eps_t)
     return x_hat * p.weight + p.bias, new
 

@@ -221,6 +221,23 @@ def select_halo_strategy(n_b: np.ndarray, pad_inner: int, pad_boundary: int,
         f"rows saves <{SHIFT_MIN_SAVING:.0%} (not worth P-1 serialized hops)")
 
 
+def retune_strategy(n_b: np.ndarray, pad_inner: int, pad_boundary: int,
+                    rate: float, current: str, wire: str = "native",
+                    allow_ragged: Optional[bool] = None) -> Optional[tuple]:
+    """The --tune controller's strategy re-pick (bnsgcn_tpu/parallel/halo.py
+    retune_strategy): select_halo_strategy's launch-time byte estimate,
+    asked whether a strategy beats the one the run executes. Returns
+    (strategy, why) when it prefers another, else None; tune.decide acts on
+    it only while the measured comm share is high."""
+    if allow_ragged is None:
+        allow_ragged = ragged_auto_eligible()
+    best, why = select_halo_strategy(n_b, pad_inner, pad_boundary, rate,
+                                     wire=wire, allow_ragged=allow_ragged)
+    if best == current:
+        return None
+    return best, why
+
+
 def make_refresh_spec(n_b: np.ndarray, pad_inner: int, pad_boundary: int,
                       rate: float, refresh: int, strategy: str = "padded",
                       wire: str = "native") -> tuple[HaloSpec, dict]:
@@ -387,7 +404,8 @@ def plan_presence(spec: HaloSpec, slots: torch.Tensor) -> torch.Tensor:
     `slots` fills (bnsgcn_tpu/parallel/halo.py HaloPlan.presence); P=1
     passes an empty `slots` and gets no halo slot."""
     halo = torch.zeros(spec.n_halo + 1, dtype=torch.bool, device=slots.device)
-    halo[slots.reshape(-1)] = True
+    # a fill, not an indexed store of True: no scalar copied from the host
+    halo.index_fill_(0, slots.reshape(-1), True)
     return torch.cat([torch.ones(spec.pad_inner, dtype=torch.bool,
                                  device=slots.device), halo[:-1]])
 
@@ -424,6 +442,15 @@ def _ragged_rows(sizes: tuple, me: int, S: int, transpose: bool,
             dtype=torch.long, device=device)
 
     return send_n.tolist(), recv_n.tolist(), flat(send_n), flat(recv_n)
+
+
+def warm_ragged(spec: HaloSpec, me: int, device) -> None:
+    """Build the ragged strategy's row indices of both directions now (on
+    `device`, cached), so that no step copies them from the host."""
+    if spec.strategy == "ragged":
+        for transpose in (False, True):
+            _ragged_rows(spec.pair_send, me, spec.pad_send, transpose,
+                         str(torch.device(device)))
 
 
 def exchange_blocks(spec: HaloSpec, blocks: torch.Tensor, comm: Comm,

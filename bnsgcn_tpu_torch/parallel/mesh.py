@@ -65,11 +65,14 @@ import sys
 import threading
 import time
 import traceback
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 import torch.distributed as dist
+
+from bnsgcn_tpu_torch import strict
 
 from bnsgcn_tpu_torch.resilience import (EXIT_COORD_ABORT, EXIT_DIVERGED,
                                          EXIT_PREEMPTED, EXIT_WATCHDOG)
@@ -176,12 +179,15 @@ class Pending:
     the result (a staged receive's copy back to the card, a dequantize),
     closes its span (none for kind None: a collective awaited inside
     another's span) and returns the result; a second wait() returns it
-    again. `keep` holds the buffers the backend still reads."""
+    again. `keep` holds the buffers the backend still reads; `staged`: the
+    launch lifted the --strict-exec guard (Comm._stage), put back here."""
 
     def __init__(self, comm: "Comm", kind: str, works: list, start, result,
-                 after: "Callable | None" = None, keep=()):
+                 after: "Callable | None" = None, keep=(),
+                 staged: bool = False):
         self.comm, self.kind, self.works, self.start = comm, kind, works, start
         self.result, self.after, self.keep = result, after, keep
+        self.staged = staged
         self.done = False
 
     def wait(self):
@@ -193,6 +199,8 @@ class Pending:
             if self.kind is not None:
                 self.comm._close(self.kind, self.start)
             self.done, self.works, self.keep = True, [], ()
+            if self.staged:
+                strict.resume()
         return self.result
 
 
@@ -274,8 +282,15 @@ class Comm:
 
     def _timed(self, kind: str, op: Callable[[], None]) -> None:
         start = self._open()
-        op()
+        with strict.staged() if self.host_staged() else nullcontext():
+            op()
         self._close(kind, start)
+
+    def _stage(self) -> bool:
+        """Whether this collective passes through host memory inside a
+        --strict-exec step: the guard is lifted from its launch until it is
+        waited, one audited fetch (strict.py)."""
+        return self.host_staged() and strict.suspend()
 
     def host_staged(self) -> bool:
         """Whether point-to-point tensors must pass through host memory:
@@ -291,9 +306,11 @@ class Comm:
         src = x.contiguous()
         out = torch.empty_like(src)
         start = self._open() if kind is not None else None
+        staged = self._stage()
         work = dist.all_to_all_single(out, src, group=self.group,
                                       async_op=True)
-        return Pending(self, kind, [work], start, out, keep=(src,))
+        return Pending(self, kind, [work], start, out, keep=(src,),
+                       staged=staged)
 
     def all_to_all_v(self, x: torch.Tensor, in_splits: list,
                      out_splits: list, kind: str = "exchange") -> Pending:
@@ -303,10 +320,12 @@ class Comm:
         src = x.contiguous()
         out = src.new_empty((int(sum(out_splits)),) + tuple(src.shape[1:]))
         start = self._open()
+        staged = self._stage()
         work = dist.all_to_all_single(out, src, [int(v) for v in out_splits],
                                       [int(v) for v in in_splits],
                                       group=self.group, async_op=True)
-        return Pending(self, kind, [work], start, out, keep=(src,))
+        return Pending(self, kind, [work], start, out, keep=(src,),
+                       staged=staged)
 
     def send_recv(self, sends: list, recvs: list,
                   kind: str = "exchange") -> Pending:
@@ -318,6 +337,7 @@ class Comm:
         waited."""
         start = self._open()
         stage = self.host_staged()
+        staged = self._stage()
         ops, keep, landing = [], [], []
         for peer, t in sends:
             src = t.contiguous()
@@ -341,7 +361,7 @@ class Comm:
             return [t for t, _ in landing]
 
         return Pending(self, kind, list(works), start, None, after,
-                       keep=(keep, landing))
+                       keep=(keep, landing), staged=staged)
 
     def all_reduce_(self, x: torch.Tensor, kind: str = "reduce"
                     ) -> torch.Tensor:

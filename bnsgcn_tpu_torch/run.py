@@ -77,7 +77,9 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
@@ -87,10 +89,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from bnsgcn_tpu_torch import buildlib
 from bnsgcn_tpu_torch import checkpoint as ckpt
 from bnsgcn_tpu_torch import obs as obs_mod
+from bnsgcn_tpu_torch import tune as tune_mod
 from bnsgcn_tpu_torch.config import Config, ConfigError, node_ranks
 from bnsgcn_tpu_torch.data.artifacts import (PartitionArtifacts,
                                              build_artifacts,
@@ -110,7 +114,8 @@ from bnsgcn_tpu_torch.parallel.feat import shard_width, unshardable_note
 from bnsgcn_tpu_torch.parallel.coord import (Coordinator, CoordAbort,
                                              CoordTimeout, make_coordinator)
 from bnsgcn_tpu_torch.parallel.halo import (full_rate_spec, make_halo_spec,
-                                            make_refresh_spec, wire_bytes)
+                                            make_refresh_spec,
+                                            retune_strategy, wire_bytes)
 from bnsgcn_tpu_torch.parallel.mesh import (Comm, NodeStore, RankContext,
                                             RankExit, check_mesh_budget,
                                             launch, rank_device)
@@ -122,6 +127,7 @@ from bnsgcn_tpu_torch.parallel.replicas import (Axes, dedup_replica0,
 from bnsgcn_tpu_torch.resilience import (CoordLink, PreemptedError,
                                          ResilienceManager, StepHung,
                                          check_inject, collective_timed_out)
+from bnsgcn_tpu_torch.strict import StrictExec
 from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
                                       bn_state_to_jax, build_step_fns,
                                       compute_dtype, dropout_key,
@@ -131,6 +137,7 @@ from bnsgcn_tpu_torch.trainer import (StepFns, build_block_arrays,
                                       resolve_overlap, resolve_strategy,
                                       restore_payload, to_device,
                                       with_bn_state)
+from bnsgcn_tpu_torch.utils import traceparse
 
 # epochs excluded from the Time(s), Comm(s) and Reduce(s) means, as the JAX
 # package's EpochTimer(warmup=5) and the reference (train.py:415) exclude
@@ -147,9 +154,11 @@ STREAMING_MIN_EDGES = 30_000_000
 
 def warm_mean(xs: list, start_epoch: int = 0) -> float:
     """The mean of per-epoch values past the warm-up, xs[i] being epoch
-    start_epoch + i: what EpochTimer(warmup=5).means() gives for the same
+    start_epoch + i, None for an epoch the timer does not record (traced,
+    or a retune's): what EpochTimer(warmup=5).means() gives for the same
     values; 0.0 when no epoch is past the warm-up."""
-    xs = xs[max(WARMUP_EPOCHS - start_epoch, 0):]
+    xs = [x for x in xs[max(WARMUP_EPOCHS - start_epoch, 0):]
+          if x is not None]
     return float(np.mean(xs)) if xs else 0.0
 
 
@@ -193,6 +202,16 @@ class RunResult:
     relay_times: list = field(default_factory=list)  # P > 1, a coordinator:
                                        # each step's relay of the decision
                                        # to the launch's ranks, s
+    clean: list = field(default_factory=list)   # per epoch: counted in the
+                                       # means (not traced, not a retune's)
+    comm_traced: Optional[float] = None    # the trace window's in-step
+    reduce_traced: Optional[float] = None  # exchange / reduce s per step
+                                       # (rank 0 of the launch)
+    tune_decisions: list = field(default_factory=list)   # --tune: every
+                                       # applied decision, in order
+    retune_seconds: list = field(default_factory=list)   # (epoch, s) of
+                                       # each retune's rebuild
+    strict: Optional[dict] = None      # --strict-exec: the audit summary
 
 
 def require_device(name: str) -> None:
@@ -391,6 +410,8 @@ class Control:
     agreed: bool = False        # the resume's checkpoint was agreed on
     best_recovered: Optional[bool] = None   # agreed: every launch holds
                                 # the resumed best_acc's final checkpoint
+    tune_start: Optional[tuple] = None      # --tune: the (changes, reason)
+                                # folded into cfg at launch (tune_launch)
 
     @property
     def on(self) -> bool:
@@ -435,6 +456,25 @@ def open_control(cfg: Config, log=print, port: Optional[int] = None
                 log(f"[elastic] rank {rank}: rejoining a resized world "
                     f"(lost-rank beacon found)")
     return ctl
+
+
+def tune_launch(cfg: Config, ctl: Control, log=print) -> Config:
+    """--tune at launch (bnsgcn_tpu/run.py:323-362): the mode checks (auto
+    is refused across launches: more than one node, or a coordinator),
+    then the schedule's epoch-0 entries or auto's coarse start folded into
+    cfg before the first build; the fold goes to ctl.tune_start, which
+    rank 0 records as the controller's epoch-0 decision."""
+    tune_mod.validate_mode(cfg, multi_host=cfg.n_nodes > 1,
+                           coordinated=ctl.on)
+    if cfg.tune == "off":
+        return cfg
+    changes, why = tune_mod.startup_changes(cfg)
+    if changes:
+        cfg = cfg.replace(**changes)
+        ctl.tune_start = (changes, why)
+        log(f"[tune] {why}: " + ", ".join(
+            f"{k}={v}" for k, v in sorted(changes.items())))
+    return cfg
 
 
 def harness_mode(cfg: Config, ctl: Control) -> bool:
@@ -790,8 +830,10 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     res = RunResult(dense_edges=fns.dense_edges, n_edges=pr.n_edges)
     blk, model, opt = init_training(pr, model_init)
     seed, best_acc, best_state, nonce, rnonce = cfg.seed, 0.0, None, 0, 0
+    tune_state = None       # the checkpoint's --tune history (extra["tune"])
     if resume_from is not None:
         payload = lead_read(pr, lambda: ckpt.read_blob(resume_from))
+        tune_state = (payload.get("extra") or {}).get("tune")
         restore_payload(payload, model, opt, fns.shard_state)
         res.start_epoch = int(payload["epoch"]) + 1
         seed, best_acc = int(payload["seed"]), float(payload["best_acc"])
@@ -840,7 +882,10 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             if cfg.eval and lead and not mesh_eval else None)
 
     def mean(xs):
-        return warm_mean(xs, res.start_epoch)
+        # past the warm-up, without the epochs a trace window or a retune's
+        # rebuild ran in (res.clean), as the JAX package's timer records
+        return warm_mean([x if c else None for x, c in zip(xs, res.clean)],
+                         res.start_epoch)
 
     clock = "P=1" if world is None else (
         "events" if device.type == "cuda" else "host")
@@ -878,9 +923,98 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     # signal to land mid-run, or for a replacement launch to rejoin)
     throttle = float(os.environ.get("BNSGCN_EPOCH_THROTTLE_S", 0) or 0)
     per_epoch = (res.losses, res.epoch_times, res.comm_times,
-                 res.reduce_times, res.feat_times)
+                 res.reduce_times, res.feat_times, res.clean)
     loss_base = epoch = res.start_epoch     # res.losses[0]'s epoch
     loss_f = float("nan")
+    # --strict-exec: every step guarded (strict.py); the loss read audited
+    strict = (StrictExec(obs=obs, log=log, device=device)
+              if cfg.strict_exec else None)
+    # --tune: the controller, bound to the resolved levers (bnsgcn_tpu/
+    # run.py:549-570); under auto at P > 1 rank 0 decides for every rank
+    tuner = None
+    if cfg.tune != "off":
+        tuner = tune_mod.Tuner(cfg, levers=tuned_levers(cfg, fns), log=log)
+        if ctl.tune_start is not None:
+            ent0 = tuner.record_startup(*ctl.tune_start)
+            res.tune_decisions.append(ent0)
+            if obs is not None:
+                obs.emit("tune_decision", **ent0)
+        if cfg.tune == "auto" and pr.art is not None:
+            tuner.strategy_alt = retune_strategy(
+                pr.art.n_b, pr.art.pad_inner, pr.art.pad_boundary,
+                cfg.sampling_rate, current=fns.halo_strategy,
+                wire=tuned_levers(cfg, fns)["halo_wire"])
+    decides = world is None or world.rank == 0
+
+    def tune_ckpt():
+        return tuner.state_dict() if tuner is not None else None
+    retune_cool = -1        # epochs <= this ran a retune's rebuild: not
+                            # recorded in the means, as warm-up epochs
+
+    def apply_tune(changes: dict, reason: str, trigger: dict, at_epoch: int):
+        """A retune at an epoch boundary (bnsgcn_tpu/run.py:1109-1185):
+        the step functions rebuilt on the run's layouts with the new
+        levers, the halo cache dropped (the next epoch is a logged full
+        refresh), --strict-exec re-armed, the watchdog touched."""
+        nonlocal cfg, fns, pr, use_refresh, peak_mb, steady_mb
+        nonlocal halo_cache, cache_reason, retune_cool
+        t0 = time.perf_counter()
+        cfg = cfg.replace(**changes)
+        fns = build_step_fns(cfg, spec, pr.art, device, log=log,
+                             rank=pr.rank, comm=comm, reuse=fns, axes=axes,
+                             cache=fns.cache)
+        fns.set_nonce(nonce, rnonce)
+        pr = dataclasses.replace(pr, cfg=cfg, fns=fns)
+        use_refresh = fns.train_step_full is not None
+        peak_mb, steady_mb = wire_mbs(pr)
+        halo_cache = None
+        cache_reason = (reason if reason in ("resume", "rollback", "resize")
+                        else "retune")
+        if strict is not None and strict.steps:
+            strict.rearm(reason)
+        retune_cool = at_epoch + 1
+        if resil is not None:
+            resil.watchdog.touch()      # the rebuild is boundary work
+        res.retune_seconds.append((at_epoch, time.perf_counter() - t0))
+        label = halo_label(cfg.replace(halo_exchange=fns.halo_strategy),
+                           fns, axes)
+        wire = tuned_levers(cfg, fns)["halo_wire"]
+        log(f"[tune] epoch {at_epoch}: {reason} -> " + ", ".join(
+            f"{k}={v}" for k, v in sorted(changes.items()))
+            + f" (halo {label}/{wire}, steady {steady_mb:.2f} MB/exchange)")
+        ent = dict(epoch=int(at_epoch), reason=reason, changes=dict(changes),
+                   trigger=dict(trigger or {}), halo=label, wire=wire,
+                   wire_mb_steady=round(steady_mb, 4),
+                   wire_mb_peak=round(peak_mb, 4))
+        res.tune_decisions.append(ent)
+        if obs is not None:
+            obs.emit("tune_decision", **ent)
+
+    # the profiler window (bnsgcn_tpu/run.py:1008-1031): --profile-dir, or
+    # under --comm-trace a temporary directory, in one launch of P > 1
+    # ranks (a P=1 run has no collective to attribute; a node launch keeps
+    # the port's own column, as a JAX multi-host run keeps [sampled]);
+    # clamped into the epochs this run executes, after the first ones
+    prof_start = max(WARMUP_EPOCHS + 1, res.start_epoch + 2)
+    prof_stop = min(prof_start + 3, cfg.n_epochs - 1)
+    trace_dir, auto_trace = cfg.profile_dir, False
+    if trace_dir and ctl.rank > 0:
+        # a harness launch's ranks beside coordination rank 0's
+        trace_dir = os.path.join(trace_dir, f"launch{ctl.rank}")
+    elif (not trace_dir and cfg.comm_trace and world is not None
+          and cfg.n_nodes == 1 and prof_stop > prof_start):
+        auto_trace = True
+        trace_dir = world.broadcast_object(
+            tempfile.mkdtemp(prefix="bnsgcn_commtrace_")
+            if world.rank == 0 else None)
+    me = world.global_rank(world.rank) if world is not None else 0
+    prof = None                 # the open torch.profiler session
+    tracing = trace_done = False
+    # SIGUSR1 (the telemetry bus on): a bounded window into the post-mortem
+    # directory; at P > 1 the launch's rank 0 takes the signal and every
+    # rank opens the window at the boundary after the step's agreement
+    usr1_tracing, usr1_stop, usr1_dir, prof_usr1 = False, -1, None, None
+    usr1_go = usr1_asked = False
 
     def rewind(restart: int) -> None:
         """Drop the epochs from `restart` on: they are run again."""
@@ -908,6 +1042,13 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             nonce, rnonce = resil.nonce, resil.resize_nonce
             res.start_epoch = loss_base = epoch
             halo_cache, cache_reason = None, "resize"
+        if tuner is not None and res.start_epoch > 0 and not ctl.joiner:
+            # resumed: the controller's history adopted (or, for a schedule,
+            # rebuilt) and the levers live at the resume point actuated
+            # before the first step
+            tdiff = tuner.restore(res.start_epoch, tune_state)
+            if tdiff:
+                apply_tune(tdiff, "resume", {}, res.start_epoch)
         while epoch < cfg.n_epochs:
             if throttle > 0:
                 time.sleep(throttle)
@@ -920,9 +1061,28 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                         for p in model.parameters():
                             p.mul_(float("nan"))
                 if obs is not None and resil.take_profile_request():
-                    _profile_request(cfg, obs, resil, epoch, log)
+                    usr1_asked = True
+                    usr1_go = usr1_go or world is None
+                if usr1_go:
+                    usr1_go = False
+                    with held():
+                        usr1_dir, prof_usr1 = _profile_request(
+                            cfg, obs, resil, epoch, log, device,
+                            busy=tracing or usr1_tracing)
+                    if usr1_dir is not None:
+                        usr1_tracing, usr1_stop = True, epoch + 2
                 if ctx is not None:
                     ctx.beat(epoch)
+            # >= (not ==): a SIGUSR1 window over prof_start only delays the
+            # comm-trace window, never cancels it
+            if (trace_dir and prof_start <= epoch < prof_stop
+                    and not tracing and not trace_done and not usr1_tracing):
+                tracing = True
+                try:
+                    prof = _profiler(device)
+                except Exception as e:     # noqa: BLE001 - the run goes on
+                    log(f"[trace] the profiler did not start ({e}); no "
+                        f"traced window")
             if world is not None:
                 world.reset_seconds()
             key = dropout_key(seed, epoch, pr.rank, replica, nonce, rnonce)
@@ -931,17 +1091,30 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             refresh_full = use_refresh and halo_cache is None
             log_point = (epoch + 1) % cfg.log_every == 0
             pnorm = None
+            # the epoch's host values (the dropout key, the epoch) are
+            # kernel arguments and the sample key lives on the device, so
+            # nothing is uploaded inside the guard; full and cached are two
+            # step functions, each its own --strict-exec variant
+            variant = (("full" if refresh_full else "cached") if use_refresh
+                       else "step")
             try:
-                if refresh_full:
-                    loss, halo_cache = fns.train_step_full(model, opt, blk,
-                                                           epoch, key)
-                elif use_refresh:
-                    loss, halo_cache = fns.train_step_cached(
-                        model, opt, blk, epoch, key, halo_cache)
-                else:
-                    loss = fns.train_step(model, opt, blk, epoch, key)
-                loss_f = float(loss)                # waits for the device
+                with (strict.step(variant) if strict is not None
+                      else nullcontext()), (
+                        record_function("train_step") if tracing
+                        or usr1_tracing else nullcontext()):
+                    if refresh_full:
+                        loss, halo_cache = fns.train_step_full(
+                            model, opt, blk, epoch, key)
+                    elif use_refresh:
+                        loss, halo_cache = fns.train_step_cached(
+                            model, opt, blk, epoch, key, halo_cache)
+                    else:
+                        loss = fns.train_step(model, opt, blk, epoch, key)
+                # waits for the device; under strict the audited read
+                loss_f = (strict.fetch(loss) if strict is not None
+                          else float(loss))
                 dt = time.perf_counter() - t_ep
+                usr1_in_step = usr1_tracing     # profiler overhead rides dt
                 secs = (world.seconds() if world else
                         {"exchange": 0.0, "reduce": 0.0, "feat": 0.0})
                 bad = preempt = False
@@ -960,11 +1133,15 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                         # the probe's verdict (a feat shard's own) and the
                         # preemption flag, at this boundary
                         t_ag = time.perf_counter()
-                        me = agree.global_rank(agree.rank)
-                        pre_rank, bad_any = agree.agree_max(
-                            [me + 1 if asked else 0, int(bad)])
+                        g = agree.global_rank(agree.rank)
+                        pre_rank, bad_any, prof_any = agree.agree_max(
+                            [g + 1 if asked else 0, int(bad),
+                             int(usr1_asked)])
                         res.agree_times.append(time.perf_counter() - t_ag)
                         preempt, bad = pre_rank > 0, bad_any > 0
+                        # SIGUSR1 on the launch's rank 0: every rank opens
+                        # the window at the next boundary
+                        usr1_go, usr1_asked = prof_any > 0, False
             except RuntimeError as e:
                 if resil is not None and collective_timed_out(e):
                     raise StepHung(f"rank {world.rank if world else 0}: a "
@@ -1000,7 +1177,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                         full, opt_j = full_states()
                         if lead:
                             _save_periodic(pr, epoch, full, opt_j, best_acc,
-                                           seed, nonce, rnonce)
+                                           seed, nonce, rnonce, tune_ckpt())
                         log(f"[resilience] agreed preemption (requested by "
                             f"rank(s) {decision.get('ranks')}) at the epoch-"
                             f"{epoch} step boundary: resumable checkpoint "
@@ -1026,6 +1203,15 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                     fns.set_nonce(nonce, rnonce)
                     rewind(restart)
                     halo_cache, cache_reason = None, act
+                    if tuner is not None:
+                        # the levers live when `restart` first ran; the
+                        # kept history replays from there
+                        td = tuner.rewind(restart)
+                        if td:
+                            apply_tune(td, act, {} if act == "rollback" else
+                                       {"world": decision.get("world"),
+                                        "trigger": decision.get("trigger")},
+                                       restart)
                     if act == "resize":
                         log(f"[elastic] epoch {epoch}: "
                             f"{decision.get('trigger')} resize to world "
@@ -1047,22 +1233,68 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 # the retried epochs are recorded again on the healthy pass
                 rewind(restart)
                 halo_cache, cache_reason = None, "rollback"
+                if tuner is not None:
+                    td = tuner.rewind(restart)
+                    if td:
+                        apply_tune(td, "rollback", {}, restart)
                 resil.watchdog.touch()
                 epoch = restart
                 continue
             if not np.isfinite(loss_f) and resil is None:
                 raise FloatingPointError(f"epoch {epoch}: loss is {loss_f}")
+            if tracing and epoch >= prof_stop:
+                with held():        # stop, export, parse: boundary work
+                    _close_window(prof, trace_dir, me, world, cfg, fns,
+                                  res, epoch, obs, log)
+                prof, tracing, trace_done = None, False, True
+                if auto_trace and world.rank == 0:
+                    shutil.rmtree(trace_dir, ignore_errors=True)
+            if usr1_tracing and epoch >= usr1_stop:
+                if prof_usr1 is not None:
+                    with held():
+                        _export(prof_usr1,
+                                traceparse.trace_file(usr1_dir, me))
+                usr1_tracing, prof_usr1 = False, None
+                log(f"[obs] SIGUSR1 profiler window written to {usr1_dir}")
+                if obs is not None:
+                    obs.emit("profile", epoch=epoch, trace_dir=usr1_dir)
+                if trace_dir and not trace_done and epoch >= prof_start:
+                    # the SIGUSR1 window took the comm-trace window's
+                    # epochs: it opens right after, delayed, never cancelled
+                    prof_start = epoch + 1
+                    prof_stop = min(prof_start + 3, cfg.n_epochs - 1)
+            # the epochs of a trace window carry the profiler's overhead and
+            # a retune's the rebuild: not recorded in the means
+            clean = (not (trace_dir and prof_start <= epoch <= prof_stop)
+                     and not usr1_in_step and epoch > retune_cool)
+            exch_s = (res.comm_traced if res.comm_traced is not None
+                      else secs["exchange"] if world is not None else None)
             res.losses.append(loss_f)
             res.epoch_times.append(dt)
             res.comm_times.append(secs["exchange"])
             res.reduce_times.append(secs["reduce"])
             res.feat_times.append(secs["feat"])
+            res.clean.append(clean)
             if obs is not None:
                 _emit_epoch(obs, epoch, loss_f, dt, pnorm,
                             steady_mb if use_refresh and not refresh_full
-                            else peak_mb,
-                            secs["exchange"] if world is not None else None,
-                            clock)
+                            else peak_mb, exch_s,
+                            "traced" if res.comm_traced is not None
+                            else clock, clean)
+            if tuner is not None:
+                # the decision point, after the epoch's record: a retune
+                # takes effect from the next epoch, rebuilt here
+                metrics = {"loss": loss_f, "step_s": dt,
+                           "comm_s": exch_s or None,
+                           "wire_mb": (steady_mb if use_refresh
+                                       and not refresh_full else peak_mb)}
+                dec = (tuner.on_epoch_end(epoch, metrics)
+                       if cfg.tune == "schedule" or decides else None)
+                if cfg.tune == "auto" and world is not None:
+                    dec = _tune_follow(tuner, world, dec)
+                if dec is not None and dec["changes"]:
+                    apply_tune(dec["changes"], dec["reason"],
+                               dec.get("trigger") or {}, epoch + 1)
             if not (log_point or preempt):
                 epoch += 1
                 continue
@@ -1074,7 +1306,8 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                         pr, model, res, epoch, loss_f, full, opt_j, seed,
                         nonce, rnonce, best_acc, best_state, host, ev_val,
                         modes, result_file, mean, clock, log, lead,
-                        launch_lead, save=not bad, obs=obs)
+                        launch_lead, save=not bad, obs=obs,
+                        tune=tune_ckpt())
             if log_point and resil is not None:
                 resil.note_progress(epoch)
             if preempt:
@@ -1082,7 +1315,7 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                 with held():
                     if lead and not log_point:
                         _save_periodic(pr, epoch, full, opt_j, best_acc,
-                                       seed, nonce, rnonce)
+                                       seed, nonce, rnonce, tune_ckpt())
                     who = (f"{resil.preempt_requested}" if world is None
                            else f"agreed preemption (requested on rank "
                                 f"{pre_rank - 1})")
@@ -1098,6 +1331,9 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     except BaseException as e:
         if host is not None:
             host.close(wait=False)
+        if strict is not None:
+            # the audit lands on every exit path, before the run's end
+            res.strict, strict = strict.finish(), None
         if obs is not None:
             # an interrupted run ends its log with a terminal record too
             obs.emit("run_end", interrupted=type(e).__name__,
@@ -1106,6 +1342,23 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
             obs.close()
         raise
     finally:
+        # a crash or preemption anywhere in the loop leaves no profiler
+        # session or temporary trace directory behind
+        for p_open in (prof, prof_usr1):
+            if p_open is not None:
+                try:
+                    p_open.stop()
+                except Exception:       # noqa: BLE001
+                    pass
+        if usr1_tracing and sys.exc_info()[0] is not None:
+            log(f"[obs] SIGUSR1 profiler window written to {usr1_dir}")
+            if obs is not None:
+                obs.emit("profile", epoch=epoch, trace_dir=usr1_dir,
+                         at_exit=True)
+        if auto_trace and not trace_done and world.rank == 0:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        if strict is not None:
+            res.strict = strict.finish()
         if resil is not None:
             res.rollbacks = list(resil.rollbacks)
             resil.close()
@@ -1169,6 +1422,37 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
     return res, model
 
 
+def tuned_levers(cfg: Config, fns: StepFns) -> dict:
+    """The levers --tune moves, as the step functions resolved them."""
+    grad_only = resolve_halo_mode(cfg, log=lambda m: None)[1]
+    return {"halo_refresh": int(fns.halo_refresh),
+            "halo_mode": "grad-only" if grad_only else "exchange",
+            "halo_exchange": fns.halo_strategy,
+            "halo_wire": fns.halo.wire if fns.halo is not None
+            else cfg.halo_wire}
+
+
+def _profiler(device: torch.device):
+    """A started torch.profiler session: the host's ops, and on a card its
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=acts, acc_events=True)
+    except TypeError:           # a torch without acc_events
+        prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _export(prof, path: str) -> None:
+    prof.stop()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+
+
 def wants_obs(cfg: Config) -> bool:
     """Whether the launch builds the telemetry bus: --obs on with somewhere
     to write (an event log, --obs-log or $BNSGCN_OBS_LOG, or --obs-dir's
@@ -1215,9 +1499,6 @@ HEADER_CONFIG = (
     "spmm_dense", "halo_exchange", "halo_wire", "halo_refresh", "halo_mode",
     "overlap", "reorder", "tune", "tune_schedule", "tune_prior", "n_epochs",
     "log_every", "seed", "inductive", "use_pp", "resilience", "coord")
-# the run header's config keys the port has no field for: the JAX defaults
-# (the comm auto-tuner is refused, so they are what such a run executes)
-HEADER_DEFAULTS = {"tune": "off", "tune_schedule": "", "tune_prior": "ladder"}
 
 
 def emit_header(obs, pr: Prepared) -> None:
@@ -1247,19 +1528,20 @@ def emit_header(obs, pr: Prepared) -> None:
                    "pad_boundary": int(art.pad_boundary),
                    "pad_send": int(hs.pad_send) if hs is not None else 0,
                    "edges_per_part": int(art.pad_edges)},
-        config={k: getattr(cfg, k, HEADER_DEFAULTS.get(k))
-                for k in HEADER_CONFIG})
+        config={k: getattr(cfg, k) for k in HEADER_CONFIG})
 
 
 def _emit_epoch(obs, epoch: int, loss_f: float, dt: float, pnorm,
-                wire_mb: float, exchange_s, clock: str) -> None:
+                wire_mb: float, exchange_s, clock: str,
+                clean: bool = True) -> None:
     """The per-epoch record (bnsgcn_tpu/run.py:1643-1663): the loss, the
     step's seconds, this epoch's wire MB, the norm probe's value at a log
     point and, at P > 1, the epoch's exchange seconds (the port's own
-    measure: CUDA events on a card, the host clock on the CPU; the JAX
-    package's is its sampled or traced microbench). Past the warm-up the
-    step time feeds the registry's p50/p99 histogram."""
-    if epoch >= WARMUP_EPOCHS:
+    measure: CUDA events on a card, the host clock on the CPU, until a
+    trace window gives the traced in-step seconds, tag 'traced'). Past the
+    warm-up a `clean` step time (no trace window, no retune) feeds the
+    registry's p50/p99 histogram."""
+    if epoch >= WARMUP_EPOCHS and clean:
         obs.registry.histogram("train/step_s").observe(dt)
     rec = {"epoch": epoch, "loss": round(loss_f, 6), "step_s": round(dt, 6),
            "wire_mb": round(wire_mb, 4)}
@@ -1272,18 +1554,108 @@ def _emit_epoch(obs, epoch: int, loss_f: float, dt: float, pnorm,
 
 
 def _profile_request(cfg: Config, obs, resil: ResilienceManager,
-                     epoch: int, log) -> None:
-    """SIGUSR1 (bnsgcn_tpu/run.py:1260-1290): every thread's stack and a
-    registry snapshot into the post-mortem directory, training on. The
-    JAX package's profiler trace window is not ported."""
+                     epoch: int, log, device: torch.device, busy: bool):
+    """SIGUSR1 (bnsgcn_tpu/run.py:1261-1290), training on: on the rank with
+    the bus, every thread's stack and a registry snapshot into the
+    post-mortem directory; on every rank, unless a window is open
+    (`busy`), a profiler window into its trace_E<epoch> directory, which
+    the loop closes two epochs on. Returns (the window's directory or
+    None, the profiler or None if it did not start)."""
     pm = resil.postmortem_dir or obs_mod.postmortem_dir(cfg)
-    snap = obs_mod.write_postmortem(
-        pm, f"sigusr1_E{epoch}", text=f"SIGUSR1 snapshot at epoch {epoch}",
-        registry=obs.registry) or None
-    log(f"[obs] SIGUSR1: stacks + metrics snapshot -> {snap}" if snap else
-        "[obs] SIGUSR1: post-mortem snapshot write FAILED (disk?)")
-    obs.emit("profile_request", epoch=epoch, snapshot=snap, trace_dir=None)
+    snap = None
+    if obs is not None:
+        snap = obs_mod.write_postmortem(
+            pm, f"sigusr1_E{epoch}",
+            text=f"SIGUSR1 snapshot at epoch {epoch}",
+            registry=obs.registry) or None
+        log(f"[obs] SIGUSR1: stacks + metrics snapshot -> {snap}" if snap
+            else "[obs] SIGUSR1: post-mortem snapshot write FAILED (disk?); "
+                 "still arming the trace window")
+    trace_dir = prof = None
+    if not busy:
+        trace_dir = os.path.join(pm, f"trace_E{epoch}")
+        try:
+            prof = _profiler(device)
+            log(f"[obs] SIGUSR1: profiling epochs {epoch}..{epoch + 2} -> "
+                f"{trace_dir}")
+        except Exception as ex:     # noqa: BLE001 - the run goes on
+            log(f"[obs] SIGUSR1 trace failed to start: {ex}")
+    if obs is not None:
+        obs.emit("profile_request", epoch=epoch, snapshot=snap,
+                 trace_dir=trace_dir if prof is not None else None)
     resil.watchdog.touch()
+    return trace_dir, prof
+
+
+def _close_window(prof, trace_dir: str, me: int, world: Optional[Comm],
+                  cfg: Config, fns: StepFns, res: RunResult, epoch: int,
+                  obs, log) -> None:
+    """The comm-trace window's end (bnsgcn_tpu/run.py:1527-1590): every
+    rank exports its trace (rank_<g>.json), then after a barrier rank 0
+    reads them all (utils/traceparse.py): the in-step exchange and reduce
+    seconds per step, min over the ranks, go to res.comm_traced /
+    reduce_traced (the epoch line's [traced] Comm column, the `trace`
+    event) and, under --overlap split, the phases' overlap (the `overlap`
+    event, the overlap[traced] line). A second barrier holds the others
+    while rank 0 parses."""
+    if prof is not None:
+        _export(prof, traceparse.trace_file(trace_dir, me))
+    if world is not None:
+        world.barrier()
+    if world is None or world.rank == 0:
+        if cfg.profile_dir:
+            log(f"profiler trace written to {trace_dir}")
+        try:
+            events, _ = traceparse.load_trace_events(trace_dir)
+        except Exception:               # noqa: BLE001 - no trace, no column
+            events = None
+        parsed = (traceparse.step_comm_from_events(events)
+                  if events is not None else None)
+        if parsed is not None:
+            res.comm_traced, res.reduce_traced = parsed[0], parsed[1]
+            if obs is not None:
+                obs.emit("trace", epoch=epoch,
+                         comm_s=round(res.comm_traced, 6),
+                         reduce_s=round(res.reduce_traced, 6),
+                         trace_dir=cfg.profile_dir or None)
+        if fns.overlap == "split":
+            rep = (traceparse.overlap_from_events(events)
+                   if events is not None else None)
+            if rep is None:
+                log("overlap[traced]: no interior/frontier scope spans in "
+                    "the trace window")
+            else:
+                if obs is not None:
+                    obs.emit("overlap", epoch=epoch,
+                             **{k: round(float(rep[k]), 4) for k in (
+                                 "exchange_ms", "interior_ms",
+                                 "frontier_ms", "hidden_ms")},
+                             overlapped=bool(rep["overlapped"]))
+                log("overlap[traced]: exchange {exchange_ms:.3f} ms | "
+                    "interior {interior_ms:.3f} ms | frontier "
+                    "{frontier_ms:.3f} ms | hidden {hidden_ms:.3f} ms per "
+                    "step — collective overlapped interior compute: "
+                    "{verdict}".format(
+                        verdict="YES" if rep["overlapped"] else "NO",
+                        **{k: rep[k] for k in rep}))
+    if world is not None:
+        world.barrier()
+
+
+def _tune_follow(tuner: "tune_mod.Tuner", world: Comm, dec):
+    """--tune auto at P > 1: the P ranks read P clocks, so rank 0's
+    decision (and its controller's history, which a rollback rewinds) is
+    every rank's, over the wait group at the epoch boundary."""
+    got = world.broadcast_object(
+        (dec, tuner.state_dict(), dict(tuner.levers)) if world.rank == 0
+        else None)
+    dec, state, levers = got
+    if world.rank != 0:
+        tuner.history = [dict(e) for e in state["history"]]
+        tuner._by_epoch = {int(e["epoch"]): e for e in tuner.history}
+        tuner.max_seen = int(state["max_seen"])
+        tuner.levers = dict(levers)
+    return dec
 
 
 def _rejoin(ctl: Control, link: CoordLink, resil: ResilienceManager,
@@ -1333,15 +1705,18 @@ def _lead_find(pr: Prepared, cfg: Config, log=None,
 
 def _save_periodic(pr: Prepared, epoch: int, full: dict, opt_j: dict,
                    best_acc: float, seed: int, nonce: int,
-                   rnonce: int = 0) -> None:
+                   rnonce: int = 0, tune: Optional[dict] = None) -> None:
     """Rank 0's periodic (or preemption) checkpoint of `epoch`, pruned to
-    cfg.keep_ckpt; `extra` carries the retry nonce and, under --elastic on
-    or once a resize happened, the resize nonce, as the JAX package's
+    cfg.keep_ckpt; `extra` carries the retry nonce, under --elastic on or
+    once a resize happened the resize nonce, and under --tune the
+    controller's state (`tune`), as the JAX package's
     (bnsgcn_tpu/run.py:1087-1097)."""
     cfg, spec = pr.cfg, pr.spec
     extra = {"retry_nonce": nonce}
     if cfg.elastic == "on" or rnonce:
         extra["resize_nonce"] = rnonce
+    if tune is not None:
+        extra["tune"] = tune
     ckpt.save_checkpoint(
         ckpt.periodic_path(cfg, epoch), params=params_to_jax(full, spec),
         opt_state=opt_j, bn_state=bn_state_to_jax(full, spec), epoch=epoch,
@@ -1353,7 +1728,8 @@ def _log_point(pr: Prepared, model: GNN, res: RunResult, epoch: int,
                loss_f: float, full, opt_j, seed: int, nonce: int,
                rnonce: int, best_acc: float, best_state, host, ev_val, modes,
                result_file, mean, clock: str, log, lead: bool,
-               launch_lead: bool, save: bool = True, obs=None):
+               launch_lead: bool, save: bool = True, obs=None,
+               tune: Optional[dict] = None):
     """A log point's work, in the JAX package's order: the launch's epoch
     line and rank 0's periodic checkpoint (before this point's eval: it
     holds the best of the evals drained so far; none from a state whose
@@ -1364,12 +1740,18 @@ def _log_point(pr: Prepared, model: GNN, res: RunResult, epoch: int,
     if launch_lead:
         feat_s = ("" if not fns.feat_dims else
                   " | Feat(s) {:.4f}".format(mean(res.feat_times)))
+        # after the trace window the traced in-step seconds, [traced]
+        traced = res.comm_traced is not None
         log("Process 000 | Epoch {:05d} | Time(s) {:.4f} | Comm(s) "
             "{:.4f} [{}] | Reduce(s) {:.4f}{} | Loss {:.4f}".format(
-                epoch, mean(res.epoch_times), mean(res.comm_times),
-                clock, mean(res.reduce_times), feat_s, loss_f))
+                epoch, mean(res.epoch_times),
+                res.comm_traced if traced else mean(res.comm_times),
+                "traced" if traced else clock,
+                res.reduce_traced if traced else mean(res.reduce_times),
+                feat_s, loss_f))
     if lead and save:
-        _save_periodic(pr, epoch, full, opt_j, best_acc, seed, nonce, rnonce)
+        _save_periodic(pr, epoch, full, opt_j, best_acc, seed, nonce, rnonce,
+                       tune)
     if host is not None:
         done = host.drain(res, epoch)
         if done is not None and done[1] > best_acc:
@@ -1408,7 +1790,8 @@ def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
     `g` is the full graph (loaded from cfg when None); `model_init` (a
     state_dict) replaces the seeded initialization (the parity tests carry
     JAX parameters over); `prepared` reuses an earlier prepare_run of the
-    same P=1 cfg; `rank_hook` (P > 1, a module-level function) runs in every
+    same P=1 cfg (under --tune, of the launch's folded levers); `rank_hook`
+    (P > 1, a module-level function) runs in every
     rank on its prepared part before the epoch loop and the launch
     counters' reset, its result in the rank's report under 'hook'. With a
     rank coordinator (Control) the launch first makes the JAX package's
@@ -1428,6 +1811,7 @@ def run_training(cfg: Config, g: Optional[Graph] = None, log=print,
         return run_parts(cfg, g, log, model_init, rank_hook)
     ctl = open_control(cfg, log)
     try:
+        cfg = tune_launch(cfg, ctl, log)
         box = {}
 
         def build(skip):
@@ -1609,6 +1993,10 @@ def _rank_main(ctx: RankContext, cfg: Config, path: str,
         "layout_times": pr.fns.layout_times, "hook": hook,
         "rollbacks": res.rollbacks, "agree_times": res.agree_times,
         "coord_times": res.coord_times, "relay_times": res.relay_times,
+        "clean": res.clean, "comm_traced": res.comm_traced,
+        "reduce_traced": res.reduce_traced,
+        "tune_decisions": res.tune_decisions,
+        "retune_seconds": res.retune_seconds, "strict": res.strict,
     }
 
 
@@ -1665,6 +2053,7 @@ def _launcher_setup(cfg: Config, g: Optional[Graph], log, nodes,
             ctl = open_control(cfg, log,
                                node_coord_port(cfg) if nodes else None)
             held.append(ctl)
+            cfg = tune_launch(cfg, ctl, log)
             harness = harness_mode(cfg, ctl)
             if not harness:
                 cfg, resume_from = resume_point(cfg, log)
@@ -1715,6 +2104,7 @@ def _launcher_setup(cfg: Config, g: Optional[Graph], log, nodes,
             + (f"; resuming from {resume_from}" if resume_from else ""))
         ctl = open_control(cfg, log, got.get("coord_port"))
         held.append(ctl)
+        cfg = tune_launch(cfg, ctl, log)
     if nodes is not None:
         node_resume_ack(ctl, resume_from)
     evals = (val_g, test_g) if val_g is not None else None
@@ -1832,4 +2222,8 @@ def _launch_ranks(cfg: Config, log, model_init, rank_hook, ranks: range,
         dense_edges=sum(r["dense_edges"] for r in parts),
         n_edges=sum(r["n_edges"] for r in parts), ranks=reports,
         rollbacks=lead["rollbacks"], agree_times=lead["agree_times"],
-        coord_times=lead["coord_times"], relay_times=lead["relay_times"])
+        coord_times=lead["coord_times"], relay_times=lead["relay_times"],
+        clean=lead["clean"], comm_traced=lead["comm_traced"],
+        reduce_traced=lead["reduce_traced"],
+        tune_decisions=lead["tune_decisions"],
+        retune_seconds=lead["retune_seconds"], strict=lead["strict"])

@@ -71,6 +71,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 import torch.nn.functional as F
 
 from bnsgcn_tpu_torch.config import Config, ConfigError
@@ -94,6 +95,7 @@ from bnsgcn_tpu_torch.parallel.halo import (HaloFlight, HaloSpec,
                                             make_halo_spec, make_refresh_spec,
                                             precompute_exchange,
                                             ragged_auto_eligible,
+                                            warm_ragged,
                                             refresh_row_mask,
                                             select_halo_strategy, tables_to)
 from bnsgcn_tpu_torch.parallel.feat import (FeatAxis, gather_state,
@@ -439,6 +441,7 @@ class StepFns:
     # on (a divergence rollback, a resize, a resume); 0 and 0 are the
     # unfolded key (no-op at P = 1, which samples nothing)
     set_nonce: Callable = lambda nonce, rnonce=0: None
+    cache: Optional["LayoutCache"] = None   # the layouts it was built from
 
     def full_state(self, state: dict) -> dict:
         """A state_dict-shaped mapping of this rank's shards made full (one
@@ -771,19 +774,22 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    comm: Optional[Comm] = None,
                    reuse: Optional[StepFns] = None,
                    row_cap: int = I8_ROW_CAP,
-                   axes: Optional[Axes] = None) -> StepFns:
+                   axes: Optional[Axes] = None,
+                   cache: Optional[LayoutCache] = None) -> StepFns:
     """Part `rank`'s step functions. Without `comm` (its 'parts' group) the
     run is P=1. `axes`: the replica and feat axes of an R x P x T run
     (None at R = T = 1). `reuse` and `row_cap` go to build_spmm; the
-    layouts go through a LayoutCache of cfg.cache_dir. Resolves, as the JAX
+    layouts go through `cache`, by default a LayoutCache of cfg.cache_dir
+    (a --tune rebuild passes the run's, StepFns.cache, so no layout is
+    built twice). Resolves, as the JAX
     package's build_step_fns does and logging its lines: --halo-exchange
     auto, --halo-mode and --halo-refresh, --overlap split's fallbacks."""
     if (art.n_parts > 1) != (comm is not None):
         raise ValueError(f"P={art.n_parts} needs a Comm exactly when P > 1")
     row = local_row(art, rank)
-    cache = LayoutCache(cfg.cache_dir,
-                        cfg.graph_name or cfg.derive_graph_name(), art, row,
-                        log)
+    cache = cache or LayoutCache(cfg.cache_dir,
+                                 cfg.graph_name or cfg.derive_graph_name(),
+                                 art, row, log)
     strategy, why = resolve_strategy(cfg, art.n_b, art.pad_inner,
                                      art.pad_boundary, cfg.sampling_rate)
     if why is not None:
@@ -836,6 +842,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                 art.n_b, ni, art.pad_boundary, cfg.sampling_rate, refresh_k,
                 strategy=strategy, wire=cfg.halo_wire)
             tables_r = tables_to(tables_r, device)
+            warm_ragged(hspec_r, comm.rank, device)
+        warm_ragged(hspec, comm.rank, device)
         base_key = prng.key(cfg.seed, device)
         keys["sample"] = base_key
         # rate 1.0: the identity plan, the same every epoch
@@ -870,14 +878,18 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                 flight = HaloFlight(spec_h, plan, comm)
                 flight.start(h)
             h_in = scale(h, out_norm[:ni]) if scale_out_norm else h
-            o_int = spmm.interior(h_in)
+            # the phases' spans, for a trace window's overlap check
+            # (utils/traceparse.py overlap_from_events)
+            with record_function("interior_agg"):
+                o_int = spmm.interior(h_in)
             buf = (flight.finish() if flight is not None else
                    h.new_zeros((n_halo, h.shape[1])))
             if combine is not None:
                 buf = combine(i, buf)
             h_halo = scale(buf, out_norm[ni:]) if scale_out_norm else buf
-            return spmm.merge(o_int, spmm.frontier(torch.cat([h_in,
-                                                              h_halo])))
+            with record_function("frontier_agg"):
+                o_fro = spmm.frontier(torch.cat([h_in, h_halo]))
+            return spmm.merge(o_int, o_fro)
         return agg
 
     def step_env(blk, epoch: int, mode: str = "step", cache=None):
@@ -1077,5 +1089,5 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                    layout_times=cache.times, overlap=overlap,
                    halo_strategy=strategy, halo_refresh=refresh_k,
                    halo_refresh_spec=hspec_r, axes=axes,
-                   feat_dims=feat_dims, set_nonce=set_nonce,
+                   feat_dims=feat_dims, set_nonce=set_nonce, cache=cache,
                    **refresh_steps)

@@ -133,6 +133,12 @@ def _floats(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
+def _scalar(x: float, dtype, device) -> torch.Tensor:
+    """A 0-d tensor of x rounded to dtype, filled on the device (no copy
+    from the host, so a draw inside a --strict-exec step syncs nothing)."""
+    return torch.full((), x, dtype=dtype, device=device)
+
+
 def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
             maxval: float = 1.0, dtype=torch.float32) -> torch.Tensor:
     """`jax.random.uniform(k, shape, dtype, minval, maxval)` on [minval,
@@ -144,14 +150,14 @@ def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
     if dtype == torch.bfloat16:
         bits = (random_bits(k, shape) & 0xFF) >> 1 | 0x3F80
         f = bits.to(torch.int16).view(torch.bfloat16) - 1.0
-        lo = torch.tensor(minval, dtype=dtype, device=k.device)
-        hi = torch.tensor(maxval, dtype=dtype, device=k.device)
+        lo = _scalar(minval, dtype, k.device)
+        hi = _scalar(maxval, dtype, k.device)
         return torch.maximum(lo, f * (hi - lo) + lo)
     if dtype != torch.float32:
         raise ValueError(f"uniform: float32 or bfloat16, got {dtype}")
     f = _floats(random_bits(k, shape))
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    lo = _scalar(minval, torch.float32, k.device)
+    hi = _scalar(maxval, torch.float32, k.device)
     # XLA fuses u * (max - min) + min into one multiply-add, rounded once:
     # in f64 the product of two f32 is exact, and so is the sum whenever
     # min and max - min are of one scale (every draw of the port's), so
@@ -162,8 +168,7 @@ def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
 
 def bernoulli(k: torch.Tensor, p: float, shape: Shape) -> torch.Tensor:
     """`jax.random.bernoulli(k, p, shape)`: uniform(k, shape) < f32(p)."""
-    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32,
-                                            device=k.device)
+    return uniform(k, shape) < _scalar(p, torch.float32, k.device)
 
 
 def erfinv(x: torch.Tensor) -> torch.Tensor:

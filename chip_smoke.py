@@ -118,7 +118,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-4 relative) runs later, beside [cli] (phase 6);
   5e. [halo]: the exchange's variants on the P=4 main path's artifacts (its
      command line: --inductive, rate 0.1), in one spawned group of 4 ranks
-     over gloo that loads its parts once, 3 epochs per variant from the
+     over gloo that loads its parts once, 2 epochs per variant from the
      same parameters: on epoch 0's plan the shift and ragged exchanges'
      outputs bitwise padded's (backward within 1e-6); auto's pick;
      --halo-exchange shift and ragged, --overlap split on the hybrid and
@@ -135,7 +135,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bitwise its plain version on every rank's layer shapes (f32, bf16,
      forward, backward, the next epoch's key rejected) and the card's
      mask the CPU's; on the flagship at dropout 0.5 D1 once per layer
-     forward and backward but layer 0's; 3 epochs each of --norm batch
+     forward and backward but layer 0's; 2 epochs each of --norm batch
      (its running statistics bitwise on every rank), --remat and --remat
      --norm batch (losses and parameters against the twin without
      --remat: bitwise, or within 1e-6 relative, said which; each run's
@@ -144,12 +144,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      order's ms, the layout set-up; losses against --reorder off: ELL to
      1e-6 of max(|loss|, 1), the hybrid to 1e-4; auto's bitwise the
      variant its verdict names);
+  5f'. [tune], in [halo]'s group on the same artifacts and layouts: the
+     flagship's command line with --tune schedule K=4@0,K=2@2,K=1@4,
+     --strict-exec and the default comm-trace window, 12 epochs: every
+     rank applies the three decisions, the K=2 retune logs one full
+     refresh (retune), the strict audit is clean on every rank (2 re-arms,
+     the host-staged copies counted as fetches), the window's traced Comm
+     (gloo's host ops) is positive and the epoch line reads [traced]
+     after it, and K1, K2 and D1 launch one step's worth every epoch,
+     before and after both rebuilds; it prints the rebuilds' seconds, the
+     first step after each, the traced epochs and the clean ones, and the
+     traced Comm beside the CUDA-event column;
   5g. [axes]: --replicas 2 and --feat 2 in one spawned group of 8 ranks
      sharing the card over gloo, on the P=4 law's and main path's
      artifacts, each rank on both of the port's rank maps (2 replicas x 4
      parts, 4 parts x 2 feat shards): (a) R=2 and (b) T=2 at rate 1.0
-     without dropout, 3 epochs from the seed's parameters, must give the
-     P=4 law's losses, and (c) T=2 on the flagship's command line
+     without dropout, 2 epochs from the seed's parameters, must give the
+     P=4 law's first two losses, and (c) T=2 on the flagship's command line
      (--inductive, rate 0.1, dropout 0.5), 2 epochs, the P=4 main path's
      first two, all to 1e-4 (relative); each feat rank first holds K1 and
      K2 to their plain versions on its own layout at H/T=128 and the raw
@@ -234,6 +245,7 @@ Exits non-zero without a CUDA device and when the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -316,7 +328,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # resume to 12 beside an uninterrupted 12-epoch run
 CLI_SCRIPT = os.path.join("scripts", "reddit_torch.sh")
 CLI_FLAGS = ["--dataset", "synth-reddit:0.02", "--n-partitions", str(PARTS),
-             "--dist-backend", "gloo", "--log-every", "4", "--fix-seed"]
+             "--dist-backend", "gloo", "--log-every", "4", "--fix-seed",
+             "--no-comm-trace"]
 CLI_EPOCHS = (8, 12)
 CLI_RTOL = 1e-5
 CLI_TIMEOUT_S = 300
@@ -384,7 +397,7 @@ PAPERS_EPOCHS, PAPERS_LOG_EVERY = 4, 2
 PAPERS_RTOL = 1e-6
 # [halo]: the exchange's variants on the P=4 main path's artifacts, each
 # (name, Config fields over that path's command line)
-HALO_EPOCHS = 3
+HALO_EPOCHS = 2          # 3 before [tune] joined the group (its cut)
 HALO_RTOL = 1e-5
 HALO_VARIANTS = (("padded", {}),
                  ("shift", {"halo_exchange": "shift"}),
@@ -424,6 +437,16 @@ REMAT_RTOL = 1e-6
 # within 1e-4 relative (its dense/residual split moves with the order)
 REORDER_TWINS = {"ro-cluster": ("ro-base", 1e-4),
                  "ell+ro-cluster": ("ell+ro-base", 1e-6)}
+# [tune]: the flagship's command line with --tune schedule and
+# --strict-exec in [halo]'s group (same ranks, same artifacts, layouts
+# lent), the default comm-trace window on: K=4 folded in at launch, the
+# retunes to K=2 and K=1 at epochs 2 and 4, the window over epochs 6..9 and
+# two clean epochs after it (10, 11) to time against
+TUNE_SCHEDULE = "K=4@0,K=2@2,K=1@4"
+TUNE_EPOCHS = 12
+TUNE_TRAIL = [(0, {"halo_refresh": 4}, "schedule@0"),
+              (2, {"halo_refresh": 2}, "schedule"),
+              (4, {"halo_refresh": 1}, "schedule")]
 # [axes]: --replicas 2 and --feat 2 on the P=4 artifacts, in one spawned
 # group of AXES_RANKS ranks: (name, which artifacts, R, T, epochs). The law
 # runs (rate 1.0, no dropout) against the P=4 law's losses, the flagship's
@@ -432,8 +455,8 @@ REORDER_TWINS = {"ro-cluster": ("ro-base", 1e-4),
 # replicas draw their own samples and masks, is held to its replication
 AXES_R, AXES_T = 2, 2
 AXES_RANKS = AXES_R * PARTS
-AXES_RUNS = (("law R=2", "law", AXES_R, 1, LAW_EPOCHS),
-             ("law T=2", "law", 1, AXES_T, LAW_EPOCHS),
+AXES_RUNS = (("law R=2", "law", AXES_R, 1, 2),   # LAW_EPOCHS before [tune]
+             ("law T=2", "law", 1, AXES_T, 2),
              ("main T=2", "main", 1, AXES_T, 2),
              ("main R=2", "main", AXES_R, 1, 2))
 
@@ -3327,8 +3350,148 @@ def halo_rank(ctx, cfg, path, reps):
         out["knobs"][name] = rec
         del pr, res, model
         torch.cuda.empty_cache()
+    out["tune"] = tune_rank(ctx, cfg, art, lent, log, lines)
     lent.clear()
     return out
+
+
+def tune_rank(ctx, cfg, art, lent, log, lines):
+    """[tune]'s rank body, after [knobs] in [halo]'s group: the flagship's
+    command line on this rank's part with --tune schedule TUNE_SCHEDULE
+    (K=4 folded in at launch, as run.tune_launch folds it), --strict-exec
+    and the default comm-trace window, TUNE_EPOCHS epochs through
+    run.train_loop, the layouts lent. The launch counts of K1, K2 and D1
+    are read at every step boundary (the loop's beat), so each epoch's
+    launches are known across both rebuilds."""
+    import types
+
+    import torch
+    from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
+    from bnsgcn_tpu_torch.run import Control, prepare_part, train_loop
+    dev, me, comm = ctx.device, ctx.rank, ctx.comm
+    c = cfg.replace(tune="schedule", tune_schedule=TUNE_SCHEDULE,
+                    strict_exec=True, comm_trace=True, halo_refresh=4,
+                    n_epochs=TUNE_EPOCHS, log_every=2,
+                    ckpt_path=os.path.join(cfg.ckpt_path, "tune"))
+    t0 = time.perf_counter()
+    pr = prepare_part(c, art, None, dev, log, me, comm,
+                      reuse=lent.get((c.spmm, c.overlap, "off")))
+    setup_s = time.perf_counter() - t0
+    mods = (bucket_sum, tile_matmul, dropout)
+    beats = []
+
+    def beat(epoch):
+        beats.append([epoch] + [m.launches.total for m in mods])
+
+    for m in mods:
+        m.launches.reset()
+    n = len(lines)
+    t0 = time.perf_counter()
+    res, _ = train_loop(pr, None, log,
+                        ctx=types.SimpleNamespace(beat=beat,
+                                                  forwarded=lambda: None),
+                        ctl=Control(tune_start=({"halo_refresh": 4},
+                                                "schedule@0")))
+    beat(TUNE_EPOCHS)
+    out = {
+        "setup_s": setup_s, "loop_s": time.perf_counter() - t0,
+        "trail": [(d["epoch"], d["changes"], d["reason"])
+                  for d in res.tune_decisions],
+        "strict": res.strict, "comm_traced": res.comm_traced,
+        "reduce_traced": res.reduce_traced,
+        "retune_seconds": res.retune_seconds, "clean": res.clean,
+        "epoch_times": res.epoch_times, "comm_times": res.comm_times,
+        "losses": res.losses, "beats": beats, "lines": lines[n:],
+        "kinds": {"K1": dict(bucket_sum.launches.by_kind),
+                  "K2": dict(tile_matmul.launches.by_kind)},
+        "d1": {"phases": dict(dropout.launches.by_phase),
+               "kinds": dict(dropout.launches.by_kind)}}
+    del pr, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def tune_report(cfg, ranks):
+    """[tune]'s checks and lines over the ranks' reports (tune_rank): every
+    rank applied TUNE_TRAIL; the K=4 -> K=2 retune logged one full refresh
+    (reason retune) and the K=1 one none; the strict audit clean on every
+    rank, its 2 re-arms, the host-staged copies counted as audited fetches
+    (more than one a step); the window's `trace` numbers (comm_s > 0, from
+    gloo's host ops) and the [traced] Comm column after it; K1, K2 and D1
+    launched one step's worth in every epoch, before and after each
+    rebuild. Prints the rebuilds' seconds, the first step after each
+    beside a clean epoch, the traced epochs' mean beside the clean ones',
+    and the traced Comm column beside the port's CUDA-event column."""
+    recs = [r["tune"] for r in ranks]
+    per = 2 * (cfg.n_layers - 1)            # K1 and K2: fwd and bwd
+    d1 = 2 * cfg.n_layers - 1               # D1: every layer, bwd but the
+    for me, r in enumerate(recs):           # first
+        if [(e, ch, why) for e, ch, why in r["trail"]] != TUNE_TRAIL:
+            raise AssertionError(f"[tune] rank {me} applied {r['trail']}, "
+                                 f"not {TUNE_TRAIL}")
+        s = r["strict"]
+        if (s is None or s["violations"] != 0 or s["rearms"] != 2
+                or sum(s["steps"].values()) != TUNE_EPOCHS
+                or s["fetches"] <= 2 * TUNE_EPOCHS):
+            raise AssertionError(f"[tune] rank {me}: strict audit {s}")
+        steps = [[b - a for a, b in zip(x[1:], y[1:])]
+                 for x, y in zip(r["beats"], r["beats"][1:])]
+        if (len(steps) != TUNE_EPOCHS
+                or any(st != [per, per, d1] for st in steps)):
+            raise AssertionError(f"[tune] rank {me}: K1, K2, D1 launches "
+                                 f"per epoch {steps}, not {[per, per, d1]}")
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"[tune] rank {me}: losses {r['losses']}")
+    lines = recs[0]["lines"]
+    full = [ln for ln in lines if "halo cache: full refresh" in ln]
+    if full != ["  halo cache: full refresh at epoch 0 (start); next 3+ "
+                "epochs reuse cached blocks",
+                "  halo cache: full refresh at epoch 2 (retune); next 1+ "
+                "epochs reuse cached blocks"]:
+        raise AssertionError(f"[tune] full-refresh lines {full}")
+    epochs = [ln for ln in lines if "Process 000 | Epoch" in ln]
+    r0 = recs[0]
+    if (r0["comm_traced"] is None or not r0["comm_traced"] > 0
+            or "[traced]" not in epochs[-1] or "[events]" not in epochs[0]):
+        raise AssertionError(f"[tune] no traced Comm column: "
+                             f"{r0['comm_traced']} {epochs}")
+    audit = [ln for ln in lines if ln.startswith("[strict] exec audit")]
+    log(f"[tune] {TUNE_SCHEDULE} under --strict-exec on every rank: "
+        f"decisions {[(e, ch) for e, ch, _ in TUNE_TRAIL]}, one full refresh "
+        f"(retune) at epoch 2; {audit[0] if audit else ''}; fetches a rank "
+        f"{_span([r['strict']['fetches'] for r in recs], '{:.0f}')} "
+        f"({TUNE_EPOCHS} loss reads, the rest host-staged copies)")
+    log(f"[tune] K1, K2, D1 each epoch on every rank, before and after both "
+        f"rebuilds: {per}, {per}, {d1} (kinds K1 "
+        f"{recs[0]['kinds']['K1']} K2 {recs[0]['kinds']['K2']} D1 "
+        f"{recs[0]['d1']['kinds']})")
+    clean = [[t for t, c in zip(r["epoch_times"], r["clean"]) if c]
+             for r in recs]
+    traced = [[t for e, t in enumerate(r["epoch_times"]) if 6 <= e <= 9]
+              for r in recs]
+    ms = lambda xs: sum(xs) / max(len(xs), 1) * 1e3
+    rebuild = [[s for _, s in r["retune_seconds"]] for r in recs]
+    first = [[r["epoch_times"][e] for e, _ in r["retune_seconds"]]
+             for r in recs]
+    ev_comm = [ms([c for c, k in zip(r["comm_times"], r["clean"]) if k])
+               for r in recs]
+    log(f"[tune] rebuild at epochs 2, 4: "
+        f"{_span([x[0] for x in rebuild], '{:.3f}')}, "
+        f"{_span([x[1] for x in rebuild], '{:.3f}')} s; the first step "
+        f"after each {_span([x[0] * 1e3 for x in first])}, "
+        f"{_span([x[1] * 1e3 for x in first])} ms against a clean epoch "
+        f"(10, 11) {_span([ms(x) for x in clean])} ms; the traced epochs "
+        f"(6..9) {_span([ms(x) for x in traced])} ms")
+    log(f"[tune] Comm(s) per step at P={PARTS} over gloo: traced (min over "
+        f"the ranks' gloo ops, rank 0's parse) {r0['comm_traced'] * 1e3:.3f}"
+        f" ms, reduce {r0['reduce_traced'] * 1e3:.3f} ms; the port's "
+        f"CUDA-event column on the clean epochs {_span(ev_comm)} ms")
+    return {"ranks": [{k: v for k, v in r.items() if k != "lines"}
+                      for r in recs], "clean_ms": [ms(x) for x in clean],
+            "traced_ms": [ms(x) for x in traced], "rebuild_s": rebuild,
+            "first_step_s": first, "events_comm_ms": ev_comm,
+            "comm_traced_s": r0["comm_traced"],
+            "reduce_traced_s": r0["reduce_traced"]}
 
 
 def _span(xs, fmt="{:.1f}"):
@@ -3464,8 +3627,10 @@ def halo_phase(main4, args):
             f"{max(x['check']['K2'][0] for x in rows):.3e})")
     log(f"[halo] done in {time.perf_counter() - t0:.1f} s (with [knobs])")
     knobs = knobs_report(cfg, ranks, var)
-    return {"auto": [pick, why], "knobs": knobs, "ranks": [
-        {k: v for k, v in r.items() if k not in ("variants", "knobs")}
+    tuned = tune_report(cfg, ranks)
+    return {"auto": [pick, why], "knobs": knobs, "tune": tuned, "ranks": [
+        {k: v for k, v in r.items() if k not in ("variants", "knobs",
+                                                  "tune")}
         for r in ranks],
         "variants": {name: [{k: v for k, v in x.items()
                              if k not in ("detail", "lines")} for x in recs]
@@ -3696,7 +3861,7 @@ def axes_phase(law, main4, law_losses, main_losses):
     """[axes]: --replicas 2 and --feat 2 in one spawned group of AXES_RANKS
     ranks sharing the card over gloo (axes_rank), on the P=4 law's and the
     P=4 main path's artifacts. Checks: (a) R=2 and (b) T=2 at rate 1.0
-    without dropout, 3 epochs, give the P=4 law's losses; (c) T=2 on the
+    without dropout, 2 epochs, give the P=4 law's first two; (c) T=2 on the
     flagship's command line gives the P=4 main path's first 2 epochs' (the
     keys fold no feat index, D1 draws at full width); (d) R=2 on it: every
     rank ends with the same parameters, bitwise, each rank's epoch-0 plan
@@ -3952,7 +4117,8 @@ def main(argv=None) -> int:
                  use_pallas=True, n_epochs=args.epochs,
                  log_every=args.epochs, eval=True, seed=0, device="cuda",
                  ckpt_path=os.path.join(work, "checkpoint"),
-                 results_path=os.path.join(work, "results"))
+                 results_path=os.path.join(work, "results"),
+                 comm_trace=False)    # [tune] alone traces its window
     # the P-rank phases' artifacts: host work, written by a child process
     # while the P=1 phases run
     part_path = os.path.join(os.getcwd(), "partition")
@@ -4083,7 +4249,12 @@ def main(argv=None) -> int:
     bucket_sum.launches.reset()
     tile_matmul.launches.reset()
     dropout.launches.reset()
-    res = run_training(cfg, log=log, prepared=pr)
+    # under --strict-exec: no step may synchronise (strict.py)
+    res = run_training(cfg.replace(strict_exec=True), log=log,
+                       prepared=dataclasses.replace(
+                           pr, cfg=pr.cfg.replace(strict_exec=True)))
+    if res.strict is None or res.strict["violations"] != 0:
+        raise AssertionError(f"[main] strict audit {res.strict}")
     k1 = dict(bucket_sum.launches.by_phase)
     k2 = dict(tile_matmul.launches.by_phase)
     d1_p1 = {"phases": dict(dropout.launches.by_phase),
@@ -4122,12 +4293,14 @@ def main(argv=None) -> int:
     log(f"[main] P=1 epoch: mean of epochs 1.. "
         f"{mean_from_1(res.epoch_times) * 1e3:.1f} ms; the epoch line's "
         f"(epochs 5..) {res.epoch_time * 1e3:.1f} ms; val {val:.3f}, test "
-        f"{test:.3f}")
+        f"{test:.3f}; --strict-exec clean ({res.strict['fetches']} audited "
+        f"fetches, first-step compiles {res.strict['first_compiles']})")
     phase_done("main")
     p1 = {"scale": args.scale, "epochs": args.epochs, "losses": res.losses,
           "epoch_times_s": res.epoch_times, "epoch_time_s": res.epoch_time,
           "epoch_from_1_s": mean_from_1(res.epoch_times),
           "launches": {"K1": k1, "K2": k2}, "dense_edges": res.dense_edges,
+          "strict": res.strict,
           "n_edges": res.n_edges, "val_acc": val, "test_acc": test}
     del res
     torch.cuda.empty_cache()
@@ -4216,7 +4389,8 @@ def main(argv=None) -> int:
                    for x in recs]
                 + [x["kinds"] for r in parts["axes"]["ranks"]
                    for x in r["runs"].values()]
-                + [x["kinds"] for x in cli["coord"]["a"]["ranks"]]):
+                + [x["kinds"] for x in cli["coord"]["a"]["ranks"]]
+                + [x["kinds"] for x in parts["halo"]["tune"]["ranks"]]):
         for name in ("K1", "K2"):
             for kind, n in src[name].items():
                 counts[name][kind] = counts[name].get(kind, 0) + n
@@ -4232,7 +4406,8 @@ def main(argv=None) -> int:
                    .values() for x in recs]
                 + [x["d1"] for r in parts["axes"]["ranks"]
                    for x in r["runs"].values()]
-                + [x["d1"] for x in cli["coord"]["a"]["ranks"]]):
+                + [x["d1"] for x in cli["coord"]["a"]["ranks"]]
+                + [x["d1"] for x in parts["halo"]["tune"]["ranks"]]):
         for kind, n in src["kinds"].items():
             counts["D1"][kind] = counts["D1"].get(kind, 0) + n
     # the largest error of each kernel's checks, P=1's and every rank's

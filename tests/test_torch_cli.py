@@ -119,7 +119,7 @@ def test_subcommands_exit_2_by_name(name, capsys):
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--strict-exec"], "--strict-exec"),
+    (["--dump-embeddings", "x"], "--dump-embeddings x"),
     (["--tune-prior", "model"], "--tune-prior model"),
     (["--no-comm-trace", "--serve-dir", "d"], "--serve-dir d"),
     (["--serve-port", "9"], "--serve-port 9"),

@@ -1233,3 +1233,74 @@ def test_dropout_kernel_on_a_feat_rank_s_full_width(cuda):
                            want.view(torch.int32))
     torch.cuda.synchronize()
     assert d1.launches.by_phase["fwd"] == 2
+
+
+def _strict_cfg(tmp_path, **kw):
+    from bnsgcn_tpu_torch.config import Config
+    d = dict(dataset="sbm", n_partitions=1, model="graphsage", n_layers=3,
+             n_hidden=64, use_pp=True, dropout=0.5, spmm="hybrid",
+             block_tile=64, n_epochs=4, log_every=2, device="cuda", seed=4,
+             strict_exec=True, ckpt_path=str(tmp_path / "ck"),
+             results_path=str(tmp_path / "res"))
+    d.update(kw)
+    return Config(**d)
+
+
+@pytest.mark.cuda
+def test_strict_exec_is_clean_at_p1_on_the_card(cuda, tmp_path):
+    """--strict-exec on the card: K1, K2 and D1 run inside the guard
+    (torch's sync debug mode 'error'), no step synchronises, and the audit
+    reads 0 violations with one audited loss read per step."""
+    from bnsgcn_tpu_torch.ops import bucket_sum, dropout, tile_matmul
+    from bnsgcn_tpu_torch.run import run_training
+    for m in (bucket_sum, tile_matmul, dropout):
+        m.launches.reset()
+    res = run_training(_strict_cfg(tmp_path), log=lambda m: None)
+    assert res.strict["violations"] == 0, res.strict
+    assert res.strict["steps"] == {"step": 4}
+    assert res.strict["fetches"] == 4
+    for m in (bucket_sum, tile_matmul, dropout):
+        assert m.launches.by_phase.get("fwd", 0) >= 4, m
+
+
+@pytest.mark.cuda
+def test_strict_exec_raises_on_an_item_inside_a_step(cuda, tmp_path,
+                                                     monkeypatch):
+    """A deliberate .item() of a CUDA tensor inside the guarded step is an
+    implicit transfer: StrictExecError, the JAX package's wording."""
+    from bnsgcn_tpu_torch import trainer
+    from bnsgcn_tpu_torch.run import run_training
+    from bnsgcn_tpu_torch.strict import StrictExecError
+    real = trainer.ce_sum
+
+    def leaky(logits, labels, mask):
+        out = real(logits, labels, mask)
+        out.detach().sum().item()
+        return out
+
+    monkeypatch.setattr(trainer, "ce_sum", leaky)
+    with pytest.raises(StrictExecError,
+                       match="implicit host transfer inside the guarded "
+                             "'step' step"):
+        run_training(_strict_cfg(tmp_path, resilience="off"),
+                     log=lambda m: None)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_a_card_trace_names_the_kernels(cuda, tmp_path):
+    """--profile-dir at P=1 on the card: the trace holds the train_step
+    spans and K1's, K2's and D1's kernels by name on the CUDA lanes."""
+    import json
+    from bnsgcn_tpu_torch.run import run_training
+    prof = tmp_path / "prof"
+    run_training(_strict_cfg(tmp_path, n_epochs=8, profile_dir=str(prof),
+                             strict_exec=False), log=lambda m: None)
+    with open(prof / "rank_0.json") as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in evs if e.get("cat") == "kernel"}
+    for name in ("ell_rows_kernel", "tile_spmm_kernel", "dropout_kernel"):
+        assert any(name in k for k in kernels), (name, sorted(kernels)[:20])
+    steps = [e for e in evs if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    assert len(steps) == 2

@@ -330,7 +330,9 @@ def p2(tmp_path_factory):
         jres = j_run_training(JConfig(**_base(
             tmp / "jax", comm_trace=False, obs_log=jlog, inject="nan@E5")),
             g=j_sbm_graph(**GRAPH), verbose=False)
-        cfg = Config(**_base(tmp, device="cpu", dist_backend="gloo"))
+        # no trace window on either side: the JAX run's comm_trace=False
+        cfg = Config(**_base(tmp, device="cpu", dist_backend="gloo",
+                             comm_trace=False))
         prepare_partition(cfg, sbm_graph(**GRAPH), load=False)
         path = os.path.join(cfg.part_path, cfg.derive_graph_name())
         work = str(tmp / "work")

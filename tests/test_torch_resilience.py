@@ -271,7 +271,8 @@ def _base(tmp, **kw):
              n_hidden=8, sampling_rate=0.5, dropout=0.5, use_pp=True,
              eval=False, n_epochs=8, log_every=2, seed=7,
              part_path=str(tmp / "parts"), graph_name="sbm-resil",
-             ckpt_path=str(tmp / "ckpt"), results_path=str(tmp / "res"))
+             ckpt_path=str(tmp / "ckpt"), results_path=str(tmp / "res"),
+             comm_trace=False)
     d.update(kw)
     return d
 
@@ -421,7 +422,7 @@ CLI = ["--dataset", "sbm", "--n-partitions", "2", "--dist-backend", "gloo",
        "--device", "cpu", "--model", "graphsage", "--n-layers", "2",
        "--n-hidden", "8", "--sampling-rate", "0.5", "--use-pp",
        "--n-epochs", "8", "--log-every", "2", "--no-eval", "--fix-seed",
-       "--seed", "11"]
+       "--seed", "11", "--no-comm-trace"]
 
 
 def _env(extra=None):

@@ -178,9 +178,9 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
-    ["--tune-schedule", "0:hr2"], ["--strict-exec"],
-    ["--profile-dir", "d"], ["--tune", "auto"],
-    ["--tune-prior", "model"], ["--tune", "schedule"], ["--cycles", "3"],
+    ["--warm-start", "w"], ["--serve-max-batch", "3"],
+    ["--embeddings", "e"], ["--cycle-epochs", "3"],
+    ["--tune-prior", "model"], ["--parts", "2"], ["--cycles", "3"],
     ["--n-partitions", "1", "--dump-embeddings", "e"],
     ["--serve-hedge", "on"],
     ["--serve-dir", "d"],
