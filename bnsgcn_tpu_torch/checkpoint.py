@@ -14,6 +14,8 @@ its optax chain, `bn_state`, `epoch`, `best_acc`, `seed` and `extra`
 File names, scoped by graph name and sampling rate:
   {ckpt_path}/{graph_name}_p{rate:.2f}_{epoch}.ckpt   (periodic)
   {ckpt_path}/{graph_name}_p{rate:.2f}_final.ckpt     (best validation)
+A server picks its file with `serving_checkpoint`; `promotion_path` names
+the continual trainer's promotion blob under a serve directory.
 """
 
 from __future__ import annotations
@@ -209,3 +211,27 @@ def final_best_payload(cfg, best_acc: float, log) -> Optional[dict]:
     if abs(float(payload.get("best_acc", -1.0)) - best_acc) >= 1e-9:
         return None
     return payload
+
+
+def serving_checkpoint(cfg, log=None) -> Optional[tuple[str, dict]]:
+    """(path, payload) of the checkpoint a server loads
+    (bnsgcn_tpu/checkpoint.py:315): the final (best-validation) checkpoint
+    when it verifies, else the newest valid periodic checkpoint, walking
+    past torn files as the resume does; None when none loads."""
+    fpath = final_path(cfg)
+    payload, err = load_or_error(fpath)
+    if payload is not None:
+        return fpath, payload
+    if err and log and os.path.exists(fpath):
+        log(f"[serve] final checkpoint unusable ({err}); walking the "
+            f"periodic chain")
+    return latest_valid_checkpoint(cfg, log=log)
+
+
+PROMOTION = "promotion.blob"
+
+
+def promotion_path(serve_dir: str) -> str:
+    """The continual trainer's promotion blob under a serve directory
+    (bnsgcn_tpu/checkpoint.py:174)."""
+    return os.path.join(serve_dir, PROMOTION)

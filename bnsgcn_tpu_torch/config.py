@@ -167,6 +167,17 @@ class Config:
     profile_dir: str = ""               # the trace window's directory
     comm_trace: bool = True             # trace a window for the [traced]
                                         # Comm column (one launch only)
+    # --- online serving (serve.py) and the embedding table ---
+    serve_port: int = 18120             # the server's TCP port (0: any)
+    serve_addr: str = ""                # its bind address ('' = all)
+    serve_dir: str = ""                 # delta log and snapshot (default
+                                        # {ckpt_path}/serve)
+    serve_max_batch: int = 64           # tier-B targets per bucket step
+    serve_refresh_s: float = 0.2        # background refresh period (0: off)
+    embeddings: str = ""                # serve: cold-start table
+    dump_embeddings: str = ""           # training: write the table here
+    serve_compact_deltas: int = 0       # fold the delta log into a
+                                        # snapshot every N deltas (0: off)
 
     # filled from the partition artifacts
     n_feat: int = 0
@@ -201,19 +212,19 @@ _NOT_PORTED = (
     (("tune_prior",), None, "the comm auto-tuner's model prior"),
     (("backend",), ("xla", "gloo", "mpi"),
      "collectives other than --dist-backend's"),
-    (("serve_port", "serve_addr", "serve_dir", "serve_max_batch",
-      "serve_refresh_s", "embeddings", "dump_embeddings",
-      "serve_compact_deltas", "parts", "part_replicas", "serve_part",
-      "serve_replica", "serve_backend_port", "serve_router",
-      "serve_degraded", "serve_probe_s", "serve_hedge", "serve_wal_cap"),
-     None, "serving"),
+    (("parts", "part_replicas", "serve_part", "serve_replica",
+      "serve_backend_port", "serve_router", "serve_degraded",
+      "serve_probe_s", "serve_hedge", "serve_wal_cap"),
+     None, "the partition-sharded serving fleet"),
     (("cycle_epochs", "cycles", "continual_source", "continual_cut_growth",
       "continual_imbalance", "continual_acc_drop", "warm_start",
       "cycle_nonce"), None, "continual training"),
 )
 
-# the JAX CLI's subcommands (bnsgcn_tpu/main.py:31-54)
+# the JAX CLI's subcommands (bnsgcn_tpu/main.py:31-54); `serve` is
+# ported (serve.py), the serving fleet's and continual training's are not
 SUBCOMMANDS = ("serve", "serve-router", "serve-backend", "continual")
+UNPORTED_SUBCOMMANDS = ("serve-router", "serve-backend", "continual")
 
 
 def create_parser() -> argparse.ArgumentParser:
@@ -405,8 +416,11 @@ def node_ranks(cfg: Config) -> range:
     return range(k * ppn, min((k + 1) * ppn, P))
 
 
-def config_from_args(args: argparse.Namespace) -> Config:
-    """Namespace -> Config, refusing every selected feature the port lacks."""
+def config_from_args(args: argparse.Namespace, training: bool = True
+                     ) -> Config:
+    """Namespace -> Config, refusing every selected feature the port lacks;
+    `training` False (the server) skips the checks of the training
+    launch's ranks."""
     parser = create_parser()
     flags = {a.dest: a.option_strings[0] for a in parser._actions
              if a.option_strings and a.dest != "help"}
@@ -433,7 +447,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         d["norm"] = None
     ranks = (d.get("n_partitions", 1) * d.get("replicas", 1)
              * d.get("feat", 1))
-    if (ranks > 1 and d.get("device") == "cpu"
+    if (training and ranks > 1 and d.get("device") == "cpu"
             and d.get("dist_backend") != "gloo"):
         raise ConfigError("--device cpu with --n-partitions, --replicas or "
                           "--feat > 1 needs --dist-backend gloo: NCCL runs "
@@ -442,5 +456,5 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return Config(**{k: v for k, v in d.items() if k in valid})
 
 
-def parse_config(argv=None) -> Config:
-    return config_from_args(create_parser().parse_args(argv))
+def parse_config(argv=None, training: bool = True) -> Config:
+    return config_from_args(create_parser().parse_args(argv), training)

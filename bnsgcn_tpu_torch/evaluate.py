@@ -2,12 +2,15 @@
 
 --eval-device host (the default): the eval forward is apply_model in eval
 mode over the whole undistributed graph on rank 0's device: COO
-sum-aggregation (ops/spmm.agg_sum; GAT: the segment softmax over the same
-edges, ops/spmm.segment_softmax), norms from the eval graph's own
-degrees, identity exchange, no dropout. Transductive runs score the val and
-test masks of the full graph in one pass; inductive runs score a
-subgraph's val or test mask (run.py hands in the train+val subgraph or the
-full graph). run.py runs these in a thread, overlapped with training.
+sum-aggregation in a fixed order per row (ops/spmm.FixedOrderSum, each
+row's terms in the order of its in-edges, as index_add_ adds them on the
+CPU: the same bits on every call on a card too; GAT: the segment softmax
+over the same edges, ops/spmm.segment_softmax), norms from the eval
+graph's own degrees, identity exchange, no dropout. Transductive runs
+score the val and test masks of the full graph in one pass; inductive runs
+score a subgraph's val or test mask (run.py hands in the train+val
+subgraph or the full graph). run.py runs these in a thread, overlapped
+with training.
 
 --eval-device mesh: `evaluate_mesh` runs the ranks' full-rate eval forward
 (trainer.StepFns.eval_forward, through K1 and K2) over the eval graph's
@@ -15,6 +18,9 @@ partition artifacts; each rank reduces its inner rows to summable metric
 statistics (`_metric_stats`), one all-reduce sums them, and rank 0 prints
 the line: the JAX package's multi-process branch, since the port's ranks
 are processes.
+
+The serving forward (`full_graph_embeddings`, serve.py's tier B) is this
+forward, returning the final layer's input too.
 
 Accuracy is argmax accuracy on single-label rows and micro-F1 of
 (logits > 0) on multilabel ones. Each line may also be appended to a
@@ -30,8 +36,22 @@ import torch
 
 from bnsgcn_tpu_torch.data.graph import Graph
 from bnsgcn_tpu_torch.models.gnn import GNN, GraphEnv, apply_model
-from bnsgcn_tpu_torch.ops.spmm import agg_sum
+from bnsgcn_tpu_torch.ops.spmm import FixedOrderSum
 from bnsgcn_tpu_torch.utils.metrics import calc_acc
+
+
+def coo_env(src, dst, n_dst: int, in_norm, out_norm,
+            row_tile: int = 0) -> GraphEnv:
+    """The eval forward's env over COO edges src -> dst (tensors on the
+    device; dst == n_dst: a padded edge) with the given norms and the
+    identity exchange: a FixedOrderSum's sums (GAT's too), and `row_tile`
+    (models/gnn.by_rows)."""
+    fixed = FixedOrderSum(src, dst, n_dst)
+    return GraphEnv(
+        n_dst=n_dst, in_norm=in_norm, out_norm=out_norm,
+        exchange=lambda i, h: h, aggregate=fixed.gather_sum,
+        training=False, src=src, dst=dst, row_tile=row_tile,
+        fixed_sum=fixed)
 
 
 def build_eval_env(g: Graph, model: str, device) -> GraphEnv:
@@ -41,12 +61,8 @@ def build_eval_env(g: Graph, model: str, device) -> GraphEnv:
         in_deg, out_deg = np.sqrt(in_deg), np.sqrt(out_deg)
     src = torch.from_numpy(np.asarray(g.src, np.int64)).to(device)
     dst = torch.from_numpy(np.asarray(g.dst, np.int64)).to(device)
-    return GraphEnv(
-        n_dst=g.n_nodes, in_norm=torch.from_numpy(in_deg).to(device),
-        out_norm=torch.from_numpy(out_deg).to(device),
-        exchange=lambda i, h: h,
-        aggregate=lambda h_ext: agg_sum(h_ext, src, dst, g.n_nodes),
-        training=False, src=src, dst=dst)
+    return coo_env(src, dst, g.n_nodes, torch.from_numpy(in_deg).to(device),
+                   torch.from_numpy(out_deg).to(device))
 
 
 class EvalGraph:
@@ -83,6 +99,20 @@ def full_graph_logits(model: GNN, g, device) -> np.ndarray:
     if not isinstance(g, EvalGraph):
         g = EvalGraph(g, model.spec.model, device)
     return _to_host(apply_model(model, g.feat, g.env))
+
+
+@torch.no_grad()
+def full_graph_embeddings(model: GNN, g, device
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """(hidden [N, H], logits [N, C]) on the whole of g (a Graph, or an
+    EvalGraph already on `device`; bnsgcn_tpu/evaluate.py:59): the
+    all-node embedding table serve.py and --dump-embeddings precompute, the
+    final layer's input and its output through full_graph_logits' forward
+    (the same logits, bitwise)."""
+    if not isinstance(g, EvalGraph):
+        g = EvalGraph(g, model.spec.model, device)
+    logits, hidden = apply_model(model, g.feat, g.env, return_hidden=True)
+    return _to_host(hidden), _to_host(logits)
 
 
 def _graph(g) -> Graph:

@@ -2,9 +2,12 @@
 
 It takes the JAX CLI's command line (python -m bnsgcn_tpu.main); the
 flagship recipe is scripts/reddit_torch.sh. Runs on the GPU unless
---device cpu is given. A flag whose feature is not ported yet, and the JAX
-CLI's subcommands (serve, serve-router, serve-backend, continual), exit 2
-with a `[config] ... not ported yet` line. As in the JAX CLI (and the
+--device cpu is given. `main serve ...` runs the online inference server
+(serve.py: exit 0 after its `shutdown` op, 75 after SIGTERM/SIGINT with
+the delta log flushed, 2 a config error). A flag whose feature is not
+ported yet, and the JAX CLI's other subcommands (serve-router,
+serve-backend, continual), exit 2 with a `[config] ... not ported yet`
+line. As in the JAX CLI (and the
 reference), the seed is drawn at random unless --fix-seed is given; it is
 drawn here, before any rank is spawned, so every rank keys its boundary
 sample from the same seed (--resume adopts the checkpoint's instead). The
@@ -59,7 +62,7 @@ import os
 import random
 import sys
 
-from bnsgcn_tpu_torch.config import (SUBCOMMANDS, ConfigError,
+from bnsgcn_tpu_torch.config import (UNPORTED_SUBCOMMANDS, ConfigError,
                                      config_from_args, create_parser,
                                      node_ranks)
 from bnsgcn_tpu_torch.parallel.coord import CoordAbort, CoordTimeout
@@ -73,8 +76,12 @@ from bnsgcn_tpu_torch.resilience import (EXIT_COORD_ABORT, EXIT_DIVERGED,
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     code = None
+    if argv and argv[0] == "serve":
+        # a long-running server with its own lifecycle (drain on SIGTERM)
+        from bnsgcn_tpu_torch import serve
+        return serve.serve_main(argv[1:])
     try:
-        if argv and argv[0] in SUBCOMMANDS:
+        if argv and argv[0] in UNPORTED_SUBCOMMANDS:
             raise ConfigError(f"{argv[0]} is not ported yet")
         cfg = config_from_args(create_parser().parse_args(argv))
         node_ranks(cfg)

@@ -64,7 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from bnsgcn_tpu_torch.config import Config
 from bnsgcn_tpu_torch.ops.dropout import dropout as _d1_dropout
-from bnsgcn_tpu_torch.ops.spmm import segment_softmax
+from bnsgcn_tpu_torch.ops.spmm import FixedOrderSum, segment_softmax
 from bnsgcn_tpu_torch.parallel.feat import (FeatAxis, shard_tensor,
                                             shardable_layers, torch_dims)
 from bnsgcn_tpu_torch.utils import prng
@@ -140,6 +140,13 @@ class GraphEnv:
     # every feat shard the whole activations)
     feat: Optional[FeatAxis] = None
     bn_copies: int = 1
+    # the serving forward's batching law (serve.py): row_tile > 0 runs the
+    # per-row dense work (the matmuls, LayerNorm, GAT's head sums) on tiles
+    # of exactly row_tile rows, so a row's bits do not depend on how many
+    # rows the forward holds; fixed_sum (ops/spmm.FixedOrderSum of src ->
+    # dst) gives GAT's COO sums a fixed order per row
+    row_tile: int = 0
+    fixed_sum: Optional[FixedOrderSum] = None
 
 
 class SageLayer(nn.Module):
@@ -360,6 +367,27 @@ def _sync_batch_norm(p: BatchNorm, h, env: GraphEnv, whole_size: int,
     return x_hat * p.weight + p.bias, new
 
 
+def by_rows(env: GraphEnv, fn, *xs):
+    """fn(*xs) for a fn whose output row r depends on row r of each input
+    alone (a matmul, a per-row reduction). With env.row_tile > 0 it runs on
+    tiles of exactly row_tile rows (the last zero-padded), so every row
+    passes through kernels of one shape, and so of one summation order,
+    whatever the row count: a card's GEMM and reduction kernels pick their
+    split by the shape."""
+    t = env.row_tile
+    if t <= 0:
+        return fn(*xs)
+    n, outs = xs[0].shape[0], []
+    for r0 in range(0, n, t):
+        tile = [x[r0:r0 + t] for x in xs]
+        k = tile[0].shape[0]
+        if k < t:
+            tile = [torch.cat([x, x.new_zeros((t - k,) + x.shape[1:])])
+                    for x in tile]
+        outs.append(fn(*tile)[:k])
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
 def _linear(p: nn.Linear, h):
     """h @ W + b in the promoted dtype of h and the parameters, as jnp
     promotes `h @ w + b`: bf16 in a bf16 step, f32 when a bf16 model
@@ -424,12 +452,14 @@ def _feat_layer(p, i, h, env: GraphEnv, spec: ModelSpec):
 
 def _gcn_layer(p, i, h, env: GraphEnv):
     s = env_agg_exchange(env, i, h, scale_out_norm=True)
-    return _linear(p, (s / env.in_norm[:, None]).to(h.dtype))
+    return by_rows(env, partial(_linear, p),
+                   (s / env.in_norm[:, None]).to(h.dtype))
 
 
 def _sage_layer(p: SageLayer, i, h, env: GraphEnv):
     ah = (env_agg_exchange(env, i, h) / env.in_norm[:, None]).to(h.dtype)
-    return _linear(p.linear1, h[:env.n_dst]) + _linear(p.linear2, ah)
+    return by_rows(env, lambda x, a: _linear(p.linear1, x)
+                   + _linear(p.linear2, a), h[:env.n_dst], ah)
 
 
 def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
@@ -451,14 +481,17 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
     if training and rng is not None:
         r1, r2, r3 = prng.split(rng, 3)
     h_ext = _dropout(h_ext, dropout, r1, training)             # feat_drop
-    z = _matmul(h_ext, p.w).reshape(h_ext.shape[0], heads, fout)
-    el = (z * p.attn_l.to(z.dtype)[None]).sum(-1)              # [n_ext, H]
+    z = by_rows(env, lambda x: _matmul(x, p.w), h_ext).reshape(
+        h_ext.shape[0], heads, fout)
+    el = by_rows(env, lambda x: (x * p.attn_l.to(z.dtype)[None]).sum(-1),
+                 z)                                            # [n_ext, H]
     if r2 is not None:
         h_d = _dropout(h_dst, dropout, r2, training)
         zd = _matmul(h_d, p.w).reshape(h_dst.shape[0], heads, fout)
     else:
         zd = z[:h_dst.shape[0]]
-    er = (zd * p.attn_r.to(z.dtype)[None]).sum(-1)             # [n_dst, H]
+    er = by_rows(env, lambda x: (x * p.attn_r.to(z.dtype)[None]).sum(-1),
+                 zd)                                           # [n_dst, H]
     seeds = (r3.to(z.device) if r3 is not None and dropout > 0.0
              else None)
     bias = p.bias.to(z.dtype)
@@ -471,9 +504,14 @@ def _gat_layer(p: GATLayer, h_dst, h_ext, presence, env: GraphEnv, rng,
     e = el[src] + er_pad[dst.clamp(max=env.n_dst)]
     e = torch.where(e > 0, e, e * negative_slope)
     alpha = segment_softmax(e, dst, env.n_dst,
-                            None if presence is None else presence[src])
+                            None if presence is None else presence[src],
+                            fixed=env.fixed_sum)
     alpha = _dropout_heads(alpha, dropout, r3, training,         # attn_drop
                            total_heads, head_off)
+    if env.fixed_sum is not None:
+        out = env.fixed_sum.map_sum(heads * fout, lambda ids: (
+            z[src[ids]] * alpha[ids, :, None]).reshape(-1, heads * fout))
+        return (out + bias.reshape(-1)).reshape(env.n_dst, heads, fout)
     out = z.new_zeros((env.n_dst + 1, heads * fout))
     step = max(1, (1 << 28) // max(heads * fout, 1))
     for e0 in range(0, src.shape[0], step):
@@ -540,14 +578,15 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv, rng=None):
         h = _gat_layer(p, h_d, h_ext, env.presence, env, rng, spec.dropout,
                        env.training, total_heads=spec.heads, head_off=off)
         # the mean over heads; sharded: the sum of every shard's head sums
-        h = env.feat.sum(h.sum(1)) / spec.heads if fshard else h.mean(1)
+        h = (env.feat.sum(h.sum(1)) / spec.heads if fshard
+             else by_rows(env, lambda x: x.mean(1), h))
         return _layer_tail(model, i, h, env)
     # dropout fires on the full width, sharded or not: the feat=1 masks
     h = _dropout(h, spec.dropout, rng, env.training)
     if fshard:
         h = _feat_layer(p, i, h, env, spec)
     elif i >= spec.n_graph_layers:
-        h = _linear(p, h)
+        h = by_rows(env, partial(_linear, p), h)
     elif env.training and spec.use_pp and i == 0:
         h = _linear(p, h)                      # precomputed layer 0
     elif spec.model == "gcn":
@@ -555,7 +594,8 @@ def _layer_forward(model: GNN, i: int, h, env: GraphEnv, rng=None):
     elif (not env.training) and spec.use_pp and i == 0:
         # eval use_pp layer 0: cat(feat, mean) @ W
         ah = env_agg_exchange(env, i, h) / env.in_norm[:, None]
-        h = _linear(p, torch.cat([h[:env.n_dst], ah], 1))
+        h = by_rows(env, lambda x, a: _linear(p, torch.cat([x, a], 1)),
+                    h[:env.n_dst], ah)
     else:
         h = _sage_layer(p, i, h, env)
     return _layer_tail(model, i, h, env)
@@ -569,7 +609,8 @@ def _layer_tail(model: GNN, i: int, h, env: GraphEnv):
         return (h,)
     new = None
     if spec.norm == "layer":
-        h = _layer_norm(getattr(model, f"norm_{i}"), h)
+        h = by_rows(env, partial(_layer_norm, getattr(model, f"norm_{i}")),
+                    h)
     elif spec.norm == "batch":
         h, new = _sync_batch_norm(getattr(model, f"norm_{i}"), h, env,
                                   spec.train_size)

@@ -45,8 +45,9 @@ __all__ = [
 # every kind. The port emits the training and resilience kinds of the paths
 # it runs; 'trace', 'overlap' and 'profile' come from the JAX package's
 # profiler windows, 'tune_decision' and 'strict_exec' from its tuner and
-# guard, and the serving, continual, bench and analysis kinds from its other
-# subsystems, none of them ported yet.
+# guard, 'serve_header', 'serve_drain', 'delta' and 'serve_compact' from
+# its server (serve.py), and the serving fleet's, continual, bench and
+# analysis kinds from its other subsystems, not ported yet.
 EVENT_KINDS = (
     # training lifecycle (run.py)
     "run_header", "epoch", "epoch_ranks", "eval", "trace", "overlap",

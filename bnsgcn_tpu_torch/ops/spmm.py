@@ -2,7 +2,9 @@
 (counterpart of bnsgcn_tpu/ops/spmm.py: XLA segment ops there, no TPU
 kernel). Plain PyTorch index_add_ and scatter_reduce_; on a card index_add_
 adds with atomics, so its sums may differ in the last bits from run to
-run.
+run. `FixedOrderSum` is the serving forward's sum: each row's terms added
+in the order of its own in-edges, the same bits on every call and whatever
+other rows the edge list holds.
 
 The split: a destination row is FRONTIER when at least one of its in-edges
 comes from a halo slot (src >= n_dst in the extended index space) and
@@ -39,6 +41,72 @@ def agg_sum(h_src: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     for e0 in range(0, src.shape[0], step):
         out.index_add_(0, dst[e0:e0 + step], h_src[src[e0:e0 + step]])
     return out[:n_dst]
+
+
+class FixedOrderSum:
+    """The COO sum of a fixed edge list in a fixed order per row: out[v] =
+    the terms of v's in-edges added one after another in the order the
+    list holds them (the order index_add_ adds them on the CPU), one
+    sequential sum per output element (torch.segment_reduce over the edges
+    stably sorted by destination). A row's bits so depend on its own
+    in-edges alone: not on which other rows the list holds, nor on a card's
+    atomics. Edges with dst >= n_dst are dropped. Sorted once, on the
+    edges' device; a call gathers whole rows in chunks of at most
+    `budget_elems` gathered elements (one longer row alone)."""
+
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor, n_dst: int,
+                 budget_elems: int = 1 << 28):
+        dst = dst.long()
+        order = torch.sort(dst, stable=True).indices
+        counts = torch.bincount(dst.clamp(max=n_dst), minlength=n_dst + 1)
+        ptr = np.concatenate([[0], np.cumsum(counts.cpu().numpy())])
+        n_real = int(ptr[n_dst])
+        self.order = order[:n_real]
+        self.src = src.long()[self.order]
+        self.lengths = counts[:n_dst]
+        self.ptr = ptr[:n_dst + 1]
+        self.n_dst, self.budget = n_dst, budget_elems
+        self._chunks: dict[int, list] = {}
+
+    def _rows(self, width: int) -> list:
+        """[(r0, r1)]: row chunks of at most budget / width edges each."""
+        hit = self._chunks.get(width)
+        if hit is None:
+            step = max(1, self.budget // max(width, 1))
+            hit, r0 = [], 0
+            while r0 < self.n_dst:
+                r1 = int(np.searchsorted(self.ptr, self.ptr[r0] + step,
+                                         "right")) - 1
+                r1 = min(max(r1, r0 + 1), self.n_dst)
+                hit.append((r0, r1))
+                r0 = r1
+            self._chunks[width] = hit
+        return hit
+
+    def _sum(self, width: int, take) -> torch.Tensor:
+        """Row chunks of segment sums of take(e0, e1) [e1 - e0, width]."""
+        outs = []
+        for r0, r1 in self._rows(width):
+            e0, e1 = int(self.ptr[r0]), int(self.ptr[r1])
+            outs.append(torch.segment_reduce(
+                take(e0, e1), "sum", lengths=self.lengths[r0:r1], axis=0,
+                unsafe=True))
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    def gather_sum(self, h_src: torch.Tensor) -> torch.Tensor:
+        """out[v] = sum over v's in-edges (u -> v) of h_src[u], [n_dst, H]."""
+        return self._sum(h_src.shape[1], lambda e0, e1: h_src[self.src[e0:e1]])
+
+    def map_sum(self, width: int, fn) -> torch.Tensor:
+        """out[v] = sum over v's in-edges e of fn(e) [width], where fn maps
+        a LongTensor of edge ids (positions in the edge list) to their
+        rows; [n_dst, width]."""
+        return self._sum(width, lambda e0, e1: fn(self.order[e0:e1]))
+
+    def edge_sum(self, vals: torch.Tensor) -> torch.Tensor:
+        """out[v] = sum over v's in-edges e of vals[e] (vals [E, d] in the
+        edge list's order), [n_dst, d]."""
+        return self.map_sum(vals.shape[1], lambda ids: vals[ids])
 
 
 def frontier_mask(src: np.ndarray, dst: np.ndarray, n_dst: int) -> np.ndarray:
@@ -207,13 +275,16 @@ class SplitSpmm:
 
 
 def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n_dst: int,
-                    mask=None, chunk: int = 1 << 24) -> torch.Tensor:
+                    mask=None, chunk: int = 1 << 24,
+                    fixed: "FixedOrderSum | None" = None) -> torch.Tensor:
     """The masked edge softmax grouped by destination (bnsgcn_tpu/ops/
     spmm.py `segment_softmax`, DGL's edge_softmax in the reference's
     GATConv): scores [E, heads], dst [E] (dst == n_dst: a padded edge, its
     own segment), mask [E] bool or None; masked edges get weight 0. The
     segment max and the denominators are accumulated over edge chunks of
-    `chunk` edges."""
+    `chunk` edges; with `fixed` (the same edges' FixedOrderSum) the
+    denominators are its fixed-order sums (a padded edge's is 1: its
+    weight reaches no real row)."""
     n_out = n_dst + 1
     s = scores if mask is None else torch.where(mask[:, None], scores,
                                                 -1e30)
@@ -230,7 +301,10 @@ def segment_softmax(scores: torch.Tensor, dst: torch.Tensor, n_dst: int,
         if mask is not None:
             x = torch.where(mask[e0:e0 + chunk, None], x, 0.0)
         ex[e0:e0 + chunk] = x
-        denom.index_add_(0, dst[e0:e0 + chunk], x)
+        if fixed is None:
+            denom.index_add_(0, dst[e0:e0 + chunk], x)
+    if fixed is not None:
+        denom = torch.cat([fixed.edge_sum(ex), s.new_ones((1, heads))])
     denom = denom.clamp(min=1e-16)
     for e0 in range(0, s.shape[0], chunk):
         ex[e0:e0 + chunk] /= denom[dst[e0:e0 + chunk]]

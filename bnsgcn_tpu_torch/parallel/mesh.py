@@ -67,7 +67,7 @@ import time
 import traceback
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -408,6 +408,17 @@ class Comm:
         dist.broadcast_object_list(box, src=self.global_rank(src),
                                    group=self._waits())
         return box[0]
+
+    def gather_host(self, x: torch.Tensor, dst: int = 0) -> Optional[list]:
+        """Every rank's host tensor x (one shape on every rank) on rank
+        `dst`, a list in rank order (None on the others), over the wait
+        group where the Comm has one: a one-off transfer through host
+        memory, outside any step."""
+        x = x.contiguous()
+        out = ([torch.empty_like(x) for _ in range(self.world)]
+               if self.rank == dst else None)
+        dist.gather(x, out, dst=self.global_rank(dst), group=self._waits())
+        return out
 
     def all_gather_object(self, obj) -> list:
         out = [None] * self.world

@@ -1409,6 +1409,18 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                                           device, "test", log=log)
         if lead:
             res.eval_seconds.append(time.perf_counter() - t_ev)
+    if cfg.dump_embeddings:
+        full = None
+        if not (mesh_eval and not cfg.inductive):
+            # the host branch scores full parameters: the best ones as the
+            # final checkpoint holds them, else the trained ones, gathered
+            # over rank 0's feat group as for a checkpoint
+            if cfg.eval and best_state is not None:
+                full = best_full
+            elif gathers:
+                full = fns.full_state(model.state_dict())
+        dump_embeddings(pr, best if cfg.eval and best_state is not None
+                        else model, full, ev_val, lead, best_acc, log)
     if obs is not None:
         obs.emit("run_end", final_loss=res.losses[-1] if res.losses
                  else loss_f, epoch_time_s=round(res.epoch_time, 6),
@@ -1420,6 +1432,74 @@ def train_loop(pr: Prepared, model_init: Optional[dict] = None,
                  step_hist=obs.registry.histogram("train/step_s").snapshot())
         obs.close()
     return res, model
+
+
+def dump_embeddings(pr: Prepared, model: GNN, full: Optional[dict],
+                    ev_val, lead: bool, best_acc: float, log) -> None:
+    """--dump-embeddings after the final eval (bnsgcn_tpu/run.py:1875-1916):
+    the all-node table (the final layer's input and the logits) of the
+    best parameters (the trained ones without an eval) in global node
+    order, written by rank 0 through serve.save_table with the JAX meta
+    keys. Under --eval-device mesh, transductive, every rank runs
+    embed_forward on its part (K1 and K2, counted under 'eval') and rank 0
+    gathers the ranks' inner rows once, over the world's wait group;
+    otherwise rank 0 runs full_graph_embeddings (the serving forward) on
+    the full graph with `full` (a state_dict of full parameters). Skipped,
+    with the JAX line, across nodes or without an eval graph."""
+    cfg = pr.cfg
+    mesh = cfg.eval and cfg.eval_device == "mesh" and not cfg.inductive
+    if cfg.n_nodes > 1:
+        if lead:
+            log("[serve] --dump-embeddings skipped: multi-host export needs "
+                "a gather of remote part rows (single-host only for now)")
+        return
+    if not mesh and (not lead or pr.test_g is None):
+        if lead:
+            log("[serve] --dump-embeddings skipped: no eval graph loaded "
+                "(run with --eval, or --eval-device mesh transductive)")
+        return
+    from bnsgcn_tpu_torch import serve as serve_mod
+    from bnsgcn_tpu_torch.evaluate import _to_host, full_graph_embeddings
+    t0 = time.time()
+    if mesh:
+        fns_e, blk_e, art_e = ev_val
+        hid, lg = fns_e.embed_forward(model, blk_e)
+        rows = torch.from_numpy(np.concatenate(
+            [_to_host(hid.float()), _to_host(lg.float())], 1))
+        row = local_row(art_e, pr.rank)
+        ids = torch.from_numpy(np.where(art_e.inner_mask[row],
+                                        art_e.global_nid[row], -1)
+                               .astype(np.int64))
+        axes = pr.axes
+        if axes is not None and (axes.r or axes.f):
+            ids[:] = -1             # one copy of each part: replica 0's,
+                                    # feat shard 0's
+        world = pr.world
+        if world is None:
+            got_rows, got_ids = [rows], [ids]
+        else:
+            got_rows, got_ids = world.gather_host(rows), world.gather_host(ids)
+        if not lead:
+            return
+        n = sum(int((i >= 0).sum()) for i in got_ids)
+        table = np.zeros((n, rows.shape[1]), np.float32)
+        for r, i in zip(got_rows, got_ids):
+            keep = i >= 0
+            table[i[keep].numpy()] = r[keep].numpy()
+        h_w = hid.shape[1]
+        hidden, logits = table[:, :h_w], table[:, h_w:]
+    else:
+        dt = next(model.parameters()).dtype
+        m = GNN(pr.spec, cfg.seed, dt).to(device=pr.device, dtype=dt)
+        m.load_state_dict(full)
+        hidden, logits = full_graph_embeddings(m, pr.test_g, pr.device)
+    serve_mod.save_table(cfg.dump_embeddings, hidden, logits, meta={
+        "graph_name": cfg.graph_name or cfg.derive_graph_name(),
+        "model": cfg.model, "n_nodes": int(hidden.shape[0]),
+        "epoch": cfg.n_epochs - 1, "best_acc": float(best_acc)})
+    log(f"[serve] embedding table [{hidden.shape[0]} x {hidden.shape[1]}] "
+        f"+ logits [{logits.shape[1]} classes] -> {cfg.dump_embeddings} "
+        f"({time.time() - t0:.1f}s)")
 
 
 def tuned_levers(cfg: Config, fns: StepFns) -> dict:
@@ -2058,6 +2138,10 @@ def _launcher_setup(cfg: Config, g: Optional[Graph], log, nodes,
             if not harness:
                 cfg, resume_from = resume_point(cfg, log)
             host_eval = cfg.eval and not mesh_eval and ctl.rank == 0
+            # --dump-embeddings' host branch scores the full graph on rank 0
+            host_eval = host_eval or (
+                bool(cfg.dump_embeddings) and ctl.rank == 0
+                and cfg.n_nodes == 1 and not (mesh_eval and not cfg.inductive))
             builds = not cfg.skip_partition and not (harness and ctl.rank)
             if g is None and (host_eval or builds):
                 g, _, _ = load_data(cfg)

@@ -413,6 +413,8 @@ class StepFns:
     forward: Callable                  # (model, blk, epoch, key) -> logits
     precompute: Callable               # (blk) -> layer-0 input features
     eval_forward: Callable             # (model, blk) -> eval logits
+    embed_forward: Callable            # (model, blk) -> (hidden, logits)
+                                       # of the same forward
     dense_edges: int = 0               # edges on dense tiles (hybrid)
     halo: Optional[HaloSpec] = None    # the training exchange (P > 1)
     halo_full: Optional[HaloSpec] = None   # the precompute's, at rate 1.0
@@ -1044,16 +1046,18 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
         return torch.cat([blk["feat"], ah], 1)
 
     @torch.no_grad()
-    def eval_forward(model: GNN, blk):
+    def embed_forward(model: GNN, blk):
         """The full-rate eval forward of this part (the JAX trainer's
-        local_embed/eval_forward): eval mode (no dropout; with use_pp, layer
-        0 exchanges and aggregates the raw features), every halo row
-        present (the precompute's full-rate plan, native wire, padded),
-        the norms of the artifacts' graph, and the training SpMM with the
-        training codecs (`_aggregate_for`; a split pair composed), its K1
-        and K2 launches counted under 'eval'. blk['feat'] holds the raw f32
-        features. Logits [pad_inner, n_class]; at P > 1 every rank calls it
-        together. GAT attends with the full-rate plan's presence."""
+        local_embed/embed_forward): (hidden [pad_inner, H], logits
+        [pad_inner, n_class]), hidden the final layer's input (the
+        embedding table's rows, --dump-embeddings). Eval mode (no dropout;
+        with use_pp, layer 0 exchanges and aggregates the raw features),
+        every halo row present (the precompute's full-rate plan, native
+        wire, padded), the norms of the artifacts' graph, and the training
+        SpMM with the training codecs (`_aggregate_for`; a split pair
+        composed), its K1 and K2 launches counted under 'eval'.
+        blk['feat'] holds the raw f32 features. At P > 1 every rank calls
+        it together. GAT attends with the full-rate plan's presence."""
         if comm is None:
             exchange, presence = local_exchange, local_presence()
         else:
@@ -1066,7 +1070,14 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
                                   lambda h: spmm.apply_dir("fwd", h, "eval")),
                        training=False, presence=presence, attention=gat,
                        feat=feat)
-        return apply_model(model, blk["feat"], env)
+        logits, hidden = apply_model(model, blk["feat"], env,
+                                     return_hidden=True)
+        return hidden, logits
+
+    def eval_forward(model: GNN, blk):
+        """embed_forward's logits (the JAX trainer's local_eval): the eval
+        forward the metrics read, [pad_inner, n_class]."""
+        return embed_forward(model, blk)[1]
 
     def set_nonce(nonce: int, rnonce: int = 0) -> None:
         # bnsgcn_tpu/run.py:904 `_fold_keys`: the resize nonce's domain,
@@ -1084,7 +1095,8 @@ def build_step_fns(cfg: Config, spec: ModelSpec, art: PartitionArtifacts,
              if spmm is not None and kind == "hybrid" else 0)
     return StepFns(spmm=spmm, layout=layout, train_step=train_step,
                    forward=forward, precompute=precompute,
-                   eval_forward=eval_forward, dense_edges=dense,
+                   eval_forward=eval_forward, embed_forward=embed_forward,
+                   dense_edges=dense,
                    halo=hspec, halo_full=hfull, spmm_kind=kind, gat=gat,
                    layout_times=cache.times, overlap=overlap,
                    halo_strategy=strategy, halo_refresh=refresh_k,

@@ -77,13 +77,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      per exchange, the plan's ms, the exchange's share and the epoch at
      rate 0.1 beside rate 1.0's;
      then [meval]: --eval-device mesh on the law run's transductive
-     artifacts at rate 0.1, 4 epochs, an eval every 2: each rank first runs
+     artifacts at rate 0.1, 2 epochs, an eval every epoch (4 and 2 before
+     [serve]), with --dump-embeddings: each rank first runs
      the mesh eval forward of the main path's best parameters, whose
      logits must agree with the host eval's (COO) on the full graph within
      1e-4 of the largest and whose predictions must too, apart from
      near-ties; K1 and K2 must launch once per aggregation of training and
-     of each eval (under 'eval'); it prints the mesh eval's seconds beside
-     the host eval's;
+     of each eval and of the export (under 'eval'); it prints the mesh
+     eval's seconds beside the host eval's; the exported table (every
+     rank's embed_forward, rank 0's gather) must hold every node with the
+     JAX meta keys and agree with the host branch's (full_graph_embeddings,
+     the serving forward, on the card: [serve]'s precompute) for the run's
+     best parameters within 1e-4 of the largest value, its predictions too
+     apart from near-ties; then [serve], alone: a server over that graph
+     and those parameters in this process (build_core; a ServeServer on a
+     free port): two
+     precomputes (fixed-order sums) bitwise equal and within 1e-4 of the
+     table, timed beside the same forward with index_add_'s sums; 400
+     tier-A predicts over TCP from 4 client threads, each bitwise the
+     table's row; 8 clean nodes in tier B (4 predicts, 4 in a predict_many
+     beside them: two buckets in flight) within 1e-4 of tier A; each
+     tier's p50 and p99 from the stats op; one tier-B step of a node alone
+     timed by its parts (the closure's build, the transfer, the forward),
+     its buckets, the peak memory; beside [cli] (phase 6) the same node in
+     a full bucket of --serve-max-batch targets must get the same bits, an
+     edge between the two nodes of least out-degree must mark exactly its
+     4-hop forward closure, and one step over the dirty set must leave the
+     clean rows bitwise untouched and the dirty ones within 1e-4 of a
+     scratch eval of the mutated graph;
   5b. [lowp] on the P=1 graph and layouts (shared, not rebuilt): the
      TPU recipe with its finer knobs, --dtype bfloat16 --spmm auto
      --use-pallas --spmm-dense int8 --spmm-gather int8 (auto must pick the
@@ -100,9 +121,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      slabs exactly once per aggregation and once in the precompute; the
      loss finite and falling; the epoch beside the f32 and [lowp] ones,
      peak memory); at P=4, appended to the P=4 main path's command line on
-     its artifacts (no repartitioning), 4 epochs, in which each rank first
-     holds K1 and K2 on bf16 to their plain versions on its own layout
-     (phase 2's bounds and controls), then launches them as at P=1; the
+     its artifacts (no repartitioning), 2 epochs (4 before [serve]), in
+     which each rank first holds K1 and K2 on bf16 to their plain
+     versions on its own layout (phase 2's bounds and controls), then
+     launches them as at P=1; the
      loss finite, every rank ending with rank 0's parameters; it prints
      each rank's epoch and exchange share and the int8 wire's MB per
      exchange beside the f32 path's;
@@ -183,7 +205,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-5 (relative); meanwhile, with --eval-device mesh: partition_cli writes
      the train subgraph's artifacts and the eval graphs' ('-val', '-test'),
      and the script trains 8 epochs from them (--skip-partition), the
-     ranks evaluating;
+     ranks evaluating; the 8-epoch run also writes --dump-embeddings,
+     and the CLI server over it ([serve], `python -m bnsgcn_tpu_torch.main
+     serve`) must cold-start from that table and answer predict (bitwise
+     the table) and predict_many, take a delta and exit 75 on a SIGTERM
+     with the delta log flushed; a relaunch must replay it to the same
+     dirty count and, under --serve-compact-deltas 1, fold it and a second
+     delta into the snapshot and exit 0 on the shutdown op; the launch
+     after it must resume from the snapshot and exit 0;
      [resil] rides these runs: the 8-epoch and the uninterrupted 12-epoch
      run carry --inject nan@E5 and must log the rollback to _3.ckpt;
      the resume to 12 (an eval and a checkpoint every 2) gets a real
@@ -209,13 +238,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      50,000 nodes: Yelp's 716,847 cut), written in the GraphSAINT layout
      and read through --dataset yelp --data-path: each rank first holds K1
      and K2 to their plain versions at H=512 and F=300 on its own layout;
-     the BCE loss finite and falling over 20 epochs, the micro-F1 lines;
+     the BCE loss finite and falling over 10 epochs (20 before [serve]),
+     the micro-F1 lines;
   6c. [papers]: scripts/ogbn-papers100m_torch.sh's two steps (BASELINE
      config 5: GCN 3x128, rate 0.01, bf16, fp8 wire, --eval-device mesh)
      on an OGB binary directory at papers100M's widths, 1,000,000 nodes:
      the script's streaming partition step with bf16 feature storage at
      P=4 (wall time, peak RSS; started beside step 1's set-up, whose host
-     work leaves cores idle), then 4 epochs twice with one --cache-dir:
+     work leaves cores idle), then 2 epochs (4 before [serve]) twice with
+     one --cache-dir:
      one launch of 4 ranks through run.run_training, cold (each rank first
      holds K1 on bf16 rows to its plain version on its own ELL layout; K1
      once per aggregation of training and of each mesh eval, K2 never),
@@ -255,6 +286,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -331,6 +363,7 @@ CLI_FLAGS = ["--dataset", "synth-reddit:0.02", "--n-partitions", str(PARTS),
              "--dist-backend", "gloo", "--log-every", "4", "--fix-seed",
              "--no-comm-trace"]
 CLI_EPOCHS = (8, 12)
+CLI_TABLE = "table.tbl"     # the first run's --dump-embeddings ([serve])
 CLI_RTOL = 1e-5
 CLI_TIMEOUT_S = 300
 # [resil]: the fault injected into [cli]'s 8- and 12-epoch runs, the
@@ -359,14 +392,27 @@ COORD_DEAD_S = 3
 # finer knobs.
 RECIPE_TPU = ["--dtype", "bfloat16", "--spmm", "auto", "--use-pallas",
               "--halo-wire", "int8"]
-RECIPE_P4_EPOCHS = 4    # [recipe]'s run at P=4
+RECIPE_P4_EPOCHS = 2    # [recipe]'s run at P=4 (4 before [serve])
 # [meval]: --eval-device mesh on the law run's transductive artifacts, and
 # the bound on its logits against the host eval's (COO) for the same
 # parameters: 1e-4 of the largest |logit| (two f32 forwards through 4
 # layers that sum each aggregation in another order, LayerNorm between;
 # 3.4e-6 of it measured on an H100 at synth-reddit:0.5)
-MEVAL_EPOCHS, MEVAL_LOG_EVERY = 4, 2
+MEVAL_EPOCHS, MEVAL_LOG_EVERY = 2, 1    # 4, 2 before [serve] (its cut)
 MEVAL_LOGIT_FRAC = 1e-4
+# [serve]: [meval]'s run exports its table (--dump-embeddings under
+# --eval-device mesh: every rank's embed_forward through K1 and K2, rank 0's
+# gather), held to the host branch's table of the same parameters within
+# SERVE_FRAC of the largest value; then a server over that graph and those
+# parameters in this process (build_core, a ServeServer on a free port,
+# client threads over TCP: SERVE_TIER_A requests of tier A, SERVE_TIER_B of
+# tier B, some in a predict_many beside the batcher's step: two buckets in
+# flight), its delta and flush beside [cli]; and the CLI server over [cli]'s
+# first run (its table, a SIGTERM, the replay, the compaction)
+SERVE_FRAC = 1e-4
+SERVE_TIER_A, SERVE_CLIENTS = 400, 4
+SERVE_TIER_B = 8
+SERVE_TIMEOUT_S = 600
 # [cli]'s run of the script with --eval-device mesh
 CLI_MESH_EPOCHS = 8
 # [yelp]: scripts/yelp_torch.sh (the reference's Yelp model) on a
@@ -376,7 +422,7 @@ CLI_MESH_EPOCHS = 8
 YELP_SCRIPT = os.path.join("scripts", "yelp_torch.sh")
 YELP_NODES, YELP_DEGREE = 50_000, 20
 YELP_FEAT, YELP_CLASSES = 300, 100
-YELP_EPOCHS, YELP_LOG_EVERY = 20, 10
+YELP_EPOCHS, YELP_LOG_EVERY = 10, 5    # 20, 10 before [serve]
 # [gat]: the flagship's command line with --model gat --heads 2 on the P=4
 # main path's artifacts, an eval every GAT_LOG_EVERY epochs; the law at
 # [cli]'s scale, P=4 against P=1, rate 1.0, dropout 0
@@ -393,7 +439,7 @@ PAPERS_SCRIPT = os.path.join("scripts", "ogbn-papers100m_torch.sh")
 PAPERS_NODES, PAPERS_DEGREE = 1_000_000, 14.5
 PAPERS_FEAT, PAPERS_CLASSES = 128, 172
 PAPERS_SPLIT = (0.011, 0.0011, 0.0019)      # train, valid, test shares
-PAPERS_EPOCHS, PAPERS_LOG_EVERY = 4, 2
+PAPERS_EPOCHS, PAPERS_LOG_EVERY = 2, 2  # 4, 2 before [serve]
 PAPERS_RTOL = 1e-6
 # [halo]: the exchange's variants on the P=4 main path's artifacts, each
 # (name, Config fields over that path's command line)
@@ -1144,15 +1190,18 @@ def parts_runs(cfg, args, part_path, writer):
     from bnsgcn_tpu_torch import checkpoint as ckpt
     meval = meval_phase(base, g, ckpt.final_path(main4))
     sub_done("meval")
-    recipe = recipe_p4(main4, g)
-    sub_done("recipe")
+    held, alone, serve_d = serve_phase(meval_cfg(base), g, meval["export"])
+    sub_done("serve")
     gat = gat_phase(main4, g)
     sub_done("gat")
     halo = halo_phase(main4, args)
-    sub_done("halo+knobs")
+    recipe = halo.pop("recipe")
+    sub_done("halo+knobs+recipe+tune")
     axes = axes_phase(law, main4, r4.losses, res.losses)
     sub_done("axes")
     return {"scale": args.parts_scale, "recipe": recipe, "meval": meval,
+            "serve": serve_d,
+            "serve_held": (meval_cfg(base), g, held, alone),
             "phases": phases,
             "gat": gat, "halo": halo, "axes": axes,
             "overlap": overlap,
@@ -1232,6 +1281,16 @@ def meval_hook(params_file, pr):
             "gnid": pr.art.global_nid[0][inner], "seconds": secs}
 
 
+def meval_cfg(base):
+    """[meval]'s run: --eval-device mesh on the law's transductive
+    artifacts, with --dump-embeddings."""
+    return base.replace(n_partitions=PARTS, n_epochs=MEVAL_EPOCHS,
+                        log_every=MEVAL_LOG_EVERY, sampling_rate=BNS_RATE,
+                        eval_device="mesh", skip_partition=True,
+                        dump_embeddings=os.path.join(base.ckpt_path,
+                                                     "meval_table.tbl"))
+
+
 def meval_phase(base, g, params_file):
     """[meval]: --eval-device mesh, the P=4 main path's model on the law
     run's transductive artifacts (--skip-partition) at rate BNS_RATE,
@@ -1254,9 +1313,8 @@ def meval_phase(base, g, params_file):
     from bnsgcn_tpu_torch.models.gnn import GNN, spec_from_config
     from bnsgcn_tpu_torch.run import run_training
     from bnsgcn_tpu_torch.trainer import params_from_jax
-    c = base.replace(n_partitions=PARTS, n_epochs=MEVAL_EPOCHS,
-                     log_every=MEVAL_LOG_EVERY, sampling_rate=BNS_RATE,
-                     eval_device="mesh", skip_partition=True)
+    c = meval_cfg(base)
+    table = c.dump_embeddings
     tee = Tee()
     t0 = time.perf_counter()
     res = run_training(c, g=g, log=tee,
@@ -1300,14 +1358,16 @@ def meval_phase(base, g, params_file):
         accs[mode] = (float((pm == lab).mean()), float((ph == lab).mean()),
                       int((pm != ph).sum()))
     mesh_s = [rep["hook"]["seconds"] for rep in res.ranks]
+    # each eval and the export's embed_forward: one launch of each a layer
     passes = (c.n_layers - 1) * c.n_epochs
     want = {"fwd": passes, "bwd": passes, "pre": 1,
-            "eval": c.n_layers * n_evals}
+            "eval": c.n_layers * (n_evals + 1)}
     for rep in res.ranks:
         for name, cnt in rep["launches"].items():
             if cnt != want:
                 raise AssertionError(f"[meval] rank {rep['rank']}: {name} "
                                      f"launched {cnt}, not {want}")
+    export = export_check(c, g, tee, table)
     log(f"[meval] --eval-device mesh, P={PARTS} transductive, rate "
         f"{c.sampling_rate}, {c.n_epochs} epochs: mesh logits of the P={PARTS}"
         f" main path's best parameters against the host eval's (COO) on the "
@@ -1330,6 +1390,395 @@ def meval_phase(base, g, params_file):
             "host_eval_s": host_s, "eval_seconds": res.eval_seconds,
             "evals": evals, "losses": res.losses,
             "launches": [rep["kinds"] for rep in res.ranks],
+            "export": export, "seconds": secs}
+
+
+def export_check(c, g, tee, table):
+    """[meval]'s --dump-embeddings (transductive, --eval-device mesh: the
+    ranks' embed_forward and rank 0's gather): one export line, and a table
+    of every node with the JAX meta keys; serve_phase holds its values to
+    the host branch's. Returns the details, with the export's seconds as
+    the run logged them."""
+    from bnsgcn_tpu_torch import serve
+    line = tee.having("[serve] embedding table [")
+    if len(line) != 1:
+        raise AssertionError(f"[serve] the export logged {line}")
+    secs = float(re.search(r"\(([\d.]+)s\)$", line[0]).group(1))
+    hidden, logits, meta = serve.load_table(table)
+    want = {"graph_name": c.derive_graph_name(), "model": c.model,
+            "n_nodes": g.n_nodes, "epoch": c.n_epochs - 1}
+    if (any(meta.get(k) != v for k, v in want.items())
+            or hidden.shape != (g.n_nodes, c.n_hidden)
+            or logits.shape != (g.n_nodes, g.n_class)):
+        raise AssertionError(f"[serve] the table {hidden.shape} "
+                             f"{logits.shape}, meta {meta}, not {want}")
+    return {"seconds": secs, "table": table, "shape": list(hidden.shape)}
+
+
+def serve_phase(c, g, export):
+    """[serve] in this process, alone on the card: over the P=4 graph with
+    [meval]'s best parameters (`export`, export_check's). Two precomputes
+    (the serving forward, full_graph_embeddings with the fixed-order sum)
+    must be bitwise equal, and the exported table (export_check's) within
+    SERVE_FRAC of theirs, its predictions too apart from near-ties; the
+    same forward with index_add_'s sums (the host eval's earlier route) is
+    timed beside them. Then
+    build_core over them and a ServeServer on a free port: SERVE_CLIENTS
+    client threads send SERVE_TIER_A predicts over TCP, each bitwise the
+    table's row; SERVE_TIER_B clean nodes go to tier B, half as predicts
+    (the batcher's steps) and half in one predict_many beside them (two
+    buckets in flight), each within SERVE_FRAC of its tier-A row; the
+    stats op gives each tier's p50 and p99. Last, one tier-B step of a node
+    alone, timed by its parts (the closure's build on the host, the
+    arrays' transfer, the forward with the copy back). Returns (the core
+    and its server, that step's result, the details) for serve_checks."""
+    import numpy as np
+    import torch
+    from bnsgcn_tpu_torch import serve
+    from bnsgcn_tpu_torch.evaluate import (EvalGraph, _to_host,
+                                           full_graph_embeddings)
+    from bnsgcn_tpu_torch.models.gnn import apply_model
+    from bnsgcn_tpu_torch.ops.spmm import agg_sum
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the run's best parameters, as the server loads them
+    model, _, _ = serve.load_model(c.replace(
+        n_feat=g.n_feat, n_class=g.n_class, n_train=g.n_train), dev, log)
+    hidden_x, logits_x, _ = serve.load_table(export["table"])
+    secs = {}
+    t0 = time.perf_counter()
+    fixed = EvalGraph(g, c.model, dev)
+    torch.cuda.synchronize()
+    secs["fixed_graph"] = time.perf_counter() - t0
+    pre = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        pre.append(full_graph_embeddings(model, fixed, dev))
+        secs[f"precompute_{i + 1}"] = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(pre[0], pre[1])):
+        raise AssertionError("[serve] two precomputes differ in their bits")
+    # the yardstick: the same forward with index_add_'s sums (atomics on
+    # the card), the host eval's earlier route
+    env = fixed.env
+    plain = dataclasses.replace(env, fixed_sum=None, aggregate=lambda h: (
+        agg_sum(h, env.src, env.dst, env.n_dst)))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain_logits = _to_host(apply_model(model, fixed.feat, plain))
+    secs["index_add_eval"] = time.perf_counter() - t0
+    del fixed, plain, env
+    # the precompute is the host branch's table: the export's must agree
+    hidden, logits = pre[1]
+    errs = {}
+    for name, got, ref in (("hidden", hidden_x, hidden),
+                           ("logits", logits_x, logits),
+                           ("index_add_ logits", plain_logits, logits)):
+        bound = SERVE_FRAC * float(np.abs(ref).max())
+        errs[name] = (float(np.abs(got - ref).max()), bound)
+        if not errs[name][0] <= bound:
+            raise AssertionError(f"[serve] the {name} differ from the "
+                                 f"precompute's by {errs[name][0]:.3e} > "
+                                 f"{bound:.3e}")
+    top2 = np.sort(logits, 1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= 2 * errs["logits"][1]
+    apart = logits_x.argmax(1) != logits.argmax(1)
+    if (apart & ~near).any():
+        raise AssertionError("[serve] the exported logits predict other "
+                             "classes than the host branch's on rows that "
+                             "are no near-ties")
+    t0 = time.perf_counter()
+    cs = c.replace(serve_max_batch=64)
+    core = serve.build_core(cs, g, model, log=log, hidden=hidden,
+                            logits=logits)
+    secs["serving_graph"] = time.perf_counter() - t0
+    server = serve.ServeServer(core, 0, "127.0.0.1", log=log)
+    table = logits.copy()
+    rng = np.random.default_rng(0)
+    nodes_a = rng.integers(0, g.n_nodes, SERVE_TIER_A).tolist()
+    errors = []
+
+    def tier_a(part):
+        for v in part:
+            r = serve.request(server.port, {"op": "predict", "node": v})
+            if not (r.get("tier") == "A" and np.array_equal(
+                    np.asarray(r["scores"], np.float32), table[v])):
+                errors.append(("A", v, r.get("tier")))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=tier_a,
+                                args=(nodes_a[k::SERVE_CLIENTS],))
+               for k in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs["tier_a_requests"] = time.perf_counter() - t0
+    nodes_b = rng.choice(g.n_nodes, SERVE_TIER_B, replace=False).tolist()
+    got_b = {}
+
+    def tier_b(v):
+        got_b[v] = serve.request(server.port, {"op": "predict", "node": v,
+                                               "tier": "B"},
+                                 timeout_s=SERVE_TIMEOUT_S)
+
+    def tier_b_many(vs):
+        r = serve.request(server.port, {"op": "predict_many", "nodes": vs,
+                                        "tier": "B"},
+                          timeout_s=SERVE_TIMEOUT_S)
+        got_b.update({x["node"]: x for x in r["results"]})
+
+    half = SERVE_TIER_B // 2
+    t0 = time.perf_counter()
+    threads = ([threading.Thread(target=tier_b, args=(v,))
+                for v in nodes_b[:half]]
+               + [threading.Thread(target=tier_b_many,
+                                   args=(nodes_b[half:],))])
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs["tier_b_requests"] = time.perf_counter() - t0
+    bound = SERVE_FRAC * float(np.abs(table).max())
+    err_b = 0.0
+    for v in nodes_b:
+        r = got_b.get(v, {})
+        if r.get("tier") != "B":
+            errors.append(("B", v, r))
+            continue
+        err_b = max(err_b, float(np.abs(np.asarray(r["scores"], np.float32)
+                                        - table[v]).max()))
+    if errors or not err_b <= bound:
+        raise AssertionError(f"[serve] over TCP: {errors[:5]}; tier B of "
+                             f"clean nodes {err_b:.3e} from tier A (bound "
+                             f"{bound:.3e})")
+    stats = serve.request(server.port, {"op": "stats"})
+    v = int(np.argmin(core.graph.in_deg))
+    alone = core.scorer.score(core.graph, model, [v])
+    step = dict(core.scorer.last)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    log(f"[serve] --dump-embeddings under --eval-device mesh (P={PARTS}, "
+        f"transductive): table {export['shape']} + logits in "
+        f"{export['seconds']:.1f} s (the run's line: embed_forward on every "
+        f"rank, rank 0's gather, the write); against the host branch's "
+        f"table of the same parameters (the precompute below): hidden max "
+        f"|diff| {errs['hidden'][0]:.3e} <= {errs['hidden'][1]:.3e}, logits "
+        f"{errs['logits'][0]:.3e} <= {errs['logits'][1]:.3e} ({SERVE_FRAC} "
+        f"of the largest); {int(apart.sum())} rows predicted otherwise, all "
+        f"near-ties ({int(near.sum())} such rows)")
+    log(f"[serve] in process, synth-reddit:{g.n_nodes} nodes: precompute "
+        f"(the serving forward, fixed-order sums) {secs['precompute_1']:.3f} "
+        f"s, then {secs['precompute_2']:.3f} s, bitwise equal (its sort and "
+        f"the edges to the card {secs['fixed_graph']:.3f} s once); the "
+        f"same forward with index_add_'s sums (the eval's earlier route) "
+        f"{secs['index_add_eval']:.3f} s (its logits "
+        f"{errs['index_add_ logits'][0]:.3e} from the precompute's); the "
+        f"serving graph (two CSR indexes) {secs['serving_graph']:.3f} s")
+    log(f"[serve] over TCP ({SERVE_CLIENTS} client threads): "
+        f"{SERVE_TIER_A} tier-A predicts bitwise the table "
+        f"({secs['tier_a_requests']:.3f} s), {SERVE_TIER_B} tier-B of clean "
+        f"nodes ({half} predicts, {SERVE_TIER_B - half} in a predict_many "
+        f"beside them) within {err_b:.3e} <= {bound:.3e} of tier A "
+        f"({secs['tier_b_requests']:.3f} s, {stats['batches']} batcher "
+        f"steps); the stats op: tier A p50 {stats['tier_a_p50_ms']:.3f} ms "
+        f"p99 {stats['tier_a_p99_ms']:.3f} ms, tier B p50 "
+        f"{stats['tier_b_p50_ms']:.1f} ms p99 {stats['tier_b_p99_ms']:.1f} "
+        f"ms")
+    log(f"[serve] one tier-B step, node {v} alone (in-degree "
+        f"{int(core.graph.in_deg[v])}): its {core.hops}-hop closure "
+        f"{step['nodes']} nodes, {step['edges']} edges (buckets "
+        f"{step['node_bucket']} x {step['edge_bucket']}): build "
+        f"{step['build_s']:.3f} s (host), transfer {step['transfer_s']:.3f} "
+        f"s, forward with the copy back {step['forward_s']:.3f} s; peak "
+        f"memory {peak:.2f} GiB ({time.perf_counter() - t_all:.1f} s)")
+    return (core, server, model), (v, alone), {
+        "seconds": secs, "stats": stats, "tier_b_err": err_b,
+        "export": dict(export, errors={k: list(v) for k, v in errs.items()},
+                       apart=int(apart.sum()), near_ties=int(near.sum())),
+        "bound": bound, "step": step, "peak_gib": peak,
+        "phase_s": time.perf_counter() - t_all}
+
+
+def serve_checks(c, g, held, alone):
+    """[serve]'s delta and flush, beside [cli] (no time read): the node of
+    serve_phase's step (`alone`) in a full bucket of --serve-max-batch
+    targets must get the same bits; an edge between the two nodes of least
+    out-degree must mark exactly their 4-hop forward closure (a BFS over the
+    mutated edge list, apart from DynamicGraph's); one step over the whole
+    dirty set then leaves every clean row bitwise untouched and the dirty
+    rows within SERVE_FRAC of a scratch full eval of the mutated graph
+    (the serving forward). Closes the server. Returns the details."""
+    import numpy as np
+    import torch
+    from bnsgcn_tpu_torch.data.graph import Graph
+    from bnsgcn_tpu_torch.evaluate import full_graph_logits
+    core, server, model = held
+    v, got = alone
+    t0 = time.perf_counter()
+    try:
+        others = [x for x in range(g.n_nodes) if x != v]
+        full = core.scorer.score(
+            core.graph, model,
+            sorted([v] + others[:core.cfg.serve_max_batch - 1]))
+        if not all(np.array_equal(a, b) for a, b in zip(got[v], full[v])):
+            raise AssertionError(f"[serve] node {v} alone and in a full "
+                                 f"bucket differ in their bits")
+        bucket = dict(core.scorer.last)
+        u, w = (int(x) for x in np.argsort(core.graph.out_deg,
+                                           kind="stable")[:2])
+        before_h, before_l = core.hidden.copy(), core.logits.copy()
+        core.add_edges([(u, w)])
+        src = np.concatenate([g.src, [u]])
+        dst = np.concatenate([g.dst, [w]])
+        reach = np.zeros(g.n_nodes, bool)
+        reach[[u, w]] = True
+        frontier = reach.copy()
+        for _ in range(core.hops):
+            nxt = np.zeros(g.n_nodes, bool)
+            nxt[dst[frontier[src]]] = True
+            frontier = nxt & ~reach
+            reach |= nxt
+        expected = set(np.nonzero(reach)[0].tolist())
+        if core.dirty != expected:
+            raise AssertionError(f"[serve] the delta marked {len(core.dirty)} "
+                                 f"nodes, not the {len(expected)} of its "
+                                 f"forward closure")
+        n_dirty = len(expected)
+        picked = core.refresh_some(n_dirty)
+        core.flush()
+        flush = dict(core.scorer.last)
+        clean = np.setdiff1d(np.arange(g.n_nodes), sorted(expected))
+        if not (np.array_equal(core.hidden[clean], before_h[clean])
+                and np.array_equal(core.logits[clean], before_l[clean])):
+            raise AssertionError("[serve] the flush touched clean rows")
+        g2 = Graph(g.n_nodes, src, dst, g.feat, g.label, g.train_mask,
+                   g.val_mask, g.test_mask, g.multilabel)
+        ref = full_graph_logits(model, g2, torch.device("cuda"))
+        ids = sorted(expected)
+        bound = SERVE_FRAC * float(np.abs(ref).max())
+        err = float(np.abs(core.logits[ids] - ref[ids]).max())
+        if picked != n_dirty or core.dirty or not err <= bound:
+            raise AssertionError(f"[serve] the flush picked {picked} of "
+                                 f"{n_dirty}, left {len(core.dirty)} dirty, "
+                                 f"its rows {err:.3e} from the scratch eval "
+                                 f"(bound {bound:.3e})")
+    finally:
+        server.drain()
+        core.close()
+    log(f"[serve] node {v} alone and in a full bucket of "
+        f"{core.cfg.serve_max_batch} ({bucket['nodes']} nodes, "
+        f"{bucket['edges']} edges): bitwise equal; an edge {u} -> {w} (the "
+        f"least out-degrees) marked exactly its {core.hops}-hop forward "
+        f"closure, {n_dirty} nodes; one step over them (build "
+        f"{flush['build_s']:.3f} s, transfer {flush['transfer_s']:.3f} s, "
+        f"forward {flush['forward_s']:.3f} s; beside [cli]) left the "
+        f"{clean.size} clean rows bitwise untouched, the dirty rows within "
+        f"{err:.3e} <= {bound:.3e} of a scratch eval of the mutated graph "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"dirty": n_dirty, "clean": int(clean.size), "flush_err": err,
+            "bound": bound, "bucket": bucket, "flush_step": flush,
+            "seconds": time.perf_counter() - t0}
+
+
+def serve_cli_phase(work, table):
+    """[serve] through the CLI (`python -m bnsgcn_tpu_torch.main serve`)
+    over [cli]'s first run (its final checkpoint and the table its
+    --dump-embeddings wrote, `table`, awaited), beside [cli]: a cold start
+    from the table answers predict and predict_many and takes a delta; a
+    SIGTERM makes it exit 75 with the delta log flushed; a relaunch replays
+    it (the same dirty count), then, under --serve-compact-deltas 1,
+    folds it and a second delta into the snapshot and exits 0 on the
+    shutdown op; the launch after it resumes from the snapshot and the
+    (empty) tail and exits 0. Returns the details."""
+    import numpy as np
+    from bnsgcn_tpu_torch import serve
+    t_all = time.perf_counter()
+    end = time.monotonic() + CLI_TIMEOUT_S
+    while not os.path.exists(table) and time.monotonic() < end:
+        time.sleep(0.5)
+    sd = os.path.join(work, "cli_serve")
+    argv = (script_flags(CLI_SCRIPT) + CLI_FLAGS
+            + ["--ckpt-path", os.path.join(work, "cli", "ckpt"),
+               "--serve-dir", sd, "--serve-port", "0", "--serve-refresh-s",
+               "0"])
+    cmd = [sys.executable, "-m", "bnsgcn_tpu_torch.main", "serve"]
+    hidden, logits, _ = serve.load_table(table)
+    launches = []
+
+    def start(extra):
+        t0 = time.perf_counter()
+        p = start_cli(argv + extra, cmd=cmd)
+        launches.append(p)
+        head = read_until(p, "[serve] ready on port ")
+        m = re.search(r"\[serve\] ready on port (\d+)", head)
+        if not m:
+            finish_cli(p, argv + extra, SERVE_TIMEOUT_S)
+            raise AssertionError(f"[serve] the CLI server did not start:\n"
+                                 f"{head[-3000:]}")
+        return p, int(m.group(1)), head, time.perf_counter() - t0
+
+    try:
+        p, port, head, up_a = start(["--embeddings", table])
+        if "cold start from embedding table" not in head:
+            raise AssertionError(f"[serve] no cold start:\n{head[-2000:]}")
+        r = serve.request(port, {"op": "predict", "node": 7})
+        many = serve.request(port, {"op": "predict_many",
+                                    "nodes": [0, 1, 2, 3]})
+        if not (r["tier"] == "A" and np.array_equal(
+                np.asarray(r["scores"], np.float32), logits[7])
+                and len(many["results"]) == 4):
+            raise AssertionError(f"[serve] cold start answers {r} {many}")
+        d1 = serve.request(port, {"op": "add_edges", "edges": [[3, 7]]})
+        os.kill(p.pid, signal.SIGTERM)
+        out_a = head + finish_cli(p, argv, SERVE_TIMEOUT_S, rc=75)
+        with open(os.path.join(sd, serve.DELTA_LOG)) as f:
+            logged = [json.loads(x) for x in f if x.strip()]
+        if (logged != [{"op": "add_edges", "edges": [[3, 7]]}]
+                or "1 delta(s) flushed" not in out_a):
+            raise AssertionError(f"[serve] SIGTERM flushed {logged}:\n"
+                                 f"{out_a[-2000:]}")
+        p, port, head, up_b = start(["--serve-compact-deltas", "1"])
+        m = re.search(r"replayed from the tail log \((\d+) nodes dirty",
+                      head)
+        if not (m and int(m.group(1)) == d1["dirty_total"]):
+            raise AssertionError(f"[serve] the relaunch replayed to "
+                                 f"{m and m.group(1)} dirty nodes, not "
+                                 f"{d1['dirty_total']}:\n{head[-2000:]}")
+        serve.request(port, {"op": "add_edges", "edges": [[5, 9]]})
+        stats_b = serve.request(port, {"op": "stats"})
+        serve.request(port, {"op": "shutdown"})
+        out_b = head + finish_cli(p, argv, SERVE_TIMEOUT_S)
+        if ("[serve] compacted delta log: 2 delta(s) folded into "
+                f"{serve.SNAPSHOT}, 0 left in the tail" not in out_b
+                or not os.path.exists(os.path.join(sd, serve.SNAPSHOT))):
+            raise AssertionError(f"[serve] no compaction:\n{out_b[-2000:]}")
+        p, port, head, up_c = start([])
+        stats_c = serve.request(port, {"op": "stats"})
+        serve.request(port, {"op": "shutdown"})
+        out_c = head + finish_cli(p, argv, SERVE_TIMEOUT_S)
+        if not (f"[serve] snapshot {serve.SNAPSHOT}: 2 folded delta(s)"
+                in out_c and "[serve] resumed: 2 delta(s) from the snapshot "
+                "+ 0 replayed" in out_c and stats_c["deltas"] == 2):
+            raise AssertionError(f"[serve] the launch after the compaction "
+                                 f"did not resume from it:\n{out_c[-2000:]}")
+    finally:
+        for p in launches:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    secs = time.perf_counter() - t_all
+    log(f"[serve] python -m bnsgcn_tpu_torch.main serve over [cli]'s run "
+        f"({hidden.shape[0]} nodes): a cold start from its "
+        f"--dump-embeddings table (ready in {up_a:.1f} s) answered predict "
+        f"and predict_many, took a delta ({d1['dirty_total']} nodes dirty), "
+        f"exited 75 on SIGTERM with it flushed; the relaunch replayed it "
+        f"({d1['dirty_total']} dirty; ready in {up_b:.1f} s), under "
+        f"--serve-compact-deltas 1 folded it and a second into "
+        f"{serve.SNAPSHOT} and exited 0 on shutdown ({stats_b['deltas']} "
+        f"deltas); the next launch resumed from the snapshot and the empty "
+        f"tail (ready in {up_c:.1f} s) and exited 0 ({secs:.1f} s, beside "
+        f"[cli])")
+    return {"dirty": d1["dirty_total"], "ready_s": [up_a, up_b, up_c],
             "seconds": secs}
 
 
@@ -1688,7 +2137,8 @@ def cli_phase(work):
     first, last = CLI_EPOCHS
     inject = ["--inject", RESIL_INJECT]
     argv1 = CLI_FLAGS + paths + ["--n-epochs", str(first), "--ckpt-path",
-                                 d["ckpt"]] + inject
+                                 d["ckpt"], "--dump-embeddings",
+                                 os.path.join(work, "cli", CLI_TABLE)] + inject
     argv3 = CLI_FLAGS + ["--part-path", d["parts"], "--results-path",
                          d["results_whole"], "--n-epochs", str(last),
                          "--ckpt-path", d["ckpt_whole"], "--skip-partition",
@@ -2927,69 +3377,6 @@ def rank_kernel_check_bf16(pr):
             "detail": detail}
 
 
-def recipe_p4(main4, g):
-    """[recipe] at P=4: RECIPE_TPU appended to the P=4 main path's command
-    line (the flagship's: --inductive, rate 0.1, dropout 0.5; 4 ranks
-    sharing the card over gloo), RECIPE_P4_EPOCHS epochs on its artifacts
-    (--skip-partition). Each rank first holds K1 and K2 on bf16 to their
-    plain versions (rank_kernel_check_bf16); then every rank's launch
-    counts must be recipe_want's, the loss finite, and the ranks end with
-    rank 0's parameters (run_training checks). Returns the details, with
-    the int8 wire's MB per exchange beside the f32 path's."""
-    from bnsgcn_tpu_torch.data.artifacts import load_artifacts
-    from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
-    from bnsgcn_tpu_torch.run import artifacts_dir, run_training
-    c = main4.replace(**recipe_fields(), n_epochs=RECIPE_P4_EPOCHS,
-                      log_every=RECIPE_P4_EPOCHS, skip_partition=True)
-    t0 = time.perf_counter()
-    res = run_training(c, g=g, log=log, rank_hook=rank_kernel_check_bf16)
-    secs = time.perf_counter() - t0
-    want = dict(zip(("K1", "K2"), recipe_want(c)))
-    for rep in res.ranks:
-        if rep["kinds"] != want:
-            raise AssertionError(f"[recipe] P={PARTS} rank {rep['rank']}: "
-                                 f"launched {rep['kinds']}, not {want}")
-    if not all(math.isfinite(x) for x in res.losses):
-        raise AssertionError(f"[recipe] P={PARTS}: non-finite loss "
-                             f"{res.losses}")
-    art = load_artifacts(artifacts_dir(c), parts=[0])
-    wire = {}
-    for name in ("native", c.halo_wire):
-        spec, _ = make_halo_spec(art.n_b, art.pad_inner, art.pad_boundary,
-                                 c.sampling_rate, wire=name)
-        wire[name] = wire_bytes(spec, c.n_hidden) / 1e6
-    ranks = []
-    for rep in res.ranks:
-        ep, ex = (mean_from_1(rep[k]) for k in ("epoch_times", "comm_times"))
-        ranks.append({"rank": rep["rank"], "epoch_s": ep, "exchange_s": ex,
-                      "exchange_share": ex / max(ep, 1e-12),
-                      "reduce_s": mean_from_1(rep["reduce_times"]),
-                      "max_memory_gib": rep["max_memory_bytes"] / 2 ** 30,
-                      "launches": rep["kinds"], "check": rep["hook"]})
-    for x in ranks:
-        log(f"[recipe] P={PARTS} rank {x['rank']} (4 ranks sharing one card "
-            f"over gloo, not a 4-card number), {' '.join(RECIPE_TPU)}, "
-            f"inductive, rate {c.sampling_rate}: mean of epochs 1.. "
-            f"{x['epoch_s'] * 1e3:.1f} ms, exchange "
-            f"{x['exchange_s'] * 1e3:.1f} ms ({x['exchange_share']:.1%} of "
-            f"the epoch), all-reduce {x['reduce_s'] * 1e3:.1f} ms, peak "
-            f"memory {x['max_memory_gib']:.2f} GiB; launches K1 "
-            f"{x['launches']['K1']} K2 {x['launches']['K2']}; K1 bf16 max "
-            f"abs err {x['check']['K1']:.3e}, K2 bf16 "
-            f"{x['check']['K2']:.3e} on its own layout at H="
-            f"{tuple(x['check']['widths'])} (within their bounds, the "
-            f"controls rejected)")
-    log(f"[recipe] P={PARTS}: {c.n_epochs} epochs, losses "
-        + " ".join(f"{v:.4f}" for v in res.losses)
-        + f"; int8 wire {wire[c.halo_wire]:.2f} MB per exchange at H="
-        f"{c.n_hidden} (the f32 main path's: {wire['native']:.2f}); val "
-        f"{res.val_acc:.3f}, test {res.test_acc:.3f}; every rank ends with "
-        f"rank 0's parameters ({secs:.1f} s)")
-    return {"losses": res.losses, "val_acc": res.val_acc,
-            "test_acc": res.test_acc, "wire_mb": wire[c.halo_wire],
-            "wire_mb_f32": wire["native"], "ranks": ranks, "seconds": secs}
-
-
 def compare_k1_ell(op, widths, gen, detail):
     """K1 against its plain version on an ELL operator's own row schedules
     (no base: the ELL SpMM's call), both directions, at each width, within
@@ -3350,9 +3737,46 @@ def halo_rank(ctx, cfg, path, reps):
         out["knobs"][name] = rec
         del pr, res, model
         torch.cuda.empty_cache()
+    out["recipe"] = recipe_rank(ctx, cfg, art, lent, log)
     out["tune"] = tune_rank(ctx, cfg, art, lent, log, lines)
     lent.clear()
     return out
+
+
+def recipe_rank(ctx, cfg, art, lent, log):
+    """[recipe] at P=4, in [halo]'s group (its own group before [serve]):
+    RECIPE_TPU appended to the flagship's command line on this rank's part,
+    RECIPE_P4_EPOCHS epochs through run.train_loop, the hybrid layout lent
+    by the padded variant (auto must pick the hybrid). The rank first holds
+    K1 and K2 on bf16 to their plain versions on its layout
+    (rank_kernel_check_bf16); its launch counts are reset just before the
+    loop and read just after; the ranks must end with rank 0's parameters,
+    bitwise."""
+    import torch
+    from bnsgcn_tpu_torch.ops import bucket_sum, tile_matmul
+    from bnsgcn_tpu_torch.parallel.reducer import assert_replicated
+    from bnsgcn_tpu_torch.run import prepare_part, train_loop
+    dev, me, comm = ctx.device, ctx.rank, ctx.comm
+    c = cfg.replace(**recipe_fields(), n_epochs=RECIPE_P4_EPOCHS)
+    t0 = time.perf_counter()
+    pr = prepare_part(c, art, None, dev, log, me, comm,
+                      reuse=lent.get(("hybrid", "off", "off")))
+    setup = time.perf_counter() - t0
+    check = rank_kernel_check_bf16(pr)
+    bucket_sum.launches.reset()
+    tile_matmul.launches.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, model = train_loop(pr, None, log)
+    rec = {"losses": res.losses, "epoch_times": res.epoch_times,
+           "comm_times": res.comm_times, "reduce_times": res.reduce_times,
+           "kinds": {"K1": dict(bucket_sum.launches.by_kind),
+                     "K2": dict(tile_matmul.launches.by_kind)},
+           "max_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "check": check, "setup_s": setup}
+    assert_replicated(model.parameters(), comm)
+    del pr, res, model
+    torch.cuda.empty_cache()
+    return rec
 
 
 def tune_rank(ctx, cfg, art, lent, log, lines):
@@ -3625,17 +4049,73 @@ def halo_phase(main4, args):
             f"interior and frontier layouts within their bounds (max abs err "
             f"K1 {max(x['check']['K1'][0] for x in rows):.3e}, K2 "
             f"{max(x['check']['K2'][0] for x in rows):.3e})")
-    log(f"[halo] done in {time.perf_counter() - t0:.1f} s (with [knobs])")
+    log(f"[halo] done in {time.perf_counter() - t0:.1f} s (with [knobs], "
+        f"[recipe] and [tune])")
     knobs = knobs_report(cfg, ranks, var)
+    recipe = recipe_report(cfg, ranks)
     tuned = tune_report(cfg, ranks)
-    return {"auto": [pick, why], "knobs": knobs, "tune": tuned, "ranks": [
+    return {"auto": [pick, why], "knobs": knobs, "tune": tuned,
+            "recipe": recipe, "ranks": [
         {k: v for k, v in r.items() if k not in ("variants", "knobs",
-                                                  "tune")}
+                                                  "tune", "recipe")}
         for r in ranks],
         "variants": {name: [{k: v for k, v in x.items()
                              if k not in ("detail", "lines")} for x in recs]
                      for name, recs in var.items()},
         "split": split}
+
+
+def recipe_report(cfg, ranks):
+    """[recipe] at P=4 from the ranks' recipe_rank records: every rank's
+    launches recipe_want's, the loss finite; it prints each rank's epoch,
+    exchange share, peak memory and K1/K2 bf16 errors, and the int8 wire's
+    MB per exchange beside the f32 path's. Returns the details."""
+    from bnsgcn_tpu_torch.data.artifacts import read_meta
+    from bnsgcn_tpu_torch.parallel.halo import make_halo_spec, wire_bytes
+    from bnsgcn_tpu_torch.run import artifacts_dir
+    c = cfg.replace(**recipe_fields(), n_epochs=RECIPE_P4_EPOCHS)
+    recs = [r["recipe"] for r in ranks]
+    want = dict(zip(("K1", "K2"), recipe_want(c)))
+    for r, x in zip(ranks, recs):
+        if x["kinds"] != want:
+            raise AssertionError(f"[recipe] P={PARTS} rank {r['rank']}: "
+                                 f"launched {x['kinds']}, not {want}")
+    losses = recs[0]["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[recipe] P={PARTS}: non-finite loss {losses}")
+    meta = read_meta(artifacts_dir(c))
+    wire = {}
+    for name in ("native", c.halo_wire):
+        spec, _ = make_halo_spec(meta.n_b, meta.pad_inner, meta.pad_boundary,
+                                 c.sampling_rate, wire=name)
+        wire[name] = wire_bytes(spec, c.n_hidden) / 1e6
+    out = []
+    for r, x in zip(ranks, recs):
+        ep, ex = (mean_from_1(x[k]) for k in ("epoch_times", "comm_times"))
+        out.append({"rank": r["rank"], "epoch_s": ep, "exchange_s": ex,
+                    "exchange_share": ex / max(ep, 1e-12),
+                    "reduce_s": mean_from_1(x["reduce_times"]),
+                    "max_memory_gib": x["max_memory_gib"],
+                    "launches": x["kinds"], "check": x["check"],
+                    "setup_s": x["setup_s"]})
+        log(f"[recipe] P={PARTS} rank {r['rank']} (4 ranks sharing one card "
+            f"over gloo, not a 4-card number; in [halo]'s group), "
+            f"{' '.join(RECIPE_TPU)}, inductive, rate {c.sampling_rate}: "
+            f"mean of epochs 1.. {ep * 1e3:.1f} ms, exchange "
+            f"{ex * 1e3:.1f} ms ({ex / max(ep, 1e-12):.1%} of the epoch), "
+            f"peak memory {x['max_memory_gib']:.2f} GiB; launches K1 "
+            f"{x['kinds']['K1']} K2 {x['kinds']['K2']}; K1 bf16 max abs err "
+            f"{x['check']['K1']:.3e}, K2 bf16 {x['check']['K2']:.3e} on its "
+            f"own layout at H={tuple(x['check']['widths'])} (within their "
+            f"bounds, the controls rejected)")
+    log(f"[recipe] P={PARTS}: {c.n_epochs} epochs, losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; int8 wire {wire[c.halo_wire]:.2f} MB per exchange at H="
+        f"{c.n_hidden} (the f32 main path's: {wire['native']:.2f}); every "
+        f"rank ends with rank 0's parameters; the layout lent by [halo]'s "
+        f"padded run (set-up {_span([x['setup_s'] for x in recs])} s)")
+    return {"losses": losses, "wire_mb": wire[c.halo_wire],
+            "wire_mb_f32": wire["native"], "ranks": out}
 
 
 def knobs_report(cfg, ranks, halo_var):
@@ -4343,7 +4823,12 @@ def main(argv=None) -> int:
     # runs of the script and its --eval-device mesh run: none of them
     # reads a time it claims, each has its own directories and groups
     law_p1 = parts.pop("law_p1")
-    with ThreadPoolExecutor(7) as pool:
+    serve_held = parts.pop("serve_held")
+    with ThreadPoolExecutor(9) as pool:
+        # [serve]'s delta and flush, and the CLI server over [cli]'s run
+        serve_f = pool.submit(serve_checks, *serve_held)
+        serve_cli_f = pool.submit(serve_cli_phase, work,
+                                  os.path.join(work, "cli", CLI_TABLE))
         mesh = pool.submit(cli_mesh_phase, work)
         anc_f = pool.submit(anchor_phase, work)
         # after the --eval-device mesh run: fewer processes share the card
@@ -4361,8 +4846,10 @@ def main(argv=None) -> int:
         parts["gat"].update(law_f.result())
         parts.update(law1_f.result())
         yelp = yelp_f.result()
-    del law_p1
-    phase_done("cli+anchor+laws+yelp")
+        parts["serve"]["checks"] = serve_f.result()
+        parts["serve"]["cli"] = serve_cli_f.result()
+    del law_p1, serve_held
+    phase_done("cli+anchor+laws+yelp+serve")
 
 
     # 6c. scripts/ogbn-papers100m_torch.sh: streaming bf16 artifacts, one

@@ -6,7 +6,8 @@
     the port does) or refused by a `--<flag> ... is not ported yet` error
     naming the flag; never an argparse usage error;
   * --n-partitions defaults to 2, as in the JAX CLI; the JAX CLI's
-    subcommands exit 2 by name;
+    subcommands the port lacks exit 2 by name, and `serve` without a
+    checkpoint exits 2 with the JAX package's words;
   * Time(s) drops the first 5 epochs: run.warm_mean equals what the JAX
     package's EpochTimer(warmup=5) gives for the same times, resumed runs
     included;
@@ -113,16 +114,27 @@ def test_n_partitions_defaults_to_2_as_in_jax():
 
 
 @pytest.mark.parametrize("name", SUBCOMMANDS)
-def test_subcommands_exit_2_by_name(name, capsys):
+def test_subcommands_exit_2_by_name(name, capsys, tmp_path):
+    """The serving fleet's and continual training's subcommands are
+    refused by name; `serve` is ported, and without a checkpoint exits 2
+    with the JAX package's words."""
+    if name == "serve":
+        assert t_main.main([name, "--dataset", "sbm", "--device", "cpu",
+                            "--ckpt-path", str(tmp_path)]) == 2
+        assert ("[config] no loadable checkpoint for graph "
+                "'sbm-2-metis-vol-trans' rate 1.00 under "
+                f"{tmp_path} — train first, or point --ckpt-path at a "
+                "finished run") in capsys.readouterr().err
+        return
     assert t_main.main([name, "--dataset", "sbm"]) == 2
     assert f"[config] {name} is not ported yet" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--dump-embeddings", "x"], "--dump-embeddings x"),
+    (["--serve-router", "a:1"], "--serve-router a:1"),
     (["--tune-prior", "model"], "--tune-prior model"),
-    (["--no-comm-trace", "--serve-dir", "d"], "--serve-dir d"),
-    (["--serve-port", "9"], "--serve-port 9"),
+    (["--no-comm-trace", "--serve-part", "0"], "--serve-part 0"),
+    (["--serve-hedge", "on"], "--serve-hedge on"),
     (["--cycles", "2"], "--cycles 2"),
 ])
 def test_unported_flags_exit_2_naming_the_flag(argv, flag, capsys):

@@ -1304,3 +1304,75 @@ def test_a_card_trace_names_the_kernels(cuda, tmp_path):
     steps = [e for e in evs if e.get("name") == "train_step"
              and e.get("cat") == "user_annotation"]
     assert len(steps) == 2
+
+
+def _serving(cuda, model):
+    """A ServeCore on the card over a 600-node graph, 3 layers x 64."""
+    from bnsgcn_tpu_torch import serve
+    from bnsgcn_tpu_torch.config import Config
+    from bnsgcn_tpu_torch.models.gnn import GNN, spec_from_config
+    g = sbm_graph(n_nodes=600, n_class=5, n_feat=48, p_in=0.02,
+                  p_out=0.001, seed=9)
+    cfg = Config(dataset="sbm", model=model, n_layers=3, n_hidden=64,
+                 heads=2 if model == "gat" else 1,
+                 use_pp=model == "graphsage", n_feat=g.n_feat,
+                 n_class=g.n_class, n_train=g.n_train, serve_max_batch=64)
+    net = GNN(spec_from_config(cfg), 3).to(cuda).eval()
+    return g, net, serve.build_core(cfg, g, net, log=lambda *a: None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["graphsage", "gcn", "gat"])
+def test_serving_forward_is_bitwise_repeatable_and_batch_invariant(cuda,
+                                                                   model):
+    """The serving forward on the card (fixed-order sums, row tiles): two
+    precomputes bitwise equal; a node scored alone bitwise the same node in
+    a full bucket; both within TOL of the CPU's forward."""
+    from bnsgcn_tpu_torch.evaluate import full_graph_embeddings
+    g, net, core = _serving(cuda, model)
+    try:
+        again = full_graph_embeddings(net, g, cuda)
+        assert np.array_equal(again[0], core.hidden)
+        assert np.array_equal(again[1], core.logits)
+        cpu_net = net.to("cpu")
+        try:
+            ref = full_graph_embeddings(cpu_net, g, torch.device("cpu"))
+        finally:
+            net.to(cuda)
+        np.testing.assert_allclose(core.logits, ref[1], **TOL)
+        np.testing.assert_allclose(core.hidden, ref[0], **TOL)
+        v = int(np.argmin(core.graph.in_deg))
+        alone = core.scorer.score(core.graph, net, [v])
+        n_alone = core.scorer.last["nodes"]
+        full = core.scorer.score(core.graph, net,
+                                 sorted({v} | set(range(63))))
+        # another subgraph: the node's row sits elsewhere among others
+        assert core.scorer.last["nodes"] > n_alone
+        assert np.array_equal(alone[v][0], full[v][0])
+        assert np.array_equal(alone[v][1], full[v][1])
+        np.testing.assert_allclose(alone[v][1], core.logits[v], **TOL)
+    finally:
+        core.close()
+
+
+@pytest.mark.cuda
+def test_serving_delta_refresh_on_the_card(cuda):
+    """A delta's flush on the card: clean rows bitwise untouched, the
+    dirty rows within TOL of a scratch eval of the mutated graph."""
+    from bnsgcn_tpu_torch.data.graph import Graph
+    from bnsgcn_tpu_torch.evaluate import full_graph_logits
+    g, net, core = _serving(cuda, "graphsage")
+    try:
+        before = core.logits.copy()
+        core.add_edges([(3, 17)])
+        dirty = sorted(core.dirty)
+        core.flush()
+        clean = np.setdiff1d(np.arange(g.n_nodes), dirty)
+        assert np.array_equal(core.logits[clean], before[clean])
+        g2 = Graph(g.n_nodes, np.concatenate([g.src, [3]]),
+                   np.concatenate([g.dst, [17]]), g.feat, g.label,
+                   g.train_mask, g.val_mask, g.test_mask)
+        ref = full_graph_logits(net, g2, cuda)
+        np.testing.assert_allclose(core.logits[dirty], ref[dirty], **TOL)
+    finally:
+        core.close()

@@ -178,14 +178,14 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
-    ["--warm-start", "w"], ["--serve-max-batch", "3"],
-    ["--embeddings", "e"], ["--cycle-epochs", "3"],
+    ["--warm-start", "w"], ["--serve-wal-cap", "3"],
+    ["--serve-router", "e:1"], ["--cycle-epochs", "3"],
     ["--tune-prior", "model"], ["--parts", "2"], ["--cycles", "3"],
-    ["--n-partitions", "1", "--dump-embeddings", "e"],
+    ["--n-partitions", "1", "--serve-part", "0"],
     ["--serve-hedge", "on"],
-    ["--serve-dir", "d"],
-    ["--n-partitions", "4", "--dist-backend", "gloo", "--serve-port",
-     "18121"],
+    ["--serve-degraded", "partial"],
+    ["--n-partitions", "4", "--dist-backend", "gloo",
+     "--serve-backend-port", "18121"],
 ])
 def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
