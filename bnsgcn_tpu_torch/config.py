@@ -178,6 +178,29 @@ class Config:
     dump_embeddings: str = ""           # training: write the table here
     serve_compact_deltas: int = 0       # fold the delta log into a
                                         # snapshot every N deltas (0: off)
+    # --- the partition-sharded serving fleet (serve_router.py,
+    # serve_backend.py; the serve-router and serve-backend subcommands) ---
+    parts: int = 0                      # shards the router expects (0: the
+                                        # partition artifacts' count)
+    part_replicas: int = 1              # read replicas per part (deltas go
+                                        # to all, reads round-robin)
+    serve_part: int = -1                # the shard this backend owns
+    serve_replica: int = 0              # this backend's replica ordinal
+    serve_backend_port: int = 0         # the backend's port (0: any, told
+                                        # to the router at registration)
+    serve_router: str = ""              # 'host:port' a backend registers
+                                        # with (default 127.0.0.1:serve_port)
+    serve_degraded: str = "off"         # a part with no live backend: 'off'
+                                        # a named RouteError, 'partial' rows
+                                        # tagged unavailable, 'stale-ok'
+                                        # tier A from a replica not up
+    serve_probe_s: float = 0.0          # the router's probe period (0: off,
+                                        # evict on error); thresholds are
+                                        # $BNSGCN_SERVE_* knobs
+    serve_hedge: str = "off"            # 'on': a second replica after a
+                                        # p99-derived delay, first answer wins
+    serve_wal_cap: int = 256            # the router's failover WAL bound, in
+                                        # queued writes per part
 
     # filled from the partition artifacts
     n_feat: int = 0
@@ -212,19 +235,16 @@ _NOT_PORTED = (
     (("tune_prior",), None, "the comm auto-tuner's model prior"),
     (("backend",), ("xla", "gloo", "mpi"),
      "collectives other than --dist-backend's"),
-    (("parts", "part_replicas", "serve_part", "serve_replica",
-      "serve_backend_port", "serve_router", "serve_degraded",
-      "serve_probe_s", "serve_hedge", "serve_wal_cap"),
-     None, "the partition-sharded serving fleet"),
     (("cycle_epochs", "cycles", "continual_source", "continual_cut_growth",
       "continual_imbalance", "continual_acc_drop", "warm_start",
       "cycle_nonce"), None, "continual training"),
 )
 
-# the JAX CLI's subcommands (bnsgcn_tpu/main.py:31-54); `serve` is
-# ported (serve.py), the serving fleet's and continual training's are not
+# the JAX CLI's subcommands (bnsgcn_tpu/main.py:31-54); `serve` and the
+# serving fleet's are ported (serve.py, serve_router.py, serve_backend.py),
+# continual training's is not
 SUBCOMMANDS = ("serve", "serve-router", "serve-backend", "continual")
-UNPORTED_SUBCOMMANDS = ("serve-router", "serve-backend", "continual")
+UNPORTED_SUBCOMMANDS = ("continual",)
 
 
 def create_parser() -> argparse.ArgumentParser:

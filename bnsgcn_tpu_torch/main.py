@@ -4,10 +4,11 @@ It takes the JAX CLI's command line (python -m bnsgcn_tpu.main); the
 flagship recipe is scripts/reddit_torch.sh. Runs on the GPU unless
 --device cpu is given. `main serve ...` runs the online inference server
 (serve.py: exit 0 after its `shutdown` op, 75 after SIGTERM/SIGINT with
-the delta log flushed, 2 a config error). A flag whose feature is not
-ported yet, and the JAX CLI's other subcommands (serve-router,
-serve-backend, continual), exit 2 with a `[config] ... not ported yet`
-line. As in the JAX CLI (and the
+the delta log flushed, 2 a config error); `main serve-router ...` and
+`main serve-backend ...` run the partition-sharded serving fleet
+(serve_router.py, serve_backend.py; the same exit codes). A flag whose
+feature is not ported yet, and the JAX CLI's `continual` subcommand, exit
+2 with a `[config] ... not ported yet` line. As in the JAX CLI (and the
 reference), the seed is drawn at random unless --fix-seed is given; it is
 drawn here, before any rank is spawned, so every rank keys its boundary
 sample from the same seed (--resume adopts the checkpoint's instead). The
@@ -66,7 +67,6 @@ from bnsgcn_tpu_torch.config import (UNPORTED_SUBCOMMANDS, ConfigError,
                                      config_from_args, create_parser,
                                      node_ranks)
 from bnsgcn_tpu_torch.parallel.coord import CoordAbort, CoordTimeout
-from bnsgcn_tpu_torch.parallel.mesh import NodeUnreachable
 from bnsgcn_tpu_torch.resilience import (EXIT_COORD_ABORT, EXIT_DIVERGED,
                                          EXIT_PREEMPTED, EXIT_WATCHDOG,
                                          DivergenceError, PreemptedError,
@@ -80,6 +80,18 @@ def main(argv=None) -> int:
         # a long-running server with its own lifecycle (drain on SIGTERM)
         from bnsgcn_tpu_torch import serve
         return serve.serve_main(argv[1:])
+    if argv and argv[0] == "serve-router":
+        # the fleet's router: routing and the delta fan-out, no model and
+        # no torch
+        from bnsgcn_tpu_torch import serve_router
+        return serve_router.router_main(argv[1:])
+    if argv and argv[0] == "serve-backend":
+        # one process per (part, replica): that shard's table, CSR slices
+        # and delta log
+        from bnsgcn_tpu_torch import serve_backend
+        return serve_backend.backend_main(argv[1:])
+    # here, not at the top: the router's process never imports torch
+    from bnsgcn_tpu_torch.parallel.mesh import NodeUnreachable
     try:
         if argv and argv[0] in UNPORTED_SUBCOMMANDS:
             raise ConfigError(f"{argv[0]} is not ported yet")

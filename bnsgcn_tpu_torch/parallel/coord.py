@@ -170,6 +170,12 @@ class _KVStore:
                     if k.startswith(prefix)}
 
 
+# the longest JSON line a peer reads: a serving backend's halo `resolve`
+# answers carry whole feature rows and in-neighbour lists (several MB at
+# Reddit's widths), past the JAX package's 1 MiB
+LINE_LIMIT = 1 << 28
+
+
 class _LineJsonHandler(socketserver.StreamRequestHandler):
     timeout = 10.0
 
@@ -185,7 +191,7 @@ class _LineJsonHandler(socketserver.StreamRequestHandler):
             # loop exits promptly; pooled clients amortize the TCP handshake
             # across many requests — the router -> backend forwarding path)
             while True:
-                line = self.rfile.readline(1 << 20)
+                line = self.rfile.readline(LINE_LIMIT)
                 if not line:
                     return
                 req = json.loads(line)
@@ -264,7 +270,7 @@ def rpc_line_json(addr: str, port: int, req: dict, deadline: float,
                              else min(max(remaining, 0.05), 10.0))
                 s.sendall(json.dumps(req).encode() + b"\n")
                 sent = True
-                line = s.makefile("rb").readline(1 << 20)
+                line = s.makefile("rb").readline(LINE_LIMIT)
             if line:
                 return json.loads(line)
         except (OSError, ValueError) as ex:
@@ -318,6 +324,8 @@ class LineJsonClient:
                                     # the in-flight request holding _lock
         self._cancel_sock = None    # lock-FREE alias of _sock for cancel()
                                     # (atomic ref read; see cancel())
+        self.bytes_out = 0          # guarded-by: self._lock
+        self.bytes_in = 0           # guarded-by: self._lock
 
     def _connect_locked(self):
         s = socket.create_connection((self.addr, self.port),
@@ -340,9 +348,11 @@ class LineJsonClient:
         if self._sock is None:
             self._connect_locked()
         self._sock.sendall(payload)
-        line = self._rfile.readline(1 << 20)
+        self.bytes_out += len(payload)
+        line = self._rfile.readline(LINE_LIMIT)
         if not line:
             raise OSError("connection closed by peer")
+        self.bytes_in += len(line)
         return json.loads(line)
 
     def request(self, req: dict) -> dict:
@@ -377,6 +387,12 @@ class LineJsonClient:
                         f"{self.what} at {self.addr}:{self.port} "
                         f"unreachable (op {req.get('op')!r}): "
                         f"{type(ex).__name__}: {ex}") from ex
+
+    def traffic(self) -> tuple[int, int]:
+        """(bytes sent, bytes received) over this client's lifetime, the
+        JSON lines with their newlines."""
+        with self._lock:
+            return self.bytes_out, self.bytes_in
 
     def cancel(self):
         """Abort the in-flight request from ANOTHER thread: shuts the
@@ -414,7 +430,7 @@ def probe_line_json(addr: str, port: int, timeout_s: float = 1.0,
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             s.settimeout(timeout_s)
             s.sendall(b'{"op": "ping"}\n')
-            line = s.makefile("rb").readline(1 << 20)
+            line = s.makefile("rb").readline(LINE_LIMIT)
         resp = json.loads(line) if line else None
         if not (isinstance(resp, dict) and resp.get("ok")):
             return {"ok": False,

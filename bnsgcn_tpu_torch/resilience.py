@@ -72,8 +72,6 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
-import torch
-
 from bnsgcn_tpu_torch import checkpoint as ckpt
 from bnsgcn_tpu_torch import obs as obs_mod
 from bnsgcn_tpu_torch.config import ConfigError
@@ -285,9 +283,11 @@ class FaultPlan:
         return not any(self.faults.values())
 
 
-def _parse_serve_term(term: str) -> None:
-    """Validate one serving-fault term, `kind@<N>[:p<part>.r<replica>]`
-    (servekill and servehang need the target)."""
+def _parse_serve_term(term: str) -> tuple[str, int, Optional[tuple]]:
+    """Validate one serving-fault term, `kind@<N>[:p<part>.r<replica>]`,
+    and return (kind, N, target): target is (part, replica) or None.
+    servekill and servehang need the target (wedging every backend is not
+    a failover test); servedrop may stay fleet-wide."""
     kind, sep, rest = term.partition("@")
     nth, tsep, tgt = rest.partition(":")
     if not sep or not nth.isdigit():
@@ -295,15 +295,54 @@ def _parse_serve_term(term: str) -> None:
             f"bad --inject term {term!r}: expected "
             f"kind@<N>[:p<part>.r<replica>] "
             f"(serve kinds: {', '.join(SERVE_FAULT_KINDS)})")
-    if tsep and not re.fullmatch(r"p(\d+)\.r(\d+)", tgt):
-        raise ValueError(
-            f"bad --inject term {term!r}: backend target must be "
-            f"p<part>.r<replica> (e.g. servekill@5:p0.r1)")
-    if kind in ("servekill", "servehang") and not tsep:
+    target = None
+    if tsep:
+        m = re.fullmatch(r"p(\d+)\.r(\d+)", tgt)
+        if not m:
+            raise ValueError(
+                f"bad --inject term {term!r}: backend target must be "
+                f"p<part>.r<replica> (e.g. servekill@5:p0.r1)")
+        target = (int(m.group(1)), int(m.group(2)))
+    if kind in ("servekill", "servehang") and target is None:
         raise ConfigError(
             f"--inject term {term!r}: {kind} needs an explicit "
             f":p<part>.r<replica> target (wedging every backend is not a "
             f"failover test); use {kind}@<N>:p<part>.r<replica>")
+    return kind, int(nth), target
+
+
+@dataclass
+class ServeFaultPlan:
+    """The serving-fault terms of an --inject spec that target ONE backend
+    (part, replica): kind -> the data-path request ordinals it fires at,
+    each once. Training terms are left to FaultPlan; both parsers validate
+    every term of a mixed spec."""
+
+    faults: dict = field(default_factory=dict)   # kind -> set of ordinals
+
+    @staticmethod
+    def parse(spec: str, part: int = -1, replica: int = 0
+              ) -> "ServeFaultPlan":
+        plan = ServeFaultPlan()
+        for term in filter(None, (t.strip() for t in spec.split(","))):
+            if term.partition("@")[0] not in SERVE_FAULT_KINDS:
+                continue                # a training term: FaultPlan's
+            kind, nth, target = _parse_serve_term(term)
+            if target is not None and target != (part, replica):
+                continue                # valid, targets another backend
+            plan.faults.setdefault(kind, set()).add(nth)
+        return plan
+
+    def pop(self, kind: str, count: int) -> bool:
+        """True exactly once when `kind` is scheduled at request `count`."""
+        ns = self.faults.get(kind)
+        if ns and count in ns:
+            ns.discard(count)
+            return True
+        return False
+
+    def empty(self) -> bool:
+        return not any(self.faults.values())
 
 
 def check_inject(spec: str) -> None:
@@ -326,6 +365,7 @@ def live_arrays_lines() -> list[str]:
     """The watchdog's `live arrays` lines: on a card the CUDA caching
     allocator's live allocations and bytes, on the CPU the live tensors;
     then the first 8 live tensors' dtypes and shapes."""
+    import torch    # here: the serving router imports this module torch-free
     # type(), not isinstance: isinstance reads `__class__`, which some
     # deprecated module proxies answer with a warning
     tensors = [o for o in gc.get_objects()

@@ -70,6 +70,14 @@ DELTA_LOG = "delta_log.jsonl"
 SNAPSHOT = "serve_snapshot.blob"
 
 
+class HaloCacheMiss(RuntimeError):
+    """A tier-B build touched a remote halo row that is not (or no longer)
+    in the local cache. Raised only under the core lock by the partition
+    backend's graph (serve_backend.PartGraph); the fetch itself happens
+    outside the lock (graph.prefetch), so the caller un-claims, prefetches
+    again and retries the build."""
+
+
 # ----------------------------------------------------------------------------
 # embedding-table artifact (--dump-embeddings / cold start)
 # ----------------------------------------------------------------------------
@@ -157,6 +165,9 @@ class DynamicGraph:
 
     def out_deg_of(self, ids: np.ndarray) -> np.ndarray:
         return self.out_deg[ids]
+
+    def prefetch(self, targets: Iterable[int], hops: int):
+        """Every row is local: nothing to fetch."""
 
     def in_nbrs(self, v: int) -> list[int]:
         base = self._in_src[self._in_ptr[v]:self._in_ptr[v + 1]]
@@ -521,6 +532,10 @@ class ServeCore:
         # by serve_main; "" disables), the deltas folded into the snapshot,
         # an overlap guard
         self.serve_dir = ""
+        # the core's own file names (a partition backend shards them per
+        # part and replica)
+        self._delta_log_name = DELTA_LOG
+        self._snapshot_name = SNAPSHOT
         self._folded = 0            # guarded-by: self._lock
         self._compacting = False    # guarded-by: self._lock
         self.stats["exported_to"] = 0
@@ -535,6 +550,11 @@ class ServeCore:
                 f"!= graph nodes ({self.graph.n_nodes}) — wrong --embeddings "
                 f"artifact for this dataset?")
 
+    def _row(self, node: int) -> int:
+        """The table row of a global node id (the identity here; a
+        partition backend maps it to its shard's row)."""
+        return node
+
     # -- scoring --
 
     def _score_batch(self, targets: list[int]):
@@ -542,17 +562,29 @@ class ServeCore:
         subgraph arrays under the lock (a delta landing mid-build cannot
         tear them), run the step outside it, then write the fresh rows
         back for every claimed node not re-dirtied meanwhile. Clean
-        targets are never written back: their rows stay the table's."""
-        with self._lock:
-            was_dirty = [t for t in targets if t in self.dirty]
-            self.dirty.difference_update(was_dirty)
-            self._refreshing.update(was_dirty)
-            try:
-                arrays = self.scorer.build_arrays(self.graph, targets)
-            except Exception:
-                self._refreshing.difference_update(was_dirty)
-                self.dirty.update(was_dirty)
-                raise
+        targets are never written back: their rows stay the table's.
+
+        A partition backend's graph fetches the remote rows the closure
+        needs outside the lock (graph.prefetch: a peer round trip never
+        stalls concurrent predicts), and its locked build reads the cache
+        alone; a delta that drops a cached row between the two raises
+        HaloCacheMiss, and the claim, prefetch and build are tried again,
+        four times in all. On a single-host graph prefetch does nothing."""
+        for attempt in range(4):
+            self.graph.prefetch(targets, self.hops)
+            with self._lock:
+                was_dirty = [t for t in targets if t in self.dirty]
+                self.dirty.difference_update(was_dirty)
+                self._refreshing.update(was_dirty)
+                try:
+                    arrays = self.scorer.build_arrays(self.graph, targets)
+                except Exception as ex:
+                    self._refreshing.difference_update(was_dirty)
+                    self.dirty.update(was_dirty)
+                    if isinstance(ex, HaloCacheMiss) and attempt < 3:
+                        continue
+                    raise
+            break
         try:
             results = self.scorer.run_arrays(self.model, targets, arrays)
         except Exception:
@@ -567,8 +599,8 @@ class ServeCore:
                 if t in self.dirty:         # re-dirtied mid-step: stale, skip
                     continue
                 hid, lg = results[t]
-                self.hidden[t] = hid
-                self.logits[t] = lg
+                self.hidden[self._row(t)] = hid
+                self.logits[self._row(t)] = lg
                 self.stats["refreshed_nodes"] += 1
                 since = self._dirty_since.pop(t, None)
                 if since is not None:
@@ -585,7 +617,7 @@ class ServeCore:
         if tier == "A" or (tier is None and not is_dirty):
             with self._lock:
                 self.stats["tier_a"] += 1
-                scores = self.logits[node].copy()
+                scores = self.logits[self._row(node)].copy()
             out = {"ok": True, "node": node, "tier": "A",
                    "scores": scores.tolist()}
             if is_dirty:
@@ -634,7 +666,7 @@ class ServeCore:
             else:
                 with self._lock:
                     self.stats["tier_a"] += 1
-                    scores = self.logits[n].copy()
+                    scores = self.logits[self._row(n)].copy()
                 r = {"ok": True, "node": n, "tier": "A",
                      "scores": scores.tolist()}
                 if n in stale:
@@ -728,7 +760,7 @@ class ServeCore:
     def flush_delta_log(self, serve_dir: str) -> str:
         """Atomically persist every un-compacted delta as JSONL."""
         os.makedirs(serve_dir, exist_ok=True)
-        path = os.path.join(serve_dir, DELTA_LOG)
+        path = os.path.join(serve_dir, self._delta_log_name)
         with self._lock:
             lines = [json.dumps(d) for d in self.deltas]
         tmp = f"{path}.tmp.{os.getpid()}"
@@ -740,6 +772,8 @@ class ServeCore:
         return path
 
     def _apply_logged(self, d: dict):
+        """Re-ingest one logged delta (a partition backend extends the op
+        set with its fan-out entries)."""
         if d["op"] == "add_edges":
             self.add_edges(d["edges"])
         elif d["op"] == "update_feat":
@@ -748,7 +782,7 @@ class ServeCore:
     def replay_delta_log(self, serve_dir: str) -> int:
         """Re-ingest a previous run's flushed deltas (their dirty frontier
         too); how many."""
-        path = os.path.join(serve_dir, DELTA_LOG)
+        path = os.path.join(serve_dir, self._delta_log_name)
         if not os.path.exists(path):
             return 0
         n = 0
@@ -793,7 +827,7 @@ class ServeCore:
             payload["dirty"] = np.asarray(
                 sorted(self.dirty | self._refreshing), dtype=np.int64)
             payload["n_deltas"] = int(self._folded + k)
-        ckpt.write_blob(os.path.join(serve_dir, SNAPSHOT), payload)
+        ckpt.write_blob(os.path.join(serve_dir, self._snapshot_name), payload)
         with self._lock:
             # deltas that landed while the blob was written stay in the tail
             del self.deltas[:k]
@@ -804,7 +838,7 @@ class ServeCore:
         if self.obs is not None:
             self.obs.emit("serve_compact", **out)
         self.log(f"[serve] compacted delta log: {k} delta(s) folded into "
-                 f"{SNAPSHOT}, {tail} left in the tail")
+                 f"{self._snapshot_name}, {tail} left in the tail")
         return out
 
     def load_serving_state(self, serve_dir: str) -> dict:
@@ -812,7 +846,7 @@ class ServeCore:
         replay the tail log. A corrupt snapshot raises CheckpointCorrupt:
         the log is only a tail, so skipping it would resume from a hole in
         history."""
-        snap = os.path.join(serve_dir, SNAPSHOT)
+        snap = os.path.join(serve_dir, self._snapshot_name)
         folded = 0
         if os.path.exists(snap):
             payload = ckpt.read_blob(snap)
@@ -829,7 +863,7 @@ class ServeCore:
                 self._mark_dirty_stamps_locked(dirty)
                 self._folded = folded
                 self.stats["deltas"] += folded
-            self.log(f"[serve] snapshot {SNAPSHOT}: "
+            self.log(f"[serve] snapshot {self._snapshot_name}: "
                      f"{folded} folded delta(s), {len(dirty)} node(s) dirty")
         return {"folded": folded,
                 "replayed": self.replay_delta_log(serve_dir)}

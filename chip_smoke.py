@@ -413,6 +413,16 @@ SERVE_FRAC = 1e-4
 SERVE_TIER_A, SERVE_CLIENTS = 400, 4
 SERVE_TIER_B = 8
 SERVE_TIMEOUT_S = 600
+# [fleet]: the partition-sharded serving fleet over [cli]'s first run: a
+# router and one backend a part of a transductive P=4 partition of [cli]'s
+# graph, each backend on the card cold-started from a shard of the run's
+# table; FLEET_TIER_A routed tier-A predicts (the same nodes again straight
+# to their backends), one predict_many of FLEET_MANY nodes a part, forced
+# tier B on FLEET_TIER_B nodes a part (twice), a cross-part delta
+FLEET_TIER_A = 200
+FLEET_MANY = 16
+FLEET_TIER_B = 2
+FLEET_TIMEOUT_S = 600
 # [cli]'s run of the script with --eval-device mesh
 CLI_MESH_EPOCHS = 8
 # [yelp]: scripts/yelp_torch.sh (the reference's Yelp model) on a
@@ -1780,6 +1790,345 @@ def serve_cli_phase(work, table):
         f"[cli])")
     return {"dirty": d1["dirty_total"], "ready_s": [up_a, up_b, up_c],
             "seconds": secs}
+
+
+def fleet_port(p, marker, lines):
+    """Read start_cli's process `p` to the line starting with `marker`
+    (`... ready on port N`), then drain the rest of its output into
+    `lines` in a thread (a full pipe would block the server); returns
+    (N, what was read)."""
+    head = read_until(p, marker)
+    m = re.search(re.escape(marker) + r"(\d+)", head)
+    if not m:
+        raise AssertionError(f"[fleet] {p.args[3]} did not start:\n"
+                             f"{head[-3000:]}")
+    threading.Thread(target=lambda: lines.extend(p.stdout),
+                     daemon=True).start()
+    return int(m.group(1)), head
+
+
+def fleet_phase(work, after=None):
+    """[fleet] beside [cli], once `after` (serve_cli_phase's future) is
+    done: the partition-sharded serving fleet through its command lines
+    over [cli]'s first run. partition_cli writes a transductive P=4
+    partition of [cli]'s graph (the script's flags and CLI_FLAGS without
+    --inductive: a fleet serves the whole graph, which the inductive
+    train subgraph's artifacts do not cover), and [cli]'s final checkpoint
+    is copied under that run's name. `serve-router` and one `serve-backend`
+    a part start (each backend on the card, --embeddings [cli]'s table: a
+    shard slice, no precompute; no background refresh). The reference is
+    the port's single-host serve.build_core in this process on the card,
+    over the same checkpoint, table and graph. Checks: FLEET_TIER_A routed
+    tier-A predicts bitwise the table's rows, tagged with their part and
+    backend (the same nodes straight to their backends for the direct
+    p50), one predict_many over every part; forced tier B on FLEET_TIER_B
+    nodes a part bitwise the reference's (the first of each straight to
+    its backend, the rest through the router), asked twice, the second
+    time through the router fetching no halo row; a cross-part add_edges through the router with
+    the reference's dirty count, the touched rows gone from every
+    backend's halo cache and fetched again by the next tier B, tier B on a
+    dirty node a part bitwise; a client shutdown: every process exits 0
+    and each backend's delta-log shard is on disk. The router's process
+    maps no torch library. Returns the details."""
+    import numpy as np
+    import torch
+    from bnsgcn_tpu_torch import checkpoint as t_ckpt
+    from bnsgcn_tpu_torch import serve
+    from bnsgcn_tpu_torch.config import parse_config
+    from bnsgcn_tpu_torch.data.datasets import load_data
+    from bnsgcn_tpu_torch.serve_router import artifacts_dir, load_owner_map
+    t_all = time.perf_counter()
+    d = {k: os.path.join(work, "fleet", k) for k in ("parts", "ckpt",
+                                                     "serve")}
+    table = os.path.join(work, "cli", CLI_TABLE)
+    flags = [f for f in script_flags(CLI_SCRIPT) if f != "--inductive"]
+    flags += CLI_FLAGS + ["--part-path", d["parts"], "--ckpt-path",
+                          d["ckpt"]]
+    # the partition needs the graph alone: written while [cli] runs
+    run_cli(flags, cmd=[sys.executable, "-m",
+                        "bnsgcn_tpu_torch.partition_cli"])
+    cfg = parse_config(flags, training=False)
+    cfg = cfg.replace(graph_name=cfg.derive_graph_name())
+    owner = load_owner_map(artifacts_dir(cfg))
+    n_parts = int(owner.max()) + 1
+    t_set = time.perf_counter() - t_all
+    if after is not None:
+        after.result()
+    t_all = time.perf_counter()
+    induc = parse_config(script_flags(CLI_SCRIPT) + CLI_FLAGS
+                         + ["--ckpt-path", os.path.join(work, "cli", "ckpt")],
+                         training=False)
+    os.makedirs(d["ckpt"])
+    shutil.copy(t_ckpt.final_path(induc), t_ckpt.final_path(cfg))
+
+    procs, logs = [], {}
+    try:
+        t0 = time.perf_counter()
+        entry = [sys.executable, "-m", "bnsgcn_tpu_torch.main"]
+        procs.append(start_cli(flags + ["--serve-port", "0"],
+                               cmd=entry + ["serve-router"]))
+        logs["router"] = []
+        rport, _ = fleet_port(procs[0], "[router] ready on port ",
+                              logs["router"])
+        with open(f"/proc/{procs[0].pid}/maps") as f:
+            torch_libs = [ln.split()[-1] for ln in f if "libtorch" in ln
+                          or "libcuda" in ln]
+        if torch_libs:
+            raise AssertionError(f"[fleet] the router maps {torch_libs[:3]}")
+        common = flags + ["--serve-router", f"127.0.0.1:{rport}",
+                          "--embeddings", table, "--serve-refresh-s", "0",
+                          "--serve-dir", d["serve"]]
+        procs += [start_cli(common + ["--serve-part", str(p)],
+                            cmd=entry + ["serve-backend"])
+                  for p in range(n_parts)]
+        ports = {}
+        for p in range(n_parts):
+            logs[f"p{p}"] = []
+            ports[p], head = fleet_port(procs[1 + p],
+                                        f"[backend p{p}.r0] ready on port ",
+                                        logs[f"p{p}"])
+            if "cold start from embedding table" not in head:
+                raise AssertionError(f"[fleet] backend {p} did not start "
+                                     f"from the table:\n{head[-3000:]}")
+        end = time.monotonic() + FLEET_TIMEOUT_S
+        while serve.request(rport, {"op": "fleet"})["missing_parts"]:
+            if time.monotonic() > end:
+                raise AssertionError("[fleet] the fleet never completed")
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+
+        # the reference: the single-host core on the card
+        dev = torch.device("cuda")
+        g, _, _ = load_data(cfg)
+        cfg_g = cfg.replace(n_feat=g.n_feat, n_class=g.n_class,
+                            n_train=g.n_train)
+        net, _, _ = serve.load_model(cfg_g, dev, log=lambda *a: None)
+        hidden, logits, _ = serve.load_table(table)
+        ref = serve.build_core(cfg_g, g, net, log=lambda *a: None,
+                               hidden=hidden, logits=logits)
+        try:
+            return fleet_checks(rport, ports, owner, ref, logits,
+                                list(zip(logs.values(), procs)), d, t_all,
+                                t_set, up_s)
+        finally:
+            ref.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+
+def closure_of(ref, targets):
+    """The nodes of `targets`' in-closure at the model's depth on the
+    single-host core's graph: what a tier-B step of them reads."""
+    import numpy as np
+    return np.flatnonzero(ref.graph.in_closure_depths(targets, ref.hops) >= 0)
+
+
+def fleet_checks(rport, ports, owner, ref, logits, procs, d, t_all, t_set,
+                 up_s):
+    """fleet_phase's requests and checks against the running fleet;
+    `procs` holds (its output's lines, process) for the router and each
+    backend."""
+    import numpy as np
+    from bnsgcn_tpu_torch import serve
+    n, n_parts = owner.shape[0], len(ports)
+    rng = np.random.default_rng(21)
+
+    def stats(p):
+        return serve.request(ports[p], {"op": "stats"})
+
+    def bits(r, row):
+        return np.array_equal(np.asarray(r["scores"], np.float32), row)
+
+    # tier A: routed, then the same nodes straight to their backends
+    nodes = rng.choice(n, FLEET_TIER_A, replace=False).tolist()
+    routed, direct = [], []
+    for v in nodes:
+        t0 = time.perf_counter()
+        r = serve.request(rport, {"op": "predict", "node": v})
+        routed.append((time.perf_counter() - t0) * 1e3)
+        part = int(owner[v])
+        if not (r["ok"] and r["tier"] == "A" and bits(r, logits[v])
+                and r["part"] == part and r["backend"] == f"p{part}.r0"):
+            raise AssertionError(f"[fleet] routed tier A on node {v}: {r}")
+    for v in nodes:
+        t0 = time.perf_counter()
+        r = serve.request(ports[int(owner[v])], {"op": "predict", "node": v})
+        direct.append((time.perf_counter() - t0) * 1e3)
+        if not bits(r, logits[v]):
+            raise AssertionError(f"[fleet] direct tier A on node {v}: {r}")
+    many = [int(v) for p in range(n_parts)
+            for v in rng.choice(np.flatnonzero(owner == p), FLEET_MANY,
+                                replace=False)]
+    rng.shuffle(many)
+    r = serve.request(rport, {"op": "predict_many", "nodes": many})
+    if not (r["ok"] and [x["node"] for x in r["results"]] == many
+            and all(bits(x, logits[v]) and x["part"] == owner[v]
+                    for x, v in zip(r["results"], many))):
+        raise AssertionError(f"[fleet] predict_many over {n_parts} parts")
+
+    # tier B, forced, FLEET_TIER_B nodes a part: bitwise the reference's;
+    # then the same again, from the halo cache alone. Each backend's first
+    # is asked of it directly: it fetches every remote row of a closure
+    # that spans the graph, which may outlast the router's 15 s read
+    # deadline on a loaded host
+    tb = {p: [int(v) for v in rng.choice(np.flatnonzero(owner == p),
+                                         FLEET_TIER_B, replace=False)]
+          for p in range(n_parts)}
+    s0 = {p: stats(p) for p in range(n_parts)}
+    # the remote rows each backend's cache must then hold: its targets'
+    # closures (on the single-host graph) less the nodes it owns
+    reach = {p: np.unique(np.concatenate([closure_of(ref, [v])
+                                          for v in tb[p]]))
+             for p in range(n_parts)}
+    remote = {p: set(reach[p][owner[reach[p]] != p].tolist())
+              for p in range(n_parts)}
+    tier_b_ms, closure = [], 0
+    for p in range(n_parts):
+        for i, v in enumerate(tb[p]):
+            t0 = time.perf_counter()
+            r = serve.request(ports[p] if i == 0 else rport,
+                              {"op": "predict", "node": v, "tier": "B"},
+                              timeout_s=FLEET_TIMEOUT_S)
+            tier_b_ms.append((time.perf_counter() - t0) * 1e3)
+            want = ref.predict(v, tier="B")
+            closure = max(closure, ref.scorer.last["nodes"])
+            if not (r["ok"] and r["tier"] == "B"
+                    and r["scores"] == want["scores"]):
+                raise AssertionError(f"[fleet] tier B on node {v} (part "
+                                     f"{p}) is not the single-host core's")
+    s1 = {p: stats(p) for p in range(n_parts)}
+    for p in range(n_parts):
+        for v in tb[p]:
+            r = serve.request(rport, {"op": "predict", "node": v,
+                                      "tier": "B"}, timeout_s=FLEET_TIMEOUT_S)
+            if r["scores"] != ref.predict(v, tier="B")["scores"]:
+                raise AssertionError(f"[fleet] tier B again on node {v}")
+    s2 = {p: stats(p) for p in range(n_parts)}
+    for p in range(n_parts):
+        got = s1[p]["halo_fetches"] - s0[p]["halo_fetches"]
+        if not (got == s1[p]["halo_cached"] == len(remote[p]) > 0
+                and s2[p]["halo_fetches"] == s1[p]["halo_fetches"]
+                and s2[p]["halo_hits"] > s1[p]["halo_hits"]):
+            raise AssertionError(f"[fleet] backend {p} fetched {got} rows "
+                                 f"({len(remote[p])} remote in its "
+                                 f"closures), counters {s0[p]} -> {s1[p]} "
+                                 f"-> {s2[p]}")
+
+    # a cross-part delta through the router
+    u = int(rng.choice(np.flatnonzero(owner == 0)))
+    w = int(rng.choice(np.flatnonzero(owner == 1)))
+    edges = [[u, w], [w, u]]
+    r = serve.request(rport, {"op": "add_edges", "edges": edges},
+                      timeout_s=FLEET_TIMEOUT_S)
+    ref_r = ref.add_edges(edges)
+    if not (r["ok"] and r["dirty_total"] == ref_r["dirty_total"]):
+        raise AssertionError(f"[fleet] the delta's dirty count "
+                             f"{r.get('dirty_total')} != the single-host "
+                             f"core's {ref_r['dirty_total']}")
+    s3 = {p: stats(p) for p in range(n_parts)}
+    # every backend drops the touched rows it held, keeps the rest
+    drop = {p: len({u, w} & remote[p]) for p in range(n_parts)}
+    for p in range(n_parts):
+        if s2[p]["halo_cached"] - s3[p]["halo_cached"] != drop[p]:
+            raise AssertionError(f"[fleet] backend {p} kept touched rows: "
+                                 f"cached {s2[p]['halo_cached']} -> "
+                                 f"{s3[p]['halo_cached']}, {drop[p]} "
+                                 f"touched rows were in its cache")
+    dirty = sorted(ref.dirty)
+    after = [next(int(v) for v in dirty if owner[v] == p)
+             for p in range(n_parts)]
+    # what each backend's next tier B must fetch: the remote rows of its
+    # closure on the mutated graph it no longer holds
+    refetch = {p: len(set(x for x in closure_of(ref, [after[p]]).tolist()
+                          if owner[x] != p) - (remote[p] - {u, w}))
+               for p in range(n_parts)}
+    for v in after:
+        r = serve.request(rport, {"op": "predict", "node": v},
+                          timeout_s=FLEET_TIMEOUT_S)
+        want = ref.predict(v)
+        if not (r["tier"] == want["tier"] == "B"
+                and r["scores"] == want["scores"]):
+            raise AssertionError(f"[fleet] tier B after the delta on node "
+                                 f"{v} is not the single-host core's")
+    s4 = {p: stats(p) for p in range(n_parts)}
+    for p in range(n_parts):
+        got = s4[p]["halo_fetches"] - s3[p]["halo_fetches"]
+        if got != refetch[p] or s4[p]["halo_cached"] != (
+                s3[p]["halo_cached"] + got):
+            raise AssertionError(f"[fleet] backend {p} fetched {got} rows "
+                                 f"after the delta, not {refetch[p]}")
+    dirty_routed = serve.request(rport, {"op": "dirty"})["count"]
+    # the rows the delta cannot reach are still the table's
+    clean = np.setdiff1d(np.arange(n), dirty)[:FLEET_TIER_A].tolist()
+    r = serve.request(rport, {"op": "predict_many", "nodes": clean})
+    if not all(x["tier"] == "A" and bits(x, logits[v])
+               for x, v in zip(r["results"], clean)):
+        raise AssertionError("[fleet] a clean row moved after the delta")
+
+    # one client shutdown ends the fleet
+    serve.request(rport, {"op": "shutdown"})
+    for lines, p in procs:
+        rc = p.wait(timeout=120)
+        if rc != 0:
+            raise AssertionError(f"[fleet] {p.args[3]} exited {rc}:\n"
+                                 + "".join(lines[-30:]))
+    shards = sorted(fn for fn in os.listdir(d["serve"])
+                    if fn.startswith("delta_log.p"))
+    want_shards = [f"delta_log.p{p}.r0.jsonl" for p in range(n_parts)]
+    if shards != want_shards:
+        raise AssertionError(f"[fleet] delta-log shards {shards}")
+    for v in (u, w):
+        with open(os.path.join(d["serve"],
+                               f"delta_log.p{int(owner[v])}.r0.jsonl")) as f:
+            if not any(json.loads(x)["op"] == "apply_delta" for x in f
+                       if x.strip()):
+                raise AssertionError(f"[fleet] part {owner[v]}'s shard "
+                                     f"holds no apply_delta")
+    secs = time.perf_counter() - t_all
+    first = {p: {"rows": s1[p]["halo_fetches"] - s0[p]["halo_fetches"],
+                 "mb": (s1[p]["halo_bytes_in"] - s0[p]["halo_bytes_in"]) / 1e6,
+                 "prefetch_s": s1[p]["halo_prefetch_s"]
+                 - s0[p]["halo_prefetch_s"],
+                 "requests": s1[p]["halo_requests"]
+                 - s0[p]["halo_requests"]} for p in range(n_parts)}
+    p50 = lambda xs: float(np.percentile(xs, 50))  # noqa: E731
+    cached_ms = [x for i, x in enumerate(tier_b_ms) if i % FLEET_TIER_B]
+    log(f"[fleet] serve-router + {n_parts} serve-backend on the card over "
+        f"[cli]'s run ({n} nodes, transductive P={n_parts} artifacts, the "
+        f"table's shards; up in {up_s:.1f} s, set-up {t_set:.1f} s): "
+        f"{FLEET_TIER_A} routed tier-A predicts bitwise the table, tagged "
+        f"part/backend, p50 {p50(routed):.3f} ms routed vs "
+        f"{p50(direct):.3f} ms direct; predict_many of {len(many)} over "
+        f"{n_parts} parts bitwise; forced tier B on {FLEET_TIER_B} nodes a "
+        f"part bitwise the single-host core's: the first on each backend "
+        f"{_span([x / 1e3 for x in tier_b_ms[::FLEET_TIER_B]], '{:.2f}')} "
+        f"s, the others {_span(cached_ms)} ms from the cache; the firsts "
+        f"fetched "
+        + ", ".join(f"p{p} {x['rows']} rows / {x['mb']:.1f} MB / "
+                    f"{x['prefetch_s']:.2f} s prefetch ({x['requests']} "
+                    f"resolves)" for p, x in first.items())
+        + f", the second none (each cache the remote rows of its "
+        f"closures, counted on the single-host graph); a cross-part delta: "
+        f"{ref_r['dirty_total']} dirty as the single-host core, the touched "
+        f"rows dropped from every cache that held them "
+        f"({sum(drop.values())}), tier B on a dirty node a part bitwise, "
+        f"fetching {sum(refetch.values())} rows ({dirty_routed} left "
+        f"dirty); shutdown: every "
+        f"process exited 0, {len(shards)} delta-log shards. At 4 layers a "
+        f"tier-B closure spans up to {closure} of {n} nodes and the delta "
+        f"left {len(clean)} clean"
+        + (": the clean-rows law is vacuous at this size" if not clean
+           else ", each still its table row through the router")
+        + f" (the CPU tests hold it on 2-layer fleets) ({secs:.1f} s, "
+        f"beside [cli])")
+    return {"routed_p50_ms": p50(routed), "direct_p50_ms": p50(direct),
+            "tier_b_ms": tier_b_ms, "first_tier_b": first,
+            "clean": len(clean),
+            "dirty": ref_r["dirty_total"], "closure_nodes": closure,
+            "up_s": up_s, "setup_s": t_set, "seconds": secs}
 
 
 def bns_phase(cfg, law, ranks, reps):
@@ -4824,11 +5173,13 @@ def main(argv=None) -> int:
     # reads a time it claims, each has its own directories and groups
     law_p1 = parts.pop("law_p1")
     serve_held = parts.pop("serve_held")
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(10) as pool:
         # [serve]'s delta and flush, and the CLI server over [cli]'s run
         serve_f = pool.submit(serve_checks, *serve_held)
         serve_cli_f = pool.submit(serve_cli_phase, work,
                                   os.path.join(work, "cli", CLI_TABLE))
+        # after the CLI server: the fleet serves the same run
+        fleet_f = pool.submit(fleet_phase, work, serve_cli_f)
         mesh = pool.submit(cli_mesh_phase, work)
         anc_f = pool.submit(anchor_phase, work)
         # after the --eval-device mesh run: fewer processes share the card
@@ -4838,7 +5189,18 @@ def main(argv=None) -> int:
         coord_f = pool.submit(coord_phase, work, law_f)
         law1_f = pool.submit(law_p1_phase, *law_p1)
         yelp_f = pool.submit(yelp_phase, work)
+        # when each member ends, from the pool's start: the pool's wall
+        # with and without [fleet]
+        t_pool, ends = time.perf_counter(), {}
+        for name, f in (("serve", serve_f), ("serve_cli", serve_cli_f),
+                        ("fleet", fleet_f), ("mesh", mesh), ("anchor", anc_f),
+                        ("hang", hang_f), ("gat_law", law_f),
+                        ("coord", coord_f), ("law_p1", law1_f),
+                        ("yelp", yelp_f)):
+            f.add_done_callback(lambda _, k=name: ends.__setitem__(
+                k, time.perf_counter() - t_pool))
         cli = cli_phase(work)
+        ends["cli"] = time.perf_counter() - t_pool
         cli["mesh"] = mesh.result()
         cli["resil"]["hang"] = hang_f.result()
         cli["coord"] = coord_f.result()
@@ -4848,8 +5210,15 @@ def main(argv=None) -> int:
         yelp = yelp_f.result()
         parts["serve"]["checks"] = serve_f.result()
         parts["serve"]["cli"] = serve_cli_f.result()
+        fleet = fleet_f.result()
+    others = max(v for k, v in ends.items() if k != "fleet")
+    log("[pool] members ended at " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(ends.items(), key=lambda x: x[1]))
+        + f" s: the pool's wall {max(ends.values()):.1f} s, "
+        f"{others:.1f} s without [fleet]")
+    fleet["pool_ends"] = ends
     del law_p1, serve_held
-    phase_done("cli+anchor+laws+yelp+serve")
+    phase_done("cli+anchor+laws+yelp+serve+fleet")
 
 
     # 6c. scripts/ogbn-papers100m_torch.sh: streaming bf16 artifacts, one
@@ -4930,6 +5299,7 @@ def main(argv=None) -> int:
            "d1": {k: {str(w): t for w, t in v.items()} for k, v in
                   d1t.items()}, "phases": phases,
            "parts": parts, "cli": cli, "yelp": yelp, "papers": papers,
+           "fleet": fleet,
            "anchor": anc, "times": times, "launches": counts,
            "checks": detail, "seconds": time.perf_counter() - t_all}
     if args.out:

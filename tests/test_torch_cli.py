@@ -115,8 +115,9 @@ def test_n_partitions_defaults_to_2_as_in_jax():
 
 @pytest.mark.parametrize("name", SUBCOMMANDS)
 def test_subcommands_exit_2_by_name(name, capsys, tmp_path):
-    """The serving fleet's and continual training's subcommands are
-    refused by name; `serve` is ported, and without a checkpoint exits 2
+    """Continual training's subcommand is refused by name; `serve` is
+    ported, and without a checkpoint exits 2 with the JAX package's words;
+    the serving fleet's are ported, and without partition artifacts exit 2
     with the JAX package's words."""
     if name == "serve":
         assert t_main.main([name, "--dataset", "sbm", "--device", "cpu",
@@ -126,15 +127,22 @@ def test_subcommands_exit_2_by_name(name, capsys, tmp_path):
                 f"{tmp_path} — train first, or point --ckpt-path at a "
                 "finished run") in capsys.readouterr().err
         return
+    if name in ("serve-router", "serve-backend"):
+        assert t_main.main([name, "--dataset", "sbm", "--part-path",
+                            str(tmp_path), "--serve-part", "0"]) == 2
+        part_dir = os.path.join(str(tmp_path), "sbm-2-metis-vol-trans")
+        assert (f"[config] no partition artifacts at {part_dir} — build "
+                "them first") in capsys.readouterr().err
+        return
     assert t_main.main([name, "--dataset", "sbm"]) == 2
     assert f"[config] {name} is not ported yet" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--serve-router", "a:1"], "--serve-router a:1"),
+    (["--cycle-epochs", "3"], "--cycle-epochs 3"),
     (["--tune-prior", "model"], "--tune-prior model"),
-    (["--no-comm-trace", "--serve-part", "0"], "--serve-part 0"),
-    (["--serve-hedge", "on"], "--serve-hedge on"),
+    (["--no-comm-trace", "--warm-start", "w"], "--warm-start w"),
+    (["--continual-source", "server"], "--continual-source server"),
     (["--cycles", "2"], "--cycles 2"),
 ])
 def test_unported_flags_exit_2_naming_the_flag(argv, flag, capsys):

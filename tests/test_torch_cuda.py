@@ -1376,3 +1376,89 @@ def test_serving_delta_refresh_on_the_card(cuda):
         np.testing.assert_allclose(core.logits[dirty], ref[dirty], **TOL)
     finally:
         core.close()
+
+
+class _CardFleet:
+    """A 2-backend serving fleet in this process on the card (the port's
+    router and backends over TCP), its tables sliced from the single-host
+    core's, over a random 2-way owner map."""
+
+    def __init__(self, core, net, g):
+        from bnsgcn_tpu_torch import serve_backend as sb
+        from bnsgcn_tpu_torch import serve_router as sr
+        quiet = lambda *a: None  # noqa: E731
+        self.owner = np.random.default_rng(5).integers(
+            0, 2, g.n_nodes).astype(np.int32)
+        self.owner[:2] = [0, 1]
+        self.rcore = sr.RouterCore(self.owner, 2, hops=core.hops, log=quiet)
+        self.router = sr.RouterServer(self.rcore, 0, log=quiet)
+        self.cores, self.servers = [], []
+        for part in (0, 1):
+            c = sb.build_backend_core(core.cfg.replace(serve_part=part), g,
+                                      self.owner, net, log=quiet,
+                                      hidden=core.hidden, logits=core.logits)
+            c.graph.resolver = sb.PeerResolver("127.0.0.1", self.router.port)
+            srv = sb.BackendServer(c, 0, log=quiet)
+            self.rcore.fleet.register(part, 0, "127.0.0.1", srv.port)
+            self.cores.append(c)
+            self.servers.append(srv)
+
+    def close(self):
+        for srv, c in zip(self.servers, self.cores):
+            srv.drain(timeout_s=2.0)
+            c.close()
+            c.graph.resolver.close()
+        self.router.drain(timeout_s=2.0)
+        self.rcore.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["graphsage", "gcn"])
+def test_fleet_tier_b_across_the_cut_bitwise_on_the_card(cuda, model):
+    """Tier A and forced tier B through a 2-backend fleet on the card,
+    bitwise the single-host core on the card: each backend builds the
+    closure from its CSR slice and the halo rows its peer resolves."""
+    g, net, core = _serving(cuda, model)
+    fleet = _CardFleet(core, net, g)
+    try:
+        for part in (0, 1):
+            for v in np.flatnonzero(fleet.owner == part)[:3].tolist():
+                a = fleet.rcore.predict(v)
+                assert a["tier"] == "A" and a["part"] == part
+                assert a["scores"] == core.predict(v)["scores"]
+                b = fleet.rcore.predict(v, tier="B")
+                assert b["scores"] == core.predict(v, tier="B")["scores"]
+        assert all(c.graph.halo_stats()["halo_fetches"] > 0
+                   for c in fleet.cores)
+    finally:
+        fleet.close()
+        core.close()
+
+
+@pytest.mark.cuda
+def test_fleet_delta_and_flush_bitwise_on_the_card(cuda):
+    """A cross-part delta through the fleet's router on the card: the
+    single-host core's dirty set, tier B on dirty nodes bitwise, and after
+    both flushes tier A bitwise."""
+    g, net, core = _serving(cuda, "graphsage")
+    fleet = _CardFleet(core, net, g)
+    try:
+        u = int(np.flatnonzero(fleet.owner == 0)[3])
+        v = int(np.flatnonzero(fleet.owner == 1)[3])
+        r = fleet.rcore.add_edges([[u, v], [v, u]])
+        assert r["dirty_total"] == core.add_edges([[u, v], [v, u]])[
+            "dirty_total"]
+        assert set().union(*(c.dirty for c in fleet.cores)) == core.dirty
+        probe = list(dict.fromkeys([u, v] + sorted(core.dirty)[:4]))
+        for w in probe:
+            a, b = fleet.rcore.predict(w), core.predict(w)
+            assert a["tier"] == b["tier"] == "B"
+            assert a["scores"] == b["scores"]
+        assert fleet.rcore.flush() == core.flush()
+        for w in probe:
+            a, b = fleet.rcore.predict(w), core.predict(w)
+            assert a["tier"] == b["tier"] == "A"
+            assert a["scores"] == b["scores"]
+    finally:
+        fleet.close()
+        core.close()

@@ -178,14 +178,15 @@ def test_entry_point_refuses_cpu_fallback(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--n-partitions", "4", "--dist-backend", "gloo", "--cycles", "2"],
-    ["--warm-start", "w"], ["--serve-wal-cap", "3"],
-    ["--serve-router", "e:1"], ["--cycle-epochs", "3"],
-    ["--tune-prior", "model"], ["--parts", "2"], ["--cycles", "3"],
-    ["--n-partitions", "1", "--serve-part", "0"],
-    ["--serve-hedge", "on"],
-    ["--serve-degraded", "partial"],
+    ["--warm-start", "w"], ["--continual-source", "server"],
+    ["--continual-cut-growth", "2.0"], ["--cycle-epochs", "3"],
+    ["--tune-prior", "model"], ["--continual-imbalance", "3.0"],
+    ["--cycles", "3"],
+    ["--n-partitions", "1", "--continual-acc-drop", "0.1"],
+    ["--cycle-nonce", "2"],
+    ["--continual-source", "log"],
     ["--n-partitions", "4", "--dist-backend", "gloo",
-     "--serve-backend-port", "18121"],
+     "--warm-start", "w2"],
 ])
 def test_unported_flag_exits_2(flags, capsys):
     rc = t_main.main(["--dataset", "sbm", "--device", "cpu"] + flags)
